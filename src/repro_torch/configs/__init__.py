@@ -1,0 +1,29 @@
+"""Architecture registry: get_config(name) / get_smoke_config(name).
+
+The port registers the architectures whose serving path it carries; the
+other architectures of ``repro.configs`` follow with their model code.
+"""
+
+from importlib import import_module
+
+from repro_torch.configs.base import ModelConfig  # noqa: F401
+
+_MODULES = {
+    "qwen3-1.7b": "qwen3_1_7b",
+}
+
+ARCH_NAMES = list(_MODULES)
+
+
+def _load(name: str):
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; known: {ARCH_NAMES}")
+    return import_module(f"repro_torch.configs.{_MODULES[name]}")
+
+
+def get_config(name: str) -> ModelConfig:
+    return _load(name).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelConfig:
+    return _load(name).SMOKE

@@ -1,0 +1,47 @@
+"""Bring the JAX package's float parameters across to the port.
+
+``params_from_numpy(tree, cfg, device)`` takes the reference's parameter
+tree with every leaf as a numpy array (``jax.tree.map(np.asarray,
+params)``) and returns the port's layout: the reference stacks each layer
+leaf ``[n_superblocks, ...]`` under ``stack.slot0``; the port keeps one
+dict per layer.  With the same float weights both packages then convert to
+residency and compute the same thing.  bfloat16 arrays (numpy's
+``ml_dtypes.bfloat16``) cross bit for bit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
+    """Reference parameter tree (numpy leaves) → port parameters."""
+    unknown = set(tree) - {"embed", "final_norm", "stack"}
+    if unknown:
+        raise ValueError(f"params_from_numpy: unsupported subtrees {sorted(unknown)}")
+    slots = tree["stack"]
+    if set(slots) != {"slot0"}:
+        raise ValueError("params_from_numpy: expected one layer per superblock")
+    slot = slots["slot0"]
+    return {
+        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
+        "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, device)),
+        "layers": [_map(slot, lambda a, i=i: _tensor(np.asarray(a)[i], device))
+                   for i in range(cfg.n_layers)],
+    }

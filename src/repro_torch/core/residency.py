@@ -1,0 +1,287 @@
+"""Residency-format registry: declarative weight-residency formats + policies.
+
+Counterpart of :mod:`repro.core.residency`.  Every weight-residency format
+is a :class:`ResidencyFormat` registered by name; ``layers.dense`` and the
+serving engine ask the registry instead of switching on mode strings.
+
+A format owns one resident layout:
+
+``encode(w)``             one-time ``[K, N]`` float → :class:`QuantLinearState`
+``apply(state, x)``       the kernel path (the port's kernel wrappers, with
+                          batch-aware dispatch via :class:`KernelPolicy`)
+``apply_plain(state, x)`` the plain PyTorch path (the reference's
+                          ``apply_jnp``): the kernel path's arithmetic with
+                          each kernel replaced by its plain version, cast
+                          to ``x.dtype``
+``resident_bytes(state)`` device bytes of payload + scales
+
+The port registers the formats whose kernels exist: ``bf16``, ``w8a16``
+(``dequant_matmul``) and ``bsdp_fused`` (``bsdp_gemv`` at M == 1,
+``bsdp_gemm_fused`` at M > 1).  ``w8a8``, ``w4a8``, ``bsdp`` and
+``w4a4_bsdp`` arrive with their kernels.
+
+Per-layer policies: :class:`ResidencySpec` maps dot-joined parameter paths
+to formats by glob rules, first match wins::
+
+    ResidencySpec.parse("ffn=bsdp_fused,mixer=w8a16")
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import fnmatch
+from typing import Mapping, Optional, Union
+
+import torch
+
+from repro_torch.core import bitplane, bsdp, quant
+
+
+@dataclasses.dataclass
+class QuantLinearState:
+    """Payload for one resident linear layer (format-tagged)."""
+
+    data: torch.Tensor  # format-dependent payload
+    scale: torch.Tensor  # [1, N] per-output-channel float32
+    mode: str = "w8a16"
+    k: int = 0  # logical K
+    n: int = 0  # logical N
+
+    def to(self, device) -> "QuantLinearState":
+        return dataclasses.replace(self, data=self.data.to(device),
+                                   scale=self.scale.to(device))
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelPolicy:
+    """Batch-aware kernel dispatch as data: ``gemv`` names the kernel at
+    M == 1, ``gemm`` the kernel at M > 1; ``None`` = a single kernel."""
+
+    gemv: Optional[str] = None
+    gemm: Optional[str] = None
+
+    def kernel_for(self, m: int) -> Optional[str]:
+        return self.gemv if m == 1 else self.gemm
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+class ResidencyFormat:
+    """Base class / protocol for one weight-residency format."""
+
+    name: str = ""
+    #: convert_params leaves parameters of this format as float tensors
+    keeps_float_params: bool = False
+
+    def encode(self, w: torch.Tensor) -> QuantLinearState:
+        raise NotImplementedError
+
+    def apply(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+        """Kernel path: ``x [M, K] → f32 [M, N]``."""
+        raise NotImplementedError
+
+    def apply_plain(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+        """Plain path ``[..., K] → [..., N]`` in ``x.dtype``."""
+        raise NotImplementedError
+
+    def resident_bytes(self, state: QuantLinearState) -> int:
+        return _nbytes(state.data) + _nbytes(state.scale)
+
+    def __repr__(self) -> str:  # pragma: no cover - debug aid
+        return f"<ResidencyFormat {self.name!r}>"
+
+
+_REGISTRY: dict[str, ResidencyFormat] = {}
+
+
+def register_format(fmt: ResidencyFormat) -> ResidencyFormat:
+    if not fmt.name:
+        raise ValueError("format must set a non-empty .name")
+    _REGISTRY[fmt.name] = fmt
+    return fmt
+
+
+def get_format(name: str) -> ResidencyFormat:
+    try:
+        return _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown residency format {name!r}; registered: {formats()}"
+        ) from None
+
+
+def formats() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+class BF16Format(ResidencyFormat):
+    """The unquantized residency: conversion leaves the float weights as
+    they are, and ``dense`` multiplies them directly."""
+
+    name = "bf16"
+    keeps_float_params = True
+
+
+class Int8Format(ResidencyFormat):
+    """``w8a16``: int8 weights + per-channel scale with float activations,
+    through the fused-dequant kernel ``dequant_matmul``."""
+
+    name = "w8a16"
+
+    def encode(self, w):
+        k, n = w.shape
+        qt = quant.quantize_weights(w, bits=8)
+        return QuantLinearState(data=qt.data, scale=qt.scale.reshape(1, n),
+                                mode=self.name, k=k, n=n)
+
+    def apply(self, state, x):
+        from repro_torch.kernels import ops
+
+        return ops.weight_only_matmul(x.to(torch.float32), state.data, state.scale)
+
+    def apply_plain(self, state, x):
+        from repro_torch.kernels import dequant_gemv
+
+        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        out = dequant_gemv.dequant_matmul_plain(x2, state.data, state.scale)
+        return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
+
+
+class BitPlaneFormat(ResidencyFormat):
+    """``bsdp_fused``: bit-plane int4 weights + int4 activations — the
+    paper's §IV layout.
+
+    Payload is ``[N, 4, ceil(K/32)]`` int32 plane words (the reference's
+    uint32 words, bit-viewed).  The kernel policy picks the popcount GEMV
+    at M == 1 and the fused single-contraction GEMM at M > 1.
+    """
+
+    name = "bsdp_fused"
+    kernel_policy = KernelPolicy(gemv="gemv", gemm="gemm_fused")
+
+    def encode(self, w):
+        k, n = w.shape
+        qt = quant.quantize_weights(w, bits=4)
+        planes = bitplane.encode_weights(bitplane.pad_to_word(qt.data, axis=0))
+        return QuantLinearState(data=planes, scale=qt.scale.reshape(1, n),
+                                mode=self.name, k=k, n=n)
+
+    def apply(self, state, x):
+        from repro_torch.kernels import ops
+
+        xq = quant.quantize_acts(x.to(torch.float32), bits=4)
+        acc = ops.bsdp_matmul(xq.data, state.data, signed=True,
+                              kernel=self.kernel_policy.kernel_for(x.shape[0]),
+                              fmt_name=self.name)
+        return acc.to(torch.float32) * xq.scale.reshape(-1, 1) * state.scale
+
+    def apply_plain(self, state, x):
+        xq = quant.quantize_acts(x.to(torch.float32), bits=4)
+        lead = xq.data.shape[:-1]
+        x2 = xq.data.reshape(-1, xq.data.shape[-1])
+        xp = bitplane.encode_acts(bitplane.pad_to_word(x2))
+        acc = bsdp.bsdp_matmul_planes(xp, state.data, signed=True)
+        out = acc.to(torch.float32) * xq.scale.reshape(-1, 1) * state.scale
+        return out.reshape(*lead, state.n).to(x.dtype)
+
+
+register_format(BF16Format())
+register_format(Int8Format())
+register_format(BitPlaneFormat())
+
+
+def from_float(w: torch.Tensor, mode: str = "w8a16") -> QuantLinearState:
+    """One-time convert of a float ``[K, N]`` weight to residency ``mode``."""
+    return get_format(mode).encode(w)
+
+
+def apply(state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+    """``x [..., K] → [..., N]`` float32 through the format's kernel path."""
+    fmt = get_format(state.mode)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    out = fmt.apply(state, x2)
+    return out.reshape(*lead, state.n)
+
+
+def resident_bytes(state: QuantLinearState) -> int:
+    return get_format(state.mode).resident_bytes(state)
+
+
+def _pattern_matches(path: str, pat: str) -> bool:
+    """``pat`` matches the full dot-joined path or a contiguous run of its
+    segments (``"ffn"`` selects ``layers.3.ffn.w_in``)."""
+    return (
+        fnmatch.fnmatchcase(path, pat)
+        or fnmatch.fnmatchcase(path, f"*.{pat}")
+        or fnmatch.fnmatchcase(path, f"{pat}.*")
+        or fnmatch.fnmatchcase(path, f"*.{pat}.*")
+    )
+
+
+SpecLike = Union["ResidencySpec", str, Mapping[str, str], None]
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidencySpec:
+    """Ordered (glob pattern → format) rules, first match wins, else
+    ``default``."""
+
+    default: str = "bf16"
+    rules: tuple[tuple[str, str], ...] = ()
+
+    def __post_init__(self):
+        get_format(self.default)
+        for _, name in self.rules:
+            get_format(name)
+
+    @classmethod
+    def parse(cls, spec: SpecLike) -> "ResidencySpec":
+        """A ResidencySpec, a bare format name, a ``"pat=fmt,...,default=fmt"``
+        string, or a mapping."""
+        if spec is None:
+            return cls()
+        if isinstance(spec, ResidencySpec):
+            return spec
+        if isinstance(spec, Mapping):
+            default = spec.get("default", "bf16")
+            return cls(default=default,
+                       rules=tuple((p, f) for p, f in spec.items() if p != "default"))
+        if isinstance(spec, str):
+            if "=" not in spec:
+                return cls(default=spec)
+            default, rules = "bf16", []
+            for entry in filter(None, (e.strip() for e in spec.split(","))):
+                pat, _, name = entry.partition("=")
+                if not name:
+                    raise ValueError(f"bad residency rule {entry!r}")
+                if pat == "default":
+                    default = name
+                else:
+                    rules.append((pat, name))
+            return cls(default=default, rules=tuple(rules))
+        raise TypeError(f"cannot parse residency spec from {type(spec)}")
+
+    def mode_for(self, path: str) -> str:
+        for pat, name in self.rules:
+            if _pattern_matches(path, pat):
+                return name
+        return self.default
+
+    def modes(self) -> tuple[str, ...]:
+        seen = dict.fromkeys(name for _, name in self.rules)
+        seen[self.default] = None
+        return tuple(seen)
+
+    @property
+    def is_trivial(self) -> bool:
+        """Every selectable format keeps float params: conversion is the
+        identity."""
+        return all(get_format(m).keeps_float_params for m in self.modes())
+
+    def describe(self) -> str:
+        if all(name == self.default for _, name in self.rules):
+            return self.default
+        return ",".join([f"{p}={n}" for p, n in self.rules] + [f"default={self.default}"])

@@ -1,0 +1,58 @@
+"""Fused single-contraction bit-plane GEMM (prefill and multi-slot decode).
+
+Replaces ``repro/kernels/bsdp_gemm.py:_bsdp_gemm_fused_kernel``
+(``bsdp_gemm_fused``, the ``pallas_call`` at ``:197``) with
+``csrc/bsdp_gemm_fused.cu``: each block unpacks its activation and weight
+plane tiles into plane-interleaved 0/1 int8 rows in shared memory (row
+``r·4+j`` holds plane ``j`` of row ``r``), runs ONE int8 tensor-core
+contraction (``nvcuda::wmma`` s8, m16n16k16) into the ``[BM·4, BN·4]`` pair
+table, and reduces it with the ``[4, 4]`` ``s_jk·2^(j+k)`` weights into
+int32.  The K loop runs inside the block, so nothing carries between
+blocks.  ``bsdp_fused`` routes M > 1 here.
+
+On the card: bound by the weight planes' bytes at decode (M = slots) and
+by the 16·M·N·K int8 tensor-core operations at prefill.  The unrolled
+16-matmul form (``bsdp_gemm``) is not ported yet.
+
+:func:`bsdp_gemm_fused_plain` is the same contraction in plain PyTorch
+(:func:`repro_torch.core.bsdp.bsdp_matmul_planes`).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.bsdp import bsdp_matmul_planes
+from repro_torch.kernels import _build
+from repro_torch.kernels.bsdp_kernel import _check_planes
+
+KERNEL = _build.CudaKernel(
+    "bsdp_gemm_fused", "bsdp_gemm_fused.cu", "bsdp_gemm_fused",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    replaces="src/repro/kernels/bsdp_gemm.py:197",
+)
+
+
+def bsdp_gemm_fused_plain(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
+                          signed: bool = True) -> torch.Tensor:
+    """Plain version: the plane-interleaved contraction + ``[4,4]`` reduce."""
+    _check_planes("bsdp_gemm_fused", x_planes, w_planes)
+    KERNEL.note_plain(x_planes)
+    return bsdp_matmul_planes(x_planes, w_planes, signed=signed)
+
+
+def bsdp_gemm_fused(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
+                    signed: bool = True) -> torch.Tensor:
+    """``x_planes [M,4,Kw] × w_planes [N,4,Kw] → [M,N] int32`` (exact)."""
+    m, n, kw = _check_planes("bsdp_gemm_fused", x_planes, w_planes)
+    if x_planes.device.type == "cpu":
+        return bsdp_gemm_fused_plain(x_planes, w_planes, signed=signed)
+    _build.require_cuda("bsdp_gemm_fused", x_planes, w_planes)
+    x = x_planes.contiguous()
+    w = w_planes.contiguous()
+    out = torch.empty((m, n), dtype=torch.int32, device=x.device)
+    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, n, kw,
+                  int(signed), _build.stream())
+    return out

@@ -1,0 +1,90 @@
+"""Public wrappers for the hand-written kernels — counterpart of
+:mod:`repro.kernels.ops`.
+
+Each wrapper takes the tensors its callers hold, pads what the kernel's
+contract needs (K up to a whole 32-element plane word) and dispatches by
+the tensor's device: a CPU tensor runs the kernel's plain PyTorch version,
+a CUDA tensor launches the CUDA kernel or raises.  There is no fallback
+from a failed build or launch to the plain version.
+
+The CUDA kernels mask their own ragged M/N/K edges, so unlike the Pallas
+wrappers nothing is padded to block multiples and no block sizes are
+chosen here: each kernel's tile shape is fixed in its source.
+
+Counting: every kernel binding keeps ``launches``, incremented once per
+launch that the driver accepted (:func:`launch_counts`).  The JAX package's
+``kernel.dispatch`` counter fires at trace time and so counts call sites
+per compiled program; the port has no tracing and counts executions.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.core import bitplane
+from repro_torch.kernels import _build, bsdp_gemm, bsdp_kernel, dequant_gemv, plane_attn
+
+#: BSDP kernel name (as a residency format's KernelPolicy names it) → wrapper
+_BSDP_KERNELS = {
+    "gemv": bsdp_kernel.bsdp_matmul,
+    "gemm_fused": bsdp_gemm.bsdp_gemm_fused,
+}
+
+
+def launch_counts() -> dict[str, int]:
+    """Kernel name → launches since the last :func:`reset_counts`."""
+    return {name: k.launches for name, k in _build.KERNELS.items()}
+
+
+def plain_cuda_counts() -> dict[str, int]:
+    """Kernel name → calls of its plain version on CUDA tensors."""
+    return {name: k.plain_cuda_calls for name, k in _build.KERNELS.items()}
+
+
+def reset_counts() -> None:
+    _build.reset_counts()
+
+
+def bsdp_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
+                       kernel: str, signed: bool = True,
+                       fmt_name: Optional[str] = None) -> torch.Tensor:
+    """Plane-form BSDP: ``[M,4,Kw] × [N,4,Kw] → int32 [M,N]`` (exact).
+
+    ``kernel`` names the BSDP kernel (``"gemv"`` or ``"gemm_fused"``), as a
+    residency format's KernelPolicy picks it; ``fmt_name`` names that
+    format, so a misconfigured policy is traceable.
+    """
+    if kernel not in _BSDP_KERNELS:
+        via = (f" (requested via residency format {fmt_name!r}'s KernelPolicy)"
+               if fmt_name else "")
+        raise ValueError(f"unknown BSDP kernel {kernel!r}{via}; registered "
+                         f"kernels: {sorted(_BSDP_KERNELS)}")
+    return _BSDP_KERNELS[kernel](x_planes, w_planes, signed=signed)
+
+
+def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *, kernel: str,
+                signed: bool = True, fmt_name: Optional[str] = None) -> torch.Tensor:
+    """Raw int4 activations ``[M,K]`` × encoded weights ``[N,4,K/32]`` →
+    int32 ``[M,N]``: the per-request activation encode, then the kernel."""
+    x_planes = bitplane.encode_acts(bitplane.pad_to_word(x_i4))
+    return bsdp_matmul_planes(x_planes, w_planes, signed=signed, kernel=kernel,
+                              fmt_name=fmt_name)
+
+
+def weight_only_matmul(x: torch.Tensor, w_i8: torch.Tensor,
+                       w_scale: torch.Tensor) -> torch.Tensor:
+    """W8A16: ``x [M,K] f32 × w [K,N] int8`` (per-channel scale) → f32."""
+    return dequant_gemv.dequant_matmul(x, w_i8, w_scale)
+
+
+def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
+                           v_scale, bias, *, sm_scale: float,
+                           feat: int) -> torch.Tensor:
+    """Fused bit-plane decode attention → ``[B, Hkv, G, feat]`` float32; the
+    word-padded feature axis is sliced back to ``feat`` here."""
+    out = plane_attn.plane_decode_attention(
+        q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias,
+        sm_scale=sm_scale)
+    return out[..., :feat]

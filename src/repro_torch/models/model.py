@@ -1,0 +1,119 @@
+"""The causal LM: parameter specs, initialisation, prefill and decode.
+
+Counterpart of the serving half of :mod:`repro.models.model` for the dense
+GQA family.  Parameters are a plain dict::
+
+    {"embed": {"embedding"}, "final_norm": {"scale"},
+     "layers": [{"ln1", "mixer": {wq, wk, wv, wo, q_norm, k_norm},
+                 "ln2", "ffn": {w_in, w_out}}, ...]}
+
+one dict per layer where the reference stacks ``[n_superblocks, ...]``
+leaves.  :func:`materialize` follows the reference's ParamSpec init rules
+(``repro/sharding/partitioning.py``) with a ``torch.Generator``; the
+numbers differ from ``jax.random``'s, so parity tests bring the
+reference's own parameters across with :mod:`repro_torch.convert`.  On one
+device the vocab is not padded (the reference pads it to a multiple of its
+tensor-parallel width and masks the pad logits), so there is nothing to
+mask.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models import attention, layers, stack
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape, dtype and initializer of one parameter."""
+
+    shape: tuple
+    dtype: Any = torch.bfloat16
+    init: str = "normal"  # normal (fan-in scaled) | embedding (unit) | ones
+
+
+def _layer_specs(cfg) -> dict:
+    d, dh = cfg.d_model, cfg.d_head
+    mixer = {
+        "wq": ParamSpec((d, cfg.n_heads * dh), cfg.dtype),
+        "wk": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
+        "wv": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
+        "wo": ParamSpec((cfg.n_heads * dh, d), cfg.dtype),
+    }
+    if cfg.qk_norm:
+        mixer["q_norm"] = ParamSpec((dh,), torch.float32, "ones")
+        mixer["k_norm"] = ParamSpec((dh,), torch.float32, "ones")
+    return {
+        "ln1": {"scale": ParamSpec((d,), torch.float32, "ones")},
+        "mixer": mixer,
+        "ln2": {"scale": ParamSpec((d,), torch.float32, "ones")},
+        # SwiGLU: fused [gate; up] input projection
+        "ffn": {"w_in": ParamSpec((d, 2 * cfg.d_ff), cfg.dtype),
+                "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)},
+    }
+
+
+def specs(cfg) -> dict:
+    if cfg.family != "dense" or not cfg.tie_embeddings:
+        raise NotImplementedError(
+            f"{cfg.name}: the port serves dense models with tied embeddings")
+    return {
+        "embed": {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model),
+                                         torch.float32, "embedding")},
+        "final_norm": {"scale": ParamSpec((cfg.d_model,), torch.float32, "ones")},
+        "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],
+    }
+
+
+def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
+    if spec.init == "ones":
+        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
+    if spec.init == "normal":
+        w = w / math.sqrt(spec.shape[0])  # fan-in scaled
+    return w.to(spec.dtype)
+
+
+def materialize(cfg, seed: int = 0, device=None) -> dict:
+    """Random parameters from ``seed`` on ``device`` (default ``"cuda"``)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def walk(tree):
+        if isinstance(tree, ParamSpec):
+            return _init(tree, gen, device)
+        if isinstance(tree, dict):
+            return {k: walk(v) for k, v in tree.items()}
+        return [walk(v) for v in tree]
+
+    return walk(specs(cfg))
+
+
+def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
+    """Run the prompt, build the decode caches → (last logits [B,1,V] f32,
+    per-layer caches).  ``batch["positions"]`` (optional [B,S]) marks
+    left-pad tokens with negative positions."""
+    x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+    x, caches = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
+                                  pos=batch.get("positions"), cache_len=max_len,
+                                  impl=impl)
+    x = layers.norm_apply(params["final_norm"], x)
+    logits = layers.logits_apply(params["embed"], x[:, -1:], cfg)
+    return logits.to(torch.float32), caches
+
+
+def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
+    """One decode step: ``token [B,S]`` against the caches (updated in
+    place) at scalar, per-slot ``[B]`` or per-token ``[B,S]`` positions."""
+    pos = attention._decode_positions(pos, token.shape[0], token.shape[1], token.device)
+    x = layers.embed_apply(params["embed"], token, cfg)
+    x, caches = stack.stack_apply(params["layers"], x, cfg, mode="decode",
+                                  caches=caches, pos=pos, impl=impl)
+    x = layers.norm_apply(params["final_norm"], x)
+    logits = layers.logits_apply(params["embed"], x, cfg)
+    return logits.to(torch.float32), caches

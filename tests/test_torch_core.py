@@ -1,0 +1,152 @@
+"""The port's core math against the JAX reference, bit for bit.
+
+Plane words are compared as uint32 (the port holds them as int32
+bit-views); int8 payloads, float32 scales and int32 BSDP sums must be
+identical.  Inputs come from numpy seeds and go to both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as ref_smoke_config
+from repro.core import bitplane as ref_bitplane
+from repro.core import bsdp as ref_bsdp
+from repro.core import quant as ref_quant
+from repro.models import model as ref_model
+from repro.serve import engine as ref_engine
+from repro.sharding import partitioning as P
+from repro_torch import convert
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import bitplane, bsdp, quant
+from repro_torch.serve import engine
+
+
+def _u32(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def _int4(rng, shape, signed=True):
+    lo, hi = (-8, 8) if signed else (0, 16)
+    return rng.integers(lo, hi, size=shape).astype(np.int8)
+
+
+def _words(rng, shape):
+    """Random plane words with every bit pattern, bit 31 included."""
+    return rng.integers(0, 2**32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+class TestBitplane:
+    @pytest.mark.parametrize("shape", [(32,), (3, 64), (2, 5, 128)])
+    @pytest.mark.parametrize("signed", [True, False])
+    def test_encode_words_match_reference(self, shape, signed):
+        x = _int4(np.random.default_rng(0), shape, signed)
+        got = _u32(bitplane.encode(torch.from_numpy(x)))
+        want = np.asarray(ref_bitplane.encode(jnp.asarray(x)))
+        np.testing.assert_array_equal(got, want)
+
+    def test_bit31_is_the_sign_plane_of_element_31(self):
+        x = np.zeros(32, np.int8)
+        x[31] = -8  # only the 2^3 plane, element 31
+        planes = _u32(bitplane.encode(torch.from_numpy(x)))
+        assert planes[3, 0] == 0x80000000 and not planes[:3].any()
+        back = bitplane.decode(torch.from_numpy(planes.view(np.int32)))
+        np.testing.assert_array_equal(back.numpy(), x)
+
+    @pytest.mark.parametrize("signed", [True, False])
+    def test_decode_matches_reference_on_all_words(self, signed):
+        w = _words(np.random.default_rng(1), (3, 4, 5))
+        got = bitplane.decode(torch.from_numpy(w.view(np.int32)), signed=signed).numpy()
+        want = np.asarray(ref_bitplane.decode(jnp.asarray(w), signed=signed))
+        np.testing.assert_array_equal(got, want)
+
+    def test_encode_weights_and_pad_to_word(self):
+        q = _int4(np.random.default_rng(2), (40, 24))
+        got = bitplane.encode_weights(bitplane.pad_to_word(torch.from_numpy(q), axis=0))
+        want = ref_bitplane.encode_weights(ref_bitplane.pad_to_word(jnp.asarray(q), axis=0))
+        assert got.shape == (24, 4, 2)
+        np.testing.assert_array_equal(_u32(got), np.asarray(want))
+
+
+class TestQuant:
+    @pytest.mark.parametrize("bits", [8, 4])
+    def test_quantize_weights_and_acts_bit_identical(self, bits):
+        rng = np.random.default_rng(3)
+        w = rng.normal(size=(48, 20)).astype(np.float32)
+        w[3, 2] = 0.5 * np.abs(w[:, 2]).max() / 7 * 7  # exact .5 steps happen
+        x = rng.normal(size=(5, 48)).astype(np.float32)
+        for port_fn, ref_fn, a in ((quant.quantize_weights, ref_quant.quantize_weights, w),
+                                   (quant.quantize_acts, ref_quant.quantize_acts, x)):
+            got = port_fn(torch.from_numpy(a), bits=bits)
+            want = ref_fn(jnp.asarray(a), bits=bits)
+            np.testing.assert_array_equal(got.data.numpy(), np.asarray(want.data))
+            np.testing.assert_array_equal(got.scale.numpy().view(np.uint32),
+                                          np.asarray(want.scale).view(np.uint32))
+
+    def test_round_half_to_even(self):
+        x = torch.tensor([[0.5, 1.5, 2.5, -0.5, -2.5, 7.0]])
+        q = quant.quantize(x, bits=8, scale=torch.ones((1, 1)))
+        assert q.data.tolist() == [[0, 2, 2, 0, -2, 7]]
+
+
+class TestBsdp:
+    def test_popcount32_all_bits(self):
+        w = _words(np.random.default_rng(4), (257,))
+        w[:3] = [0, 0xFFFFFFFF, 0x80000000]
+        got = bsdp.popcount32(torch.from_numpy(w.view(np.int32))).numpy()
+        want = np.array([bin(int(v)).count("1") for v in w])
+        np.testing.assert_array_equal(got, want)
+
+    @pytest.mark.parametrize("signed", [True, False])
+    def test_popcount_and_matmul_planes_match_reference(self, signed):
+        rng = np.random.default_rng(5)
+        x, w = _words(rng, (3, 4, 6)), _words(rng, (7, 4, 6))
+        xt, wt = (torch.from_numpy(a.view(np.int32)) for a in (x, w))
+        want = np.asarray(ref_bsdp.bsdp_matmul_planes(jnp.asarray(x), jnp.asarray(w),
+                                                      signed=signed))
+        got_pc = bsdp.bsdp_popcount(xt[:, None], wt[None], signed=signed).numpy()
+        got_mm = bsdp.bsdp_matmul_planes(xt, wt, signed=signed).numpy()
+        ref_pc = np.asarray(ref_bsdp.bsdp_popcount(
+            jnp.asarray(x)[:, None], jnp.asarray(w)[None], signed=signed))
+        np.testing.assert_array_equal(got_pc, ref_pc)
+        np.testing.assert_array_equal(got_mm, want)
+        np.testing.assert_array_equal(got_pc, want)
+
+    def test_matmul_planes_is_the_int4_dot_product(self):
+        rng = np.random.default_rng(6)
+        x, w = _int4(rng, (4, 96)), _int4(rng, (5, 96))
+        got = bsdp.bsdp_matmul_planes(bitplane.encode(torch.from_numpy(x)),
+                                      bitplane.encode(torch.from_numpy(w)))
+        np.testing.assert_array_equal(got.numpy(), x.astype(np.int32) @ w.T.astype(np.int32))
+
+
+class TestConvertParams:
+    def test_residency_payloads_bit_identical_to_reference(self):
+        ref_cfg = ref_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
+        cfg = get_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
+        ref_params = P.materialize(ref_model.specs(ref_cfg, 1), jax.random.PRNGKey(0))
+        mode = "ffn=bsdp_fused,mixer=w8a16"
+        ref_q = ref_engine.convert_params(ref_params, ref_cfg, mode, min_dim=16)
+        params = convert.params_from_numpy(
+            jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+        assert params["layers"][1]["ffn"]["w_in"].dtype == torch.bfloat16
+        q = engine.convert_params(params, cfg, mode, min_dim=16)
+        slot = ref_q["stack"]["slot0"]
+        n_checked = 0
+        for i, layer in enumerate(q["layers"]):
+            for group, names in (("ffn", ("w_in", "w_out")),
+                                 ("mixer", ("wq", "wk", "wv", "wo"))):
+                for name in names:
+                    got, want = layer[group][name], slot[group][name]
+                    assert got.mode == want.mode and (got.k, got.n) == (want.k, want.n)
+                    data = got.data.numpy()
+                    if got.mode == "bsdp_fused":
+                        data = data.view(np.uint32)
+                    np.testing.assert_array_equal(data, np.asarray(want.data[i]))
+                    np.testing.assert_array_equal(
+                        got.scale.numpy().view(np.uint32),
+                        np.asarray(want.scale[i]).view(np.uint32))
+                    n_checked += 1
+        assert n_checked == 12

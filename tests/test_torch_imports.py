@@ -1,0 +1,31 @@
+"""The port stands alone: importing every ``repro_torch`` module loads
+neither ``jax`` nor any module of the JAX package ``repro``."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+_PROBE = """
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
+print(len(names))
+print(",".join(bad))
+"""
+
+
+def test_port_imports_neither_jax_nor_repro():
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    n_modules, bad = (out.stdout.splitlines() + [""])[:2]
+    assert int(n_modules) >= 20
+    assert bad == "", f"repro_torch loaded {bad}"
