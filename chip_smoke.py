@@ -1,14 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Builds the hand-written kernels from ``src/repro_torch/csrc``, holds each
-one against its plain PyTorch version at the main path's shapes, serves
-full-width, full-depth qwen3-1.7b (random weights from a seed) through
-``ServeEngine`` with ``ffn=bsdp_fused,mixer=w8a16``, the ``int4_bp_fused``
-cache and ``fcfs``, checks that every kernel of that path launched, and
-compares the kernel path with the plain path on a 2-layer cut.  Any failure
-is a nonzero exit.  It needs a CUDA device and the repository's ``src``;
-without either it fails before printing a result.
+Builds the hand-written kernels from ``src/repro_torch/csrc`` and holds each
+one against its plain PyTorch version at the shapes its path gives it (phase
+2).  Then it serves full-width, full-depth qwen3-1.7b (random weights from a
+seed) through ``ServeEngine`` and ``fcfs`` on three paths (phase 3):
+
+  A  ``ffn=bsdp_fused,mixer=w8a16`` with the ``int4_bp_fused`` cache
+  B  ``w8a8`` with the config's ``bf16`` cache (the reference launcher's default)
+  C  ``ffn=bsdp,mixer=w4a8`` with the ``int4_bp`` cache
+
+and drives the ops-level entry points ``ops.dim_matmul`` and
+``ops.matmul_int8_raw`` (path D).  Each path runs with the launch counts set
+to 0 just before it and read just after, and fails unless its kernels
+launched, no plain version ran on the card and its resident bytes match the
+analytic count.  Phase 4 compares the kernel path with the plain path on a
+2-layer cut for each weight format.  Any failure is a nonzero exit.  It
+needs a CUDA device and the repository's ``src``; without either it fails
+before printing a result.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -29,8 +38,24 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 SEED = 0
-MODE = "ffn=bsdp_fused,mixer=w8a16"
-CACHE = "int4_bp_fused"
+#: serving paths: name → (weight residency, decode cache, kernels that must
+#: launch at slots=4 and at slots=1, launches per decode step at slots=4 on
+#: 28 layers)
+PATHS = {
+    "A": ("ffn=bsdp_fused,mixer=w8a16", "int4_bp_fused",
+          {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
+          {"bsdp_gemm_fused": 56, "dequant_matmul": 112, "plane_decode_attention": 28}),
+    "B": ("w8a8", "bf16", {4: ("matmul_int8",), 1: ("matmul_int8",)}, {"matmul_int8": 168}),
+    "C": ("ffn=bsdp,mixer=w4a8", "int4_bp",
+          {4: ("bsdp_gemm", "matmul_int4_packed"),
+           1: ("bsdp_gemv", "bsdp_gemm", "matmul_int4_packed")},
+          {"bsdp_gemm": 56, "matmul_int4_packed": 112}),
+}
+#: phase 4 also covers the popcount-at-every-batch bit-plane format
+PATH_MODES = [(mode, cache) for mode, cache, _, _ in PATHS.values()] + [
+    ("w4a4_bsdp", "int4_bp_fused")]
+RESIDENT_RTOL = 0.005  # resident bytes against the analytic count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -127,50 +152,206 @@ def phase_toolchain(torch):
 
 
 # ---------------------------------------------------------------------------
-# Phase 2: each kernel against its plain version at the main path's shapes
+# Phase 2: each kernel against its plain version at its path's shapes
 # ---------------------------------------------------------------------------
+
+#: qwen3-1.7b projections: name → (K, N)
+PROJ = {"wq": (2048, 2048), "wk": (2048, 1024), "w_in": (2048, 12288),
+        "w_out": (6144, 2048)}
+
+
+def _row(rows, name, kernel, shape, err, ms, plain_ms, bound_ms_by, library_ms,
+         library_note=None):
+    b_ms, b_by = bound_ms_by
+    rows.append(dict(
+        name=name, shape=shape, route="cuda", source=f"src/repro_torch/csrc/{kernel.source}",
+        replaces=kernel.replaces, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, library_note=library_note))
+
+
+def _int_err(got, want) -> int:
+    return (got.long() - want.long()).abs().max().item()
+
+
+def int_mm_min_m(torch, device) -> int:
+    """The smallest M at which ``torch._int_mm`` runs on this card (it has
+    refused M <= 16 on CUDA); yardsticks at smaller M are padded to it."""
+    b = torch.zeros((32, 32), dtype=torch.int8, device=device)
+    try:
+        torch._int_mm(torch.zeros((1, 32), dtype=torch.int8, device=device), b)
+    except RuntimeError:
+        return 32
+    return 1
+
+
+def _int_mm(torch, x_i8, w_i8, min_m):
+    """``torch._int_mm`` on the same int8 operands — a yardstick the port
+    never calls — with rows padded up to ``min_m``; returns (fn, note)."""
+    m = x_i8.shape[0]
+    if m >= min_m:
+        return (lambda: torch._int_mm(x_i8, w_i8)), None
+    xp = torch.zeros((min_m, x_i8.shape[1]), dtype=torch.int8, device=x_i8.device)
+    xp[:m] = x_i8
+    return ((lambda: torch._int_mm(xp, w_i8)),
+            f"torch._int_mm at M padded from {m} to {min_m} (it refuses M <= 16)")
 
 
 def phase_kernels(torch, device, timer) -> list[dict]:
-    from repro_torch.core import bitplane
-    from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
-    from repro_torch.kernels import bsdp_gemm, bsdp_kernel, dequant_gemv, plane_attn
-
     gen = torch.Generator(device=device).manual_seed(SEED)
-    rows = []
+    min_m = int_mm_min_m(torch, device)
+    print(f"torch._int_mm runs from M = {min_m} on this card")
+    rows: list[dict] = []
+    _rows_bsdp(torch, device, gen, timer, rows, min_m)
+    _rows_int8(torch, device, gen, timer, rows, min_m)
+    _rows_int4(torch, device, gen, timer, rows, min_m)
+    _rows_dim(torch, device, gen, timer, rows)
+    _rows_dequant(torch, device, gen, timer, rows)
+    _rows_attention(torch, device, gen, timer, rows)
+    for row in rows:
+        print("kernel " + json.dumps(row))
+    return rows
 
-    def words(*shape):
-        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, generator=gen,
-                             device=device)
 
-    # qwen3-1.7b FFN: w_in [K=2048 → N=12288], w_out [K=6144 → N=2048]
-    for layer, n, k in (("w_in", 12288, 2048), ("w_out", 2048, 6144)):
+def _words(torch, gen, device, *shape):
+    return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, generator=gen,
+                         device=device)
+
+
+def _int8(torch, gen, device, *shape, lo=-128, hi=128):
+    return torch.randint(lo, hi, shape, dtype=torch.int8, generator=gen, device=device)
+
+
+def _scales(torch, gen, device, *shape):
+    return torch.rand(shape, generator=gen, device=device) * 0.05 + 1e-3
+
+
+def _rows_bsdp(torch, device, gen, timer, rows, min_m):
+    """The three BSDP kernels at the FFN's shapes.  The yardstick is
+    ``torch._int_mm`` on the int4 values decoded to int8 ahead of time."""
+    from repro_torch.core import bitplane
+    from repro_torch.kernels import bsdp_gemm, bsdp_kernel
+
+    for layer in ("w_in", "w_out"):
+        k, n = PROJ[layer]
         kw = k // 32
-        w = words(n, 4, kw)
-        for name, mod, fn, plain, ms_ in (
-            ("bsdp_gemv", bsdp_kernel, bsdp_kernel.bsdp_matmul,
+        w = _words(torch, gen, device, n, 4, kw)
+        w_dec = bitplane.decode(w).T.contiguous()  # [K, N] int8
+        for name, kernel, fn, plain, ms_ in (
+            ("bsdp_gemv", bsdp_kernel.KERNEL, bsdp_kernel.bsdp_matmul,
              bsdp_kernel.bsdp_matmul_plain, (1,)),
-            ("bsdp_gemm_fused", bsdp_gemm, bsdp_gemm.bsdp_gemm_fused,
+            ("bsdp_gemm_fused", bsdp_gemm.KERNEL, bsdp_gemm.bsdp_gemm_fused,
              bsdp_gemm.bsdp_gemm_fused_plain, (4, 256)),
+            ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm,
+             bsdp_gemm.bsdp_gemm_plain, (4, 256)),
         ):
             for m in ms_:
-                x = words(m, 4, kw)
+                x = _words(torch, gen, device, m, 4, kw)
                 got = fn(x, w)
-                want = plain(x, w)
-                torch.cuda.synchronize()
-                err = (got.to(torch.int64) - want.to(torch.int64)).abs().max().item()
+                err = _int_err(got, plain(x, w))
                 check(err == 0, f"{name} {layer} M={m}: not bit-exact (max err {err})")
+                if name == "bsdp_gemm":
+                    check(torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w)),
+                          f"bsdp_gemm {layer} M={m}: differs from bsdp_gemm_fused")
+                lib, note = _int_mm(torch, bitplane.decode(x), w_dec, min_m)
                 nbytes = (m + n) * 4 * kw * 4 + m * n * 4
                 # the int4 dot product's multiply-adds at the int8 tensor rate
-                b_ms, b_by = bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S)
-                rows.append(dict(
-                    name=name, shape=f"{layer} M={m} N={n} K={k}", route="cuda",
-                    source=f"src/repro_torch/csrc/{mod.KERNEL.source}",
-                    replaces=mod.KERNEL.replaces, max_abs_err=float(err),
-                    ms=timer.ms(lambda: fn(x, w)), plain_ms=timer.ms(lambda: plain(x, w)),
-                    bound_ms=b_ms, bound_by=b_by, library_ms=None))
+                _row(rows, name, kernel, f"{layer} M={m} N={n} K={k}", err,
+                     timer.ms(lambda: fn(x, w)), timer.ms(lambda: plain(x, w)),
+                     bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+                     note or "torch._int_mm on the int4 values decoded to int8 ahead of time")
 
-    # attention projections (w8a16): K = 2048 → N = 2048 (wq, wo) / 1024 (wk, wv)
+
+def _rows_int8(torch, device, gen, timer, rows, min_m):
+    """W8A8 at the projections of path B; scaled output bit-exact (the same
+    integer sums, the same float32 multiplies in the same order)."""
+    from repro_torch.kernels import gemv_int8
+
+    for layer in ("wq", "wk", "w_in", "w_out"):
+        k, n = PROJ[layer]
+        w = _int8(torch, gen, device, k, n)
+        ws = _scales(torch, gen, device, 1, n)
+        for m in (1, 4, 256):
+            x = _int8(torch, gen, device, m, k)
+            xs = _scales(torch, gen, device, m, 1)
+            err = (gemv_int8.matmul_int8(x, w, xs, ws)
+                   - gemv_int8.matmul_int8_plain(x, w, xs, ws)).abs().max().item()
+            check(err == 0, f"matmul_int8 {layer} M={m}: not bit-exact (max err {err})")
+            lib, note = _int_mm(torch, x, w, min_m)
+            acc = gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True)
+            check(torch.equal(acc, lib()[:m]), f"matmul_int8 {layer} M={m}: != torch._int_mm")
+            nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+            _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k}", err,
+                 timer.ms(lambda: gemv_int8.matmul_int8(x, w, xs, ws)),
+                 timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws)),
+                 bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+                 note or "torch._int_mm (int32 out, no scales)")
+            if layer == "wq" and m == 4:  # the raw int32 variant, once
+                err = _int_err(acc, gemv_int8.matmul_int8_plain(x, w, xs, ws, out_int32=True))
+                check(err == 0, f"matmul_int8 out_int32: not bit-exact (max err {err})")
+                _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k} "
+                     "out_int32", err,
+                     timer.ms(lambda: gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True)),
+                     timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws,
+                                                                  out_int32=True)),
+                     bound(m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS_PER_S),
+                     timer.ms(lib), note or "torch._int_mm")
+
+
+def _rows_int4(torch, device, gen, timer, rows, min_m):
+    """W4A8 at path C's attention projections; both nibble extremes planted."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import gemv_int4
+
+    for layer in ("wq", "wk"):
+        k, n = PROJ[layer]
+        w4 = _int8(torch, gen, device, k, n, lo=-8, hi=8)
+        w4[:4, 0] = torch.tensor([-8, 7, 7, -8], dtype=torch.int8, device=device)
+        wp = quant.pack_int4(w4, axis=0)
+        ws = _scales(torch, gen, device, 1, n)
+        for m in (1, 4, 256):
+            x = _int8(torch, gen, device, m, k)
+            xs = _scales(torch, gen, device, m, 1)
+            err = (gemv_int4.matmul_int4_packed(x, wp, xs, ws)
+                   - gemv_int4.matmul_int4_packed_plain(x, wp, xs, ws)).abs().max().item()
+            check(err == 0, f"matmul_int4_packed {layer} M={m}: not bit-exact (max err {err})")
+            lib, note = _int_mm(torch, x, w4, min_m)
+            nbytes = m * k + k * n // 2 + 4 * (m + n) + 4 * m * n
+            _row(rows, "matmul_int4_packed", gemv_int4.KERNEL, f"{layer} M={m} N={n} K={k}",
+                 err, timer.ms(lambda: gemv_int4.matmul_int4_packed(x, wp, xs, ws)),
+                 timer.ms(lambda: gemv_int4.matmul_int4_packed_plain(x, wp, xs, ws)),
+                 bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+                 note or "torch._int_mm against the weight unpacked ahead of time")
+
+
+def _rows_dim(torch, device, gen, timer, rows):
+    """DIM at K = 2048: full-range int16 with the edge values planted,
+    bit-exact against its plain version and the plain wide matmul."""
+    from repro_torch.kernels import dim_kernel, ref
+
+    k = 2048
+    for n in (2048, 12288):
+        w = torch.randint(-32768, 32768, (k, n), dtype=torch.int16, generator=gen,
+                          device=device)
+        w[0, 0], w[1, 1], w[2, 0] = -32768, 32767, -1
+        for m in (1, 4, 256):
+            x = _int8(torch, gen, device, m, k)
+            got = dim_kernel.matmul_w16a8(x, w)
+            err = max(_int_err(got, dim_kernel.matmul_w16a8_plain(x, w)),
+                      _int_err(got, ref.dim_w16a8_ref(x, w)))
+            check(err == 0, f"matmul_w16a8 M={m} N={n}: not bit-exact (max err {err})")
+            nbytes = m * k + 2 * k * n + 4 * m * n
+            _row(rows, "matmul_w16a8", dim_kernel.KERNEL, f"M={m} N={n} K={k}", err,
+                 timer.ms(lambda: dim_kernel.matmul_w16a8(x, w)),
+                 timer.ms(lambda: dim_kernel.matmul_w16a8_plain(x, w)),
+                 bound(nbytes, 4 * m * n * k / INT8_OPS_PER_S), None,
+                 "null: no PyTorch call computes int8 x int16 -> int32 exactly on CUDA")
+
+
+def _rows_dequant(torch, device, gen, timer, rows):
+    """W8A16 at path A's attention projections: K = 2048 → N = 2048 (wq, wo)
+    / 1024 (wk, wv)."""
+    from repro_torch.kernels import dequant_gemv
+
     for n in (2048, 1024):
         k = 2048
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=device)
@@ -185,23 +366,27 @@ def phase_kernels(torch, device, timer) -> list[dict]:
             scale = want.abs().max().item()
             check(err <= DEQUANT_RTOL * scale,
                   f"dequant_matmul M={m} N={n}: err {err} > {DEQUANT_RTOL} * {scale}")
-            b_ms, b_by = bound(m * k * 4 + k * n + n * 4 + m * n * 4,
-                               2 * m * n * k / F32_OPS_PER_S)
-            rows.append(dict(
-                name="dequant_matmul", shape=f"M={m} N={n} K={k}", route="cuda",
-                source=f"src/repro_torch/csrc/{dequant_gemv.KERNEL.source}",
-                replaces=dequant_gemv.KERNEL.replaces, max_abs_err=err,
-                ms=timer.ms(lambda: dequant_gemv.dequant_matmul(x, w, ws)),
-                plain_ms=timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
-                bound_ms=b_ms, bound_by=b_by,
-                library_ms=timer.ms(lambda: torch.matmul(x, w_deq))))
+            _row(rows, "dequant_matmul", dequant_gemv.KERNEL, f"M={m} N={n} K={k}", err,
+                 timer.ms(lambda: dequant_gemv.dequant_matmul(x, w, ws)),
+                 timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
+                 bound(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * n * k / F32_OPS_PER_S),
+                 timer.ms(lambda: torch.matmul(x, w_deq)),
+                 "torch.matmul against a weight dequantized ahead of time")
 
-    # decode attention on the bit-plane cache: B=4 slots × Hkv=8 → R=32, G=2,
-    # L=512, F=128 (Fw=4).  Slot 0 idle (every position masked), slot 1 a
-    # wrapped ring (positions 100..611), slot 2 part-filled, slot 3 full.
+
+def _rows_attention(torch, device, gen, timer, rows):
+    """Decode attention on the bit-plane cache: B=4 slots × Hkv=8 → R=32,
+    G=2, L=512, F=128 (Fw=4).  Slot 0 idle (every position masked), slot 1 a
+    wrapped ring (positions 100..611), slot 2 part-filled, slot 3 full."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import bitplane
+    from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
+    from repro_torch.kernels import plane_attn
+
     b, h, g, l, feat = 4, 8, 2, 512, 128
     fw = feat // 32
-    kp, vp = words(b, l, h, 4, fw), words(b, l, h, 4, fw)
+    kp, vp = _words(torch, gen, device, b, l, h, 4, fw), _words(torch, gen, device, b, l, h, 4, fw)
     ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
     vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
     pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
@@ -229,33 +414,64 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     check(torch.allclose(got[0], idle[:, None, :].expand_as(got[0]), rtol=ATTN_TOL,
                          atol=ATTN_TOL),
           "plane_decode_attention: a fully masked row is not uniform")
+
+    # yardstick: scaled_dot_product_attention over K/V dequantized ahead of
+    # time (rows r = (b, h): q [R, 1, G, F], K/V [R, 1, L, F], mask [R, 1, G, L])
+    def dequant(planes, scale):
+        v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
+        return v.permute(0, 2, 1, 3).reshape(b * h, 1, l, feat).contiguous()
+
+    kd, vd = dequant(kp, ks), dequant(vp, vs)
+    qd = q.reshape(b * h, 1, g, feat)
+    mask = bias.reshape(b * h, 1, g, l)
     r = b * h
     nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4 + 2 * (kp.numel() * 4 + ks.numel() * 4)
               + bias.numel() * 4 + r * g * feat * 4)
     ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
-    b_ms, b_by = bound(nbytes, ops_s)
-    rows.append(dict(
-        name="plane_decode_attention", shape=f"R={r} G={g} L={l} Fw={fw}", route="cuda",
-        source=f"src/repro_torch/csrc/{plane_attn.KERNEL.source}",
-        replaces=plane_attn.KERNEL.replaces,
-        max_abs_err=(got - want).abs().max().item(),
-        ms=timer.ms(lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm)),
-        plain_ms=timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    print("library_ms of dequant_matmul: torch.matmul against a weight dequantized "
-          "ahead of time — a yardstick only; the port never calls it")
-    for row in rows:
-        print("kernel " + json.dumps(row))
-    return rows
+    _row(rows, "plane_decode_attention", plane_attn.KERNEL, f"R={r} G={g} L={l} Fw={fw}",
+         (got - want).abs().max().item(),
+         timer.ms(lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+         timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
+         bound(nbytes, ops_s),
+         timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                         scale=sm)),
+         "F.scaled_dot_product_attention over K/V dequantized ahead of time")
 
 
 # ---------------------------------------------------------------------------
-# Phase 3: serve full qwen3-1.7b through the kernels
+# Phase 3: serve full qwen3-1.7b through each path's kernels
 # ---------------------------------------------------------------------------
 
 
-def _serve(engine_mod, params, cfg, slots, n_requests, rng, device):
-    eng = engine_mod.ServeEngine(params, cfg, mode=MODE, cache_format=CACHE,
+def analytic_resident_bytes(cfg, mode: str, min_dim: int = 64) -> int:
+    """Resident bytes of a converted model from its shapes alone: each
+    projection's payload plus its float32 per-channel scale (a projection
+    narrower than ``min_dim``, the engine's conversion floor, stays float),
+    the float32 tied embedding and the float32 norms."""
+    from repro_torch.core.residency import ResidencySpec
+
+    spec = ResidencySpec.parse(mode)
+    d, dh = cfg.d_model, cfg.d_head
+    shapes = {"mixer": {"wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
+                        "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d)},
+              "ffn": {"w_in": (d, 2 * cfg.d_ff), "w_out": (cfg.d_ff, d)}}
+    payload = {"w8a16": lambda k, n: k * n, "w8a8": lambda k, n: k * n,
+               "w4a8": lambda k, n: -(-k // 2) * n,
+               **{f: (lambda k, n: n * 4 * -(-k // 32) * 4)
+                  for f in ("w4a4_bsdp", "bsdp", "bsdp_fused")}}
+    total = cfg.vocab_size * d * 4 + d * 4  # embedding, final norm
+    for i in range(cfg.n_layers):
+        total += (2 * d + (2 * dh if cfg.qk_norm else 0)) * 4  # ln1, ln2, q/k norms
+        for group, leaves in shapes.items():
+            for name, (k, n) in leaves.items():
+                fmt = spec.mode_for(f"layers.{i}.{group}.{name}")
+                total += (payload[fmt](k, n) + 4 * n if fmt in payload and min(k, n) >= min_dim
+                          else k * n * cfg.dtype.itemsize)
+    return total
+
+
+def _serve(engine_mod, params, cfg, mode, cache, slots, n_requests, rng, device):
+    eng = engine_mod.ServeEngine(params, cfg, mode=mode, cache_format=cache,
                                  scheduler="fcfs", slots=slots, max_len=512,
                                  trace_logits=True, device=device)
     for n in rng.integers(16, 129, size=n_requests):
@@ -264,11 +480,10 @@ def _serve(engine_mod, params, cfg, slots, n_requests, rng, device):
     return eng
 
 
-def phase_serve(torch, device, card) -> dict:
-    import numpy as np
-
+def phase_serve(torch, device, card) -> dict[str, dict]:
+    """Paths A, B and C at full width and depth; returns path → kernel →
+    launches of that path's serving runs."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import ops
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
 
@@ -278,62 +493,93 @@ def phase_serve(torch, device, card) -> dict:
     torch.cuda.synchronize()
     print(f"materialize qwen3-1.7b ({cfg.n_layers} layers, d_model {cfg.d_model}, "
           f"vocab {cfg.vocab_size}): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    qparams = engine.convert_params(params, cfg, MODE)
-    torch.cuda.synchronize()
+    qparams = {}
+    for path, (mode, _, _, _) in PATHS.items():
+        t0 = time.perf_counter()
+        qparams[path] = engine.convert_params(params, cfg, mode)
+        torch.cuda.synchronize()
+        got, want = engine.resident_bytes(qparams[path]), analytic_resident_bytes(cfg, mode)
+        print(f"path {path}: residency convert ({mode}): {time.perf_counter() - t0:.2f} s, "
+              f"{got} B resident (analytic {want} B, {got / want - 1:+.2e})")
+        check(abs(got - want) <= RESIDENT_RTOL * want,
+              f"path {path}: resident bytes {got} vs analytic {want}")
     del params
-    print(f"residency convert ({MODE}): {time.perf_counter() - t0:.2f} s, "
-          f"{engine.resident_bytes(qparams) / 1e9:.3f} GB resident")
-    rng = np.random.default_rng(SEED)
+    torch.cuda.empty_cache()
     counts = {}
-    for slots, n_requests in ((4, 8), (1, 2)):
-        ops.reset_counts()
-        eng = _serve(engine, qparams, cfg, slots, n_requests, rng, device)
-        launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
-        print(f"serve slots={slots}: launches {launches} plain-on-cuda {plain}")
-        check(all(v == 0 for v in plain.values()),
-              f"slots={slots}: a plain version ran on a CUDA tensor: {plain}")
-        for name, v in launches.items():
-            counts[name] = counts.get(name, 0) + v
-        for req in eng.requests:
-            check(req.state == "done" and len(req.out) == 32, f"request {req.uid} unfinished")
-            check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
-        for kind, _, logits in eng.logit_trace:
-            check(bool(np.isfinite(logits).all()) and logits.shape[-1] == cfg.vocab_size,
-                  f"{kind} logits not finite / wrong width")
-        st = eng.stats()
-        print(f"serve slots={slots} on {card}: {st.total_tokens} tokens, "
-              f"{st.tok_per_s:.2f} tok/s, TTFT p50 {st.percentile('ttft_s', 50) * 1e3:.2f} ms, "
-              f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, "
-              f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-        if slots == 4:
-            check(launches["bsdp_gemm_fused"] > 0 and launches["dequant_matmul"] > 0
-                  and launches["plane_decode_attention"] > 0,
-                  f"slots=4 path missed a kernel: {launches}")
-        else:
-            check(launches["bsdp_gemv"] > 0, f"slots=1 path never ran the GEMV: {launches}")
-    check(all(v > 0 for v in counts.values()), f"a kernel never launched: {counts}")
-    phase_profile(torch, device, engine, qparams, cfg, card)
+    for path in PATHS:
+        counts[path] = _serve_path(torch, device, card, engine, qparams[path], cfg, path)
+        phase_profile(torch, device, engine, qparams.pop(path), cfg, card, path)
+        torch.cuda.empty_cache()
     return counts
 
 
-def phase_profile(torch, device, engine, qparams, cfg, card, steps: int = 3) -> None:
-    """Where a decode step's time goes: ``torch.profiler`` over a few steady
-    decode steps at slots=4 — wall time, device-busy time (the sum of the
-    device-side kernel and copy durations), idle share, device operations
-    per step and the kernels taking most device time."""
+def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    mode, cache, must, _ = PATHS[path]
+    rng = np.random.default_rng(SEED)
+    counts: dict = {}
+    for slots, n_requests in ((4, 8), (1, 2)):
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_counts()
+        eng = _serve(engine, qparams, cfg, mode, cache, slots, n_requests, rng, device)
+        torch.cuda.synchronize()
+        launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"path {path} serve slots={slots}: launches {ran} plain-on-cuda "
+              f"{sum(plain.values())}")
+        check(all(v == 0 for v in plain.values()),
+              f"path {path} slots={slots}: a plain version ran on a CUDA tensor: {plain}")
+        for name in must[slots]:
+            check(launches[name] > 0, f"path {path} slots={slots}: {name} never launched")
+        for name, v in ran.items():
+            counts[name] = counts.get(name, 0) + v
+        for req in eng.requests:
+            check(req.state == "done" and len(req.out) == 32,
+                  f"path {path}: request {req.uid} unfinished")
+            check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
+        for kind, _, logits in eng.logit_trace:
+            check(bool(np.isfinite(logits).all()) and logits.shape[-1] == cfg.vocab_size,
+                  f"path {path}: {kind} logits not finite / wrong width")
+        st = eng.stats()
+        print(f"path {path} serve slots={slots} on {card}: {st.total_tokens} tokens, "
+              f"{st.tok_per_s:.2f} tok/s, TTFT p50 {st.percentile('ttft_s', 50) * 1e3:.2f} ms, "
+              f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, "
+              f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return counts
+
+
+def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 3) -> None:
+    """Where a decode step's time goes on one path: the launches of one
+    decode step at slots=4 (checked against the path's count), then
+    ``torch.profiler`` over a few steady decode steps — wall time,
+    device-busy time (the sum of the device-side kernel and copy durations),
+    idle share, device operations per step and the kernels taking most
+    device time."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    eng = engine.ServeEngine(qparams, cfg, mode=MODE, cache_format=CACHE, slots=4,
+    from repro_torch.kernels import ops
+
+    mode, cache, _, per_step = PATHS[path]
+    eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format=cache, slots=4,
                              max_len=512, device=device)
     rng = np.random.default_rng(SEED + 1)
     for _ in range(4):
-        eng.submit(rng.integers(0, cfg.vocab_size, size=64).astype(np.int32), 2 + 2 * steps)
+        eng.submit(rng.integers(0, cfg.vocab_size, size=64).astype(np.int32), 3 + 2 * steps)
     eng.step()  # prefill (+ first decode)
     eng.step()
     torch.cuda.synchronize()
+    ops.reset_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    step_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"path {path} launches per decode step (slots=4): {step_launches}")
+    check(step_launches == per_step,
+          f"path {path}: decode step launched {step_launches}, expected {per_step}")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -346,11 +592,43 @@ def phase_profile(torch, device, engine, qparams, cfg, card, steps: int = 3) -> 
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"profile decode step (slots=4, {cfg.n_layers} layers, {card}, under the "
-          f"profiler): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+    print(f"path {path} profile decode step (slots=4, {cfg.n_layers} layers, {card}, under "
+          f"the profiler): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, device ops {len(dev_events) / steps:.0f}/step")
     for name, ms in top:
         print(f"  {ms:8.3f} ms/step  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Path D: the ops-level entry points of the DIM and raw int32 W8A8 kernels
+# ---------------------------------------------------------------------------
+
+
+def phase_ops_path(torch, device) -> dict:
+    """``ops.dim_matmul`` and ``ops.matmul_int8_raw`` once each at a decode
+    shape (M = 4, K = N = 2048), checked against the byte-plane
+    decomposition of ``core/dim.py`` and the plain int32 matmul."""
+    from repro_torch.core import dim
+    from repro_torch.kernels import ops, ref
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    x = _int8(torch, gen, device, 4, 2048)
+    w16 = torch.randint(-32768, 32768, (2048, 2048), dtype=torch.int16, generator=gen,
+                        device=device)
+    w16[0, 0], w16[1, 1], w16[2, 0] = -32768, 32767, -1
+    w8 = _int8(torch, gen, device, 2048, 2048)
+    ops.reset_counts()
+    out_dim = ops.dim_matmul(x, w16)
+    out_raw = ops.matmul_int8_raw(x, w8)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in ops.launch_counts().items() if v}
+    print(f"path D (ops.dim_matmul, ops.matmul_int8_raw): launches {launches}")
+    check(launches == {"matmul_w16a8": 1, "matmul_int8": 1}, f"path D launched {launches}")
+    check(all(v == 0 for v in ops.plain_cuda_counts().values()),
+          "path D: a plain version ran on a CUDA tensor")
+    check(torch.equal(out_dim, dim.matmul_w16a8(x, w16)), "ops.dim_matmul != core.dim")
+    check(torch.equal(out_raw, ref.matmul_int8_ref(x, w8)), "ops.matmul_int8_raw != oracle")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -367,38 +645,49 @@ def phase_paths(torch, device) -> None:
 
     for dtype_name, (max_rel, min_cos) in PATH_LIMITS.items():
         cfg = get_config("qwen3-1.7b").scaled(n_layers=2, dtype=getattr(torch, dtype_name))
-        params = engine.convert_params(
-            model_lib.materialize(cfg, seed=SEED, device=device), cfg, MODE)
-        traces, outs = [], []
-        for impl in (None, "plain"):
-            rng = np.random.default_rng(0)
-            eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=MODE,
-                                     cache_format=CACHE, trace_logits=True, impl=impl,
-                                     device=device)
-            for n, mn in zip((5, 3, 7), (6, 2, 4)):
-                eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32), mn,
-                           force=rng.integers(0, cfg.vocab_size, size=(mn,)).astype(np.int32))
-            eng.run()
-            traces.append(eng.logit_trace)
-            outs.append([r.out for r in eng.requests])
-        kinds = [[(k, s) for k, s, _ in t] for t in traces]
-        check(kinds[0] == kinds[1], "kernel and plain paths scheduled differently")
-        check(outs[0] == outs[1], "kernel and plain paths emitted different tokens")
-        worst_rel, worst_cos, agree = 0.0, 1.0, 0
-        for (_, _, a), (_, _, p) in zip(*traces):
-            a, p = np.asarray(a, np.float64), np.asarray(p, np.float64)
-            worst_rel = max(worst_rel, float(np.abs(a - p).max() / np.abs(p).max()))
-            worst_cos = min(worst_cos, float((a.ravel() @ p.ravel())
-                                             / (np.linalg.norm(a) * np.linalg.norm(p))))
-            agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
-                                        p.reshape(-1, p.shape[-1]).argmax(-1)))
-        print(f"kernel vs plain path (2 layers, {dtype_name}): {len(traces[0])} logit "
-              f"vectors, max rel err {worst_rel:.3e} (limit {max_rel}), min cosine "
-              f"{worst_cos:.6f} (limit {min_cos}), argmax agree {agree}/{len(traces[0])}")
-        check(worst_rel <= max_rel and worst_cos >= min_cos,
-              f"kernel path logits drift from the plain path ({dtype_name})")
-        del params, eng
+        float_params = model_lib.materialize(cfg, seed=SEED, device=device)
+        for mode, cache in PATH_MODES:
+            params = engine.convert_params(float_params, cfg, mode)
+            traces, outs = [], []
+            for impl in (None, "plain"):
+                rng = np.random.default_rng(0)
+                eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
+                                         cache_format=cache, trace_logits=True, impl=impl,
+                                         device=device)
+                for n, mn in zip((5, 3, 7), (6, 2, 4)):
+                    eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
+                               mn, force=rng.integers(0, cfg.vocab_size,
+                                                      size=(mn,)).astype(np.int32))
+                eng.run()
+                traces.append(eng.logit_trace)
+                outs.append([r.out for r in eng.requests])
+            kinds = [[(k, s) for k, s, _ in t] for t in traces]
+            check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
+            check(outs[0] == outs[1], f"{mode}: kernel and plain paths emitted different tokens")
+            worst_rel, worst_cos, agree = 0.0, 1.0, 0
+            for (_, _, a), (_, _, p) in zip(*traces):
+                a, p = np.asarray(a, np.float64), np.asarray(p, np.float64)
+                worst_rel = max(worst_rel, float(np.abs(a - p).max() / np.abs(p).max()))
+                worst_cos = min(worst_cos, float((a.ravel() @ p.ravel())
+                                                 / (np.linalg.norm(a) * np.linalg.norm(p))))
+                agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
+                                            p.reshape(-1, p.shape[-1]).argmax(-1)))
+            print(f"kernel vs plain path ({mode}, cache {cache}, 2 layers, {dtype_name}): "
+                  f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
+                  f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
+                  f"{agree}/{len(traces[0])}")
+            check(worst_rel <= max_rel and worst_cos >= min_cos,
+                  f"{mode}: kernel path logits drift from the plain path ({dtype_name})")
+            del params, eng
+        del float_params
         torch.cuda.empty_cache()
+
+
+#: each kernel's entry in the ``kernels`` line: its most frequent serving shape
+PICK = {"bsdp_gemv": "w_in M=1", "bsdp_gemm_fused": "w_in M=4", "bsdp_gemm": "w_in M=4",
+        "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32",
+        "matmul_int8": "wq M=4 N=2048 K=2048", "matmul_int4_packed": "wq M=4",
+        "matmul_w16a8": "M=4 N=2048"}
 
 
 def main() -> int:
@@ -415,20 +704,24 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     counts = phase_serve(torch, device, card)
+    counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)
 
-    # one entry per kernel, at its most frequent serving shape (decode)
-    pick = {"bsdp_gemv": "w_in M=1", "bsdp_gemm_fused": "w_in M=4",
-            "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32"}
+    launches: dict = {}
+    for path_counts in counts.values():
+        for name, v in path_counts.items():
+            launches[name] = launches.get(name, 0) + v
     kernels = []
-    for name, prefix in pick.items():
-        row = next(r for r in rows if r["name"] == name and r["shape"].startswith(prefix))
+    for name, prefix in PICK.items():
+        row = next(r for r in rows if r["name"] == name and r["shape"].startswith(prefix)
+                   and "out_int32" not in r["shape"])
         err = max(r["max_abs_err"] for r in rows if r["name"] == name)
+        check(launches.get(name, 0) > 0, f"{name} never launched on its path")
         kernels.append({k: row[k] for k in ("name", "route", "source", "replaces")}
-                       | {"launches": counts[name], "max_abs_err": err}
+                       | {"launches": launches[name], "max_abs_err": err}
                        | {k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                             "library_ms", "shape")})
+                                             "library_ms", "library_note", "shape")})
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

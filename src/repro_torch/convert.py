@@ -1,18 +1,21 @@
 """Bring the JAX package's float parameters across to the port.
 
-``params_from_numpy(tree, cfg, device)`` takes the reference's parameter
+``params_from_numpy(tree, cfg, device=None)`` takes the reference's parameter
 tree with every leaf as a numpy array (``jax.tree.map(np.asarray,
 params)``) and returns the port's layout: the reference stacks each layer
 leaf ``[n_superblocks, ...]`` under ``stack.slot0``; the port keeps one
 dict per layer.  With the same float weights both packages then convert to
 residency and compute the same thing.  bfloat16 arrays (numpy's
-``ml_dtypes.bfloat16``) cross bit for bit.
+``ml_dtypes.bfloat16``) cross bit for bit.  Like every entry point of the
+port, it puts the tensors on the card unless the caller names a device.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -30,8 +33,10 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_numpy(tree: dict, cfg, device="cpu") -> dict:
-    """Reference parameter tree (numpy leaves) → port parameters."""
+def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """Reference parameter tree (numpy leaves) → port parameters on
+    ``device`` (default: the card; raises when there is none)."""
+    device = resolve_device(device)
     unknown = set(tree) - {"embed", "final_norm", "stack"}
     if unknown:
         raise ValueError(f"params_from_numpy: unsupported subtrees {sorted(unknown)}")

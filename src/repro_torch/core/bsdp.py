@@ -72,7 +72,7 @@ def bsdp_popcount(a_planes: torch.Tensor, b_planes: torch.Tensor, *,
     return acc.to(torch.int32)
 
 
-def _bits_to_int8(planes: torch.Tensor) -> torch.Tensor:
+def bits_to_int8(planes: torch.Tensor) -> torch.Tensor:
     """``[..., Kw]`` words → 0/1 int8 bits ``[..., Kw·32]`` (bit ``b`` of
     word ``w`` at ``w·32 + b``); ``& 1`` after the arithmetic shift."""
     shifts = torch.arange(bitplane.WORD, dtype=torch.int32, device=planes.device)
@@ -88,8 +88,8 @@ def bsdp_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     ``s_jk·2^{j+k}`` weighted reduce."""
     *lead, m, _, kw = x_planes.shape
     n = w_planes.shape[-3]
-    xb = _bits_to_int8(x_planes).reshape(*lead, m * 4, kw * 32)
-    wb = _bits_to_int8(w_planes).reshape(*w_planes.shape[:-3], n * 4, kw * 32)
+    xb = bits_to_int8(x_planes).reshape(*lead, m * 4, kw * 32)
+    wb = bits_to_int8(w_planes).reshape(*w_planes.shape[:-3], n * 4, kw * 32)
     table = torch.matmul(xb.to(torch.float32), wb.to(torch.float32).transpose(-1, -2))
     table = table.to(torch.int32).reshape(*lead, m, 4, n, 4)
     weight = plane_weights(signed, x_planes.device)

@@ -5,7 +5,8 @@
 and the division is a true ``/`` (not a multiply by the reciprocal), so the
 integer payloads are bit-identical to the reference's on identical inputs.
 
-``pack_int4`` / ``unpack_int4`` arrive with the ``w4a8`` kernel.
+``pack_int4`` / ``unpack_int4`` hold int4 values two per byte — the ``w4a8``
+residency's payload.
 """
 
 from __future__ import annotations
@@ -59,3 +60,34 @@ def quantize_weights(w: torch.Tensor, *, bits: int = 8) -> QuantTensor:
 def quantize_acts(x: torch.Tensor, *, bits: int = 8) -> QuantTensor:
     """Per-token dynamic quantization of ``[..., K]`` activations."""
     return quantize(x, bits=bits, axis=-1)
+
+
+def pack_int4(q: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Pack int4 values (int8 payload in [-8, 7]) two per byte along ``axis``:
+    the even element goes to the low nibble, the odd one to the high nibble,
+    each as a two's-complement nibble.  The axis halves in length."""
+    if q.shape[axis] % 2:
+        raise ValueError(f"axis {axis} length {q.shape[axis]} must be even")
+    u = q.to(torch.int32) & 0xF
+    lo, hi = u[_every_other(u.ndim, axis, 0)], u[_every_other(u.ndim, axis, 1)]
+    packed = lo | (hi << 4)  # 0..255
+    return (packed - ((packed & 0x80) << 1)).to(torch.int8)  # the byte as int8
+
+
+def unpack_int4(p: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Inverse of :func:`pack_int4` → int8 values in [-8, 7]; ``axis`` doubles."""
+    u = p.to(torch.int32) & 0xFF
+    lo, hi = u & 0xF, u >> 4
+    lo = lo - ((lo & 0x8) << 1)  # sign-extend the nibbles
+    hi = hi - ((hi & 0x8) << 1)
+    axis = axis % p.ndim
+    stacked = torch.stack([lo, hi], dim=axis + 1)
+    shape = list(p.shape)
+    shape[axis] *= 2
+    return stacked.reshape(shape).to(torch.int8)
+
+
+def _every_other(ndim: int, axis: int, start: int) -> tuple:
+    idx = [slice(None)] * ndim
+    idx[axis] = slice(start, None, 2)
+    return tuple(idx)

@@ -15,10 +15,12 @@ A format owns one resident layout:
                           to ``x.dtype``
 ``resident_bytes(state)`` device bytes of payload + scales
 
-The port registers the formats whose kernels exist: ``bf16``, ``w8a16``
-(``dequant_matmul``) and ``bsdp_fused`` (``bsdp_gemv`` at M == 1,
-``bsdp_gemm_fused`` at M > 1).  ``w8a8``, ``w4a8``, ``bsdp`` and
-``w4a4_bsdp`` arrive with their kernels.
+The port registers the reference's seven formats: ``bf16``; ``w8a16``
+(``dequant_matmul``); ``w8a8`` (``matmul_int8``); ``w4a8``
+(``matmul_int4_packed``); and the bit-plane trio, which share one payload
+and differ only in their KernelPolicy — ``w4a4_bsdp`` (``bsdp_gemv`` at
+every M), ``bsdp`` (``bsdp_gemv`` at M == 1, the unrolled ``bsdp_gemm`` at
+M > 1) and ``bsdp_fused`` (``bsdp_gemv`` / ``bsdp_gemm_fused``).
 
 Per-layer policies: :class:`ResidencySpec` maps dot-joined parameter paths
 to formats by glob rules, first match wins::
@@ -43,7 +45,7 @@ class QuantLinearState:
 
     data: torch.Tensor  # format-dependent payload
     scale: torch.Tensor  # [1, N] per-output-channel float32
-    mode: str = "w8a16"
+    mode: str = "w8a8"
     k: int = 0  # logical K
     n: int = 0  # logical N
 
@@ -125,10 +127,17 @@ class BF16Format(ResidencyFormat):
 
 
 class Int8Format(ResidencyFormat):
-    """``w8a16``: int8 weights + per-channel scale with float activations,
-    through the fused-dequant kernel ``dequant_matmul``."""
+    """int8 weights + per-channel scale; shared by ``w8a16`` and ``w8a8``.
 
-    name = "w8a16"
+    ``act_bits=None`` keeps activations float (the fused-dequant kernel
+    ``dequant_matmul``, w8a16); ``act_bits=8`` quantizes activations per
+    token and runs the int8 x int8 kernel ``matmul_int8`` — the NI path of
+    §III-B (w8a8).
+    """
+
+    def __init__(self, name: str, act_bits: Optional[int]):
+        self.name = name
+        self.act_bits = act_bits
 
     def encode(self, w):
         k, n = w.shape
@@ -139,27 +148,65 @@ class Int8Format(ResidencyFormat):
     def apply(self, state, x):
         from repro_torch.kernels import ops
 
-        return ops.weight_only_matmul(x.to(torch.float32), state.data, state.scale)
+        if self.act_bits is None:
+            return ops.weight_only_matmul(x.to(torch.float32), state.data, state.scale)
+        xq = quant.quantize_acts(x.to(torch.float32), bits=self.act_bits)
+        return ops.quant_matmul(xq, quant.QuantTensor(state.data, state.scale, bits=8, axis=0))
 
     def apply_plain(self, state, x):
-        from repro_torch.kernels import dequant_gemv
+        from repro_torch.kernels import dequant_gemv, gemv_int8
 
         x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
-        out = dequant_gemv.dequant_matmul_plain(x2, state.data, state.scale)
+        if self.act_bits is None:
+            out = dequant_gemv.dequant_matmul_plain(x2, state.data, state.scale)
+        else:
+            xq = quant.quantize_acts(x2, bits=self.act_bits)
+            out = gemv_int8.matmul_int8_plain(xq.data, state.data, xq.scale, state.scale)
+        return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
+
+
+class PackedInt4Format(ResidencyFormat):
+    """``w4a8``: int4 weights packed two per byte along K (half the bytes of
+    int8), int8 activations, unpacked in the kernel ``matmul_int4_packed``.
+    Odd K is padded by one zero row before packing."""
+
+    name = "w4a8"
+
+    def encode(self, w):
+        k, n = w.shape
+        qt = quant.quantize_weights(w, bits=4)
+        q = torch.nn.functional.pad(qt.data, (0, 0, 0, k % 2))
+        return QuantLinearState(data=quant.pack_int4(q, axis=0),
+                                scale=qt.scale.reshape(1, n), mode=self.name, k=k, n=n)
+
+    def apply(self, state, x):
+        from repro_torch.kernels import ops
+
+        xq = quant.quantize_acts(x.to(torch.float32), bits=8)
+        return ops.quant_matmul_int4(xq, state.data, state.scale)
+
+    def apply_plain(self, state, x):
+        from repro_torch.kernels import gemv_int4
+
+        xq = quant.quantize_acts(x.reshape(-1, x.shape[-1]).to(torch.float32), bits=8)
+        out = gemv_int4.matmul_int4_packed_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
 
 
 class BitPlaneFormat(ResidencyFormat):
-    """``bsdp_fused``: bit-plane int4 weights + int4 activations — the
-    paper's §IV layout.
+    """Bit-plane int4 weights + int4 activations — the paper's §IV layout.
 
     Payload is ``[N, 4, ceil(K/32)]`` int32 plane words (the reference's
-    uint32 words, bit-viewed).  The kernel policy picks the popcount GEMV
-    at M == 1 and the fused single-contraction GEMM at M > 1.
+    uint32 words, bit-viewed).  The kernel policy is the only difference
+    between the three registered instances: ``w4a4_bsdp`` keeps the
+    popcount GEMV at every batch size, ``bsdp`` takes the unrolled
+    16-contraction GEMM at M > 1, and ``bsdp_fused`` the fused
+    single-contraction GEMM.
     """
 
-    name = "bsdp_fused"
-    kernel_policy = KernelPolicy(gemv="gemv", gemm="gemm_fused")
+    def __init__(self, name: str, kernel_policy: KernelPolicy):
+        self.name = name
+        self.kernel_policy = kernel_policy
 
     def encode(self, w):
         k, n = w.shape
@@ -188,11 +235,15 @@ class BitPlaneFormat(ResidencyFormat):
 
 
 register_format(BF16Format())
-register_format(Int8Format())
-register_format(BitPlaneFormat())
+register_format(Int8Format("w8a16", act_bits=None))
+register_format(Int8Format("w8a8", act_bits=8))
+register_format(PackedInt4Format())
+register_format(BitPlaneFormat("w4a4_bsdp", KernelPolicy(gemv="gemv", gemm="gemv")))
+register_format(BitPlaneFormat("bsdp", KernelPolicy(gemv="gemv", gemm="gemm")))
+register_format(BitPlaneFormat("bsdp_fused", KernelPolicy(gemv="gemv", gemm="gemm_fused")))
 
 
-def from_float(w: torch.Tensor, mode: str = "w8a16") -> QuantLinearState:
+def from_float(w: torch.Tensor, mode: str = "w8a8") -> QuantLinearState:
     """One-time convert of a float ``[K, N]`` weight to residency ``mode``."""
     return get_format(mode).encode(w)
 

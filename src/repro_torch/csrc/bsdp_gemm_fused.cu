@@ -40,18 +40,6 @@ constexpr int kSmem = kAR * kBR * 4;  // int32 pair table; aliases the bit tiles
 static_assert(kKSub * (kAR + kBR) * 16 <= kSmem, "bit tiles must fit under the table");
 static_assert(kBM * 4 * kBKW == kThreads, "one activation word per thread");
 
-// One 32-bit plane word → 32 0/1 bytes: bits 0..15 to lo, bits 16..31 to hi.
-__device__ __forceinline__ void expand_word(uint32_t word, int8_t* lo, int8_t* hi) {
-  uint32_t q[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t n = (word >> (4 * i)) & 0xFu;
-    q[i] = (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-  }
-  *reinterpret_cast<uint4*>(lo) = make_uint4(q[0], q[1], q[2], q[3]);
-  *reinterpret_cast<uint4*>(hi) = make_uint4(q[4], q[5], q[6], q[7]);
-}
-
 __global__ void __launch_bounds__(kThreads)
 bsdp_gemm_fused_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt,
                        int32_t* __restrict__ out, int m_rows, int n_cols, int kw,

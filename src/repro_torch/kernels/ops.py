@@ -9,7 +9,7 @@ from a failed build or launch to the plain version.
 
 The CUDA kernels mask their own ragged M/N/K edges, so unlike the Pallas
 wrappers nothing is padded to block multiples and no block sizes are
-chosen here: each kernel's tile shape is fixed in its source.
+chosen here: each kernel picks its tile shape in its source.
 
 Counting: every kernel binding keeps ``launches``, incremented once per
 launch that the driver accepted (:func:`launch_counts`).  The JAX package's
@@ -24,11 +24,22 @@ from typing import Optional
 import torch
 
 from repro_torch.core import bitplane
-from repro_torch.kernels import _build, bsdp_gemm, bsdp_kernel, dequant_gemv, plane_attn
+from repro_torch.core.quant import QuantTensor
+from repro_torch.kernels import (
+    _build,
+    bsdp_gemm,
+    bsdp_kernel,
+    dequant_gemv,
+    dim_kernel,
+    gemv_int4,
+    gemv_int8,
+    plane_attn,
+)
 
 #: BSDP kernel name (as a residency format's KernelPolicy names it) → wrapper
 _BSDP_KERNELS = {
     "gemv": bsdp_kernel.bsdp_matmul,
+    "gemm": bsdp_gemm.bsdp_gemm,
     "gemm_fused": bsdp_gemm.bsdp_gemm_fused,
 }
 
@@ -47,15 +58,51 @@ def reset_counts() -> None:
     _build.reset_counts()
 
 
+def quant_matmul(x: QuantTensor, w: QuantTensor, *,
+                 out_int32: bool = False) -> torch.Tensor:
+    """W8A8: ``x [M,K]`` per-token × ``w [K,N]`` per-channel → f32 ``[M,N]``
+    (or the raw int32 sums with ``out_int32``)."""
+    return gemv_int8.matmul_int8(x.data, w.data, x.scale, w.scale, out_int32=out_int32)
+
+
+def matmul_int8_raw(x_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
+    """Scale-free exact int32 W8A8 matmul (the ``out_int32`` kernel path)."""
+    m, n = x_i8.shape[0], w_i8.shape[1]
+    ones_m = torch.ones((m, 1), dtype=torch.float32, device=x_i8.device)
+    ones_n = torch.ones((1, n), dtype=torch.float32, device=x_i8.device)
+    return quant_matmul(QuantTensor(x_i8, ones_m, bits=8, axis=-1),
+                        QuantTensor(w_i8, ones_n, bits=8, axis=0), out_int32=True)
+
+
+def quant_matmul_int4(x: QuantTensor, w_packed: torch.Tensor,
+                      w_scale: torch.Tensor) -> torch.Tensor:
+    """W4A8: ``x [M,K] int8 × packed w [K/2,N]`` → f32 ``[M,N]`` (K even)."""
+    return gemv_int4.matmul_int4_packed(x.data, w_packed, x.scale, w_scale)
+
+
+def dim_matmul(x_i8: torch.Tensor, w_i16: torch.Tensor) -> torch.Tensor:
+    """Exact ``[M,K] int8 @ [K,N] int16 → int32`` via decomposed int8 passes."""
+    return dim_kernel.matmul_w16a8(x_i8, w_i16)
+
+
+def bsdp_kernel_for(m: int) -> str:
+    """The registry-free batch default: the popcount GEMV at M == 1, the
+    unrolled plane-pair GEMM at M > 1 (formats pick through their
+    KernelPolicy instead)."""
+    return "gemv" if m == 1 else "gemm"
+
+
 def bsdp_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
-                       kernel: str, signed: bool = True,
+                       kernel: Optional[str] = None, signed: bool = True,
                        fmt_name: Optional[str] = None) -> torch.Tensor:
     """Plane-form BSDP: ``[M,4,Kw] × [N,4,Kw] → int32 [M,N]`` (exact).
 
-    ``kernel`` names the BSDP kernel (``"gemv"`` or ``"gemm_fused"``), as a
-    residency format's KernelPolicy picks it; ``fmt_name`` names that
-    format, so a misconfigured policy is traceable.
+    ``kernel`` names the BSDP kernel (``"gemv"``, ``"gemm"`` or
+    ``"gemm_fused"``), as a residency format's KernelPolicy picks it;
+    ``None`` dispatches by batch (:func:`bsdp_kernel_for`).  ``fmt_name``
+    names the format, so a misconfigured policy is traceable.
     """
+    kernel = kernel or bsdp_kernel_for(x_planes.shape[0])
     if kernel not in _BSDP_KERNELS:
         via = (f" (requested via residency format {fmt_name!r}'s KernelPolicy)"
                if fmt_name else "")
@@ -64,8 +111,9 @@ def bsdp_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     return _BSDP_KERNELS[kernel](x_planes, w_planes, signed=signed)
 
 
-def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *, kernel: str,
-                signed: bool = True, fmt_name: Optional[str] = None) -> torch.Tensor:
+def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
+                kernel: Optional[str] = None, signed: bool = True,
+                fmt_name: Optional[str] = None) -> torch.Tensor:
     """Raw int4 activations ``[M,K]`` × encoded weights ``[N,4,K/32]`` →
     int32 ``[M,N]``: the per-request activation encode, then the kernel."""
     x_planes = bitplane.encode_acts(bitplane.pad_to_word(x_i4))

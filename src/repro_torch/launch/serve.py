@@ -3,8 +3,11 @@
 Materialises a model from seed 0 on the device, converts its weights to
 the requested residency policy once, and serves synthetic requests
 through the continuous-batching engine, reporting throughput and
-TTFT/TPOT percentiles::
+TTFT/TPOT percentiles.  The defaults are the reference launcher's:
+``--mode w8a8`` and the config's own decode cache (``bf16`` for
+qwen3-1.7b)::
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
         --mode ffn=bsdp_fused,mixer=w8a16 --cache-format int4_bp_fused
 
@@ -41,14 +44,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True, choices=ARCH_NAMES)
     ap.add_argument("--smoke", action="store_true")
-    ap.add_argument("--mode", default="ffn=bsdp_fused,mixer=w8a16",
+    ap.add_argument("--mode", default="w8a8",
                     type=registry_arg(residency.ResidencySpec.parse),
                     help="registered format name (one of "
                          f"{', '.join(residency.formats())}) or a per-layer "
                          "policy like 'ffn=bsdp_fused,mixer=w8a16'")
-    ap.add_argument("--cache-format", default="int4_bp_fused",
+    ap.add_argument("--cache-format", default=None,
                     type=registry_arg(lambda s: kvcache.get_cache_format(s).name),
-                    help=f"decode-cache residency (one of {', '.join(kvcache.formats())})")
+                    help=f"decode-cache residency (one of {', '.join(kvcache.formats())}; "
+                         "default: the arch config's)")
     ap.add_argument("--min-dim", type=int, default=64,
                     help="residency-conversion floor (smaller projections stay float)")
     ap.add_argument("--requests", type=int, default=8)

@@ -14,13 +14,14 @@ import torch
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core import bitplane as ref_bitplane
 from repro.core import bsdp as ref_bsdp
+from repro.core import dim as ref_dim
 from repro.core import quant as ref_quant
 from repro.models import model as ref_model
 from repro.serve import engine as ref_engine
 from repro.sharding import partitioning as P
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import bitplane, bsdp, quant
+from repro_torch.core import bitplane, bsdp, dim, quant
 from repro_torch.serve import engine
 
 
@@ -90,6 +91,54 @@ class TestQuant:
         q = quant.quantize(x, bits=8, scale=torch.ones((1, 1)))
         assert q.data.tolist() == [[0, 2, 2, 0, -2, 7]]
 
+    @pytest.mark.parametrize("shape,axis", [((6, 5), 0), ((3, 8), 1), ((2, 4, 6), -1)])
+    def test_pack_int4_bytes_match_reference_and_round_trip(self, shape, axis):
+        q = _int4(np.random.default_rng(7), shape)
+        q.reshape(-1)[:4] = [-8, 7, 7, -8]  # both extremes in both nibbles
+        got = quant.pack_int4(torch.from_numpy(q), axis=axis)
+        want = ref_quant.pack_int4(jnp.asarray(q), axis=axis)
+        assert got.dtype == torch.int8
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        back = quant.unpack_int4(got, axis=axis).numpy()
+        np.testing.assert_array_equal(back, q)
+        np.testing.assert_array_equal(
+            back, np.asarray(ref_quant.unpack_int4(want, axis=axis)))
+
+    def test_pack_int4_rejects_odd_length(self):
+        with pytest.raises(ValueError, match="even"):
+            quant.pack_int4(torch.zeros((3, 2), dtype=torch.int8))
+
+
+class TestDim:
+    def test_decompositions_match_reference(self):
+        rng = np.random.default_rng(8)
+        w16 = rng.integers(-32768, 32768, size=(9, 7)).astype(np.int16)
+        w16.reshape(-1)[:3] = [-32768, 32767, -1]
+        w32 = rng.integers(-2**31, 2**31, size=(9, 7)).astype(np.int32)
+        for port, want in ((dim.decompose_int16(torch.from_numpy(w16)),
+                            ref_dim.decompose_int16(jnp.asarray(w16))),
+                           (dim.decompose_int32(torch.from_numpy(w32)),
+                            ref_dim.decompose_int32(jnp.asarray(w32)))):
+            for a, b in zip(port, want):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        np.testing.assert_array_equal(
+            dim.compose_int16(*dim.decompose_int16(torch.from_numpy(w16))).numpy(), w16)
+
+    def test_wide_matmuls_wrap_like_reference(self):
+        rng = np.random.default_rng(9)
+        x = rng.integers(-128, 128, size=(3, 700)).astype(np.int8)
+        x[0] = 127
+        w16 = rng.integers(-32768, 32768, size=(700, 4)).astype(np.int16)
+        w16[:, 0] = 32767  # 127 · 32767 · 700 leaves int32
+        w32 = rng.integers(-2**31, 2**31, size=(700, 4)).astype(np.int32)
+        np.testing.assert_array_equal(
+            dim.matmul_w16a8(torch.from_numpy(x), torch.from_numpy(w16)).numpy(),
+            np.asarray(ref_dim.matmul_w16a8(jnp.asarray(x), jnp.asarray(w16))))
+        np.testing.assert_array_equal(
+            dim.matmul_w32a8(torch.from_numpy(x), torch.from_numpy(w32)).numpy(),
+            np.asarray(ref_dim.matmul_w32a8(jnp.asarray(x), jnp.asarray(w32))))
+        assert dim.MAX_K_PER_PASS == ref_dim.MAX_K_PER_PASS
+
 
 class TestBsdp:
     def test_popcount32_all_bits(self):
@@ -124,29 +173,36 @@ class TestBsdp:
 
 class TestConvertParams:
     def test_residency_payloads_bit_identical_to_reference(self):
-        ref_cfg = ref_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
-        cfg = get_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
-        ref_params = P.materialize(ref_model.specs(ref_cfg, 1), jax.random.PRNGKey(0))
-        mode = "ffn=bsdp_fused,mixer=w8a16"
-        ref_q = ref_engine.convert_params(ref_params, ref_cfg, mode, min_dim=16)
-        params = convert.params_from_numpy(
-            jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
-        assert params["layers"][1]["ffn"]["w_in"].dtype == torch.bfloat16
-        q = engine.convert_params(params, cfg, mode, min_dim=16)
-        slot = ref_q["stack"]["slot0"]
-        n_checked = 0
-        for i, layer in enumerate(q["layers"]):
-            for group, names in (("ffn", ("w_in", "w_out")),
-                                 ("mixer", ("wq", "wk", "wv", "wo"))):
-                for name in names:
-                    got, want = layer[group][name], slot[group][name]
-                    assert got.mode == want.mode and (got.k, got.n) == (want.k, want.n)
-                    data = got.data.numpy()
-                    if got.mode == "bsdp_fused":
-                        data = data.view(np.uint32)
-                    np.testing.assert_array_equal(data, np.asarray(want.data[i]))
-                    np.testing.assert_array_equal(
-                        got.scale.numpy().view(np.uint32),
-                        np.asarray(want.scale[i]).view(np.uint32))
-                    n_checked += 1
-        assert n_checked == 12
+        _check_payloads("ffn=bsdp_fused,mixer=w8a16")
+
+    @pytest.mark.parametrize("mode", ["w8a8", "ffn=bsdp,mixer=w4a8", "w4a4_bsdp"])
+    def test_new_format_payloads_bit_identical_to_reference(self, mode):
+        _check_payloads(mode)
+
+
+def _check_payloads(mode):
+    ref_cfg = ref_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
+    cfg = get_smoke_config("qwen3-1.7b").scaled(n_layers=2, vocab_size=128)
+    ref_params = P.materialize(ref_model.specs(ref_cfg, 1), jax.random.PRNGKey(0))
+    ref_q = ref_engine.convert_params(ref_params, ref_cfg, mode, min_dim=16)
+    params = convert.params_from_numpy(
+        jax.tree_util.tree_map(np.asarray, ref_params), cfg, "cpu")
+    assert params["layers"][1]["ffn"]["w_in"].dtype == torch.bfloat16
+    q = engine.convert_params(params, cfg, mode, min_dim=16)
+    slot = ref_q["stack"]["slot0"]
+    n_checked = 0
+    for i, layer in enumerate(q["layers"]):
+        for group, names in (("ffn", ("w_in", "w_out")),
+                             ("mixer", ("wq", "wk", "wv", "wo"))):
+            for name in names:
+                got, want = layer[group][name], slot[group][name]
+                assert got.mode == want.mode and (got.k, got.n) == (want.k, want.n)
+                data = got.data.numpy()
+                if got.data.dtype == torch.int32:  # plane words
+                    data = data.view(np.uint32)
+                np.testing.assert_array_equal(data, np.asarray(want.data[i]))
+                np.testing.assert_array_equal(
+                    got.scale.numpy().view(np.uint32),
+                    np.asarray(want.scale[i]).view(np.uint32))
+                n_checked += 1
+    assert n_checked == 12

@@ -19,6 +19,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro" or m.startswith("repro."))
 print(len(names))
 print(",".join(bad))
+print(",".join(names))
 """
 
 
@@ -26,6 +27,9 @@ def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, timeout=120, check=True)
-    n_modules, bad = (out.stdout.splitlines() + [""])[:2]
-    assert int(n_modules) >= 20
+    n_modules, bad, names = (out.stdout.splitlines() + ["", ""])[:3]
+    assert int(n_modules) >= 24
     assert bad == "", f"repro_torch loaded {bad}"
+    for module in ("core.dim", "kernels.gemv_int8", "kernels.gemv_int4",
+                   "kernels.dim_kernel"):
+        assert f"repro_torch.{module}" in names.split(",")
