@@ -209,6 +209,9 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_attention(torch, device, gen, timer, rows)
     for row in rows:
         print("kernel " + json.dumps(row))
+    one = torch.zeros(1, device=device)
+    print(f"launch floor: {timer.ms(lambda: one.zero_()):.5f} ms (median of a one-element "
+          f"zero_() under the same timer, {card_line()})")
     return rows
 
 
@@ -349,7 +352,8 @@ def _rows_dim(torch, device, gen, timer, rows):
 
 def _rows_dequant(torch, device, gen, timer, rows):
     """W8A16 at path A's attention projections: K = 2048 → N = 2048 (wq, wo)
-    / 1024 (wk, wv)."""
+    / 1024 (wk, wv), with float32 activations and with the model's bf16
+    ones (widened inside the kernel).  Two calls must be bitwise equal."""
     from repro_torch.kernels import dequant_gemv
 
     for n in (2048, 1024):
@@ -357,85 +361,110 @@ def _rows_dequant(torch, device, gen, timer, rows):
         w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=device)
         ws = torch.rand((1, n), generator=gen, device=device) * 0.02 + 1e-3
         w_deq = w.to(torch.float32) * ws  # the yardstick's pre-dequantized weight
-        for m in (1, 4, 256):
-            x = torch.randn((m, k), generator=gen, device=device)
-            got = dequant_gemv.dequant_matmul(x, w, ws)
-            want = dequant_gemv.dequant_matmul_plain(x, w, ws)
-            torch.cuda.synchronize()
-            err = (got - want).abs().max().item()
-            scale = want.abs().max().item()
-            check(err <= DEQUANT_RTOL * scale,
-                  f"dequant_matmul M={m} N={n}: err {err} > {DEQUANT_RTOL} * {scale}")
-            _row(rows, "dequant_matmul", dequant_gemv.KERNEL, f"M={m} N={n} K={k}", err,
-                 timer.ms(lambda: dequant_gemv.dequant_matmul(x, w, ws)),
-                 timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
-                 bound(m * k * 4 + k * n + n * 4 + m * n * 4, 2 * m * n * k / F32_OPS_PER_S),
-                 timer.ms(lambda: torch.matmul(x, w_deq)),
-                 "torch.matmul against a weight dequantized ahead of time")
+        for dtype in (torch.float32, torch.bfloat16):
+            for m in (1, 4, 256):
+                x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+                xf = x.to(torch.float32)  # the yardstick's activations, widened ahead of time
+                got = dequant_gemv.dequant_matmul(x, w, ws)
+                want = dequant_gemv.dequant_matmul_plain(x, w, ws)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                scale = want.abs().max().item()
+                tag = "" if dtype == torch.float32 else " x=bf16"
+                check(err <= DEQUANT_RTOL * scale,
+                      f"dequant_matmul M={m} N={n}{tag}: err {err} > {DEQUANT_RTOL} * {scale}")
+                check(torch.equal(got, dequant_gemv.dequant_matmul(x, w, ws)),
+                      f"dequant_matmul M={m} N={n}{tag}: two calls differ")
+                nbytes = m * k * x.element_size() + k * n + n * 4 + m * n * 4
+                _row(rows, "dequant_matmul", dequant_gemv.KERNEL, f"M={m} N={n} K={k}{tag}",
+                     err, timer.ms(lambda: dequant_gemv.dequant_matmul(x, w, ws)),
+                     timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
+                     bound(nbytes, 2 * m * n * k / F32_OPS_PER_S),
+                     timer.ms(lambda: torch.matmul(xf, w_deq)),
+                     "torch.matmul against a weight dequantized (and bf16 activations "
+                     "widened) ahead of time")
 
 
 def _rows_attention(torch, device, gen, timer, rows):
-    """Decode attention on the bit-plane cache: B=4 slots × Hkv=8 → R=32,
-    G=2, L=512, F=128 (Fw=4).  Slot 0 idle (every position masked), slot 1 a
-    wrapped ring (positions 100..611), slot 2 part-filled, slot 3 full."""
+    """Decode attention on the bit-plane cache at path A's two decode shapes:
+    slots=4 × Hkv=8 → R=32 and slots=1 → R=8, G=2, L=512, F=128 (Fw=4).
+    At R=32: slot 0 idle (every position masked), slot 1 a wrapped ring
+    (positions 100..611), slot 2 part-filled, slot 3 full, and the bias
+    materialised.  At R=8 the one slot is part-filled (300 positions: the
+    last L splits wholly masked in a live row) and the bias is the engine's
+    expanded view (stride 0 over heads and queries).  Two calls must be
+    bitwise equal."""
     import torch.nn.functional as F
 
     from repro_torch.core import bitplane
     from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
     from repro_torch.kernels import plane_attn
 
-    b, h, g, l, feat = 4, 8, 2, 512, 128
+    h, g, l, feat = 8, 2, 512, 128
     fw = feat // 32
-    kp, vp = _words(torch, gen, device, b, l, h, 4, fw), _words(torch, gen, device, b, l, h, 4, fw)
-    ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
-    vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
-    pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
-    ring = torch.arange(100, 612, device=device)
-    pos_ids[1, ring % l] = ring
-    pos_ids[2, :300] = torch.arange(300, device=device)
-    pos_ids[3] = torch.arange(l, device=device)
-    cur = torch.tensor([0, 611, 299, 511], device=device)
-    valid = (pos_ids >= 0) & (pos_ids <= cur[:, None])
-    bias = torch.where(valid, 0.0, -1e30).to(torch.float32)
-    bias = bias[:, None, None, :].expand(b, h, g, l).contiguous()
-    q = torch.randn((b, h, g, feat), generator=gen, device=device)
-    q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
-    args = (q_planes, q_scale, kp, ks, vp, vs, bias)
-    sm = 1.0 / math.sqrt(feat)
-    got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
-    want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
-    torch.cuda.synchronize()
-    check(bool(torch.isfinite(got).all()), "plane_decode_attention: non-finite output")
-    check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
-          f"plane_decode_attention: max err {(got - want).abs().max().item()}")
-    # the idle slot's rows get uniform weights: the mean of v_scale · v_int4
-    vals = bitplane.decode(vp[0].permute(1, 0, 2, 3)).to(torch.float32)  # [H, L, F]
-    idle = (vals * vs[0].T[:, :, None]).mean(dim=1)  # [H, F]
-    check(torch.allclose(got[0], idle[:, None, :].expand_as(got[0]), rtol=ATTN_TOL,
-                         atol=ATTN_TOL),
-          "plane_decode_attention: a fully masked row is not uniform")
+    for b in (4, 1):
+        kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
+                  _words(torch, gen, device, b, l, h, 4, fw))
+        ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+        vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+        pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
+        if b == 4:
+            ring = torch.arange(100, 612, device=device)
+            pos_ids[1, ring % l] = ring
+            pos_ids[2, :300] = torch.arange(300, device=device)
+            pos_ids[3] = torch.arange(l, device=device)
+            cur = torch.tensor([0, 611, 299, 511], device=device)
+        else:
+            pos_ids[0, :300] = torch.arange(300, device=device)
+            cur = torch.tensor([299], device=device)
+        valid = (pos_ids >= 0) & (pos_ids <= cur[:, None])
+        bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[:, None, None, :]
+        bias = bias.expand(b, h, g, l)
+        if b == 4:
+            bias = bias.contiguous()
+        q = torch.randn((b, h, g, feat), generator=gen, device=device)
+        q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
+        args = (q_planes, q_scale, kp, ks, vp, vs, bias)
+        sm = 1.0 / math.sqrt(feat)
+        r = b * h
+        got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
+        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"plane_decode_attention R={r}: non-finite output")
+        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+              f"plane_decode_attention R={r}: max err {(got - want).abs().max().item()}")
+        check(torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+              f"plane_decode_attention R={r}: two calls differ")
+        if b == 4:  # the idle slot's rows get uniform weights: the mean of v_scale · v_int4
+            vals = bitplane.decode(vp[0].permute(1, 0, 2, 3)).to(torch.float32)  # [H, L, F]
+            idle = (vals * vs[0].T[:, :, None]).mean(dim=1)  # [H, F]
+            check(torch.allclose(got[0], idle[:, None, :].expand_as(got[0]), rtol=ATTN_TOL,
+                                 atol=ATTN_TOL),
+                  "plane_decode_attention: a fully masked row is not uniform")
 
-    # yardstick: scaled_dot_product_attention over K/V dequantized ahead of
-    # time (rows r = (b, h): q [R, 1, G, F], K/V [R, 1, L, F], mask [R, 1, G, L])
-    def dequant(planes, scale):
-        v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
-        return v.permute(0, 2, 1, 3).reshape(b * h, 1, l, feat).contiguous()
+        # yardstick: scaled_dot_product_attention over K/V dequantized ahead of
+        # time (rows r = (b, h): q [R, 1, G, F], K/V [R, 1, L, F], mask [R, 1, G, L])
+        def dequant(planes, scale):
+            v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
+            return v.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous()
 
-    kd, vd = dequant(kp, ks), dequant(vp, vs)
-    qd = q.reshape(b * h, 1, g, feat)
-    mask = bias.reshape(b * h, 1, g, l)
-    r = b * h
-    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4 + 2 * (kp.numel() * 4 + ks.numel() * 4)
-              + bias.numel() * 4 + r * g * feat * 4)
-    ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
-    _row(rows, "plane_decode_attention", plane_attn.KERNEL, f"R={r} G={g} L={l} Fw={fw}",
-         (got - want).abs().max().item(),
-         timer.ms(lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm)),
-         timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
-         bound(nbytes, ops_s),
-         timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
-                                                         scale=sm)),
-         "F.scaled_dot_product_attention over K/V dequantized ahead of time")
+        kd, vd = dequant(kp, ks), dequant(vp, vs)
+        qd = q.reshape(r, 1, g, feat)
+        mask = bias.reshape(r, 1, g, l)
+        # each input read once: the bias counts at its stored size
+        nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4
+                  + 2 * (kp.numel() * 4 + ks.numel() * 4)
+                  + bias.untyped_storage().nbytes() + r * g * feat * 4)
+        ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
+        _row(rows, "plane_decode_attention", plane_attn.KERNEL,
+             f"R={r} G={g} L={l} Fw={fw}" + ("" if b == 4 else " bias expanded"),
+             (got - want).abs().max().item(),
+             timer.ms(lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+             timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
+             bound(nbytes, ops_s),
+             timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                             scale=sm)),
+             "F.scaled_dot_product_attention over K/V dequantized ahead of time")
 
 
 # ---------------------------------------------------------------------------

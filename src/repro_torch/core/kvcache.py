@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import bitplane, bsdp
 
 #: scale floor — matches the reference's per-slot cache scales
@@ -60,6 +61,8 @@ class CacheFormat:
 
     def init(self, batch, cache_len, lead, feat, dtype=torch.bfloat16,
              device=None) -> dict:
+        """Allocate on ``device`` (default ``"cuda"``; raises without a GPU
+        unless the caller asks for ``"cpu"``)."""
         raise NotImplementedError
 
     def _encode(self, x: torch.Tensor) -> dict:
@@ -140,7 +143,7 @@ class BF16CacheFormat(CacheFormat):
 
     def init(self, batch, cache_len, lead, feat, dtype=torch.bfloat16, device=None):
         return {"": torch.zeros((batch, cache_len, *lead, feat), dtype=dtype,
-                                device=device)}
+                                device=resolve_device(device))}
 
     def _encode(self, x):
         return {"": x}
@@ -168,6 +171,7 @@ class BitPlaneCacheFormat(CacheFormat):
 
     def init(self, batch, cache_len, lead, feat, dtype=torch.bfloat16, device=None):
         fw = -(-feat // bitplane.WORD)
+        device = resolve_device(device)
         return {
             "": torch.zeros((batch, cache_len, *lead, 4, fw), dtype=torch.int32,
                             device=device),

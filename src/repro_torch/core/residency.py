@@ -148,19 +148,19 @@ class Int8Format(ResidencyFormat):
     def apply(self, state, x):
         from repro_torch.kernels import ops
 
-        if self.act_bits is None:
-            return ops.weight_only_matmul(x.to(torch.float32), state.data, state.scale)
+        if self.act_bits is None:  # the kernel widens bf16 activations itself
+            return ops.weight_only_matmul(x, state.data, state.scale)
         xq = quant.quantize_acts(x.to(torch.float32), bits=self.act_bits)
         return ops.quant_matmul(xq, quant.QuantTensor(state.data, state.scale, bits=8, axis=0))
 
     def apply_plain(self, state, x):
         from repro_torch.kernels import dequant_gemv, gemv_int8
 
-        x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
         if self.act_bits is None:
             out = dequant_gemv.dequant_matmul_plain(x2, state.data, state.scale)
         else:
-            xq = quant.quantize_acts(x2, bits=self.act_bits)
+            xq = quant.quantize_acts(x2.to(torch.float32), bits=self.act_bits)
             out = gemv_int8.matmul_int8_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
 

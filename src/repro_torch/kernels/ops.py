@@ -123,7 +123,8 @@ def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
 
 def weight_only_matmul(x: torch.Tensor, w_i8: torch.Tensor,
                        w_scale: torch.Tensor) -> torch.Tensor:
-    """W8A16: ``x [M,K] f32 × w [K,N] int8`` (per-channel scale) → f32."""
+    """W8A16: ``x [M,K] f32 or bf16 × w [K,N] int8`` (per-channel scale) →
+    f32; the kernel widens ``x`` itself."""
     return dequant_gemv.dequant_matmul(x, w_i8, w_scale)
 
 

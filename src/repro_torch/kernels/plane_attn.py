@@ -2,18 +2,22 @@
 
 Replaces ``repro/kernels/plane_attn.py:_plane_attn_kernel``
 (``plane_decode_attention``, the ``pallas_call`` at ``:141``) with
-``csrc/plane_attn.cu``: one block per (batch × kv-head) row computes the
-integer plane-space scores with ``__popc`` over the 16 plane pairs (exact,
-identical to the reference's contraction), folds the q and k scales,
-``sm_scale`` and the additive bias after the integer math, takes the
-softmax over L in float32, and contracts the weights — with
-``(1, 2, 4, -8)·v_scale`` folded in — against the raw V bits.
+``csrc/plane_attn.cu``: the integer plane-space scores by ``__popc`` over
+the 16 plane pairs (exact, identical to the reference's contraction), the
+q and k scales, ``sm_scale`` and the additive bias folded after the
+integer math, the softmax over L in float32, and the weights — with
+``(1, 2, 4, -8)·v_scale`` folded in — contracted against the raw V bits.
+L is split over a cluster of up to 8 blocks per (batch × kv-head) row
+(flash-decoding); the splits' softmax statistics and partial outputs are
+combined in a fixed order through distributed shared memory, in the same
+launch.
 
 The K/V planes are read in the cache's stored layout ``[B, L, Hkv, 4, Fw]``
-through strides: no transposed copy of the cache is made per step.  On the
-card the kernel is bound by the bytes of the K/V planes, scales and bias.
-A row whose bias is all ``NEG_INF`` (an idle slot) gets uniform weights,
-as in the reference, because the bias is finite.
+and the bias ``[B, Hkv, G, L]`` through strides: no transposed copy of the
+cache and no copy of the caller's expanded (stride-0) bias is made per
+step.  On the card the kernel is bound by the bytes of the K/V planes,
+scales and bias.  A row whose bias is all ``NEG_INF`` (an idle slot) gets
+uniform weights, as in the reference, because the bias is finite.
 
 :func:`plane_decode_attention_plain` is the same read in plain PyTorch —
 the ``int4_bp`` cache format's plane math (integer scores by the
@@ -32,7 +36,7 @@ from repro_torch.kernels import _build
 
 KERNEL = _build.CudaKernel(
     "plane_decode_attention", "plane_attn.cu", "plane_decode_attention",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     replaces="src/repro/kernels/plane_attn.py:141",
 )
@@ -89,7 +93,8 @@ def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
     ``q_planes [B, Hkv, G, 4, Fw]`` / ``q_scale [B, Hkv, G]`` are the int4
     query planes (G folds chunk × group); K/V planes ``[B, L, Hkv, 4, Fw]``
     and scales ``[B, L, Hkv]`` are the cache as stored; ``bias
-    [B, Hkv, G, L]`` is the additive mask (0 / -1e30).
+    [B, Hkv, G, L]`` is the additive mask (0 / -1e30), read through its
+    strides (an expanded view is not copied).
     """
     b, h, g, l, fw = _check(q_planes, q_scale, k_planes, k_scale, v_planes,
                             v_scale, bias)
@@ -97,7 +102,8 @@ def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
         return plane_decode_attention_plain(
             q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias,
             sm_scale=sm_scale, signed=signed)
-    _build.require_cuda("plane_decode_attention", q_planes, k_planes, v_planes)
+    _build.require_cuda("plane_decode_attention", q_planes, q_scale, k_planes,
+                        k_scale, v_planes, v_scale, bias)
     if k_planes.stride() != v_planes.stride() or k_scale.stride() != v_scale.stride():
         raise ValueError("plane_decode_attention: K and V must share one layout")
     if k_planes.stride(-1) != 1 or k_planes.stride(-2) != fw:
@@ -105,14 +111,13 @@ def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
                          "must be contiguous")
     q = q_planes.contiguous()
     qs = q_scale.contiguous()
-    bs = bias.contiguous()
     out = torch.empty((b, h, g, fw * bitplane.WORD), dtype=torch.float32,
                       device=q.device)
     pb, pl_, ph = k_planes.stride()[:3]
     sb, sl, sh = k_scale.stride()
     KERNEL.launch(
         _build.ptr(q), _build.ptr(qs), _build.ptr(k_planes), _build.ptr(k_scale),
-        _build.ptr(v_planes), _build.ptr(v_scale), _build.ptr(bs), _build.ptr(out),
-        b, h, g, l, fw, pb, pl_, ph, sb, sl, sh, float(sm_scale), int(signed),
-        _build.stream())
+        _build.ptr(v_planes), _build.ptr(v_scale), _build.ptr(bias), _build.ptr(out),
+        b, h, g, l, fw, pb, pl_, ph, sb, sl, sh, *bias.stride(), float(sm_scale),
+        int(signed), _build.stream())
     return out

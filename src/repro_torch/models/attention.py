@@ -15,6 +15,7 @@ import math
 
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core import kvcache
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
@@ -79,7 +80,10 @@ def gqa_decode(params, x, cache, cfg, *, pos, impl=None):
 
 
 def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
-    """Allocate the GQA ring cache through ``cfg``'s cache format."""
+    """Allocate the GQA ring cache through ``cfg``'s cache format on
+    ``device`` (default ``"cuda"``; raises without a GPU unless the caller
+    asks for ``"cpu"``)."""
+    device = resolve_device(device)
     fmt = kvcache.format_for(cfg)
     cache = {}
     for prefix in ("k", "v"):

@@ -10,8 +10,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import quant
-from repro_torch.kernels import bsdp_gemm, dim_kernel, gemv_int4, gemv_int8, ops, ref
+from repro_torch.core import bitplane, kvcache, quant
+from repro_torch.kernels import (bsdp_gemm, dequant_gemv, dim_kernel, gemv_int4, gemv_int8,
+                                 ops, plane_attn, ref)
 
 from _torch_inputs import attention_inputs, t, words
 
@@ -86,3 +87,79 @@ class TestKernelsOnTheCard:
             got = bsdp_gemm.bsdp_gemm(x, w, signed=signed)
             assert torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w, signed=signed))
             assert torch.equal(got, bsdp_gemm.bsdp_gemm_plain(x, w, signed=signed))
+
+
+#: DEQUANT_RTOL and ATTN_TOL of chip_smoke.py: float32 sums in another order
+DEQUANT_RTOL = 2e-5
+ATTN_TOL = 1e-4
+
+
+def _split_rule(l):
+    """The attention kernel's L split: up to 8 blocks of ~64 slots."""
+    splits = min(8, -(-l // 64))
+    return splits, -(-l // splits)
+
+
+def _attention_case(rng, cuda, b, h, g, l, feat=128):
+    """Row 0 idle (every slot masked); row 1 live with its second L split
+    wholly masked (when L has one); row 2 half filled.  The bias is the
+    engine's expanded view: stride 0 over heads and queries."""
+    fw = -(-feat // 32)
+    kp, vp = t(words(rng, (b, l, h, 4, fw))), t(words(rng, (b, l, h, 4, fw)))
+    ks = torch.from_numpy((rng.random((b, l, h)) * 0.5 + 0.01).astype(np.float32))
+    vs = torch.from_numpy((rng.random((b, l, h)) * 0.5 + 0.01).astype(np.float32))
+    valid = np.ones((b, l), dtype=bool)
+    valid[0] = False
+    splits, chunk = _split_rule(l)
+    if splits > 1:
+        valid[1, chunk:2 * chunk] = False
+    valid[2, (l + 1) // 2:] = False
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e30).astype(np.float32)).to(cuda)
+    bias = bias[:, None, None, :].expand(b, h, g, l)
+    q = torch.from_numpy(rng.normal(size=(b, h, g, feat)).astype(np.float32))
+    q_planes, q_scale = kvcache.FusedBitPlaneCacheFormat._query_planes(q)
+    args = [x.to(cuda) for x in (q_planes, q_scale, kp, ks, vp, vs)] + [bias]
+    return args, 1.0 / np.sqrt(feat)
+
+
+@pytest.mark.gpu
+class TestRedesignedKernelsOnTheCard:
+    @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+    def test_dequant_both_routes_and_ragged_edges(self, cuda, x_dtype):
+        """Decode route (M <= 16) and prefill route (M > 16); N off the
+        64-column tile and the 16-byte load, K off the 256-row split."""
+        rng = np.random.default_rng(45)
+        for k, n in ((300, 66), (2050, 1000), (2048, 2048)):
+            w = torch.from_numpy(rng.integers(-127, 128, (k, n)).astype(np.int8)).to(cuda)
+            s = torch.rand((1, n), device=cuda) * 0.02 + 1e-3
+            for m in (1, 4, 16, 17, 37, 256):
+                x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32))
+                x = x.to(cuda, x_dtype)
+                got = dequant_gemv.dequant_matmul(x, w, s)
+                want = dequant_gemv.dequant_matmul_plain(x, w, s)
+                err = (got - want).abs().max().item()
+                assert err <= DEQUANT_RTOL * want.abs().max().item(), (m, k, n, err)
+                assert torch.equal(got, dequant_gemv.dequant_matmul(x, w, s)), (m, k, n)
+
+    def test_dequant_rejects_other_activation_types(self, cuda):
+        w = torch.zeros((64, 32), dtype=torch.int8, device=cuda)
+        with pytest.raises(TypeError):
+            dequant_gemv.dequant_matmul(torch.zeros((2, 64), dtype=torch.float16,
+                                                    device=cuda), w, torch.ones(32, device=cuda))
+
+    @pytest.mark.parametrize("g", [1, 2, 8])
+    def test_attention_splits_masks_and_strided_bias(self, cuda, g):
+        rng = np.random.default_rng(46 + g)
+        for l in (1, 63, 64, 65, 512, 700):
+            args, sm = _attention_case(rng, cuda, 3, 2, g, l)
+            assert args[-1].stride(1) == 0 and (g == 1 or args[-1].stride(2) == 0)
+            got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
+            want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
+            assert torch.isfinite(got).all(), l
+            torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+            # the idle row: uniform weights, the mean of v_scale · v_int4
+            vals = bitplane.decode(args[4][0].permute(1, 0, 2, 3)).to(torch.float32)
+            idle = (vals * args[5][0].T[:, :, None]).mean(dim=1)  # [H, F]
+            torch.testing.assert_close(got[0], idle[:, None, :].expand_as(got[0]),
+                                       rtol=ATTN_TOL, atol=ATTN_TOL)
+            assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm))

@@ -215,6 +215,35 @@ class TestDequantKernel:
             rtol=1e-5, atol=1e-5)
 
 
+    @pytest.mark.parametrize("m,k,n", [(1, 64, 48), (6, 200, 33)])
+    def test_bf16_activations_match_pallas_kernel(self, m, k, n):
+        """The model's working type goes in as it is: both packages widen
+        bf16 to float32 inside the kernel, exactly, so the tolerance is the
+        float32 case's."""
+        rng = np.random.default_rng(22 + m)
+        x = torch.from_numpy(rng.normal(size=(m, k)).astype(np.float32)).to(torch.bfloat16)
+        w = rng.integers(-127, 128, size=(k, n)).astype(np.int8)
+        s = (rng.random((1, n)) * 0.02 + 1e-3).astype(np.float32)
+        got = ops.weight_only_matmul(x, torch.from_numpy(w), torch.from_numpy(s))
+        x_np = x.to(torch.float32).numpy()
+        want = ref_ops.weight_only_matmul(
+            jnp.asarray(x_np, dtype=jnp.bfloat16),
+            QuantTensor(data=jnp.asarray(w), scale=jnp.asarray(s), bits=8, axis=0),
+            interpret=True)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+        np.testing.assert_array_equal(
+            got.numpy(), ops.weight_only_matmul(x.to(torch.float32), torch.from_numpy(w),
+                                                torch.from_numpy(s)).numpy())
+
+    @pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+    def test_other_activation_dtypes_are_rejected(self, dtype):
+        x = torch.zeros((2, 64), dtype=dtype)
+        w = torch.zeros((64, 32), dtype=torch.int8)
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            ops.weight_only_matmul(x, w, torch.ones((1, 32)))
+
+
 class TestPlaneAttentionKernel:
     def test_matches_pallas_kernel(self):
         a = attention_inputs()

@@ -26,8 +26,10 @@ from repro.serve import engine as ref_engine
 from repro.sharding import partitioning as P
 from repro_torch import convert
 from repro_torch.configs import get_smoke_config
+from repro_torch.core import kvcache
 from repro_torch.kernels import ops
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention
 from repro_torch.models import model as model_lib
 from repro_torch.serve import engine
 
@@ -210,6 +212,24 @@ class TestEntryPointsNeedTheCard:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             model_lib.materialize(_cfgs()[1])
+
+    def test_init_kv_cache_without_device_raises_when_no_gpu(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        cfg = dataclasses.replace(_cfgs()[1], cache_format=CACHE)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            attention.init_kv_cache(cfg, 2, 8)
+        cache = attention.init_kv_cache(cfg, 2, 8, device="cpu")
+        assert {t.device.type for t in cache.values()} == {"cpu"}
+
+    @pytest.mark.parametrize("fmt", ["bf16", "int4_bp", "int4_bp_fused"])
+    def test_cache_format_init_without_device_raises_when_no_gpu(self, monkeypatch, fmt):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        cache_fmt = kvcache.get_cache_format(fmt)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cache_fmt.init(2, 8, (2,), 40)
+        store = cache_fmt.init(2, 8, (2,), 40, device="cpu")
+        assert set(store) == set(cache_fmt.suffixes)
+        assert {t.device.type for t in store.values()} == {"cpu"}
 
     def test_plain_impl_matches_kernel_path_on_cpu(self):
         """``impl="plain"`` (the reference's ``impl="jnp"`` semantics) and the
