@@ -3,8 +3,12 @@
 
 Builds the hand-written kernels from ``src/repro_torch/csrc`` and holds each
 one against its plain PyTorch version at the shapes its path gives it (phase
-2).  Then it serves full-width, full-depth qwen3-1.7b (random weights from a
-seed) through ``ServeEngine`` and ``fcfs`` on three paths (phase 3):
+2), timing each call twice: single calls (``Timer``) and the same calls
+enqueued ahead of the device (``queued_ms``, no host time in the window).
+Then it prints, per path, the sum over one decode step's launches of each
+kernel's time above its bound.  Then it serves full-width, full-depth
+qwen3-1.7b (random weights from a seed) through ``ServeEngine`` and
+``fcfs`` on three paths (phase 3):
 
   A  ``ffn=bsdp_fused,mixer=w8a16`` with the ``int4_bp_fused`` cache
   B  ``w8a8`` with the config's ``bf16`` cache (the reference launcher's default)
@@ -117,6 +121,36 @@ class Timer:
         return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+#: device clocks the queue is held for while a queued timing is enqueued
+#: (about 25 ms on an H100, many times the host's enqueue of 25 calls)
+QUEUE_HOLD_CYCLES = 50_000_000
+
+
+def queued_ms(timer: Timer, fn, reps: int = 25) -> float | None:
+    """``timer.ms`` with the host out of the timed windows: the device is held
+    by a sleep kernel while every (flush, start, call, end) is enqueued, so
+    each window holds the call's device time alone.  None if the sleep ended
+    before the host had enqueued every call."""
+    torch = timer.torch
+    fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    held = torch.cuda.Event()
+    torch.cuda._sleep(QUEUE_HOLD_CYCLES)
+    held.record()
+    for start, end in events:
+        timer.flush.zero_()
+        start.record()
+        fn()
+        end.record()
+    ahead = not held.query()
+    torch.cuda.synchronize()
+    if not ahead:
+        return None
+    return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
 def bound(bytes_moved: float, ops_time_s: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S
     if t_bytes >= ops_time_s:
@@ -147,7 +181,7 @@ def phase_toolchain(torch):
           f"(nvcc in parallel: {_build.build_seconds})")
     for stem, log in sorted(_build.build_log.items()):
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
 
 
@@ -155,18 +189,39 @@ def phase_toolchain(torch):
 # Phase 2: each kernel against its plain version at its path's shapes
 # ---------------------------------------------------------------------------
 
-#: qwen3-1.7b projections: name → (K, N)
+#: qwen3-1.7b projections: name → (K, N).  wo has wq's (K, N) and wv has
+#: wk's, so the wq and wk rows stand for them.
 PROJ = {"wq": (2048, 2048), "wk": (2048, 1024), "w_in": (2048, 12288),
         "w_out": (6144, 2048)}
+#: each path's kernel launches in one decode step at slots=4 on 28 layers, by
+#: the phase-2 row of the same shape: (kernel, row shape, launches per step)
+STEP_ROWS = {
+    "A": [("bsdp_gemm_fused", "w_in M=4 N=12288 K=2048", 28),
+          ("bsdp_gemm_fused", "w_out M=4 N=2048 K=6144", 28),
+          ("dequant_matmul", "M=4 N=2048 K=2048 x=bf16", 56),  # wq, wo
+          ("dequant_matmul", "M=4 N=1024 K=2048 x=bf16", 56),  # wk, wv
+          ("plane_decode_attention", "R=32 G=2 L=512 Fw=4", 28)],
+    "B": [("matmul_int8", "wq M=4 N=2048 K=2048", 56),  # wq, wo
+          ("matmul_int8", "wk M=4 N=1024 K=2048", 56),  # wk, wv
+          ("matmul_int8", "w_in M=4 N=12288 K=2048", 28),
+          ("matmul_int8", "w_out M=4 N=2048 K=6144", 28)],
+    "C": [("bsdp_gemm", "w_in M=4 N=12288 K=2048", 28),
+          ("bsdp_gemm", "w_out M=4 N=2048 K=6144", 28),
+          ("matmul_int4_packed", "wq M=4 N=2048 K=2048", 56),  # wq, wo
+          ("matmul_int4_packed", "wk M=4 N=1024 K=2048", 56)],  # wk, wv
+}
 
 
-def _row(rows, name, kernel, shape, err, ms, plain_ms, bound_ms_by, library_ms,
+def _row(rows, name, kernel, shape, err, timer, call, plain_ms, bound_ms_by, library_ms,
          library_note=None):
+    """One kernel row: ``call`` timed by ``timer`` (ms) and by
+    :func:`queued_ms` (the device time alone)."""
     b_ms, b_by = bound_ms_by
     rows.append(dict(
         name=name, shape=shape, route="cuda", source=f"src/repro_torch/csrc/{kernel.source}",
-        replaces=kernel.replaces, max_abs_err=float(err), ms=ms, plain_ms=plain_ms,
-        bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, library_note=library_note))
+        replaces=kernel.replaces, max_abs_err=float(err), ms=timer.ms(call),
+        queued_ms=queued_ms(timer, call), plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, library_note=library_note))
 
 
 def _int_err(got, want) -> int:
@@ -212,7 +267,32 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     one = torch.zeros(1, device=device)
     print(f"launch floor: {timer.ms(lambda: one.zero_()):.5f} ms (median of a one-element "
           f"zero_() under the same timer, {card_line()})")
+    step_gaps(rows)
     return rows
+
+
+def step_gaps(rows) -> None:
+    """Per path, the sum over one decode step's launches of (ms − bound ms),
+    each launch at its own projection's measured row: the order in which
+    the kernels lose the most device time to their bounds.  Once with the
+    ``Timer``'s ms and once with the queued ms."""
+    for path, entries in STEP_ROWS.items():
+        per_step = {}
+        for name, _, n in entries:
+            per_step[name] = per_step.get(name, 0) + n
+        check(per_step == PATHS[path][3], f"STEP_ROWS[{path}] != the path's launches per step")
+        for key in ("ms", "queued_ms"):
+            gaps: dict = {}
+            for name, shape, n in entries:
+                row = next(r for r in rows if r["name"] == name and r["shape"] == shape)
+                if row[key] is None:  # the host fell behind the queue: no reading
+                    gaps[name] = float("nan")
+                else:
+                    gaps[name] = gaps.get(name, 0.0) + n * (row[key] - row["bound_ms"])
+            ranked = ", ".join(f"{k} {v:.3f} ms"
+                               for k, v in sorted(gaps.items(), key=lambda kv: -kv[1]))
+            print(f"path {path} decode step (slots=4, 28 layers): launches x ({key} - "
+                  f"bound ms) summed {sum(gaps.values()):.3f} ms: {ranked}")
 
 
 def _words(torch, gen, device, *shape):
@@ -259,7 +339,7 @@ def _rows_bsdp(torch, device, gen, timer, rows, min_m):
                 nbytes = (m + n) * 4 * kw * 4 + m * n * 4
                 # the int4 dot product's multiply-adds at the int8 tensor rate
                 _row(rows, name, kernel, f"{layer} M={m} N={n} K={k}", err,
-                     timer.ms(lambda: fn(x, w)), timer.ms(lambda: plain(x, w)),
+                     timer, lambda: fn(x, w), timer.ms(lambda: plain(x, w)),
                      bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
                      note or "torch._int_mm on the int4 values decoded to int8 ahead of time")
 
@@ -284,7 +364,7 @@ def _rows_int8(torch, device, gen, timer, rows, min_m):
             check(torch.equal(acc, lib()[:m]), f"matmul_int8 {layer} M={m}: != torch._int_mm")
             nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
             _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k}", err,
-                 timer.ms(lambda: gemv_int8.matmul_int8(x, w, xs, ws)),
+                 timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws),
                  timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws)),
                  bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
                  note or "torch._int_mm (int32 out, no scales)")
@@ -293,7 +373,7 @@ def _rows_int8(torch, device, gen, timer, rows, min_m):
                 check(err == 0, f"matmul_int8 out_int32: not bit-exact (max err {err})")
                 _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k} "
                      "out_int32", err,
-                     timer.ms(lambda: gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True)),
+                     timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True),
                      timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws,
                                                                   out_int32=True)),
                      bound(m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS_PER_S),
@@ -320,7 +400,7 @@ def _rows_int4(torch, device, gen, timer, rows, min_m):
             lib, note = _int_mm(torch, x, w4, min_m)
             nbytes = m * k + k * n // 2 + 4 * (m + n) + 4 * m * n
             _row(rows, "matmul_int4_packed", gemv_int4.KERNEL, f"{layer} M={m} N={n} K={k}",
-                 err, timer.ms(lambda: gemv_int4.matmul_int4_packed(x, wp, xs, ws)),
+                 err, timer, lambda: gemv_int4.matmul_int4_packed(x, wp, xs, ws),
                  timer.ms(lambda: gemv_int4.matmul_int4_packed_plain(x, wp, xs, ws)),
                  bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
                  note or "torch._int_mm against the weight unpacked ahead of time")
@@ -344,7 +424,7 @@ def _rows_dim(torch, device, gen, timer, rows):
             check(err == 0, f"matmul_w16a8 M={m} N={n}: not bit-exact (max err {err})")
             nbytes = m * k + 2 * k * n + 4 * m * n
             _row(rows, "matmul_w16a8", dim_kernel.KERNEL, f"M={m} N={n} K={k}", err,
-                 timer.ms(lambda: dim_kernel.matmul_w16a8(x, w)),
+                 timer, lambda: dim_kernel.matmul_w16a8(x, w),
                  timer.ms(lambda: dim_kernel.matmul_w16a8_plain(x, w)),
                  bound(nbytes, 4 * m * n * k / INT8_OPS_PER_S), None,
                  "null: no PyTorch call computes int8 x int16 -> int32 exactly on CUDA")
@@ -377,7 +457,7 @@ def _rows_dequant(torch, device, gen, timer, rows):
                       f"dequant_matmul M={m} N={n}{tag}: two calls differ")
                 nbytes = m * k * x.element_size() + k * n + n * 4 + m * n * 4
                 _row(rows, "dequant_matmul", dequant_gemv.KERNEL, f"M={m} N={n} K={k}{tag}",
-                     err, timer.ms(lambda: dequant_gemv.dequant_matmul(x, w, ws)),
+                     err, timer, lambda: dequant_gemv.dequant_matmul(x, w, ws),
                      timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
                      bound(nbytes, 2 * m * n * k / F32_OPS_PER_S),
                      timer.ms(lambda: torch.matmul(xf, w_deq)),
@@ -459,7 +539,7 @@ def _rows_attention(torch, device, gen, timer, rows):
         _row(rows, "plane_decode_attention", plane_attn.KERNEL,
              f"R={r} G={g} L={l} Fw={fw}" + ("" if b == 4 else " bias expanded"),
              (got - want).abs().max().item(),
-             timer.ms(lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+             timer, lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm),
              timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
              bound(nbytes, ops_s),
              timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,

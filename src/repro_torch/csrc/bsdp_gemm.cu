@@ -1,122 +1,204 @@
-// bsdp_gemm: the unrolled bit-plane GEMM — 16 per-plane-pair 0/1 int8
-// tensor-core contractions per K tile, each weighted into an int32 sum.
+// bsdp_gemm: the unrolled bit-plane GEMM, one int32 sum per plane pair.
 //
 // Replaces: repro/kernels/bsdp_gemm.py:_bsdp_gemm_kernel (bsdp_gemm, the
-// pallas_call at :242).  For 0/1 bit vectors popcount(a AND b) == a · b, so
-// every (j, k) plane-pair pass of Algorithm 2 over a batch of rows is a 0/1
-// int8 matmul:
+// pallas_call at :242).  Algorithm 2 over a batch of rows:
 //
-//   out[m, n] = sum_{j,k} s_jk · 2^(j+k) · (xbits_j · wbits_k^T)[m, n]
+//   out[m, n] = sum_{j,k} s_jk · 2^(j+k) · popcount(x_j[m] AND w_k[n])
 //
 // x [M, 4, Kw] and wt [N, 4, Kw] are 32-bit plane words, out [M, N] int32.
-// This is the "unfused rung" that bsdp_gemm_fused is measured against: the
-// same tile (16 x 32 outputs, 128 elements of K per step) and the same
-// unpack, but per K tile each of the 16 plane pairs gets its own wmma
-// contraction into a fresh int32 fragment, and that fragment is weighted by
-// s_jk·2^(j+k) into the accumulator (accumulator fragments of one shape share
-// a layout, so the elementwise update is legal).  Bit-identical to the fused
-// form: both are exact integer sums.
+// This is the "unfused rung" that bsdp_gemm_fused is measured against: each
+// of the 16 plane pairs is its own contraction, weighted in int32 after it.
+// Every sum is an exact integer sum, so the kernel is bit-identical to the
+// fused form and to the plain version, in any order of summation.
 //
-// Bound on the card: at decode (M = slots) the weight planes, N·4·Kw·4 B; at
-// prefill the 16·M·N·K 0/1 int8 operations.  Design: the K loop runs inside
-// the block; the four planes of each tile are unpacked into separate 0/1
-// int8 bit tiles in shared memory, stored as 16-byte k-slices so every wmma
-// tile pointer is 256-bit aligned.  Warp w owns column tile w & 1 and
-// activation plane j = w >> 1, so it runs that plane's four pairs (j, 0..3)
-// and reuses each loaded activation fragment four times; the four planes'
-// sums are added in the epilogue.
-
-#include <mma.h>
+// One kernel for every M.  At decode (M = slots) it is bound by the weight
+// planes' bytes, N·4·Kw·4 (12.6 MB at w_in, 6.3 MB at w_out: 0.0038 /
+// 0.0019 ms at 3.35 TB/s), so the design streams the plane words into the
+// tensor cores as they lie.  The binary mma.sync m16n8k256 .b1 .and.popc is
+// one AND-popcount contraction of 256 K elements: its B fragment is a plane
+// word of one column per register, so weight words go from a 16-byte load
+// straight into the instruction (no 0/1 bytes, no shared memory).  The 16
+// rows of A are 4 tokens × 4 activation planes (row j·4 + token), so at
+// M = 4 no row is padding and each output element of the m16n8 fragment is
+// the (j, k) pair sum of one token and column; one chain per weight plane k
+// gives all 16 pairs, and s_jk·2^(j+k) is applied once in the epilogue
+// (int32), where one shuffle adds the planes j and j + 2 held by lanes 16
+// apart.  The sum over K does not depend on which K element a bit stands
+// for, as long as x and w agree, so lane t of a warp loads words 4t..4t+3
+// of each 16-word unit (two instructions: words 4t, 4t+1 and 4t+2, 4t+3).
+// A warp owns 8 columns; it issues all the weight loads of its K range (up
+// to UMAX units × 4 planes × 16 bytes a lane) before the first instruction,
+// and reads its activation words through the L1 (every warp of a block
+// reads the same ones).  K is split over the 8 warps of a block when a
+// warp's range would not fit its registers or the grid would not fill one
+// wave of the card (the SM count is read at run time): at w_in M = 4, 192
+// blocks of 8 column groups, each warp 4 units (256 bytes a lane in
+// flight); at w_out, 256 blocks of 8 K splits, each warp up to 2 units.
+// The splits meet in shared memory in split order.  One launch, no atomics.
+//
+// Above M = 4 a block holds 16 tokens (4 row tiles, each reusing the
+// weight fragments, 1 unit of weight loads in flight so that nothing
+// spills under the 2-blocks-per-SM register cap), and the grid's second
+// axis walks the tokens 16 at a time: prefill (M = a prompt's length) is
+// the same contraction, its weight words re-read from the L2 by each
+// 16-token block.  Row tiles past M are skipped (block-uniform).
 
 #include "common.cuh"
-
-using namespace nvcuda;
+#include "split_k.cuh"
 
 namespace {
 
-constexpr int kBM = 16;          // output rows per block
-constexpr int kBN = 32;          // output columns per block
-constexpr int kBKW = 4;          // plane words per K step (128 elements)
-constexpr int kKSub = kBKW * 2;  // 16-element k slices per K step
-constexpr int kThreads = 256;    // 8 warps: 2 column tiles x 4 activation planes
-constexpr int kABytes = 4 * kKSub * kBM * 16;  // a_bits [plane][kslice][row][16]
-constexpr int kBBytes = 4 * kKSub * kBN * 16;  // b_bits [plane][kslice][col][16]
-constexpr int kSmem = kABytes + kBBytes;       // the [4][kBM][kBN] int32 table aliases it
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnitWords = 16;  // plane words per unit: 512 K elements, two mma steps
+constexpr int kMaxSplits = kWarps;
 
-static_assert(4 * kBM * kBN * 4 <= kSmem, "the plane table fits under the bit tiles");
-static_assert(kBM * 4 * kBKW == kThreads, "one activation word per thread");
+// d += popcount-and contraction of A (16 x 256 bits) with B (256 x 8 bits).
+__device__ __forceinline__ void mma_and_popc(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
 
-__global__ void __launch_bounds__(kThreads)
+// Words row[w .. w+3], zero past kw.  VEC: the row is 16-byte aligned and kw
+// a multiple of 4, so one load covers them.
+template <bool VEC>
+__device__ __forceinline__ uint4 load_words(const uint32_t* __restrict__ row, int w, int kw) {
+  if (VEC)
+    return w < kw ? __ldg(reinterpret_cast<const uint4*>(row + w)) : make_uint4(0u, 0u, 0u, 0u);
+  uint32_t v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = w + e < kw ? __ldg(row + w + e) : 0u;
+  return make_uint4(v[0], v[1], v[2], v[3]);
+}
+
+// RT row tiles of 4 tokens per block, blockIdx.y the block's RT·4 tokens;
+// UMAX units of weight loads in flight per lane.  Warp w owns column group
+// w % col_groups and K split w / col_groups, whose units are
+// [split · units_per_warp, +units_per_warp).
+template <int RT, int UMAX, bool VEC>
+__global__ void __launch_bounds__(kThreads, 2)
 bsdp_gemm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt,
-                 int32_t* __restrict__ out, int m_rows, int n_cols, int kw, int is_signed) {
-  __shared__ __align__(256) unsigned char smem[kSmem];
-  int8_t* a_bits = reinterpret_cast<int8_t*>(smem);
-  int8_t* b_bits = reinterpret_cast<int8_t*>(smem + kABytes);
-  int* table = reinterpret_cast<int*>(smem);  // after the K loop
+                 int32_t* __restrict__ out, int m_rows, int n_cols, int kw, int is_signed,
+                 int col_groups, int units_per_warp) {
+  __shared__ int part[kWarps][RT * 4][8];  // each warp's sums: token x column
+  const int m0 = blockIdx.y * RT * 4;
+  x += static_cast<size_t>(m0) * 4 * kw;
+  out += static_cast<size_t>(m0) * n_cols;
+  m_rows = min(m_rows - m0, RT * 4);  // this block's tokens
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;  // fragment row / column group, thread in group
+  const int cgrp = warp % col_groups, split = warp / col_groups;
+  const int n_base = (blockIdx.x * col_groups + cgrp) * 8;
+  const int n = n_base + g;  // the B column this lane loads
+  const int units = (kw + kUnitWords - 1) / kUnitWords;
+  const int u_begin = split * units_per_warp;
+  const int u_end = min(units, u_begin + units_per_warp);
+  const uint32_t* wrow = wt + static_cast<size_t>(min(n, n_cols - 1)) * 4 * kw;
 
-  const int m0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int col_tile = warp & 1;
-  const int j = warp >> 1;  // this warp's activation plane
+  int acc[RT][4][4];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[rt][k][e] = 0;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, int> acc;
-  wmma::fill_fragment(acc, 0);
-
-  for (int kw0 = 0; kw0 < kw; kw0 += kBKW) {
-    {  // activation planes: kBM rows x 4 planes x kBKW words, one per thread
-      const int t = threadIdx.x;
-      const int r = t / (4 * kBKW), p = (t / kBKW) % 4, wi = t % kBKW;
-      const int gm = m0 + r, gk = kw0 + wi;
-      const uint32_t word =
-          (gm < m_rows && gk < kw) ? x[(static_cast<size_t>(gm) * 4 + p) * kw + gk] : 0u;
-      expand_word(word, a_bits + ((p * kKSub + 2 * wi) * kBM + r) * 16,
-                  a_bits + ((p * kKSub + 2 * wi + 1) * kBM + r) * 16);
-    }
-    for (int t = threadIdx.x; t < kBN * 4 * kBKW; t += kThreads) {  // weight planes
-      const int c = t / (4 * kBKW), p = (t / kBKW) % 4, wi = t % kBKW;
-      const int gn = n0 + c, gk = kw0 + wi;
-      const uint32_t word =
-          (gn < n_cols && gk < kw) ? wt[(static_cast<size_t>(gn) * 4 + p) * kw + gk] : 0u;
-      expand_word(word, b_bits + ((p * kKSub + 2 * wi) * kBN + c) * 16,
-                  b_bits + ((p * kKSub + 2 * wi + 1) * kBN + c) * 16);
-    }
-    __syncthreads();
-    wmma::fragment<wmma::accumulator, 16, 16, 16, int> pair[4];
+  for (int u0 = u_begin; u0 < u_end; u0 += UMAX) {
+    // every weight load of this pass in flight before any is used
+    uint4 wr[UMAX][4];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) wmma::fill_fragment(pair[k], 0);
+    for (int u = 0; u < UMAX; ++u)
 #pragma unroll
-    for (int ks = 0; ks < kKSub; ++ks) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major> a;
-      wmma::load_matrix_sync(a, a_bits + ((j * kKSub + ks) * kBM) * 16, 16);
+      for (int k = 0; k < 4; ++k)
+        wr[u][k] = (n < n_cols && u0 + u < u_end)
+                       ? load_words<VEC>(wrow + k * kw, (u0 + u) * kUnitWords + 4 * t, kw)
+                       : make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major> b;
-        wmma::load_matrix_sync(b, b_bits + ((k * kKSub + ks) * kBN + col_tile * 16) * 16, 16);
-        wmma::mma_sync(pair[k], a, b, pair[k]);
+    for (int u = 0; u < UMAX; ++u) {
+      if (u0 + u < u_end) {
+        const int w = (u0 + u) * kUnitWords + 4 * t;
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          if (rt * 4 >= m_rows) break;  // block-uniform: no token in this tile
+          // A rows g (plane g >> 2) and g + 8 (plane (g >> 2) + 2), token rt·4 + (g & 3)
+          const int tok = rt * 4 + (g & 3);
+          uint4 xa = make_uint4(0u, 0u, 0u, 0u), xb = xa;
+          if (tok < m_rows) {
+            const uint32_t* xrow = x + (static_cast<size_t>(tok) * 4 + (g >> 2)) * kw;
+            xa = load_words<VEC>(xrow, w, kw);
+            xb = load_words<VEC>(xrow + 2 * kw, w, kw);
+          }
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            mma_and_popc(acc[rt][k], xa.x, xb.x, xa.y, xb.y, wr[u][k].x, wr[u][k].y);
+            mma_and_popc(acc[rt][k], xa.z, xb.z, xa.w, xb.w, wr[u][k].z, wr[u][k].w);
+          }
+        }
       }
     }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int wjk = plane_pair_weight(j, k, is_signed);
-#pragma unroll
-      for (int e = 0; e < acc.num_elements; ++e) acc.x[e] += wjk * pair[k].x[e];
-    }
-    __syncthreads();
   }
 
-  wmma::store_matrix_sync(table + (j * kBM) * kBN + col_tile * 16, acc, kBN,
-                          wmma::mem_row_major);
-  __syncthreads();
-  for (int o = threadIdx.x; o < kBM * kBN; o += kThreads) {
-    const int r = o / kBN, c = o % kBN;
-    const int gm = m0 + r, gn = n0 + c;
-    if (gm >= m_rows || gn >= n_cols) continue;
-    int s = 0;
+  // D elements 0, 1: row g, columns 2t, 2t+1; elements 2, 3: row g + 8.
+  const int j = g >> 2;
 #pragma unroll
-    for (int p = 0; p < 4; ++p) s += table[(p * kBM + r) * kBN + c];
-    out[static_cast<size_t>(gm) * n_cols + gn] = s;
+  for (int rt = 0; rt < RT; ++rt) {
+    int s0 = 0, s1 = 0;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int lo = plane_pair_weight(j, k, is_signed);
+      const int hi = plane_pair_weight(j + 2, k, is_signed);
+      s0 += lo * acc[rt][k][0] + hi * acc[rt][k][2];
+      s1 += lo * acc[rt][k][1] + hi * acc[rt][k][3];
+    }
+    s0 += __shfl_xor_sync(0xffffffffu, s0, 16);  // planes 0, 2 + planes 1, 3
+    s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
+    if (lane < 16) {  // g = token within the tile
+      part[warp][rt * 4 + g][2 * t] = s0;
+      part[warp][rt * 4 + g][2 * t + 1] = s1;
+    }
   }
+  __syncthreads();
+  const int splits = kWarps / col_groups;
+  for (int o = threadIdx.x; o < col_groups * RT * 4 * 8; o += kThreads) {
+    const int c = o % 8, tok = (o / 8) % (RT * 4), cg = o / (8 * RT * 4);
+    const int gn = (blockIdx.x * col_groups + cg) * 8 + c;
+    if (tok >= m_rows || gn >= n_cols) continue;
+    int s = 0;
+    for (int q = 0; q < splits; ++q) s += part[q * col_groups + cg][tok][c];
+    out[static_cast<size_t>(tok) * n_cols + gn] = s;
+  }
+}
+
+// K splits: the fewest (a power of 2, at most one per warp and one per unit)
+// for which a warp's units fit UMAX and the grid fills one wave of the card.
+template <int RT, int UMAX>
+int launch(const uint32_t* x, const uint32_t* wt, int32_t* out, int m, int n, int kw,
+           int is_signed, cudaStream_t stream) {
+  int sms = 0;
+  const cudaError_t err = split_k::sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (m + 4 * RT - 1) / (4 * RT);
+  if (row_blocks > 65535) return cudaErrorInvalidValue;
+  const int units = (kw + kUnitWords - 1) / kUnitWords;
+  auto blocks = [n](int splits) {
+    const int cols = 8 * (kWarps / splits);
+    return (n + cols - 1) / cols;
+  };
+  int splits = 1;
+  while (splits < kMaxSplits && splits < units &&
+         ((units + splits - 1) / splits > UMAX ||
+          static_cast<long long>(blocks(splits)) * row_blocks < sms))
+    splits *= 2;
+  const int per_warp = (units + splits - 1) / splits;
+  const bool vec = kw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(wt) % 16 == 0;
+  auto kernel = vec ? bsdp_gemm_kernel<RT, UMAX, true> : bsdp_gemm_kernel<RT, UMAX, false>;
+  kernel<<<dim3(blocks(splits), row_blocks), kThreads, 0, stream>>>(
+      x, wt, out, m, n, kw, is_signed, kWarps / splits, per_warp);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -124,10 +206,10 @@ bsdp_gemm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt
 extern "C" int bsdp_gemm(const void* x, const void* wt, void* out, int m, int n, int kw,
                          int is_signed, void* stream) {
   if (m <= 0 || n <= 0 || kw <= 0) return cudaErrorInvalidValue;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
-  bsdp_gemm_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(wt),
-      static_cast<int32_t*>(out), m, n, kw, is_signed);
-  return static_cast<int>(cudaGetLastError());
+  const auto st = static_cast<cudaStream_t>(stream);
+  const auto xp = static_cast<const uint32_t*>(x);
+  const auto wp = static_cast<const uint32_t*>(wt);
+  const auto op = static_cast<int32_t*>(out);
+  if (m <= 4) return launch<1, 4>(xp, wp, op, m, n, kw, is_signed, st);
+  return launch<4, 1>(xp, wp, op, m, n, kw, is_signed, st);
 }

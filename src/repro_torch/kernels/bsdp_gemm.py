@@ -1,4 +1,4 @@
-"""Bit-plane GEMMs on the int8 tensor cores (prefill and multi-slot decode).
+"""Bit-plane GEMMs on the tensor cores (prefill and multi-slot decode).
 
 Two kernels, as in the reference module.
 
@@ -14,14 +14,17 @@ blocks.  ``bsdp_fused`` routes M > 1 here.
 
 ``bsdp_gemm`` replaces ``repro/kernels/bsdp_gemm.py:_bsdp_gemm_kernel``
 (``bsdp_gemm``, the ``pallas_call`` at ``:242``) with ``csrc/bsdp_gemm.cu``:
-the unrolled form, the rung ``bsdp_fused`` is measured against.  Same tile
-and unpack, but each of the 16 plane pairs gets its own 0/1 contraction
-per K tile, weighted by ``s_jk·2^(j+k)`` into the int32 accumulator.
-``bsdp`` routes M > 1 here.
+the unrolled form, the rung ``bsdp_fused`` is measured against, where each
+of the 16 plane pairs is its own contraction, weighted by ``s_jk·2^(j+k)``
+into int32.  The plane words go packed into the binary tensor-core
+instruction (``mma.sync`` m16n8k256 ``.b1 .and.popc``, one AND-popcount over
+256 K elements), K split over a block's warps, 16 tokens a block above
+M = 4.  ``bsdp`` routes M > 1 here.
 
 On the card both are bound by the weight planes' bytes at decode (M =
-slots) and by the 16·M·N·K int8 tensor-core operations at prefill.  Both
-are exact integer sums, so they agree with each other to the bit.
+slots); at prefill the fused kernel is bound by its 16·M·N·K int8
+tensor-core operations.  Both are exact integer sums, so they agree with
+each other to the bit.
 
 :func:`bsdp_gemm_fused_plain` is the fused contraction in plain PyTorch
 (:func:`repro_torch.core.bsdp.bsdp_matmul_planes`); :func:`bsdp_gemm_plain`

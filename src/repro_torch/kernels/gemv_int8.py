@@ -2,15 +2,16 @@
 
 Replaces ``repro/kernels/gemv_int8.py:_matmul_int8_kernel`` and
 ``_matmul_int8_kernel_i32`` (``matmul_int8``, the ``pallas_call`` at
-``:81``) with ``csrc/matmul_int8.cu``: both operands stay int8 all the way
-into the tensor cores (the §III-B native-instruction path), the int32
-accumulator lives in wmma fragments across the K loop, and the epilogue
-applies ``(float(acc) · x_scale[m]) · w_scale[n]`` in the reference's order
-— or, with ``out_int32``, writes the raw int32 sums.  ``w8a8`` routes every
-projection here.
+``:81``) with ``csrc/matmul_int8.cu``: both operands stay int8 (the §III-B
+native-instruction path) and the sums exact int32 — at M <= 16 (decode) by
+``__dp4a`` over K split across a thread-block cluster, above by the int8
+tensor cores — and the epilogue applies ``(float(acc) · x_scale[m]) ·
+w_scale[n]`` once on the whole sum in the reference's order, or, with
+``out_int32``, writes the raw int32 sums.  ``w8a8`` routes every projection
+here.
 
 On the card: bound by the int8 weight's bytes (K·N) at decode and by the
-2·M·N·K int8 operations at prefill (see the source's header for the tiles).
+2·M·N·K int8 operations at prefill (see the source's header for the design).
 
 :func:`matmul_int8_plain` is the same function in plain PyTorch: the exact
 integer sum (:func:`repro_torch.kernels.ref.dot_i32`), then the same float32

@@ -163,3 +163,47 @@ class TestRedesignedKernelsOnTheCard:
             torch.testing.assert_close(got[0], idle[:, None, :].expand_as(got[0]),
                                        rtol=ATTN_TOL, atol=ATTN_TOL)
             assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm))
+
+    @pytest.mark.parametrize("signed", [True, False])
+    @pytest.mark.parametrize("m", [2, 4, 5, 16, 17, 256])
+    def test_bsdp_gemm_row_tiles_and_ragged_edges(self, cuda, m, signed):
+        """One 4-token tile (M <= 4) and 16-token blocks on the grid's second
+        axis, the last one partial (M = 5, 17); N off the 8-column warp tile,
+        Kw off the 4-word load and the 16-word unit."""
+        rng = np.random.default_rng(47 + m)
+        for n in (8, 66, 1000, 2048):
+            for kw in (1, 3, 64, 65, 192):
+                x = t(words(rng, (m, 4, kw))).to(cuda)
+                w = t(words(rng, (n, 4, kw))).to(cuda)
+                got = bsdp_gemm.bsdp_gemm(x, w, signed=signed)
+                assert torch.equal(got, bsdp_gemm.bsdp_gemm_plain(x, w, signed=signed)), (n, kw)
+                assert torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w, signed=signed)), (n, kw)
+                assert torch.equal(got, bsdp_gemm.bsdp_gemm(x, w, signed=signed)), (n, kw)
+
+    @pytest.mark.parametrize("m", [1, 4, 16, 17, 256])
+    def test_matmul_int8_both_routes_extremes_and_unaligned_x(self, cuda, m):
+        """Decode route (M <= 16: cluster split-K, __dp4a) and prefill route;
+        N off the 16-byte load, K off the 4-row quad; random operands, all
+        -128, and an activation starting 1 byte past a 16-byte boundary."""
+        rng = np.random.default_rng(48 + m)
+        for n in (33, 1000, 2048):
+            for k in (200, 2050, 6144):
+                w = torch.from_numpy(rng.integers(-128, 128, (k, n)).astype(np.int8)).to(cuda)
+                x = torch.from_numpy(rng.integers(-128, 128, (m, k)).astype(np.int8)).to(cuda)
+                buf = torch.empty(m * k + 16, dtype=torch.int8, device=cuda)
+                x_off = buf[1:1 + m * k].view(m, k)
+                x_off.copy_(x)
+                assert x_off.data_ptr() % 16 == 1
+                xs = torch.rand((m, 1), device=cuda) * 0.05 + 1e-3
+                ws = torch.rand((1, n), device=cuda) * 0.05 + 1e-3
+                cases = ((x, w), (torch.full_like(x, -128), torch.full_like(w, -128)),
+                         (x_off, w))
+                for xi, wi in cases:
+                    for out_int32 in (False, True):
+                        got = gemv_int8.matmul_int8(xi, wi, xs, ws, out_int32=out_int32)
+                        want = gemv_int8.matmul_int8_plain(xi, wi, xs, ws, out_int32=out_int32)
+                        assert torch.equal(got, want), (n, k, out_int32)
+                        assert torch.equal(got, gemv_int8.matmul_int8(xi, wi, xs, ws,
+                                                                      out_int32=out_int32))
+                    assert torch.equal(gemv_int8.matmul_int8(xi, wi, xs, ws, out_int32=True),
+                                       ref.matmul_int8_ref(xi, wi)), (n, k)

@@ -28,7 +28,7 @@ from _torch_inputs import attention_inputs, t, words
 
 class TestBsdpKernels:
     @pytest.mark.parametrize("kernel", ["gemv", "gemm_fused", "gemm"])
-    @pytest.mark.parametrize("m,n,kw", [(1, 40, 3), (5, 17, 2)])
+    @pytest.mark.parametrize("m,n,kw", [(1, 40, 3), (5, 17, 2), (4, 24, 192)])
     def test_matches_pallas_kernel_bit_exact(self, kernel, m, n, kw):
         rng = np.random.default_rng(10 + m)
         x, w = words(rng, (m, 4, kw)), words(rng, (n, 4, kw))
@@ -117,7 +117,7 @@ def _scales(rng, m, n):
 
 class TestInt8Kernel:
     @pytest.mark.parametrize("out_int32", [False, True])
-    @pytest.mark.parametrize("m,k,n", [(1, 200, 33), (6, 130, 150)])
+    @pytest.mark.parametrize("m,k,n", [(1, 200, 33), (6, 130, 150), (4, 6144, 40)])
     def test_quant_matmul_matches_pallas_kernel_bit_exact(self, m, k, n, out_int32):
         rng = np.random.default_rng(50 + m)
         x, w = _int8(rng, (m, k)), _int8(rng, (k, n))
