@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -180,9 +181,13 @@ def phase_toolchain(torch):
     print(f"kernel build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc in parallel: {_build.build_seconds})")
     for stem, log in sorted(_build.build_log.items()):
+        spilled = 0
         for line in log.splitlines():
             if "entry function" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
+            spilled += sum(int(n) for n in re.findall(r"(\d+) bytes spill", line))
+        print(f"ptxas {stem}: {log.count('entry function')} kernel instances, "
+              f"{spilled} spill bytes in all")
 
 
 # ---------------------------------------------------------------------------
@@ -332,6 +337,7 @@ def _rows_bsdp(torch, device, gen, timer, rows, min_m):
                 got = fn(x, w)
                 err = _int_err(got, plain(x, w))
                 check(err == 0, f"{name} {layer} M={m}: not bit-exact (max err {err})")
+                check(torch.equal(got, fn(x, w)), f"{name} {layer} M={m}: two calls differ")
                 if name == "bsdp_gemm":
                     check(torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w)),
                           f"bsdp_gemm {layer} M={m}: differs from bsdp_gemm_fused")
@@ -394,9 +400,11 @@ def _rows_int4(torch, device, gen, timer, rows, min_m):
         for m in (1, 4, 256):
             x = _int8(torch, gen, device, m, k)
             xs = _scales(torch, gen, device, m, 1)
-            err = (gemv_int4.matmul_int4_packed(x, wp, xs, ws)
-                   - gemv_int4.matmul_int4_packed_plain(x, wp, xs, ws)).abs().max().item()
+            got = gemv_int4.matmul_int4_packed(x, wp, xs, ws)
+            err = (got - gemv_int4.matmul_int4_packed_plain(x, wp, xs, ws)).abs().max().item()
             check(err == 0, f"matmul_int4_packed {layer} M={m}: not bit-exact (max err {err})")
+            check(torch.equal(got, gemv_int4.matmul_int4_packed(x, wp, xs, ws)),
+                  f"matmul_int4_packed {layer} M={m}: two calls differ")
             lib, note = _int_mm(torch, x, w4, min_m)
             nbytes = m * k + k * n // 2 + 4 * (m + n) + 4 * m * n
             _row(rows, "matmul_int4_packed", gemv_int4.KERNEL, f"{layer} M={m} N={n} K={k}",

@@ -8,197 +8,24 @@
 // x [M, 4, Kw] and wt [N, 4, Kw] are 32-bit plane words, out [M, N] int32.
 // This is the "unfused rung" that bsdp_gemm_fused is measured against: each
 // of the 16 plane pairs is its own contraction, weighted in int32 after it.
-// Every sum is an exact integer sum, so the kernel is bit-identical to the
-// fused form and to the plain version, in any order of summation.
 //
-// One kernel for every M.  At decode (M = slots) it is bound by the weight
-// planes' bytes, N·4·Kw·4 (12.6 MB at w_in, 6.3 MB at w_out: 0.0038 /
-// 0.0019 ms at 3.35 TB/s), so the design streams the plane words into the
-// tensor cores as they lie.  The binary mma.sync m16n8k256 .b1 .and.popc is
-// one AND-popcount contraction of 256 K elements: its B fragment is a plane
-// word of one column per register, so weight words go from a 16-byte load
-// straight into the instruction (no 0/1 bytes, no shared memory).  The 16
-// rows of A are 4 tokens × 4 activation planes (row j·4 + token), so at
-// M = 4 no row is padding and each output element of the m16n8 fragment is
-// the (j, k) pair sum of one token and column; one chain per weight plane k
-// gives all 16 pairs, and s_jk·2^(j+k) is applied once in the epilogue
-// (int32), where one shuffle adds the planes j and j + 2 held by lanes 16
-// apart.  The sum over K does not depend on which K element a bit stands
-// for, as long as x and w agree, so lane t of a warp loads words 4t..4t+3
-// of each 16-word unit (two instructions: words 4t, 4t+1 and 4t+2, 4t+3).
-// A warp owns 8 columns; it issues all the weight loads of its K range (up
-// to UMAX units × 4 planes × 16 bytes a lane) before the first instruction,
-// and reads its activation words through the L1 (every warp of a block
-// reads the same ones).  K is split over the 8 warps of a block when a
-// warp's range would not fit its registers or the grid would not fill one
-// wave of the card (the SM count is read at run time): at w_in M = 4, 192
-// blocks of 8 column groups, each warp 4 units (256 bytes a lane in
-// flight); at w_out, 256 blocks of 8 K splits, each warp up to 2 units.
-// The splits meet in shared memory in split order.  One launch, no atomics.
-//
-// Above M = 4 a block holds 16 tokens (4 row tiles, each reusing the
-// weight fragments, 1 unit of weight loads in flight so that nothing
-// spills under the 2-blocks-per-SM register cap), and the grid's second
-// axis walks the tokens 16 at a time: prefill (M = a prompt's length) is
-// the same contraction, its weight words re-read from the L2 by each
-// 16-token block.  Row tiles past M are skipped (block-uniform).
+// Bound by the weight planes' bytes at decode.  Design (bsdp_mma.cuh, shared
+// with bsdp_gemm_fused): the plane words go packed into the binary mma.sync
+// m16n8k256 .b1 .and.popc, rows = 4 tokens × 4 activation planes, one chain
+// per weight plane over 8 weight columns of a warp, K split over a block's
+// warps; 16 tokens a block on the grid's second axis above M = 4.
 
-#include "common.cuh"
-#include "split_k.cuh"
+#include "bsdp_mma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kUnitWords = 16;  // plane words per unit: 512 K elements, two mma steps
-constexpr int kMaxSplits = kWarps;
-
-// d += popcount-and contraction of A (16 x 256 bits) with B (256 x 8 bits).
-__device__ __forceinline__ void mma_and_popc(int (&d)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                             uint32_t a3, uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Words row[w .. w+3], zero past kw.  VEC: the row is 16-byte aligned and kw
-// a multiple of 4, so one load covers them.
-template <bool VEC>
-__device__ __forceinline__ uint4 load_words(const uint32_t* __restrict__ row, int w, int kw) {
-  if (VEC)
-    return w < kw ? __ldg(reinterpret_cast<const uint4*>(row + w)) : make_uint4(0u, 0u, 0u, 0u);
-  uint32_t v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) v[e] = w + e < kw ? __ldg(row + w + e) : 0u;
-  return make_uint4(v[0], v[1], v[2], v[3]);
-}
-
-// RT row tiles of 4 tokens per block, blockIdx.y the block's RT·4 tokens;
-// UMAX units of weight loads in flight per lane.  Warp w owns column group
-// w % col_groups and K split w / col_groups, whose units are
-// [split · units_per_warp, +units_per_warp).
 template <int RT, int UMAX, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(bsdp_mma::kThreads, 2)
 bsdp_gemm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt,
                  int32_t* __restrict__ out, int m_rows, int n_cols, int kw, int is_signed,
                  int col_groups, int units_per_warp) {
-  __shared__ int part[kWarps][RT * 4][8];  // each warp's sums: token x column
-  const int m0 = blockIdx.y * RT * 4;
-  x += static_cast<size_t>(m0) * 4 * kw;
-  out += static_cast<size_t>(m0) * n_cols;
-  m_rows = min(m_rows - m0, RT * 4);  // this block's tokens
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;  // fragment row / column group, thread in group
-  const int cgrp = warp % col_groups, split = warp / col_groups;
-  const int n_base = (blockIdx.x * col_groups + cgrp) * 8;
-  const int n = n_base + g;  // the B column this lane loads
-  const int units = (kw + kUnitWords - 1) / kUnitWords;
-  const int u_begin = split * units_per_warp;
-  const int u_end = min(units, u_begin + units_per_warp);
-  const uint32_t* wrow = wt + static_cast<size_t>(min(n, n_cols - 1)) * 4 * kw;
-
-  int acc[RT][4][4];
-#pragma unroll
-  for (int rt = 0; rt < RT; ++rt)
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[rt][k][e] = 0;
-
-  for (int u0 = u_begin; u0 < u_end; u0 += UMAX) {
-    // every weight load of this pass in flight before any is used
-    uint4 wr[UMAX][4];
-#pragma unroll
-    for (int u = 0; u < UMAX; ++u)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        wr[u][k] = (n < n_cols && u0 + u < u_end)
-                       ? load_words<VEC>(wrow + k * kw, (u0 + u) * kUnitWords + 4 * t, kw)
-                       : make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int u = 0; u < UMAX; ++u) {
-      if (u0 + u < u_end) {
-        const int w = (u0 + u) * kUnitWords + 4 * t;
-#pragma unroll
-        for (int rt = 0; rt < RT; ++rt) {
-          if (rt * 4 >= m_rows) break;  // block-uniform: no token in this tile
-          // A rows g (plane g >> 2) and g + 8 (plane (g >> 2) + 2), token rt·4 + (g & 3)
-          const int tok = rt * 4 + (g & 3);
-          uint4 xa = make_uint4(0u, 0u, 0u, 0u), xb = xa;
-          if (tok < m_rows) {
-            const uint32_t* xrow = x + (static_cast<size_t>(tok) * 4 + (g >> 2)) * kw;
-            xa = load_words<VEC>(xrow, w, kw);
-            xb = load_words<VEC>(xrow + 2 * kw, w, kw);
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            mma_and_popc(acc[rt][k], xa.x, xb.x, xa.y, xb.y, wr[u][k].x, wr[u][k].y);
-            mma_and_popc(acc[rt][k], xa.z, xb.z, xa.w, xb.w, wr[u][k].z, wr[u][k].w);
-          }
-        }
-      }
-    }
-  }
-
-  // D elements 0, 1: row g, columns 2t, 2t+1; elements 2, 3: row g + 8.
-  const int j = g >> 2;
-#pragma unroll
-  for (int rt = 0; rt < RT; ++rt) {
-    int s0 = 0, s1 = 0;
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int lo = plane_pair_weight(j, k, is_signed);
-      const int hi = plane_pair_weight(j + 2, k, is_signed);
-      s0 += lo * acc[rt][k][0] + hi * acc[rt][k][2];
-      s1 += lo * acc[rt][k][1] + hi * acc[rt][k][3];
-    }
-    s0 += __shfl_xor_sync(0xffffffffu, s0, 16);  // planes 0, 2 + planes 1, 3
-    s1 += __shfl_xor_sync(0xffffffffu, s1, 16);
-    if (lane < 16) {  // g = token within the tile
-      part[warp][rt * 4 + g][2 * t] = s0;
-      part[warp][rt * 4 + g][2 * t + 1] = s1;
-    }
-  }
-  __syncthreads();
-  const int splits = kWarps / col_groups;
-  for (int o = threadIdx.x; o < col_groups * RT * 4 * 8; o += kThreads) {
-    const int c = o % 8, tok = (o / 8) % (RT * 4), cg = o / (8 * RT * 4);
-    const int gn = (blockIdx.x * col_groups + cg) * 8 + c;
-    if (tok >= m_rows || gn >= n_cols) continue;
-    int s = 0;
-    for (int q = 0; q < splits; ++q) s += part[q * col_groups + cg][tok][c];
-    out[static_cast<size_t>(tok) * n_cols + gn] = s;
-  }
-}
-
-// K splits: the fewest (a power of 2, at most one per warp and one per unit)
-// for which a warp's units fit UMAX and the grid fills one wave of the card.
-template <int RT, int UMAX>
-int launch(const uint32_t* x, const uint32_t* wt, int32_t* out, int m, int n, int kw,
-           int is_signed, cudaStream_t stream) {
-  int sms = 0;
-  const cudaError_t err = split_k::sm_count(&sms);
-  if (err != cudaSuccess) return err;
-  const int row_blocks = (m + 4 * RT - 1) / (4 * RT);
-  if (row_blocks > 65535) return cudaErrorInvalidValue;
-  const int units = (kw + kUnitWords - 1) / kUnitWords;
-  auto blocks = [n](int splits) {
-    const int cols = 8 * (kWarps / splits);
-    return (n + cols - 1) / cols;
-  };
-  int splits = 1;
-  while (splits < kMaxSplits && splits < units &&
-         ((units + splits - 1) / splits > UMAX ||
-          static_cast<long long>(blocks(splits)) * row_blocks < sms))
-    splits *= 2;
-  const int per_warp = (units + splits - 1) / splits;
-  const bool vec = kw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(wt) % 16 == 0;
-  auto kernel = vec ? bsdp_gemm_kernel<RT, UMAX, true> : bsdp_gemm_kernel<RT, UMAX, false>;
-  kernel<<<dim3(blocks(splits), row_blocks), kThreads, 0, stream>>>(
-      x, wt, out, m, n, kw, is_signed, kWarps / splits, per_warp);
-  return static_cast<int>(cudaGetLastError());
+  bsdp_mma::contract<false, RT, UMAX, VEC>(x, wt, out, m_rows, n_cols, kw, is_signed,
+                                           col_groups, units_per_warp);
 }
 
 }  // namespace
@@ -206,10 +33,10 @@ int launch(const uint32_t* x, const uint32_t* wt, int32_t* out, int m, int n, in
 extern "C" int bsdp_gemm(const void* x, const void* wt, void* out, int m, int n, int kw,
                          int is_signed, void* stream) {
   if (m <= 0 || n <= 0 || kw <= 0) return cudaErrorInvalidValue;
-  const auto st = static_cast<cudaStream_t>(stream);
-  const auto xp = static_cast<const uint32_t*>(x);
-  const auto wp = static_cast<const uint32_t*>(wt);
-  const auto op = static_cast<int32_t*>(out);
-  if (m <= 4) return launch<1, 4>(xp, wp, op, m, n, kw, is_signed, st);
-  return launch<4, 1>(xp, wp, op, m, n, kw, is_signed, st);
+  if (m <= 4)
+    return bsdp_mma::launch<1, 4>(bsdp_gemm_kernel<1, 4, true>,
+                                  bsdp_gemm_kernel<1, 4, false>, x, wt, out, m, n, kw,
+                                  is_signed, stream);
+  return bsdp_mma::launch<4, 1>(bsdp_gemm_kernel<4, 1, true>, bsdp_gemm_kernel<4, 1, false>,
+                                x, wt, out, m, n, kw, is_signed, stream);
 }

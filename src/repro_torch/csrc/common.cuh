@@ -34,18 +34,6 @@ __device__ __forceinline__ int bsdp_word(const uint32_t a[4], const uint32_t b[4
   return acc;
 }
 
-// One 32-bit plane word → 32 0/1 bytes: bits 0..15 to lo, bits 16..31 to hi.
-__device__ __forceinline__ void expand_word(uint32_t word, int8_t* lo, int8_t* hi) {
-  uint32_t q[8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const uint32_t n = (word >> (4 * i)) & 0xFu;
-    q[i] = (n & 1u) | ((n & 2u) << 7) | ((n & 4u) << 14) | ((n & 8u) << 21);
-  }
-  *reinterpret_cast<uint4*>(lo) = make_uint4(q[0], q[1], q[2], q[3]);
-  *reinterpret_cast<uint4*>(hi) = make_uint4(q[4], q[5], q[6], q[7]);
-}
-
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 static cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -2,9 +2,10 @@
 // and matmul_w16a8: the three TPU kernels are one int8 x int8 -> int32 MXU
 // contraction with different handling of the weight operand, so they share
 // the activation staging, the wmma loop and the split-K reduce here.  W8A8
-// and W4A8 also share the whole kernel (scaled_gemm_kernel), each passing
-// the functor that stages its weight tile; DIM, with two weight tiles and
-// its own epilogue, writes its kernel from the pieces.
+// and W4A8 also share the whole kernel (scaled_gemm_kernel) at prefill, each
+// passing the functor that stages its weight tile (their decode route is
+// int8_decode.cuh); DIM, with two weight tiles and its own epilogue, writes
+// its kernel from the pieces at every M.
 //
 // A block owns a BM x BN output tile and walks K in stages of kBK = 128
 // inside the block (the TPU grid's sequential K axis: nothing carries
@@ -184,7 +185,8 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
 }
 
 // Launch scaled_gemm_kernel on a BM x BN tile grid; returns the launch's
-// cudaError_t.  Callers take 16 x 32 tiles at M <= 16 (decode), 64 x 64 above.
+// cudaError_t.  Both callers take 64 x 64 tiles, at M > 16 (prefill); their
+// decode route is int8_decode.cuh.
 template <int BM, int BN, typename StageB>
 int launch_scaled_gemm(const void* x, StageB stage_b, const void* x_scale, const void* w_scale,
                        void* out, int m, int n, int k, int out_int32, cudaStream_t stream) {

@@ -1,5 +1,6 @@
-// Shared by the decode routes of bsdp_gemm and matmul_int8: the SM count
-// that their split choices read at run time.
+// Shared by bsdp_mma.cuh (bsdp_gemm, bsdp_gemm_fused) and int8_decode.cuh
+// (matmul_int8, matmul_int4_packed): the SM count that their split choices
+// read at run time.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,30 +1,31 @@
 """Bit-plane GEMMs on the tensor cores (prefill and multi-slot decode).
 
-Two kernels, as in the reference module.
+Two kernels, as in the reference module, both on the binary tensor-core
+instruction (``mma.sync`` m16n8k256 ``.b1 .and.popc``, one AND-popcount
+over 256 K elements) fed the packed plane words as they lie, with K split
+over a block's warps and 16 tokens a block above M = 4
+(``csrc/bsdp_mma.cuh``, shared by both sources).  Its 16 A rows are 4
+tokens × 4 activation planes.
 
 ``bsdp_gemm_fused`` replaces ``repro/kernels/bsdp_gemm.py:_bsdp_gemm_fused_kernel``
 (``bsdp_gemm_fused``, the ``pallas_call`` at ``:197``) with
-``csrc/bsdp_gemm_fused.cu``: each block unpacks its activation and weight
-plane tiles into plane-interleaved 0/1 int8 rows in shared memory (row
-``r·4+j`` holds plane ``j`` of row ``r``), runs ONE int8 tensor-core
-contraction (``nvcuda::wmma`` s8, m16n16k16) into the ``[BM·4, BN·4]`` pair
-table, and reduces it with the ``[4, 4]`` ``s_jk·2^(j+k)`` weights into
-int32.  The K loop runs inside the block, so nothing carries between
-blocks.  ``bsdp_fused`` routes M > 1 here.
+``csrc/bsdp_gemm_fused.cu``: ONE contraction over plane-interleaved rows.
+The 8 B columns of a fragment are 2 weight columns × 4 weight planes (rows
+``n·4+k`` of the weight viewed as ``[N·4, Kw]``, its memory layout), so one
+instruction yields the pair table of 4 tokens × 2 columns, which the
+``[4, 4]`` ``s_jk·2^(j+k)`` weights reduce into int32.  ``bsdp_fused``
+routes M > 1 here.
 
 ``bsdp_gemm`` replaces ``repro/kernels/bsdp_gemm.py:_bsdp_gemm_kernel``
 (``bsdp_gemm``, the ``pallas_call`` at ``:242``) with ``csrc/bsdp_gemm.cu``:
 the unrolled form, the rung ``bsdp_fused`` is measured against, where each
-of the 16 plane pairs is its own contraction, weighted by ``s_jk·2^(j+k)``
-into int32.  The plane words go packed into the binary tensor-core
-instruction (``mma.sync`` m16n8k256 ``.b1 .and.popc``, one AND-popcount over
-256 K elements), K split over a block's warps, 16 tokens a block above
-M = 4.  ``bsdp`` routes M > 1 here.
+of the 16 plane pairs is its own contraction (one chain per weight plane
+over 8 weight columns), weighted by ``s_jk·2^(j+k)`` into int32.  ``bsdp``
+routes M > 1 here.
 
 On the card both are bound by the weight planes' bytes at decode (M =
-slots); at prefill the fused kernel is bound by its 16·M·N·K int8
-tensor-core operations.  Both are exact integer sums, so they agree with
-each other to the bit.
+slots) and take the same bytes and instructions per output.  Both are exact
+integer sums, so they agree with each other to the bit.
 
 :func:`bsdp_gemm_fused_plain` is the fused contraction in plain PyTorch
 (:func:`repro_torch.core.bsdp.bsdp_matmul_planes`); :func:`bsdp_gemm_plain`

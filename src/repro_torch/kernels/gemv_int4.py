@@ -2,11 +2,15 @@
 
 Replaces ``repro/kernels/gemv_int4.py:_matmul_int4_kernel`` with
 ``_unpack_tile`` (``matmul_int4_packed``, the ``pallas_call`` at ``:76``)
-with ``csrc/matmul_int4_packed.cu``: each block unpacks and sign-extends its
-packed weight tile into int8 rows in shared memory while staging it, and
-contracts int8 x int8 → int32 on the tensor cores with the W8A8 epilogue.
-The unpacked weight never exists in device memory.  ``w4a8`` routes every
-projection here.
+with ``csrc/matmul_int4_packed.cu``.  At decode (M <= 16) it takes
+``matmul_int8``'s route (``csrc/int8_decode.cuh``): K split over a
+thread-block cluster, 16-byte loads of packed rows in flight, the nibbles
+sign-extended in registers, a byte-permute transpose into ``__dp4a``, and
+the partials summed in a fixed order.  At prefill each block unpacks its
+packed weight tile into int8 rows in shared memory and contracts on the
+tensor cores (64 × 64 tiles).  Both end in the W8A8 epilogue; the unpacked
+weight never exists in device memory.  ``w4a8`` routes every projection
+here.
 
 On the card: bound by the packed weight's bytes (K·N/2, half of W8A8's) at
 decode and by the 2·M·N·K int8 operations at prefill.

@@ -207,3 +207,62 @@ class TestRedesignedKernelsOnTheCard:
                                                                       out_int32=out_int32))
                     assert torch.equal(gemv_int8.matmul_int8(xi, wi, xs, ws, out_int32=True),
                                        ref.matmul_int8_ref(xi, wi)), (n, k)
+
+    @pytest.mark.parametrize("signed", [True, False])
+    @pytest.mark.parametrize("m", [1, 2, 4, 5, 16, 17, 256])
+    def test_bsdp_gemm_fused_row_tiles_ragged_edges_and_unaligned_w(self, cuda, m, signed):
+        """The plane-interleaved binary contraction: one 4-token tile (M <= 4)
+        and 16-token blocks, the last one partial (M = 5, 17); N off the
+        2-column fragment and the 8-column warp tile, Kw off the 4-word load
+        and the 16-word unit; the weight also starting 4 bytes past a 16-byte
+        boundary (a sliced tensor).  Bit-identical to both plain versions and
+        to bsdp_gemm, and across two calls."""
+        rng = np.random.default_rng(60 + m)
+        for n in (3, 66, 1001, 2048):
+            for kw in (1, 3, 64, 65, 192):
+                x = t(words(rng, (m, 4, kw))).to(cuda)
+                w = t(words(rng, (n, 4, kw))).to(cuda)
+                buf = torch.empty(n * 4 * kw + 4, dtype=torch.int32, device=cuda)
+                w_off = buf[1:1 + n * 4 * kw].view(n, 4, kw)
+                w_off.copy_(w)
+                assert w_off.data_ptr() % 16 == 4
+                want = bsdp_gemm.bsdp_gemm_plain(x, w, signed=signed)
+                for wi in (w, w_off):
+                    got = bsdp_gemm.bsdp_gemm_fused(x, wi, signed=signed)
+                    assert torch.equal(got, want), (n, kw)
+                    assert torch.equal(got, bsdp_gemm.bsdp_gemm_fused_plain(x, wi, signed=signed))
+                    assert torch.equal(got, bsdp_gemm.bsdp_gemm(x, wi, signed=signed)), (n, kw)
+                    assert torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, wi, signed=signed))
+
+    @pytest.mark.parametrize("m", [1, 2, 4, 5, 16, 17])
+    def test_matmul_int4_packed_decode_route_extremes_and_unaligned_x(self, cuda, m):
+        """The decode route (M <= 16: cluster split-K, nibbles unpacked in
+        registers, __dp4a): N off the 16-byte load, K even but off the 8-row
+        unit (and off the 4-row word at K % 4 == 2); nibbles -8 and 7 planted
+        beside activations -128 and 127 at both ends of K, then all-extreme
+        operands, and an activation starting 1 byte past a 16-byte boundary.
+        Bit-exact to the plain version, and across two calls."""
+        rng = np.random.default_rng(70 + m)
+        for n in (33, 1000, 2048):
+            for k in (6, 204, 2050, 6148):
+                w4 = rng.integers(-8, 8, (k, n)).astype(np.int8)
+                x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+                for rows in (slice(0, 6), slice(k - 6, k)):
+                    w4[rows, :2] = np.array([-8, 7, 7, -8, -8, 7], np.int8)[:, None]
+                    x[:, rows] = np.array([-128, 127, -128, 127, 127, -128], np.int8)
+                xt = torch.from_numpy(x).to(cuda)
+                buf = torch.empty(m * k + 16, dtype=torch.int8, device=cuda)
+                x_off = buf[1:1 + m * k].view(m, k)
+                x_off.copy_(xt)
+                assert x_off.data_ptr() % 16 == 1
+                xs = torch.rand((m, 1), device=cuda) * 0.05 + 1e-3
+                ws = torch.rand((1, n), device=cuda) * 0.05 + 1e-3
+                cases = ((xt, torch.from_numpy(w4)), (x_off, torch.from_numpy(w4)),
+                         (torch.full_like(xt, -128), torch.full((k, n), -8, dtype=torch.int8)),
+                         (torch.full_like(xt, 127), torch.full((k, n), -8, dtype=torch.int8)))
+                for xi, wi in cases:
+                    wp = quant.pack_int4(wi).to(cuda)
+                    got = gemv_int4.matmul_int4_packed(xi, wp, xs, ws)
+                    want = gemv_int4.matmul_int4_packed_plain(xi, wp, xs, ws)
+                    assert torch.equal(got, want), (n, k)
+                    assert torch.equal(got, gemv_int4.matmul_int4_packed(xi, wp, xs, ws)), (n, k)
