@@ -215,6 +215,13 @@ STEP_ROWS = {
           ("matmul_int4_packed", "wq M=4 N=2048 K=2048", 56),  # wq, wo
           ("matmul_int4_packed", "wk M=4 N=1024 K=2048", 56)],  # wk, wv
 }
+#: the same at slots=1 for ``bsdp_gemv``, the bit-plane formats' M == 1 route
+#: (w_in and w_out once a layer): exact per decode step, checked in phase 3
+STEP_ROWS_1 = {
+    path: [("bsdp_gemv", "w_in M=1 N=12288 K=2048", 28),
+           ("bsdp_gemv", "w_out M=1 N=2048 K=6144", 28)]
+    for path in ("A", "C")
+}
 
 
 def _row(rows, name, kernel, shape, err, timer, call, plain_ms, bound_ms_by, library_ms,
@@ -280,12 +287,17 @@ def step_gaps(rows) -> None:
     """Per path, the sum over one decode step's launches of (ms − bound ms),
     each launch at its own projection's measured row: the order in which
     the kernels lose the most device time to their bounds.  Once with the
-    ``Timer``'s ms and once with the queued ms."""
-    for path, entries in STEP_ROWS.items():
+    ``Timer``'s ms and once with the queued ms; at slots=4 for every kernel
+    of the path, at slots=1 for ``bsdp_gemv``."""
+    lines = [(path, 4, entries) for path, entries in STEP_ROWS.items()]
+    lines += [(path, 1, entries) for path, entries in STEP_ROWS_1.items()]
+    for path, slots, entries in lines:
         per_step = {}
         for name, _, n in entries:
             per_step[name] = per_step.get(name, 0) + n
-        check(per_step == PATHS[path][3], f"STEP_ROWS[{path}] != the path's launches per step")
+        if slots == 4:
+            check(per_step == PATHS[path][3],
+                  f"STEP_ROWS[{path}] != the path's launches per step")
         for key in ("ms", "queued_ms"):
             gaps: dict = {}
             for name, shape, n in entries:
@@ -296,7 +308,7 @@ def step_gaps(rows) -> None:
                     gaps[name] = gaps.get(name, 0.0) + n * (row[key] - row["bound_ms"])
             ranked = ", ".join(f"{k} {v:.3f} ms"
                                for k, v in sorted(gaps.items(), key=lambda kv: -kv[1]))
-            print(f"path {path} decode step (slots=4, 28 layers): launches x ({key} - "
+            print(f"path {path} decode step (slots={slots}, 28 layers): launches x ({key} - "
                   f"bound ms) summed {sum(gaps.values()):.3f} ms: {ranked}")
 
 
@@ -314,8 +326,12 @@ def _scales(torch, gen, device, *shape):
 
 
 def _rows_bsdp(torch, device, gen, timer, rows, min_m):
-    """The three BSDP kernels at the FFN's shapes.  The yardstick is
-    ``torch._int_mm`` on the int4 values decoded to int8 ahead of time."""
+    """The three BSDP kernels at the FFN's shapes: ``bsdp_gemv`` at M = 1
+    (the slots=1 decode of A and C) and at M = 4 and 256 (``w4a4_bsdp``'s
+    decode and prefill), the GEMMs at M = 4 and 256 and ``bsdp_gemm_fused``
+    also at M = 1 (the yardstick a GEMV route has to beat).  The library
+    yardstick is ``torch._int_mm`` on the int4 values decoded to int8 ahead
+    of time."""
     from repro_torch.core import bitplane
     from repro_torch.kernels import bsdp_gemm, bsdp_kernel
 
@@ -326,9 +342,9 @@ def _rows_bsdp(torch, device, gen, timer, rows, min_m):
         w_dec = bitplane.decode(w).T.contiguous()  # [K, N] int8
         for name, kernel, fn, plain, ms_ in (
             ("bsdp_gemv", bsdp_kernel.KERNEL, bsdp_kernel.bsdp_matmul,
-             bsdp_kernel.bsdp_matmul_plain, (1,)),
+             bsdp_kernel.bsdp_matmul_plain, (1, 4, 256)),
             ("bsdp_gemm_fused", bsdp_gemm.KERNEL, bsdp_gemm.bsdp_gemm_fused,
-             bsdp_gemm.bsdp_gemm_fused_plain, (4, 256)),
+             bsdp_gemm.bsdp_gemm_fused_plain, (1, 4, 256)),
             ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm,
              bsdp_gemm.bsdp_gemm_plain, (4, 256)),
         ):
@@ -651,6 +667,12 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
               f"path {path} slots={slots}: a plain version ran on a CUDA tensor: {plain}")
         for name in must[slots]:
             check(launches[name] > 0, f"path {path} slots={slots}: {name} never launched")
+        if slots == 1 and path in STEP_ROWS_1:  # the slots=1 gap line's launches per step
+            steps = sum(len(req.out) - 1 for req in eng.requests)  # decode steps: 1 row each
+            want = sum(n for _, _, n in STEP_ROWS_1[path]) * steps
+            check(launches["bsdp_gemv"] == want,
+                  f"path {path} slots=1: bsdp_gemv launched {launches['bsdp_gemv']} times in "
+                  f"{steps} decode steps, expected {want}")
         for name, v in ran.items():
             counts[name] = counts.get(name, 0) + v
         for req in eng.requests:

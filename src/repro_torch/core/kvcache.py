@@ -29,7 +29,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import bitplane, bsdp
+from repro_torch.core import bitplane, bsdp, quant
 
 #: scale floor — matches the reference's per-slot cache scales
 _EPS = 1e-6
@@ -44,7 +44,7 @@ CHANNEL_KEYS = {
 def _slot_scale(x: torch.Tensor, qmax: int) -> torch.Tensor:
     """Per-slot symmetric scale over the feature axis (floor 1e-6)."""
     amax = torch.amax(torch.abs(x.to(torch.float32)), dim=-1)
-    return torch.clamp_min(amax, _EPS) / qmax
+    return quant.true_div(torch.clamp_min(amax, _EPS), qmax)
 
 
 def _quant_int4(x: torch.Tensor):
@@ -73,7 +73,9 @@ class CacheFormat:
                s_idx: torch.Tensor, ring: torch.Tensor) -> None:
         """In place: write the tokens ``x[b_idx, s_idx]`` of ``x [B, S, *lead,
         F]`` at ring slots ``ring`` of batch rows ``b_idx``.  The caller
-        leaves padded tokens out of the index lists."""
+        leaves padded tokens and duplicate slots out of the index lists:
+        each ``(b_idx, ring)`` pair appears at most once, since a repeated
+        index has no defined winner on the card."""
         for sfx, enc in self._encode(x[b_idx, s_idx]).items():
             store[sfx][b_idx, ring] = enc.to(store[sfx].dtype)
 

@@ -2,8 +2,9 @@
 
 ``q = round(x / s)`` clamped to the signed range, ``s = max|x| / qmax``
 (floored at 1e-8).  ``torch.round`` rounds half to even like ``jnp.round``,
-and the division is a true ``/`` (not a multiply by the reciprocal), so the
-integer payloads are bit-identical to the reference's on identical inputs.
+and both divisions are true divisions on every device (not a multiply by
+the reciprocal, see :func:`true_div`), so the integer payloads and scales
+are bit-identical to the reference's on identical inputs.
 
 ``pack_int4`` / ``unpack_int4`` hold int4 values two per byte — the ``w4a8``
 residency's payload.
@@ -22,6 +23,24 @@ INT_RANGE = {
 
 _EPS = 1e-8
 
+#: (device, dtype, divisor) → the divisor as a 0-dim tensor on that device
+_DIVISORS: dict = {}
+
+
+def true_div(x: torch.Tensor, d: int) -> torch.Tensor:
+    """``x / d`` as the CPU computes it, on every device.  For float32 and
+    float64, PyTorch's CUDA kernels divide by a Python number as a multiply
+    by its reciprocal, which can land one ulp from the quotient the CPU and
+    the reference give; a divisor held as a 0-dim tensor on the same device
+    takes true division in the same single kernel.  (For bf16 and float16
+    both devices multiply by the reciprocal.)"""
+    if x.device.type == "cpu" or x.dtype not in (torch.float32, torch.float64):
+        return x / d
+    key = (x.device, x.dtype, d)
+    if key not in _DIVISORS:
+        _DIVISORS[key] = torch.tensor(d, dtype=x.dtype, device=x.device)
+    return x / _DIVISORS[key]
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantTensor:
@@ -38,7 +57,7 @@ def compute_scale(x: torch.Tensor, *, bits: int, axis=-1) -> torch.Tensor:
     """Symmetric scale: max-abs over ``axis`` divided by the int max."""
     qmax = INT_RANGE[bits][1]
     amax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
-    return torch.clamp_min(amax, _EPS) / qmax
+    return true_div(torch.clamp_min(amax, _EPS), qmax)
 
 
 def quantize(x: torch.Tensor, *, bits: int = 8, axis=-1, scale=None) -> QuantTensor:

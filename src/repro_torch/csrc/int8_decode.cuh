@@ -1,14 +1,19 @@
-// The decode route (M <= 16) shared by matmul_int8 (W8A8) and
-// matmul_int4_packed (W4A8): int8 activations against an int8 weight held
-// as it lies in device memory — int8 [K, N], or int4 packed two per byte
-// [K/2, N] — into exact int32 sums, with the scale epilogue
+// The decode route (M <= 16) shared by matmul_int8 (W8A8),
+// matmul_int4_packed (W4A8) and matmul_w16a8 (DIM): int8 activations
+// against a weight held as it lies in device memory — int8 [K, N], int4
+// packed two per byte [K/2, N], or int16 [K, N] read as its bytes — into
+// exact integer sums, with the scale epilogue
 //
 //   out[m, n] = (float(acc[m, n]) * x_scale[m]) * w_scale[n]    (out_int32 = 0)
 //   out[m, n] = acc[m, n]                                       (out_int32 = 1)
 //
 // in the reference's order, in float32 with round-to-nearest, once on the
-// whole integer sum.  The two kernels differ only in the weight loader
-// (a policy: Int8Rows here, PackedInt4Rows in matmul_int4_packed.cu).
+// whole integer sum, or for DIM the int32 output 256·(x·hi) + x·lo.  The
+// kernels differ only in the weight loader (a policy: Int8Rows and
+// Int16Bytes here, PackedInt4Rows in matmul_int4_packed.cu).  Partial sums
+// are uint32_t, so every add is defined modulo 2^32: the int8 and int4 sums
+// never leave int32, and DIM's result is defined modulo 2^32 (the
+// reference's int32 wrap), which sums in any order reach exactly.
 //
 // Bound by the weight's bytes (4.2 MB int8 / 2.1 MB int4 at wq: 0.0013 /
 // 0.0006 ms at 3.35 TB/s).  The weight has to be requested almost all at
@@ -100,6 +105,7 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c, u
 // The int8 weight [K, N]: a unit is one quad, K rows k .. k+3.
 struct Int8Rows {
   static constexpr int kQuads = 1;  // quads of 4 K rows per unit
+  static constexpr bool kDim = false;
 
   template <bool VEC>
   static __device__ __forceinline__ void load(uint4 (&raw)[4], const int8_t* __restrict__ w,
@@ -118,14 +124,38 @@ struct Int8Rows {
   }
 };
 
+// DIM's int16 weight [K, N] read as its bytes, an int8 [K, 2N] matrix
+// (little-endian): byte column 2n is w[:, n]'s low byte, taken unsigned,
+// and 2n + 1 its high byte, taken signed (w >> 8, arithmetic), so that
+// x·w = 256·(x·hi) + x·lo with no row-sum correction.  The loads, the
+// transpose and the K split are the int8 weight's; the contraction uses the
+// mixed-sign dp4a.u32.s32 on the low bytes, and the epilogue combines each
+// column's two sums.
+struct Int16Bytes : Int8Rows {
+  static constexpr bool kDim = true;
+};
+
+// acc + Σ_i w_i·x_i over the 4 byte lanes, modulo 2^32, x's bytes signed and
+// w's signed, or unsigned when `w_unsigned` (DIM's low bytes).
+__device__ __forceinline__ uint32_t dot4(uint32_t w, uint32_t x, uint32_t acc,
+                                         bool w_unsigned) {
+  if (w_unsigned) {
+    uint32_t d;
+    asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(w), "r"(x), "r"(acc));
+    return d;
+  }
+  return static_cast<uint32_t>(
+      __dp4a(static_cast<int>(w), static_cast<int>(x), static_cast<int>(acc)));
+}
+
 // Keep half of `v` (the half picked by `upper`), adding the partner lane's
 // copy of it: a reduce-scatter step over lanes `mask` apart.
 template <int HALF>
-__device__ __forceinline__ void butterfly_step(int* v, int mask, bool upper) {
+__device__ __forceinline__ void butterfly_step(uint32_t* v, int mask, bool upper) {
 #pragma unroll
   for (int c = 0; c < HALF; ++c) {
-    const int send = upper ? v[c] : v[c + HALF];
-    const int keep = upper ? v[c + HALF] : v[c];
+    const uint32_t send = upper ? v[c] : v[c + HALF];
+    const uint32_t keep = upper ? v[c + HALF] : v[c];
     v[c] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
   }
 }
@@ -147,8 +177,8 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   constexpr int kMG = MT < kRowGroup ? MT : kRowGroup;
   extern __shared__ int4 smem4[];
   uint32_t* xs = reinterpret_cast<uint32_t*>(smem4);  // [MT][kXW] x slice
-  int* red = reinterpret_cast<int*>(xs + MT * kXW);    // [kWarps][MT][kBN]
-  int* part = red + kWarps * MT * kBN;                 // [MT][kBN] this split
+  uint32_t* red = xs + MT * kXW;              // [kWarps][MT][kBN]
+  uint32_t* part = red + kWarps * MT * kBN;  // [MT][kBN] this split
 
   cgr::cluster_group cluster = cgr::this_cluster();
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -160,7 +190,7 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   // the T::kKeep columns this lane holds after the butterfly over its unit bits
   const int ocol = (tid % TPR) * 16 + ((lane >> 4) & 1) * 8 + ((lane >> 3) & 1) * 4 +
                    (TPR == 4 ? ((lane >> 2) & 1) * 2 : 0);
-  int* my_red = red + warp * MT * kBN + ocol;
+  uint32_t* my_red = red + warp * MT * kBN + ocol;
 #pragma unroll
   for (int m = 0; m < MT; ++m)
 #pragma unroll
@@ -192,7 +222,7 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
     }
   };
   // p[mm][c] += the chunk's products of row mg + mm of x with column c
-  auto contract = [&](int (&p)[kMG][16], int mg) {
+  auto contract = [&](uint32_t (&p)[kMG][16], int mg) {
 #pragma unroll
     for (int q = 0; q < Q; ++q)
 #pragma unroll
@@ -203,15 +233,16 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 #pragma unroll
         for (int mm = 0; mm < kMG; ++mm) {
           if (mg + mm < m_rows) {
-            const int xv = static_cast<int>(xs[(mg + mm) * kXW + xw]);
+            const uint32_t xv = xs[(mg + mm) * kXW + xw];
 #pragma unroll
-            for (int c = 0; c < 16; ++c) p[mm][c] = __dp4a(static_cast<int>(col[c]), xv, p[mm][c]);
+            for (int c = 0; c < 16; ++c)
+              p[mm][c] = dot4(col[c], xv, p[mm][c], L::kDim && c % 2 == 0);
           }
         }
       }
   };
   // the warp's units summed by the butterfly, into this warp's partials
-  auto reduce = [&](int (&p)[kMG][16], int mg) {
+  auto reduce = [&](uint32_t (&p)[kMG][16], int mg) {
 #pragma unroll
     for (int mm = 0; mm < kMG; ++mm) {
       if (mg + mm < m_rows) {
@@ -223,7 +254,7 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       }
     }
   };
-  auto clear = [](int (&p)[kMG][16]) {
+  auto clear = [](uint32_t (&p)[kMG][16]) {
 #pragma unroll
     for (int mm = 0; mm < kMG; ++mm)
 #pragma unroll
@@ -232,7 +263,7 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
   // At MT <= 4 the partials stay in registers over the whole K range and the
   // butterfly runs once; at MT = 16 it runs per chunk, 4 rows of x at a time.
-  int acc[kMG][16];
+  uint32_t acc[kMG][16];
   clear(acc);
   load_chunk(raw, k_begin);
   for (int k0 = k_begin; k0 < k_end; k0 += kKC) {
@@ -244,7 +275,7 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
       contract(acc, 0);
     } else {
       for (int mg = 0; mg < m_rows; mg += kMG) {  // uniform across the block
-        int p[kMG][16];
+        uint32_t p[kMG][16];
         clear(p);
         contract(p, mg);
         reduce(p, mg);
@@ -258,30 +289,42 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   if (MT <= kRowGroup) reduce(acc, 0);
   __syncthreads();
   for (int idx = tid; idx < m_rows * kBN; idx += kThreads) {
-    int s = 0;
+    uint32_t s = 0;
     for (int wv = 0; wv < kWarps; ++wv) s += red[wv * MT * kBN + idx];
     part[idx] = s;
   }
   cluster.sync();  // every split's part is written
   // this block's share of the tile's outputs, summed over the splits in rank order
+  // (DIM: an output is a pair of byte columns, the int16 weight's column)
+  constexpr int kPair = L::kDim ? 2 : 1;
+  constexpr int kOut = kBN / kPair;  // outputs of a tile row
+  const int out_cols = n_cols / kPair;
   const int splits = static_cast<int>(cluster.num_blocks());
-  const int total = m_rows * kBN;
+  const int total = m_rows * kOut;
   const int per = (total + splits - 1) / splits;
   for (int i = tid; i < per; i += kThreads) {
     const int idx = static_cast<int>(cluster.block_rank()) * per + i;
     if (idx >= total) break;
-    const int gm = idx / kBN, gn = n0 + idx % kBN;
-    int s = 0;
+    const int gm = idx / kOut, gn = n0 / kPair + idx % kOut;
+    const int at_part = gm * kBN + (idx % kOut) * kPair;
+    uint32_t s = 0, hi = 0;
 #pragma unroll
-    for (int q = 0; q < kMaxSplits; ++q)
-      if (q < splits) s += cluster.map_shared_rank(part, q)[idx];
-    if (gn >= n_cols) continue;
-    const size_t at = static_cast<size_t>(gm) * n_cols + gn;
-    if (out_int32) {
-      static_cast<int32_t*>(out)[at] = s;
+    for (int q = 0; q < kMaxSplits; ++q) {
+      if (q < splits) {
+        const uint32_t* pq = cluster.map_shared_rank(part, q);
+        s += pq[at_part];
+        if (L::kDim) hi += pq[at_part + 1];
+      }
+    }
+    if (gn >= out_cols) continue;
+    const size_t at = static_cast<size_t>(gm) * out_cols + gn;
+    if (L::kDim) {
+      static_cast<int32_t*>(out)[at] = static_cast<int32_t>((hi << 8) + s);  // modulo 2^32
+    } else if (out_int32) {
+      static_cast<int32_t*>(out)[at] = static_cast<int32_t>(s);
     } else {
-      static_cast<float*>(out)[at] =
-          __fmul_rn(__fmul_rn(__int2float_rn(s), x_scale[gm]), w_scale[gn]);
+      static_cast<float*>(out)[at] = __fmul_rn(
+          __fmul_rn(__int2float_rn(static_cast<int>(s)), x_scale[gm]), w_scale[gn]);
     }
   }
   cluster.sync();  // no block leaves while another still reads its part

@@ -1,11 +1,11 @@
-// The tiled int8 tensor-core GEMM shared by matmul_int8, matmul_int4_packed
-// and matmul_w16a8: the three TPU kernels are one int8 x int8 -> int32 MXU
-// contraction with different handling of the weight operand, so they share
-// the activation staging, the wmma loop and the split-K reduce here.  W8A8
-// and W4A8 also share the whole kernel (scaled_gemm_kernel) at prefill, each
-// passing the functor that stages its weight tile (their decode route is
-// int8_decode.cuh); DIM, with two weight tiles and its own epilogue, writes
-// its kernel from the pieces at every M.
+// The tiled int8 tensor-core GEMM of the prefill route (M > 16) shared by
+// matmul_int8, matmul_int4_packed and matmul_w16a8: the three TPU kernels
+// are one int8 x int8 -> int32 MXU contraction with different handling of
+// the weight operand, so they share the activation staging and the wmma
+// loop here.  W8A8 and W4A8 also share the whole kernel (scaled_gemm_kernel),
+// each passing the functor that stages its weight tile; DIM, with two
+// weight tiles and its own epilogue, writes its kernel from the pieces.  The
+// decode route (M <= 16) of all three is int8_decode.cuh.
 //
 // A block owns a BM x BN output tile and walks K in stages of kBK = 128
 // inside the block (the TPU grid's sequential K axis: nothing carries
@@ -19,10 +19,8 @@
 //   A  [kKSub][BM][16]       16-byte k-slices of BM rows   (matrix_a row_major)
 //   B  [BN/16][kBK][16]      16-column groups of kBK rows  (matrix_b row_major)
 //
-// Warps: when the tile has at least 8 output fragments each warp owns
-// kFrags/8 of them over the whole K; when it has fewer (decode: BM = 16) the
-// warps split each stage's k-slices into kKGroups groups, and the groups'
-// partial sums are added in the epilogue (integer, so the order is free).
+// Warps: each of the 8 warps owns kFrags/8 of the tile's output fragments
+// over the whole K.
 
 #pragma once
 
@@ -45,14 +43,12 @@ template <int BM, int BN>
 struct Tile {
   static constexpr int kColFrags = BN / 16;
   static constexpr int kFrags = (BM / 16) * kColFrags;
-  static constexpr int kKGroups = kFrags >= kWarps ? 1 : kWarps / kFrags;
-  static constexpr int kFragsPerWarp = kFrags >= kWarps ? kFrags / kWarps : 1;
+  static constexpr int kFragsPerWarp = kFrags / kWarps;
   static constexpr int kABytes = BM * kBK;
   static constexpr int kBBytes = kBK * BN;
-  static constexpr int kTableBytes = kKGroups * BM * BN * 4;  // int32 partial sums
+  static constexpr int kTableBytes = BM * BN * 4;  // int32 sums
   static_assert(BM % 16 == 0 && BN % 16 == 0, "whole fragments");
-  static_assert(kFragsPerWarp * kWarps == kFrags * kKGroups, "warps cover the tile");
-  static_assert(kKSub % kKGroups == 0, "k-groups split a stage evenly");
+  static_assert(kFragsPerWarp * kWarps == kFrags, "warps cover the tile");
 };
 
 // x[m0:m0+BM, k0:k0+kBK] int8 -> a_s [kKSub][BM][16]; 16-byte loads when
@@ -84,16 +80,15 @@ __device__ __forceinline__ int8_t* b_row(int8_t* b_s, int cg, int kk) {
   return b_s + (cg * kBK + kk) * 16;
 }
 
-// One stage's contraction: acc += a_s · b_s over this warp's k-slices.
+// One stage's contraction: acc += a_s · b_s on this warp's fragments.
 template <int BM, int BN>
 __device__ __forceinline__ void mma_stage(const int8_t* a_s, const int8_t* b_s,
                                           AccFrag (&acc)[Tile<BM, BN>::kFragsPerWarp],
                                           int warp) {
   using T = Tile<BM, BN>;
-  const int kg = warp % T::kKGroups;
-  const int f0 = (warp / T::kKGroups) * T::kFragsPerWarp;
+  const int f0 = warp * T::kFragsPerWarp;
 #pragma unroll
-  for (int ks = kg; ks < kKSub; ks += T::kKGroups) {
+  for (int ks = 0; ks < kKSub; ++ks) {
 #pragma unroll
     for (int f = 0; f < T::kFragsPerWarp; ++f) {
       const int rf = (f0 + f) / T::kColFrags, cf = (f0 + f) % T::kColFrags;
@@ -106,30 +101,17 @@ __device__ __forceinline__ void mma_stage(const int8_t* a_s, const int8_t* b_s,
   }
 }
 
-// Each warp's fragments -> table [kKGroups][BM][BN] int32.
+// Each warp's fragments -> table [BM][BN] int32.
 template <int BM, int BN>
 __device__ __forceinline__ void store_acc(AccFrag (&acc)[Tile<BM, BN>::kFragsPerWarp],
                                           int* table, int warp) {
   using T = Tile<BM, BN>;
-  const int kg = warp % T::kKGroups;
-  const int f0 = (warp / T::kKGroups) * T::kFragsPerWarp;
+  const int f0 = warp * T::kFragsPerWarp;
 #pragma unroll
   for (int f = 0; f < T::kFragsPerWarp; ++f) {
     const int rf = (f0 + f) / T::kColFrags, cf = (f0 + f) % T::kColFrags;
-    wmma::store_matrix_sync(table + (kg * BM + rf * 16) * BN + cf * 16, acc[f], BN,
-                            wmma::mem_row_major);
+    wmma::store_matrix_sync(table + rf * 16 * BN + cf * 16, acc[f], BN, wmma::mem_row_major);
   }
-}
-
-// The sum of the k-groups' partials for output (r, c), modulo 2^32.
-template <int BM, int BN>
-__device__ __forceinline__ uint32_t table_sum(const int* table, int r, int c) {
-  uint32_t s = 0;
-#pragma unroll
-  for (int g = 0; g < Tile<BM, BN>::kKGroups; ++g) {
-    s += static_cast<uint32_t>(table[(g * BM + r) * BN + c]);
-  }
-  return s;
 }
 
 template <int BM, int BN>
@@ -173,7 +155,7 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
     const int r = o / BN, c = o % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= m_rows || gn >= n_cols) continue;
-    const int s = static_cast<int>(table_sum<BM, BN>(table, r, c));
+    const int s = table[r * BN + c];
     const size_t at = static_cast<size_t>(gm) * n_cols + gn;
     if (out_int32) {
       static_cast<int32_t*>(out)[at] = s;
@@ -185,8 +167,7 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
 }
 
 // Launch scaled_gemm_kernel on a BM x BN tile grid; returns the launch's
-// cudaError_t.  Both callers take 64 x 64 tiles, at M > 16 (prefill); their
-// decode route is int8_decode.cuh.
+// cudaError_t.  Both callers take 64 x 64 tiles.
 template <int BM, int BN, typename StageB>
 int launch_scaled_gemm(const void* x, StageB stage_b, const void* x_scale, const void* w_scale,
                        void* out, int m, int n, int k, int out_int32, cudaStream_t stream) {

@@ -54,6 +54,7 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t v, int sh) {
 // (k even), two quads of 4 K rows.
 struct PackedInt4Rows {
   static constexpr int kQuads = 2;
+  static constexpr bool kDim = false;
 
   template <bool VEC>
   static __device__ __forceinline__ void load(uint4 (&raw)[4], const int8_t* __restrict__ wp,

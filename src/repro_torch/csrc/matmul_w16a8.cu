@@ -1,27 +1,50 @@
 // matmul_w16a8: exact int8 x int16 -> int32 by decomposed integer
-// multiplication (DIM, the paper's §III-C): two int8 tensor-core passes.
+// multiplication (DIM, the paper's §III-C): two int8 passes.
 //
 // Replaces: repro/kernels/dim_kernel.py:_dim_kernel (matmul_w16a8, the
-// pallas_call at :74).  With hi = w >> 8 (arithmetic, in [-128, 127]) and the
-// centred low byte lo_c = (w & 0xFF) - 128 (in [-128, 127]):
+// pallas_call at :74).  x [M, K] int8, w [K, N] int16 (row-major), out
+// [M, N] int32, modulo 2^32 as the reference's int32 arithmetic wraps.
 //
-//   x · w = 256·(x · hi) + x · lo_c + 128·rowsum(x)
+// Two routes, by M:
 //
-// x [M, K] int8, w [K, N] int16 (row-major), out [M, N] int32.  Each pass
-// fits int32 for K < 131,072 (|x·hi| <= 128·128 per term); the combination
-// can leave int32, and the reference wraps it modulo 2^32.  Signed overflow
-// and left shifts of negative values are undefined in C++, so the passes are
-// combined in uint32_t and the result reinterpreted.
+// decode (M <= 16) — bound by the int16 weight's 2·K·N bytes (8.4 MB at
+//   K = N = 2048: 0.0025 ms at 3.35 TB/s): the route of int8_decode.cuh
+//   (shared with matmul_int8 and matmul_int4_packed) with its Int16Bytes
+//   loader.  The weight is read as the int8 [K, 2N] matrix of its bytes:
+//   one 16-byte load holds 8 columns of a K row, and the int8 route's
+//   __byte_perm transpose splits them in registers into each column's low
+//   and high byte words.  The high byte is the arithmetic w >> 8 and goes
+//   to the signed __dp4a; the low byte is taken unsigned, by the mixed-sign
+//   dp4a.u32.s32, so that
 //
-// Bound on the card: at decode the int16 weight, 2·K·N bytes; at prefill the
-// operations, counted as two int8 passes (4·M·N·K).  Design: the tiled wmma
-// GEMM of int8_tile.cuh with two B tiles — each thread loads 16 int16
-// columns of one row and writes its hi and lo_c bytes into the two
-// shared-memory tiles, so the byte planes never exist in device memory —
-// and two accumulator sets, combined per fragment element before the
-// k-groups are added.  The row sums of x are taken once per block after the
-// K loop, from the rows the block already read.
+//     x · w = 256·(x · hi) + x · lo         (lo = w & 0xFF, unsigned)
+//
+//   needs no row-sum correction.  Every partial sum is a uint32_t, and
+//   everything after the two products is arithmetic modulo 2^32, so the
+//   per-column sums of hi and lo (over lanes, warps and the cluster's K
+//   splits, in any order) and their combination 256·hi + lo are exact
+//   modulo 2^32: the reference's wrap.  K split over a thread-block
+//   cluster, the splits summed in rank order through distributed shared
+//   memory: one launch, no workspace, no atomics, deterministic.
+//
+// prefill (M > 16) — bound by the operations, counted as two int8 passes
+//   (4·M·N·K): the tiled wmma GEMM of int8_tile.cuh on 64 x 64 tiles with
+//   two B tiles.  With the centred low byte lo_c = (w & 0xFF) - 128 (in
+//   [-128, 127], an int8 operand):
+//
+//     x · w = 256·(x · hi) + x · lo_c + 128·rowsum(x)
+//
+//   Each pass fits int32 for K < 131,072 (|x·hi| <= 128·128 per term); the
+//   combination can leave int32, so the passes are combined in uint32_t
+//   (signed overflow and left shifts of negative values are undefined in
+//   C++) and the result reinterpreted.  Each thread loads 16 int16 columns
+//   of one row and writes its hi and lo_c bytes into the two shared-memory
+//   tiles, so the byte planes never exist in device memory; two
+//   accumulator sets are combined per fragment element; the row sums of x
+//   are taken once per block after the K loop, from the rows the block
+//   already read.
 
+#include "int8_decode.cuh"
 #include "int8_tile.cuh"
 
 namespace {
@@ -114,7 +137,8 @@ matmul_w16a8_kernel(const int8_t* __restrict__ x, const int16_t* __restrict__ w,
     const int r = o / BN, c = o % BN;
     const int gm = m0 + r, gn = n0 + c;
     if (gm >= m_rows || gn >= n_cols) continue;
-    const uint32_t v = table_sum<BM, BN>(table, r, c) + (static_cast<uint32_t>(row_sum[r]) << 7);
+    const uint32_t v =
+        static_cast<uint32_t>(table[r * BN + c]) + (static_cast<uint32_t>(row_sum[r]) << 7);
     out[static_cast<size_t>(gm) * n_cols + gn] = static_cast<int32_t>(v);
   }
 }
@@ -135,8 +159,10 @@ int launch(const void* x, const void* w, void* out, int m, int n, int k, cudaStr
 
 extern "C" int matmul_w16a8(const void* x, const void* w, void* out, int m, int n, int k,
                             void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || k >= 131072) return cudaErrorInvalidValue;
+  if (m <= 0 || n <= 0 || n > (1 << 30) || k <= 0 || k >= 131072) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
-  if (m <= 16) return launch<16, 32>(x, w, out, m, n, k, s);
+  if (m <= 16)  // the weight as its int8 [K, 2N] bytes
+    return int8_decode::matmul<int8_decode::Int16Bytes>(x, w, nullptr, nullptr, out, m, 2 * n,
+                                                        k, 1, s);
   return launch<64, 64>(x, w, out, m, n, k, s);
 }

@@ -4,11 +4,13 @@ Replaces ``repro/kernels/bsdp_kernel.py:_bsdp_kernel`` (``bsdp_matmul``,
 the ``pallas_call`` at ``:94``) with ``csrc/bsdp_gemv.cu``: ``__popc`` on
 the 32-bit ANDs of activation and weight plane words, the counterpart of
 UPMEM's ``cao``, with the 16 plane pairs weighted by ±2^(j+k) into an int32
-sum.  The bit-plane formats route M == 1 here.
+sum.  The bit-plane formats route M == 1 here, and ``w4a4_bsdp`` every M.
 
 On the card the kernel is bound by device-memory bytes of the weight planes
-(N·4·Kw·4 B per call): one row's activation planes sit in shared memory and
-each warp streams two columns' planes with 128-byte coalesced loads.
+(N·4·Kw·4 B per call) at M = 1, and by the integer issue rate of the
+popcounts at M > 1: 16 lanes share a column, each loading a 16-byte slice
+of its four plane rows, the next K pass's loads in flight while one is
+contracted; one block per 16 columns and row of x walks the whole K.
 
 :func:`bsdp_matmul_plain` is the same function in plain PyTorch (AND +
 SWAR popcount); :func:`bsdp_matmul` runs it for CPU tensors and launches

@@ -1,15 +1,21 @@
 """W16A8 decomposed-integer-multiplication (DIM) matmul — §III-C.
 
 Replaces ``repro/kernels/dim_kernel.py:_dim_kernel`` (``matmul_w16a8``, the
-``pallas_call`` at ``:74``) with ``csrc/matmul_w16a8.cu``.  The tensor cores
-have no int16 mode, so the int16 weight is split in the kernel into its
-signed high byte ``hi = w >> 8`` and its centred low byte
-``lo_c = (w & 0xFF) - 128``, both int8, and contracted in two int8 passes::
+``pallas_call`` at ``:74``) with ``csrc/matmul_w16a8.cu``.  No int8 unit
+takes int16, so the int16 weight is split in the kernel into its signed
+high byte ``hi = w >> 8`` and its low byte, and contracted in two int8
+passes.  At decode (M <= 16) the weight is read as the int8 matrix of its
+bytes and the low byte is taken unsigned by the mixed-sign ``__dp4a``::
+
+    x @ w = 256·(x @ hi) + x @ lo                        (mod 2^32)
+
+and at prefill the tensor cores take the centred low byte
+``lo_c = (w & 0xFF) - 128``::
 
     x @ w = 256·(x @ hi) + x @ lo_c + 128·rowsum(x)      (mod 2^32)
 
-Exact: each pass fits int32 for K < 131,072; the combination wraps modulo
-2^32, as the reference's int32 arithmetic does.
+Exact: the result is defined modulo 2^32, as the reference's int32
+arithmetic wraps, and every sum in the kernel is taken modulo 2^32.
 
 On the card: bound by the int16 weight's bytes (2·K·N) at decode and by the
 two int8 passes (4·M·N·K operations) at prefill.

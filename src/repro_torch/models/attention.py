@@ -97,9 +97,17 @@ def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -
 
 def _ring_write(cache, k, v, positions, fmt) -> None:
     """In place: write S new (k, v) at slots = position mod L; pads
-    (positions < 0) are masked out of the write."""
+    (positions < 0) are masked out of the write.  A write of more than L
+    tokens a row (a prompt longer than the ring) keeps each row's last L
+    positions: a row's positions are distinct, so every slot is indexed at
+    most once and the result does not depend on the order in which the
+    device applies the writes (CUDA's ``index_put_`` names no winner among
+    repeated indices)."""
     ln = cache["pos_ids"].shape[1]
-    b_idx, s_idx = (positions >= 0).nonzero(as_tuple=True)
+    keep = positions >= 0
+    if positions.shape[1] > ln:  # only then can two tokens of a row share a slot
+        keep &= positions > positions.amax(1, keepdim=True) - ln
+    b_idx, s_idx = keep.nonzero(as_tuple=True)
     pos = positions[b_idx, s_idx]
     ring = torch.remainder(pos, ln).to(torch.int64)
     for prefix, x in (("k", k), ("v", v)):

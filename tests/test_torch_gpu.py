@@ -6,13 +6,17 @@ the ``cuda`` fixture, never at import).  On a machine with a card:
 file imports no JAX, so it runs where only PyTorch is installed.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.core import bitplane, kvcache, quant
-from repro_torch.kernels import (bsdp_gemm, dequant_gemv, dim_kernel, gemv_int4, gemv_int8,
-                                 ops, plane_attn, ref)
+from repro_torch.kernels import (bsdp_gemm, bsdp_kernel, dequant_gemv, dim_kernel, gemv_int4,
+                                 gemv_int8, ops, plane_attn, ref)
+from repro_torch.models import attention
 
 from _torch_inputs import attention_inputs, t, words
 
@@ -266,3 +270,85 @@ class TestRedesignedKernelsOnTheCard:
                     want = gemv_int4.matmul_int4_packed_plain(xi, wp, xs, ws)
                     assert torch.equal(got, want), (n, k)
                     assert torch.equal(got, gemv_int4.matmul_int4_packed(xi, wp, xs, ws)), (n, k)
+
+
+@pytest.mark.gpu
+class TestSixthSliceOnTheCard:
+    @pytest.mark.parametrize("signed", [True, False])
+    @pytest.mark.parametrize("m", [1, 2, 4, 5, 17, 256])
+    def test_bsdp_gemv_rows_ragged_edges_and_unaligned_w(self, cuda, m, signed):
+        """M from one row to a prefill's 256, one block per row of x;
+        N off the 16-column block (3, 66) and N = 2048, K walked in 64-word
+        passes (3 at Kw = 192, the w_out shape, 4 at 193); Kw off the 4-word
+        slice (1, 3, 193); the weight also
+        one word past a 16-byte boundary (word loads).  Bit-identical to the
+        plain version and to the decoded integer product, and across two
+        calls."""
+        rng = np.random.default_rng(80 + m)
+        for n in (3, 66, 2048):
+            for kw in (1, 3, 64, 192, 193):
+                x = t(words(rng, (m, 4, kw))).to(cuda)
+                w = t(words(rng, (n, 4, kw))).to(cuda)
+                buf = torch.empty(n * 4 * kw + 4, dtype=torch.int32, device=cuda)
+                w_off = buf[1:1 + n * 4 * kw].view(n, 4, kw)
+                w_off.copy_(w)
+                assert w_off.data_ptr() % 16 == 4
+                want = bsdp_kernel.bsdp_matmul_plain(x, w, signed=signed)
+                assert torch.equal(want, ref.bsdp_gemm_ref(x, w, signed=signed)), (n, kw)
+                for wi in (w, w_off):
+                    got = bsdp_kernel.bsdp_matmul(x, wi, signed=signed)
+                    assert torch.equal(got, want), (n, kw)
+                    assert torch.equal(got, bsdp_kernel.bsdp_matmul(x, wi, signed=signed))
+
+    @pytest.mark.parametrize("m", [1, 2, 4, 5, 16, 17])
+    def test_matmul_w16a8_decode_route_extremes_wrap_and_unaligned_x(self, cuda, m):
+        """The decode route (M <= 16: the weight read as its bytes, cluster
+        split-K, mixed-sign __dp4a on the low bytes) and, at M = 17, the
+        prefill tiles: full-range int16 with -32768, 32767 and -1 planted, a
+        row of 127s against a column of 32767s (the true sum leaves int32),
+        odd N, x starting 1 byte past a 16-byte boundary; at K = 70,000 the
+        low-byte sums alone leave int32.  Bit-exact to the plain version and
+        the wide oracle, and across two calls."""
+        rng = np.random.default_rng(90 + m)
+        for k, n in ((5, 1), (2048, 33), (2048, 2048), (2050, 1001), (70_000, 24)):
+            x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+            x[0] = 127
+            w = rng.integers(-32768, 32768, (k, n)).astype(np.int16)
+            w[:, 0] = 32767
+            w[0, -1], w[1 % k, -1], w[2 % k, -1] = -32768, 32767, -1
+            xt, wt = torch.from_numpy(x).to(cuda), torch.from_numpy(w).to(cuda)
+            buf = torch.empty(m * k + 16, dtype=torch.int8, device=cuda)
+            x_off = buf[1:1 + m * k].view(m, k)
+            x_off.copy_(xt)
+            assert x_off.data_ptr() % 16 == 1
+            want = ref.dim_w16a8_ref(xt, wt)
+            assert torch.equal(want, dim_kernel.matmul_w16a8_plain(xt, wt)), (k, n)
+            for xi in (xt, x_off):
+                got = dim_kernel.matmul_w16a8(xi, wt)
+                assert torch.equal(got, want), (k, n)
+                assert torch.equal(got, dim_kernel.matmul_w16a8(xi, wt)), (k, n)
+
+    @pytest.mark.parametrize("cache_format", ["bf16", "int4_bp", "int4_bp_fused"])
+    def test_ring_write_longer_than_the_ring_matches_the_cpu(self, cuda, cache_format):
+        """Row 0 writes 3 × L positions into L slots, row 1 a few pads and
+        then 2 × L: the card keeps the newest token per slot, as the CPU
+        does, and two writes are identical."""
+        cfg = dataclasses.replace(
+            get_smoke_config("qwen3-1.7b").scaled(n_layers=1, dtype=torch.float32),
+            cache_format=cache_format)
+        fmt = kvcache.format_for(cfg)
+        ln, s = 8, 24
+        rng = np.random.default_rng(95)
+        k, v = (torch.from_numpy(rng.normal(size=(2, s, cfg.n_kv_heads, cfg.d_head))
+                                 .astype(np.float32)) for _ in range(2))
+        positions = torch.from_numpy(np.stack([np.arange(s), np.arange(-8, s - 8)])
+                                     .astype(np.int32))
+        caches = []
+        for dev in ("cpu", cuda, cuda):
+            cache = attention.init_kv_cache(cfg, 2, ln, dtype=torch.float32, device=dev)
+            attention._ring_write(cache, k.to(dev), v.to(dev), positions.to(dev), fmt)
+            caches.append({name: x.cpu() for name, x in cache.items()})
+        assert caches[0]["pos_ids"].tolist() == [list(range(16, 24)), list(range(8, 16))]
+        for got in caches[1:]:
+            for name, want in caches[0].items():
+                assert torch.equal(got[name], want), name
