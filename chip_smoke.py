@@ -14,14 +14,27 @@ qwen3-1.7b (random weights from a seed) through ``ServeEngine`` and
   B  ``w8a8`` with the config's ``bf16`` cache (the reference launcher's default)
   C  ``ffn=bsdp,mixer=w4a8`` with the ``int4_bp`` cache
 
+and two more at the same width and depth:
+
+  E  path A's weights and cache with chunked prefill: one 448-token prompt
+     and seven short ones, under ``fcfs``, ``token_budget:budget=32`` and
+     ``token_budget:budget=256`` (the long prompt's later chunks run plane
+     attention at G = 64, and at G = 384 for its 192-token second chunk
+     under budget 256; phase 2 holds the kernel at G = 64, 384 and 512)
+  F  ``w8a8`` with the ``int8`` cache under ``sjf``
+
 and drives the ops-level entry points ``ops.dim_matmul`` and
 ``ops.matmul_int8_raw`` (path D).  Each path runs with the launch counts set
 to 0 just before it and read just after, and fails unless its kernels
 launched, no plain version ran on the card and its resident bytes match the
 analytic count.  Phase 4 compares the kernel path with the plain path on a
-2-layer cut for each weight format.  Any failure is a nonzero exit.  It
-needs a CUDA device and the repository's ``src``; without either it fails
-before printing a result.
+2-layer cut for each weight format, the ``int8`` cache and a chunked serve.
+Any failure is a nonzero exit.  It needs a CUDA device and the repository's
+``src``; without either it fails before printing a result.
+
+Paths E and F run at full depth: their serves take about 45-65 s of a run
+of about 150-210 s, far inside the 1200 s the run may take, and a cut
+would leave chunk steps of a depth no user runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -57,9 +70,12 @@ PATHS = {
            1: ("bsdp_gemv", "bsdp_gemm", "matmul_int4_packed")},
           {"bsdp_gemm": 56, "matmul_int4_packed": 112}),
 }
-#: phase 4 also covers the popcount-at-every-batch bit-plane format
-PATH_MODES = [(mode, cache) for mode, cache, _, _ in PATHS.values()] + [
-    ("w4a4_bsdp", "int4_bp_fused")]
+#: phase 4's (weights, cache, scheduler): the three paths, the
+#: popcount-at-every-batch bit-plane format, the int8 cache (path F) and
+#: chunked prefill on path A (path E)
+PATH_MODES = [(mode, cache, "fcfs") for mode, cache, _, _ in PATHS.values()] + [
+    ("w4a4_bsdp", "int4_bp_fused", "fcfs"), ("w8a8", "int8", "fcfs"),
+    (PATHS["A"][0], PATHS["A"][1], "token_budget:budget=4")]
 RESIDENT_RTOL = 0.005  # resident bytes against the analytic count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores
@@ -569,6 +585,85 @@ def _rows_attention(torch, device, gen, timer, rows):
              timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                                              scale=sm)),
              "F.scaled_dot_product_attention over K/V dequantized ahead of time")
+    for s_len in CHUNK_ROWS:
+        _row_attention_chunk(torch, device, gen, timer, rows, s_len)
+
+
+#: chunk lengths of the chunked-prefill attention rows (G = 2 · S): budget
+#: 32's chunks, the 192-token second chunk path E runs under budget 256, and
+#: a whole chunk of budget 256
+CHUNK_ROWS = (32, 192, 256)
+
+
+def _row_attention_chunk(torch, device, gen, timer, rows, s_len):
+    """Plane attention at a chunk step of path A's cache (R = 32, L = 512,
+    Fw = 4): S tokens a slot, G = 2·S query rows, the bias built as the
+    engine builds it (per-token causal masks, materialised [B, Hkv, G, L]).
+    Slot 0 a chunk at positions 64..63+S over a part-filled ring, slot 1 a
+    decode row (one live token, S - 1 pads: uniform rows), slot 2 idle, slot
+    3 a chunk ending a wrapped ring (positions 100..611).  Held against the
+    plain version, bitwise repeatable, and each (row, query) bit-identical to
+    a G = 2 launch of its first two query rows alone (one tile)."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import bitplane
+    from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
+    from repro_torch.kernels import plane_attn
+
+    b, h, grp, l, feat = 4, 8, 2, 512, 128
+    fw, g, r = feat // 32, 2 * s_len, 4 * 8
+    kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
+              _words(torch, gen, device, b, l, h, 4, fw))
+    ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
+    cur = torch.full((b, s_len), -1, dtype=torch.int64, device=device)
+    pos_ids[0, :64 + s_len] = torch.arange(64 + s_len, device=device)
+    cur[0] = torch.arange(64, 64 + s_len, device=device)
+    pos_ids[1, :300] = torch.arange(300, device=device)
+    cur[1, -1] = 299
+    ring = torch.arange(100, 612, device=device)
+    pos_ids[3, ring % l] = ring
+    cur[3] = torch.arange(612 - s_len, 612, device=device)
+    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= cur[..., None])
+    bias = torch.where(valid, 0.0, -1e30).to(torch.float32)  # [B, S, L]
+    bias = bias[:, None, :, None, :].expand(b, h, s_len, grp, l).reshape(b, h, g, l)
+    q = torch.randn((b, h, g, feat), generator=gen, device=device)
+    q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
+    args = (q_planes, q_scale, kp, ks, vp, vs, bias)
+    sm = 1.0 / math.sqrt(feat)
+    tag = f"R={r} G={g} L={l} Fw={fw}"
+    got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
+    want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"plane_decode_attention {tag}: non-finite output")
+    check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+          f"plane_decode_attention {tag}: max err {(got - want).abs().max().item()}")
+    check(torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+          f"plane_decode_attention {tag}: two calls differ")
+    for g0 in (0, g - 2):  # the first and the last tile's query rows, launched alone
+        part = plane_attn.plane_decode_attention(
+            q_planes[:, :, g0:g0 + 2], q_scale[:, :, g0:g0 + 2], kp, ks, vp, vs,
+            bias[:, :, g0:g0 + 2], sm_scale=sm)
+        check(torch.equal(got[:, :, g0:g0 + 2], part),
+              f"plane_decode_attention {tag}: query rows {g0}.. differ from a G=2 launch")
+
+    def dequant(planes, scale):
+        v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
+        return v.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous()
+
+    kd, vd = dequant(kp, ks), dequant(vp, vs)
+    qd, mask = q.reshape(r, 1, g, feat), bias.reshape(r, 1, g, l)
+    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4 + 2 * (kp.numel() * 4 + ks.numel() * 4)
+              + bias.untyped_storage().nbytes() + r * g * feat * 4)
+    ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
+    _row(rows, "plane_decode_attention", plane_attn.KERNEL, tag + f" chunk S={s_len}",
+         (got - want).abs().max().item(),
+         timer, lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm),
+         timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
+         bound(nbytes, ops_s),
+         timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask, scale=sm)),
+         "F.scaled_dot_product_attention over K/V dequantized ahead of time")
 
 
 # ---------------------------------------------------------------------------
@@ -641,6 +736,10 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
     counts = {}
     for path in PATHS:
         counts[path] = _serve_path(torch, device, card, engine, qparams[path], cfg, path)
+        if path == "A":
+            counts["E"] = phase_chunked(torch, device, card, engine, qparams[path], cfg)
+        if path == "B":
+            counts["F"] = phase_int8_cache(torch, device, card, engine, qparams[path], cfg)
         phase_profile(torch, device, engine, qparams.pop(path), cfg, card, path)
         torch.cuda.empty_cache()
     return counts
@@ -693,13 +792,8 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
 def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 3) -> None:
     """Where a decode step's time goes on one path: the launches of one
     decode step at slots=4 (checked against the path's count), then
-    ``torch.profiler`` over a few steady decode steps — wall time,
-    device-busy time (the sum of the device-side kernel and copy durations),
-    idle share, device operations per step and the kernels taking most
-    device time."""
+    :func:`profile_steps` over a few steady decode steps."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
 
@@ -719,6 +813,17 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
     print(f"path {path} launches per decode step (slots=4): {step_launches}")
     check(step_launches == per_step,
           f"path {path}: decode step launched {step_launches}, expected {per_step}")
+    profile_steps(torch, eng, steps, f"path {path} profile decode step (slots=4, "
+                  f"{cfg.n_layers} layers, {card}, under the profiler)")
+
+
+def profile_steps(torch, eng, steps: int, label: str) -> None:
+    """``torch.profiler`` over ``steps`` engine steps: wall time, device-busy
+    time (the sum of the device-side kernel and copy durations), idle share,
+    device operations per step and the kernels taking most device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -731,11 +836,180 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
     for e in dev_events:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    print(f"path {path} profile decode step (slots=4, {cfg.n_layers} layers, {card}, under "
-          f"the profiler): wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
+    print(f"{label}: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
           f"{1 - busy_ms / wall_ms:.3f}, device ops {len(dev_events) / steps:.0f}/step")
     for name, ms in top:
         print(f"  {ms:8.3f} ms/step  {name[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# Path E: chunked prefill on path A; path F: the int8 cache on path B
+# ---------------------------------------------------------------------------
+
+#: path E's schedulers (fcfs, then chunks of at most 32 and 256 tokens a
+#: slot) → the most query rows G plane attention takes: 2 · the longest
+#: chunk, 448 - 256 = 192 tokens under budget 256 (the first 256 refill
+#: through the prefill path)
+E_SCHEDULERS = {"fcfs": 2, "token_budget:budget=32": 64, "token_budget:budget=256": 384}
+E_LONG = 448  # the long prompt, submitted first
+
+
+def _plane_attention_rows(plane_attn):
+    """Wrap ``plane_attn.plane_decode_attention`` to record the query rows G
+    of every call; returns (the list, a function that restores it)."""
+    seen, fn = [], plane_attn.plane_decode_attention
+
+    def recording(q_planes, *args, **kw):
+        seen.append(q_planes.shape[2])
+        return fn(q_planes, *args, **kw)
+
+    plane_attn.plane_decode_attention = recording
+    return seen, lambda: setattr(plane_attn, "plane_decode_attention", fn)
+
+
+def phase_chunked(torch, device, card, engine, qparams, cfg) -> dict:
+    """Path E: path A's weights and cache at full width and depth, slots=4,
+    max_len 512; one 448-token prompt submitted first and seven of 16-64
+    tokens, all at step 0, 32 new tokens each, served under each of
+    :data:`E_SCHEDULERS`.  The long prompt must walk through PREFILLING
+    under the budgets, every chunk step must launch plane attention once a
+    layer with no plain version on the card, every request must finish with
+    32 tokens in the vocabulary and finite logits, and the three shorts
+    refilled with the long prompt must each get a strictly smaller
+    ``ttft_work`` (the deterministic clock) than under fcfs.  Then one chunk
+    step of each budget under the profiler.  Returns the kernel launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops, plane_attn
+    from repro_torch.serve.scheduler import PREFILLING
+
+    mode, cache, _, _ = PATHS["A"]
+    rng = np.random.default_rng(SEED + 3)
+    lens = [E_LONG] + [int(n) for n in rng.integers(16, 65, size=7)]
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in lens]
+    counts: dict = {}
+    ttft_work = {}
+    for sched in E_SCHEDULERS:
+        eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format=cache, scheduler=sched,
+                                 slots=4, max_len=512, trace_logits=True, device=device)
+        reqs = [eng.submit(p, 32) for p in prompts]
+        refilled = reqs[1:4]  # the shorts that share the long prompt's refill
+        seen_g, restore = _plane_attention_rows(plane_attn)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        prefilling, chunk_steps = False, 0
+        try:
+            while True:
+                chunking = any(r is not None and r.state == PREFILLING for r in eng.active)
+                before = ops.launch_counts()["plane_decode_attention"]
+                if not eng.step():
+                    break
+                prefilling |= reqs[0].state == PREFILLING
+                if chunking:
+                    chunk_steps += 1
+                    n = ops.launch_counts()["plane_decode_attention"] - before
+                    check(n == cfg.n_layers, f"path E {sched}: a chunk step launched plane "
+                          f"attention {n} times, expected {cfg.n_layers}")
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        ran = {k: v for k, v in launches.items() if v}
+        for name, v in ran.items():
+            counts[name] = counts.get(name, 0) + v
+        check(all(v == 0 for v in plain.values()),
+              f"path E {sched}: a plain version ran on a CUDA tensor: {plain}")
+        check(launches["plane_decode_attention"] > 0, f"path E {sched}: no plane attention")
+        chunked = sched != "fcfs"
+        check(prefilling == chunked and (chunk_steps > 0) == chunked,
+              f"path E {sched}: PREFILLING {prefilling}, {chunk_steps} chunk steps")
+        check(max(seen_g) == E_SCHEDULERS[sched],
+              f"path E {sched}: plane attention took G up to {max(seen_g)}, expected "
+              f"{E_SCHEDULERS[sched]}")
+        for req in reqs:
+            check(req.state == "done" and len(req.out) == 32,
+                  f"path E {sched}: request {req.uid} unfinished")
+            check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
+        for kind, _, logits in eng.logit_trace:
+            check(bool(np.isfinite(logits).all()) and logits.shape[-1] == cfg.vocab_size,
+                  f"path E {sched}: {kind} logits not finite / wrong width")
+        st = eng.stats()
+        ttft_work[sched] = [st.requests[r.uid].ttft_work for r in refilled]
+        print(f"path E serve {sched} on {card}: {st.total_tokens} tokens, {st.tok_per_s:.2f} "
+              f"tok/s, TTFT p50 {st.percentile('ttft_s', 50):.4f} s p95 "
+              f"{st.percentile('ttft_s', 95):.4f} s, TPOT p50 "
+              f"{st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, chunk steps "
+              f"{chunk_steps}, plane attention G up to {max(seen_g)}, ttft_work of the "
+              f"co-refilled shorts {ttft_work[sched]} (long {st.requests[0].ttft_work}), "
+              f"launches {ran}")
+    budgets = list(E_SCHEDULERS)[1:]
+    for sched in budgets:
+        for got, fcfs in zip(ttft_work[sched], ttft_work["fcfs"]):
+            check(got < fcfs, f"path E {sched}: a co-refilled short's ttft_work {got} is not "
+                  f"below fcfs's {fcfs}")
+    for sched in budgets:  # one chunk step of each budget, under the profiler
+        eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format=cache, scheduler=sched,
+                                 slots=4, max_len=512, device=device)
+        for p in prompts[:4]:
+            eng.submit(p, 32)
+        eng.step()  # refill: the long prompt's first chunk, the shorts' whole prompts
+        n = min(int(sched.split("=")[1]), E_LONG - eng.requests[0].prefilled)
+        profile_steps(torch, eng, 1, f"path E profile chunk step ({sched}: S={n}, G={2 * n}, "
+                      f"3 decode rows, {cfg.n_layers} layers, {card}, under the profiler)")
+        torch.cuda.empty_cache()
+    return counts
+
+
+def analytic_int8_cache_bytes(cfg, slots: int, max_len: int) -> int:
+    """The ``int8`` cache's bytes from its shapes: per layer, K and V as
+    one int8 byte a feature plus a float32 scale a (slot, position, kv head),
+    and the int32 ``pos_ids``."""
+    return (2 * cfg.n_layers * slots * max_len * cfg.n_kv_heads * (cfg.d_head + 4)
+            + cfg.n_layers * slots * max_len * 4)
+
+
+def phase_int8_cache(torch, device, card, engine, qparams, cfg) -> dict:
+    """Path F: ``w8a8`` weights with the ``int8`` cache under ``sjf`` at
+    slots=4, the phase-3 mix.  ``matmul_int8`` must launch with no plain
+    version on the card, every request finish, and the weights' and the live
+    cache's bytes equal their analytic counts."""
+    import numpy as np
+
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import ops
+
+    mode, max_len = PATHS["B"][0], 512
+    rng = np.random.default_rng(SEED)
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format="int8", scheduler="sjf",
+                             slots=4, max_len=max_len, trace_logits=True, device=device)
+    for n in rng.integers(16, 129, size=8):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=(int(n),)).astype("int32"), 32)
+    eng.run()
+    torch.cuda.synchronize()
+    launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+    ran = {k: v for k, v in launches.items() if v}
+    check(all(v == 0 for v in plain.values()),
+          f"path F: a plain version ran on a CUDA tensor: {plain}")
+    check(launches["matmul_int8"] > 0, "path F: matmul_int8 never launched")
+    for req in eng.requests:
+        check(req.state == "done" and len(req.out) == 32, f"path F: request {req.uid} unfinished")
+        check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
+    for kind, _, logits in eng.logit_trace:
+        check(bool(np.isfinite(logits).all()), f"path F: {kind} logits not finite")
+    weights, want_w = engine.resident_bytes(eng.params), analytic_resident_bytes(cfg, mode)
+    cache, want_c = (kvcache.cache_resident_bytes(eng.caches),
+                     analytic_int8_cache_bytes(cfg, 4, max_len))
+    st = eng.stats()
+    print(f"path F serve (w8a8, int8 cache, sjf, slots=4) on {card}: {st.total_tokens} tokens, "
+          f"{st.tok_per_s:.2f} tok/s, TTFT p50 {st.percentile('ttft_s', 50) * 1e3:.2f} ms, "
+          f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}; resident "
+          f"weights {weights} B (analytic {want_w}), cache {cache} B (analytic {want_c}); "
+          f"launches {ran}")
+    check(weights == want_w, f"path F: resident weight bytes {weights} != analytic {want_w}")
+    check(cache == want_c, f"path F: int8 cache bytes {cache} != analytic {want_c}")
+    return ran
 
 
 # ---------------------------------------------------------------------------
@@ -785,14 +1059,14 @@ def phase_paths(torch, device) -> None:
     for dtype_name, (max_rel, min_cos) in PATH_LIMITS.items():
         cfg = get_config("qwen3-1.7b").scaled(n_layers=2, dtype=getattr(torch, dtype_name))
         float_params = model_lib.materialize(cfg, seed=SEED, device=device)
-        for mode, cache in PATH_MODES:
+        for mode, cache, sched in PATH_MODES:
             params = engine.convert_params(float_params, cfg, mode)
             traces, outs = [], []
             for impl in (None, "plain"):
                 rng = np.random.default_rng(0)
                 eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
-                                         cache_format=cache, trace_logits=True, impl=impl,
-                                         device=device)
+                                         cache_format=cache, scheduler=sched,
+                                         trace_logits=True, impl=impl, device=device)
                 for n, mn in zip((5, 3, 7), (6, 2, 4)):
                     eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
                                mn, force=rng.integers(0, cfg.vocab_size,
@@ -811,7 +1085,8 @@ def phase_paths(torch, device) -> None:
                                                  / (np.linalg.norm(a) * np.linalg.norm(p))))
                 agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
                                             p.reshape(-1, p.shape[-1]).argmax(-1)))
-            print(f"kernel vs plain path ({mode}, cache {cache}, 2 layers, {dtype_name}): "
+            print(f"kernel vs plain path ({mode}, cache {cache}, {sched}, 2 layers, "
+                  f"{dtype_name}): "
                   f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
                   f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
                   f"{agree}/{len(traces[0])}")
@@ -824,7 +1099,7 @@ def phase_paths(torch, device) -> None:
 
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
 PICK = {"bsdp_gemv": "w_in M=1", "bsdp_gemm_fused": "w_in M=4", "bsdp_gemm": "w_in M=4",
-        "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32",
+        "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32 G=2 ",
         "matmul_int8": "wq M=4 N=2048 K=2048", "matmul_int4_packed": "wq M=4",
         "matmul_w16a8": "M=4 N=2048"}
 

@@ -20,6 +20,9 @@ Two plain forms, both integer-exact:
   weighted reduce.  The contraction runs as a float32 matmul of 0/1
   values: every partial sum is an integer below 2^24 for K < 2^24, so the
   float result is exact (and PyTorch has no integer matmul on CUDA).
+
+:func:`bsdp_gemv` is the end-to-end GEMV from raw int4 activations in
+either form; :func:`bsdp_gemv_popcount` its popcount form on planes.
 """
 
 from __future__ import annotations
@@ -72,6 +75,12 @@ def bsdp_popcount(a_planes: torch.Tensor, b_planes: torch.Tensor, *,
     return acc.to(torch.int32)
 
 
+def bsdp_gemv_popcount(w_planes: torch.Tensor, x_planes: torch.Tensor, *,
+                       signed: bool = True) -> torch.Tensor:
+    """GEMV: ``w_planes [N, 4, Kw]`` × ``x_planes [..., 4, Kw]`` → ``[..., N]``."""
+    return bsdp_popcount(w_planes, x_planes[..., None, :, :], signed=signed)
+
+
 def bits_to_int8(planes: torch.Tensor) -> torch.Tensor:
     """``[..., Kw]`` words → 0/1 int8 bits ``[..., Kw·32]`` (bit ``b`` of
     word ``w`` at ``w·32 + b``); ``& 1`` after the arithmetic shift."""
@@ -94,3 +103,17 @@ def bsdp_matmul_planes(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     table = table.to(torch.int32).reshape(*lead, m, 4, n, 4)
     weight = plane_weights(signed, x_planes.device)
     return (table * weight[:, None, :]).sum(dim=(-3, -1), dtype=torch.int32)
+
+
+def bsdp_gemv(w_planes: torch.Tensor, x: torch.Tensor, *, signed: bool = True,
+              form: str = "popcount") -> torch.Tensor:
+    """End-to-end BSDP GEMV: encoded weights ``w_planes [N, 4, Kw]`` × raw
+    int4 activations ``x [M, K]`` (int8 payload, K = 32·Kw) → ``[M, N]``
+    int32, by ``form="popcount"`` (Algorithm 2) or ``"matmul"`` (the one
+    plane-interleaved contraction)."""
+    x_planes = bitplane.encode_acts(x)
+    if form == "popcount":
+        return bsdp_gemv_popcount(w_planes, x_planes, signed=signed)
+    if form == "matmul":
+        return bsdp_matmul_planes(x_planes, w_planes, signed=signed)
+    raise ValueError(f"unknown form {form!r}")

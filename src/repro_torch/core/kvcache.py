@@ -14,12 +14,14 @@ payload, ``"_scale"`` the scales); the flat per-layer cache dict names them
 ``qk/av``   the score and value reads, scales folded after the contraction
 ``decode_attention``  the fused qk → softmax → av read (``int4_bp_fused``)
 
-Formats: ``bf16``; ``int4_bp`` — the §IV bit-plane layout, payload
-``[B, L, Hkv, 4, ceil(F/32)]`` int32 plane words, whose plain plane math
-(integer scores on the planes, V decoded to int4 values) is the plain
-version of plane attention; ``int4_bp_fused`` — the same storage read by
-the hand-written ``plane_decode_attention`` kernel.  ``int8`` and the
-``paged_*`` formats are not ported yet.
+Formats: ``bf16``; ``int8`` — an int8 payload ``[B, L, Hkv, F]`` with a
+float32 scale a slot ``[B, L, Hkv]``, both folded after the contraction
+(plain PyTorch, as the reference's is plain jnp); ``int4_bp`` — the §IV
+bit-plane layout, payload ``[B, L, Hkv, 4, ceil(F/32)]`` int32 plane words,
+whose plain plane math (integer scores on the planes, V decoded to int4
+values) is the plain version of plane attention; ``int4_bp_fused`` — the
+same storage read by the hand-written ``plane_decode_attention`` kernel.
+The ``paged_*`` formats are not ported yet.
 """
 
 from __future__ import annotations
@@ -47,11 +49,18 @@ def _slot_scale(x: torch.Tensor, qmax: int) -> torch.Tensor:
     return quant.true_div(torch.clamp_min(amax, _EPS), qmax)
 
 
+def _quant_slots(x: torch.Tensor, qmax: int, qmin: int):
+    """Per-vector symmetric quantization → (int8 values in [qmin, qmax],
+    float32 scale).  The division is tensor by tensor: a true division on
+    every device."""
+    scale = _slot_scale(x, qmax)
+    q = torch.clamp(torch.round(x.to(torch.float32) / scale[..., None]), qmin, qmax)
+    return q.to(torch.int8), scale
+
+
 def _quant_int4(x: torch.Tensor):
     """Per-vector int4 quantization → (int8 values in [-8, 7], scale)."""
-    scale = _slot_scale(x, 7)
-    q = torch.clamp(torch.round(x.to(torch.float32) / scale[..., None]), -8, 7)
-    return q.to(torch.int8), scale
+    return _quant_slots(x, 7, -8)
 
 
 class CacheFormat:
@@ -159,6 +168,40 @@ class BF16CacheFormat(CacheFormat):
         return torch.einsum("bhgl,bhlf->bhgf", w, t)
 
 
+class Int8CacheFormat(CacheFormat):
+    """int8 payload and a float32 scale a slot.  The scale is constant over
+    the feature axis, so it folds after the contraction: ``scores =
+    (q·k_int8)·k_scale`` and ``out = (w·v_scale)·v_int8``; no float copy of
+    the cache is made."""
+
+    name = "int8"
+    suffixes = ("", "_scale")
+
+    def init(self, batch, cache_len, lead, feat, dtype=torch.bfloat16, device=None):
+        device = resolve_device(device)
+        return {
+            "": torch.zeros((batch, cache_len, *lead, feat), dtype=torch.int8,
+                            device=device),
+            "_scale": torch.zeros((batch, cache_len, *lead), dtype=torch.float32,
+                                  device=device),
+        }
+
+    def _encode(self, x):
+        q, scale = _quant_slots(x, 127, -127)
+        return {"": q, "_scale": scale}
+
+    def qk(self, q, store):
+        t = store[""].permute(0, 2, 1, 3).to(torch.float32)  # [B, H, L, F]
+        s = store["_scale"].permute(0, 2, 1)  # [B, H, L]
+        scores = torch.einsum("bhgf,bhlf->bhgl", q.to(torch.float32), t)
+        return scores * s[..., None, :]
+
+    def av(self, w, store, feat):
+        t = store[""].permute(0, 2, 1, 3).to(torch.float32)
+        s = store["_scale"].permute(0, 2, 1)
+        return torch.einsum("bhgl,bhlf->bhgf", w * s[..., None, :], t)
+
+
 class BitPlaneCacheFormat(CacheFormat):
     """int4 bit-plane K/V — the §IV layout applied to the decode cache.
 
@@ -226,5 +269,6 @@ class FusedBitPlaneCacheFormat(BitPlaneCacheFormat):
 
 
 register_cache_format(BF16CacheFormat())
+register_cache_format(Int8CacheFormat())
 register_cache_format(BitPlaneCacheFormat())
 register_cache_format(FusedBitPlaneCacheFormat())

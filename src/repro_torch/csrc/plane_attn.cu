@@ -31,6 +31,15 @@
 // The bias is finite (-1e30, never -inf): a row with every slot masked gets
 // the reference's uniform weights, and a split whose slots are all masked in
 // a live row is rescaled by exp(-1e30 - max) = 0 exactly.
+//
+// G, the query rows of a (batch, kv head) row, is S · (n_heads / n_kv_heads)
+// under chunked prefill: up to max_len · 2 on qwen3-1.7b.  The query rows
+// are tiled over the grid's third axis, at most kGroupTile a block (fewer
+// where the tile would not fit in shared memory), so shared memory stays
+// bounded by the tile and not by G.  Each tile re-stages its split's K/V
+// words (from L2 after the first tile) and runs the same per-query
+// arithmetic: a (row, query)'s result does not depend on the tiling.  The
+// decode shape (G = 2) is one tile of two rows.
 
 #include <algorithm>
 #include <cfloat>
@@ -48,6 +57,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxSplits = 8;       // portable cluster size
 constexpr int kSlotsPerSplit = 64;  // target slots per block
 constexpr int kGroup = 4;           // queries accumulated per pass over the slots
+constexpr int kGroupTile = 16;      // query rows a block takes (grid z tiles G)
+constexpr size_t kMaxSmem = 227 * 1024;
 
 struct Layout {  // offsets into dynamic shared memory, in 4-byte words
   int k, v, q, ks, vs, p, o, m, sum, total;
@@ -85,8 +96,8 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
                   const uint32_t* __restrict__ kp, const float* __restrict__ k_scale,
                   const uint32_t* __restrict__ vp, const float* __restrict__ v_scale,
                   const float* __restrict__ bias, float* __restrict__ out, int heads,
-                  int groups, int slots, int fw, int chunk, long long p_b, long long p_l,
-                  long long p_h, long long s_b, long long s_l, long long s_h,
+                  int total_groups, int tile, int slots, int fw, int chunk, long long p_b,
+                  long long p_l, long long p_h, long long s_b, long long s_l, long long s_h,
                   long long b_b, long long b_h, long long b_g, long long b_l,
                   float sm_scale, int is_signed, int vec) {
   extern __shared__ float4 smem4[];
@@ -99,8 +110,10 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
   const int b = r / heads, h = r % heads;
   const int l0 = split * chunk;
   const int n = max(0, min(chunk, slots - l0));  // slots of this block
+  const int g0 = blockIdx.z * tile;  // this block's query rows: g0 .. g0 + groups
+  const int groups = min(tile, total_groups - g0);
   const int pw = 4 * fw, feat = fw * 32;
-  const Layout lay = layout(chunk, groups, fw);
+  const Layout lay = layout(chunk, tile, fw);
   uint32_t* k_s = words + lay.k;  // [chunk][4][Fw]
   uint32_t* v_s = words + lay.v;
   uint32_t* q_s = words + lay.q;  // [G][4][Fw]
@@ -133,13 +146,13 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
     ks_s[l] = k_scale[off];
     vs_s[l] = v_scale[off];
   }
-  const uint32_t* q_r = q + static_cast<size_t>(r) * groups * pw;
+  const uint32_t* q_r = q + (static_cast<size_t>(r) * total_groups + g0) * pw;
   for (int i = tid; i < groups * pw; i += kThreads) q_s[i] = q_r[i];
   __syncthreads();
 
   // 2. integer plane scores, one thread per (query, slot); scales and bias after
-  const float* qsc_r = q_scale + static_cast<size_t>(r) * groups;
-  const float* bias_r = bias + b * b_b + h * b_h + l0 * b_l;
+  const float* qsc_r = q_scale + static_cast<size_t>(r) * total_groups + g0;
+  const float* bias_r = bias + b * b_b + h * b_h + g0 * b_g + l0 * b_l;
   for (int i = tid; i < groups * n; i += kThreads) {
     const int g = i / n, l = i % n;
     const uint32_t* kl = k_s + l * pw;
@@ -227,7 +240,7 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
         num += e * cluster.map_shared_rank(o_s, s)[idx];
       }
     }
-    out[static_cast<size_t>(r) * groups * feat + idx] = num / den;
+    out[(static_cast<size_t>(r) * total_groups + g0) * feat + idx] = num / den;
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
@@ -247,15 +260,17 @@ extern "C" int plane_decode_attention(const void* q, const void* q_scale, const 
     return cudaErrorInvalidValue;
   const int splits = std::min(kMaxSplits, (slots + kSlotsPerSplit - 1) / kSlotsPerSplit);
   const int chunk = (slots + splits - 1) / splits;
-  const size_t smem = sizeof(float) * layout(chunk, groups, fw).total;
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  int tile = std::min(groups, kGroupTile);
+  while (tile > 1 && sizeof(float) * layout(chunk, tile, fw).total > kMaxSmem) tile /= 2;
+  const size_t smem = sizeof(float) * layout(chunk, tile, fw).total;
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;  // one split's K/V alone does not fit
   cudaError_t err = allow_smem(plane_attn_kernel, smem);
   if (err != cudaSuccess) return err;
   const int vec = (reinterpret_cast<uintptr_t>(kp) % 16 == 0) &&
                   (reinterpret_cast<uintptr_t>(vp) % 16 == 0) && p_b % 4 == 0 &&
                   p_l % 4 == 0 && p_h % 4 == 0;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(batch * heads, splits, 1);
+  cfg.gridDim = dim3(batch * heads, splits, (groups + tile - 1) / tile);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = static_cast<cudaStream_t>(stream);
@@ -271,7 +286,7 @@ extern "C" int plane_decode_attention(const void* q, const void* q_scale, const 
       static_cast<const float*>(q_scale), static_cast<const uint32_t*>(kp),
       static_cast<const float*>(k_scale), static_cast<const uint32_t*>(vp),
       static_cast<const float*>(v_scale), static_cast<const float*>(bias),
-      static_cast<float*>(out), heads, groups, slots, fw, chunk, p_b, p_l, p_h, s_b, s_l, s_h,
-      b_b, b_h, b_g, b_l, sm_scale, is_signed, vec);
+      static_cast<float*>(out), heads, groups, tile, slots, fw, chunk, p_b, p_l, p_h, s_b, s_l,
+      s_h, b_b, b_h, b_g, b_l, sm_scale, is_signed, vec);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

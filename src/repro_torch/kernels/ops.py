@@ -121,6 +121,13 @@ def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
                               fmt_name=fmt_name)
 
 
+def bsdp_gemv(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
+              signed: bool = True) -> torch.Tensor:
+    """The reference's name for :func:`bsdp_matmul` (its entry point from
+    before the GEMM kernels), kept as an alias."""
+    return bsdp_matmul(x_i4, w_planes, signed=signed)
+
+
 def weight_only_matmul(x: torch.Tensor, w_i8: torch.Tensor,
                        w_scale: torch.Tensor) -> torch.Tensor:
     """W8A16: ``x [M,K] f32 or bf16 × w [K,N] int8`` (per-channel scale) →

@@ -10,7 +10,9 @@ integer math, the softmax over L in float32, and the weights — with
 L is split over a cluster of up to 8 blocks per (batch × kv-head) row
 (flash-decoding); the splits' softmax statistics and partial outputs are
 combined in a fixed order through distributed shared memory, in the same
-launch.
+launch.  The query rows G (chunk × group under chunked prefill) are tiled
+over the grid's third axis, so one launch takes any G and a (row, query)'s
+result does not depend on G.
 
 The K/V planes are read in the cache's stored layout ``[B, L, Hkv, 4, Fw]``
 and the bias ``[B, Hkv, G, L]`` through strides: no transposed copy of the

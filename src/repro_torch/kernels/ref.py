@@ -42,6 +42,13 @@ def dim_w16a8_ref(x_i8, w_i16) -> torch.Tensor:
     return dot_i32(x_i8, w_i16)
 
 
+def bsdp_ref(x_i4, w_i4, *, signed: bool = True) -> torch.Tensor:
+    """BSDP oracle, the definition: ``x_i4 [M,K] × w_i4 [K,N]`` (int4 values
+    in an int8 payload, signs carried by the values) → int32 ``[M,N]``."""
+    del signed
+    return dot_i32(x_i4, w_i4)
+
+
 def bsdp_planes_ref(x_planes, w_planes, *, signed: bool = True) -> torch.Tensor:
     """Algorithm 2 in its clarity form: ``[M,4,Kw] × [N,4,Kw] → [M,N]``."""
     return bsdp_popcount(x_planes[:, None], w_planes[None], signed=signed)

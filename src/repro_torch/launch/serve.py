@@ -4,12 +4,13 @@ Materialises a model from seed 0 on the device, converts its weights to
 the requested residency policy once, and serves synthetic requests
 through the continuous-batching engine, reporting throughput and
 TTFT/TPOT percentiles.  The defaults are the reference launcher's:
-``--mode w8a8`` and the config's own decode cache (``bf16`` for
-qwen3-1.7b)::
+``--mode w8a8``, the config's own decode cache (``bf16`` for qwen3-1.7b)
+and ``--scheduler fcfs``::
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
-        --mode ffn=bsdp_fused,mixer=w8a16 --cache-format int4_bp_fused
+        --mode ffn=bsdp_fused,mixer=w8a16 --cache-format int4_bp_fused \\
+        --scheduler token_budget:budget=32
 
 ``--device`` defaults to ``cuda`` and the run fails when no GPU is
 present; ``--device cpu`` runs the kernels' plain versions instead.
@@ -26,6 +27,7 @@ from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core import kvcache, residency
 from repro_torch.models import model as model_lib
 from repro_torch.serve import engine
+from repro_torch.serve import scheduler as sched_lib
 
 
 def registry_arg(parse):
@@ -53,6 +55,11 @@ def main(argv=None):
                     type=registry_arg(lambda s: kvcache.get_cache_format(s).name),
                     help=f"decode-cache residency (one of {', '.join(kvcache.formats())}; "
                          "default: the arch config's)")
+    ap.add_argument("--scheduler", default="fcfs",
+                    type=registry_arg(sched_lib.make_scheduler),
+                    help="orchestration policy (one of "
+                         f"{', '.join(sched_lib.schedulers())}), with "
+                         "optional kwargs like 'token_budget:budget=16'")
     ap.add_argument("--min-dim", type=int, default=64,
                     help="residency-conversion floor (smaller projections stay float)")
     ap.add_argument("--requests", type=int, default=8)
@@ -67,7 +74,8 @@ def main(argv=None):
     t0 = time.perf_counter()
     eng = engine.ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
                              mode=args.mode, cache_format=args.cache_format,
-                             min_dim=args.min_dim, device=args.device)
+                             scheduler=args.scheduler, min_dim=args.min_dim,
+                             device=args.device)
     print(f"residency convert ({eng.mode}): {time.perf_counter() - t0:.2f}s, "
           f"{engine.resident_bytes(eng.params) / 1e6:.1f} MB resident")
     print(f"cache format: {eng.cache_format}  scheduler: {eng.scheduler.describe()}  "

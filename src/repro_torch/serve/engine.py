@@ -7,23 +7,25 @@ through each layer's format — the hand-written kernels on a CUDA device,
 their plain versions on the CPU, or the plain PyTorch path everywhere with
 ``impl="plain"``.  Each ``step()`` is ``scheduler.plan(view)`` followed by
 one microbatched prefill for all refills (left-padded, negative positions
-masked) and one decode call for every live slot.
+masked) and one ``decode_step`` call for the chunk rows and decode rows
+together (a chunking scheduler's later prompt chunks ride in the decode
+call, right-aligned beside the one-token decode rows).
 
-Requests walk ``QUEUED → DECODING → DONE | CANCELLED`` and
-carry three-clock stamps (wall seconds, engine steps, processed
-positions) from which :meth:`ServeEngine.stats` derives TTFT and TPOT.
-Each step ends by copying its logits to the host, so the wall clock
-covers the device work.
+Requests walk ``QUEUED → PREFILLING → DECODING → DONE | CANCELLED``,
+stream each token to ``on_token`` and carry three-clock stamps (wall
+seconds, engine steps, processed positions) from which
+:meth:`ServeEngine.stats` derives TTFT and TPOT.  Each step ends by
+copying its logits to the host, so the wall clock covers the device work.
 
-Not ported yet: paging and prefix sharing, chunking schedulers (and
-their PREFILLING state), the observability spans.
+Not ported yet: paging and prefix sharing (and with them the
+``prefix_cache`` scheduler), the observability spans.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -36,6 +38,7 @@ from repro_torch.serve.scheduler import (
     CANCELLED,
     DECODING,
     DONE,
+    PREFILLING,
     QUEUED,
     EngineStats,
     EngineView,
@@ -105,14 +108,21 @@ def resident_bytes(params) -> int:
 @dataclasses.dataclass(eq=False)  # identity equality: queue membership
 class Request:
     """One serving request as a lifecycle object (see module docstring).
-    ``force`` teacher-forces the emitted tokens."""
 
-    uid: int
-    prompt: np.ndarray  # [P] int32
+    ``Request(uid, prompt, max_new)`` works positionally; ``uid=None`` is
+    assigned at ``submit``.  ``force`` teacher-forces the emitted tokens;
+    ``on_token(req, tok)`` streams every emitted token; ``prefilled``
+    counts the prompt tokens consumed (the whole prompt once DECODING).
+    """
+
+    uid: Optional[int] = None
+    prompt: np.ndarray = None  # [P] int32
     max_new: int = 0
     out: list = dataclasses.field(default_factory=list)
     force: Optional[np.ndarray] = None
     state: str = QUEUED
+    prefilled: int = 0
+    on_token: Optional[Callable[["Request", int], None]] = None
     arrival: Optional[Stamp] = None
     first_token: Optional[Stamp] = None
     finished: Optional[Stamp] = None
@@ -123,9 +133,17 @@ class Request:
 
     @property
     def done(self) -> bool:
+        """Terminal state (DONE or CANCELLED)."""
         return self.state in (DONE, CANCELLED)
 
+    @done.setter
+    def done(self, value: bool) -> None:  # legacy writers stop a request
+        if value:
+            self.state = DONE
+
     def cancel(self) -> None:
+        """Cancel; the engine frees the slot at its next step (a queued
+        request is dropped before it ever takes a slot)."""
         if self.state not in (DONE, CANCELLED):
             self.state = CANCELLED
 
@@ -135,8 +153,10 @@ class ServeEngine:
 
     ``mode``: weight-residency policy (``"ffn=bsdp_fused,mixer=w8a16"``);
     ``cache_format``: decode-cache residency (``"int4_bp_fused"``);
-    ``scheduler``: orchestration policy (``"fcfs"``); ``impl="plain"``
-    serves through the plain PyTorch paths instead of the kernels;
+    ``scheduler``: anything :func:`~repro_torch.serve.scheduler.make_scheduler`
+    takes (``"fcfs"``, ``"sjf"``, ``"token_budget:budget=16"``, a class or
+    an instance); ``impl="plain"`` serves through the plain PyTorch paths
+    instead of the kernels; ``clock`` stamps the wall-time clock;
     ``device`` defaults to ``"cuda"`` and raises when there is none.
     """
 
@@ -144,7 +164,8 @@ class ServeEngine:
                  impl: Optional[str] = None, mode: residency.SpecLike = "bf16",
                  cache_format: Optional[str] = None,
                  scheduler: sched_lib.SchedulerLike = "fcfs", min_dim: int = 64,
-                 trace_logits: bool = False, device=None):
+                 trace_logits: bool = False,
+                 clock: Callable[[], float] = time.perf_counter, device=None):
         self.device = resolve_device(device)
         spec = residency.ResidencySpec.parse(mode)
         params = _tree_to(params, self.device)
@@ -158,24 +179,43 @@ class ServeEngine:
         self.cache_format = kvcache.format_for(cfg).name
         self.scheduler = sched_lib.make_scheduler(scheduler)
         self.trace_logits = trace_logits
-        #: when ``trace_logits``: [(kind, slots, np.ndarray logits)] in order
+        #: when ``trace_logits``: [(kind, slots, np.ndarray logits)] in order;
+        #: a chunked request's first-token logits also record as "prefill"
         self.logit_trace: list = []
         self.queue: list[Request] = []
         self.active: list[Optional[Request]] = [None] * slots
         self.requests: list[Request] = []
         self.caches = None
         self.pos = np.zeros(slots, np.int32)
+        self._clock = clock
+        self._next_uid = 0
+        self._uids: set = set()
         self.step_index = 0
         self.work = 0
         self.wall_s = 0.0
         self._total_tokens = 0
 
     # -- admission ------------------------------------------------------
-    def submit(self, prompt, max_new: int = 0, *, force=None) -> Request:
-        """Admit one request; uids count up from 0 in submission order."""
-        req = Request(uid=len(self.requests), prompt=np.asarray(prompt), max_new=max_new,
-                      force=None if force is None else np.asarray(force))
-        self.scheduler.admit(req, self._view())
+    def submit(self, prompt, max_new: int = 0, *, uid: Optional[int] = None,
+               force=None, on_token: Optional[Callable] = None) -> Request:
+        """Admit one request (a prompt, or a pre-built :class:`Request`).
+        An omitted uid is assigned; a duplicate uid is rejected."""
+        if isinstance(prompt, Request):
+            req = prompt
+        else:
+            req = Request(uid=uid, prompt=np.asarray(prompt), max_new=max_new,
+                          force=None if force is None else np.asarray(force),
+                          on_token=on_token)
+        if req.uid is None:
+            while self._next_uid in self._uids:
+                self._next_uid += 1
+            req.uid = self._next_uid
+        if req.uid in self._uids:
+            raise ValueError(f"duplicate request uid {req.uid!r}")
+        self.scheduler.admit(req, self._view())  # may raise: rejected
+        self._uids.add(req.uid)
+        self._next_uid = max(self._next_uid, req.uid) + 1
+        req.state = QUEUED
         req.arrival = self._stamp()
         self.queue.append(req)
         self.requests.append(req)
@@ -183,11 +223,14 @@ class ServeEngine:
 
     # -- bookkeeping ----------------------------------------------------
     def _stamp(self) -> Stamp:
-        return Stamp(time.perf_counter(), self.step_index, self.work)
+        return Stamp(self._clock(), self.step_index, self.work)
 
     def _view(self) -> EngineView:
+        # chunking_ok keeps its default, True: every layer the port serves is
+        # attention, which ignores pad tokens
         return EngineView(slots=self.slots, active=tuple(self.active),
-                          queue=tuple(self.queue))
+                          queue=tuple(self.queue), max_len=self.max_len,
+                          step_index=self.step_index)
 
     @staticmethod
     def _next_token(req: Request, logits_row: np.ndarray) -> int:
@@ -202,6 +245,8 @@ class ServeEngine:
         self._total_tokens += 1
         if req.first_token is None:
             req.first_token = self._stamp()
+        if req.on_token is not None:
+            req.on_token(req, tok)
 
     def _finish(self, req: Request, slot: Optional[int], state: str) -> None:
         req.state = state
@@ -211,6 +256,8 @@ class ServeEngine:
         self.scheduler.on_complete(req, self._view())
 
     def _sweep_terminal(self) -> None:
+        """Free the queue entries and slots of requests moved to a terminal
+        state from outside the engine (``cancel()``, ``done = True``)."""
         for req in list(self.queue):
             if req.state in (CANCELLED, DONE):
                 self.queue.remove(req)
@@ -225,16 +272,18 @@ class ServeEngine:
 
     # -- execution ------------------------------------------------------
     def _prefill_slots(self, assignments: list) -> None:
-        """ONE prefill call for every refill (left-padded, pads at negative
-        positions), then the per-row caches are spliced into the slots and
-        each request emits its first token."""
-        lens = [req.prompt_len for _, req in assignments]
+        """ONE prefill call for every refill ``(slot, request, n_tokens)``
+        (left-padded, pads at negative positions), then the per-row caches
+        are spliced into the slots.  A whole prompt emits its first token;
+        a first chunk (``n_tokens`` short of the prompt) leaves the request
+        PREFILLING and its logits are discarded."""
+        lens = [n for _, _, n in assignments]
         s_max = max(lens)
         toks = np.zeros((len(assignments), s_max), np.int32)
         pos = np.zeros((len(assignments), s_max), np.int32)
-        for i, (_, req) in enumerate(assignments):
-            pad = s_max - req.prompt_len
-            toks[i, pad:] = req.prompt
+        for i, (_, req, n) in enumerate(assignments):
+            pad = s_max - n
+            toks[i, pad:] = req.prompt[:n]
             pos[i] = np.arange(s_max, dtype=np.int32) - pad
         batch = {"tokens": self._tensor(toks).long()}
         if s_max != min(lens):
@@ -249,34 +298,59 @@ class ServeEngine:
                  for name, t in layer.items()}
                 for layer in cache_b
             ]
-        slot_ids = torch.tensor([slot for slot, _ in assignments], dtype=torch.long,
+        slot_ids = torch.tensor([slot for slot, _, _ in assignments], dtype=torch.long,
                                 device=self.device)
         for full, rows in zip(self.caches, cache_b):
             for name, t in rows.items():
                 full[name][slot_ids] = t
         last_logits = logits[:, -1].cpu().numpy()
-        for i, (slot, req) in enumerate(assignments):
+        for i, (slot, req, n) in enumerate(assignments):
             self.active[slot] = req
-            self.pos[slot] = req.prompt_len
-            req.state = DECODING
-            if self.trace_logits:
-                self.logit_trace.append(("prefill", (slot,), last_logits[i]))
-            self._emit(req, last_logits[i])
+            self.pos[slot] = n
+            req.prefilled = n
+            if n == req.prompt_len:
+                req.state = DECODING
+                if self.trace_logits:
+                    self.logit_trace.append(("prefill", (slot,), last_logits[i]))
+                self._emit(req, last_logits[i])
+            else:
+                req.state = PREFILLING  # a chunk's logits are partial: discard
 
-    def _decode(self, decode_slots) -> list:
-        """One decode call for every slot (idle slots ride along at a pad
-        position); returns the ``(request, slot)`` pairs that finished."""
-        toks = np.zeros((self.slots, 1), np.int32)
-        pos = np.full((self.slots, 1), -1, np.int32)
+    def _chunk_decode(self, chunks, decode_slots) -> list:
+        """One ``decode_step`` for this step's chunk rows and decode rows.
+
+        Rows are right-aligned in a ``[slots, S]`` token block (``S`` the
+        longest chunk, 1 without chunks): a chunk row carries its next
+        prompt tokens at positions ``prefilled..prefilled+n``, a decode row
+        its last token at ``pos[slot]``, and the rest are pads at -1.  A
+        chunk that ends its prompt emits the request's first token from its
+        last logits.  Returns the ``(request, slot)`` pairs that finished.
+        """
+        s_len = max([n for _, n in chunks], default=1)
+        toks = np.zeros((self.slots, s_len), np.int32)
+        pos = np.full((self.slots, s_len), -1, np.int32)
+        for slot, n in chunks:
+            a = self.active[slot].prefilled
+            toks[slot, s_len - n:] = self.active[slot].prompt[a:a + n]
+            pos[slot, s_len - n:] = np.arange(a, a + n, dtype=np.int32)
         for slot in decode_slots:
-            toks[slot, 0] = self.active[slot].out[-1]
-            pos[slot, 0] = self.pos[slot]
+            toks[slot, -1] = self.active[slot].out[-1]
+            pos[slot, -1] = self.pos[slot]
         logits, self.caches = model_lib.decode_step(
             self.params, self._tensor(toks).long(), self.caches, self._tensor(pos),
             self.cfg, impl=self.impl)
         self.work += toks.size
         step_logits = logits[:, -1].cpu().numpy()
-        if self.trace_logits:
+        for slot, n in chunks:
+            req = self.active[slot]
+            req.prefilled += n
+            self.pos[slot] = req.prefilled
+            if req.prefilled >= req.prompt_len:
+                req.state = DECODING  # the last chunk's logits are the first token's
+                if self.trace_logits:
+                    self.logit_trace.append(("prefill", (slot,), step_logits[slot]))
+                self._emit(req, step_logits[slot])
+        if decode_slots and self.trace_logits:
             self.logit_trace.append(
                 ("decode", tuple(decode_slots), step_logits[list(decode_slots)]))
         finished = []
@@ -289,30 +363,39 @@ class ServeEngine:
         return finished
 
     def _execute(self, plan: StepPlan) -> bool:
-        for slot, req in plan.refills:
+        """Run one validated :class:`StepPlan`; returns progress."""
+        refills = []
+        for slot, req, n in plan.refills:
             if self.active[slot] is not None:
                 raise ValueError(f"plan refills occupied slot {slot}")
             if req not in self.queue:
                 raise ValueError(f"plan refills unqueued request {req.uid}")
             self.queue.remove(req)
-        if plan.refills:
-            self._prefill_slots(list(plan.refills))
+            refills.append((slot, req, min(n, req.prompt_len)))
+        if refills:
+            self._prefill_slots(refills)
+        chunks = [
+            (slot, min(n, self.active[slot].prompt_len - self.active[slot].prefilled))
+            for slot, n in plan.chunks
+            if self.active[slot] is not None
+            and self.active[slot].state == PREFILLING and n > 0
+        ]
         decode_slots = tuple(
             s for s in plan.decode
             if self.active[s] is not None and self.active[s].state == DECODING
         )
-        if decode_slots:
-            for req, slot in self._decode(decode_slots):
+        if chunks or decode_slots:
+            for req, slot in self._chunk_decode(chunks, decode_slots):
                 self._finish(req, slot, DONE)
-        return bool(plan.refills or decode_slots)
+        return bool(refills or chunks or decode_slots)
 
     def step(self) -> bool:
         """One scheduler-planned step; False when no progress was possible."""
-        t0 = time.perf_counter()
+        t0 = self._clock()
         self._sweep_terminal()
         progressed = self._execute(self.scheduler.plan(self._view()))
         self.step_index += 1
-        self.wall_s += time.perf_counter() - t0
+        self.wall_s += self._clock() - t0
         return progressed
 
     def run(self):
@@ -327,4 +410,3 @@ class ServeEngine:
             total_tokens=self._total_tokens, wall_s=self.wall_s, work=self.work,
             steps=self.step_index,
         )
-

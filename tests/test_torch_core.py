@@ -163,6 +163,32 @@ class TestBsdp:
         np.testing.assert_array_equal(got_mm, want)
         np.testing.assert_array_equal(got_pc, want)
 
+    @pytest.mark.parametrize("signed", [True, False])
+    @pytest.mark.parametrize("m", [1, 4])
+    def test_gemv_entry_points_match_reference(self, m, signed):
+        """``bsdp_gemv`` in both forms and ``bsdp_gemv_popcount``, from raw
+        int4 activations (the reference's GEMV API), bit-exact."""
+        rng = np.random.default_rng(7 + m)
+        x = _int4(rng, (m, 96), signed)
+        wq = _int4(rng, (96, 40), signed)
+        w_planes = bitplane.encode_weights(torch.from_numpy(wq))
+        ref_w = ref_bitplane.encode_weights(jnp.asarray(wq))
+        np.testing.assert_array_equal(_u32(w_planes), np.asarray(ref_w))
+        want = x.astype(np.int32) @ wq.astype(np.int32)
+        for form in ("popcount", "matmul"):
+            got = bsdp.bsdp_gemv(w_planes, torch.from_numpy(x), signed=signed, form=form)
+            ref = ref_bsdp.bsdp_gemv(ref_w, jnp.asarray(x), signed=signed, form=form)
+            assert got.dtype == torch.int32 and tuple(got.shape) == (m, 40)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+            np.testing.assert_array_equal(got.numpy(), want)
+        x_planes = bitplane.encode_acts(torch.from_numpy(x))
+        got = bsdp.bsdp_gemv_popcount(w_planes, x_planes, signed=signed)
+        ref = ref_bsdp.bsdp_gemv_popcount(ref_w, ref_bitplane.encode_acts(jnp.asarray(x)),
+                                          signed=signed)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+        with pytest.raises(ValueError, match="unknown form"):
+            bsdp.bsdp_gemv(w_planes, torch.from_numpy(x), form="mxu")
+
     def test_matmul_planes_is_the_int4_dot_product(self):
         rng = np.random.default_rng(6)
         x, w = _int4(rng, (4, 96)), _int4(rng, (5, 96))

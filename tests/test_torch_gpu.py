@@ -17,6 +17,8 @@ from repro_torch.core import bitplane, kvcache, quant
 from repro_torch.kernels import (bsdp_gemm, bsdp_kernel, dequant_gemv, dim_kernel, gemv_int4,
                                  gemv_int8, ops, plane_attn, ref)
 from repro_torch.models import attention
+from repro_torch.models import model as model_lib
+from repro_torch.serve import engine
 
 from _torch_inputs import attention_inputs, t, words
 
@@ -328,7 +330,7 @@ class TestSixthSliceOnTheCard:
                 assert torch.equal(got, want), (k, n)
                 assert torch.equal(got, dim_kernel.matmul_w16a8(xi, wt)), (k, n)
 
-    @pytest.mark.parametrize("cache_format", ["bf16", "int4_bp", "int4_bp_fused"])
+    @pytest.mark.parametrize("cache_format", ["bf16", "int8", "int4_bp", "int4_bp_fused"])
     def test_ring_write_longer_than_the_ring_matches_the_cpu(self, cuda, cache_format):
         """Row 0 writes 3 × L positions into L slots, row 1 a few pads and
         then 2 × L: the card keeps the newest token per slot, as the CPU
@@ -352,3 +354,92 @@ class TestSixthSliceOnTheCard:
         for got in caches[1:]:
             for name, want in caches[0].items():
                 assert torch.equal(got[name], want), name
+
+
+def _chunk_attention_case(rng, cuda, g, l, h=2, feat=128):
+    """A chunk step's plane attention: S = G / 2 tokens a slot, the bias as
+    the engine builds it ([B, S, L] per-token causal masks, expanded over
+    the kv heads and groups and materialised [B, Hkv, G, L]).  Slot 0 idle
+    (all pads: uniform rows), slot 1 a chunk at positions 5..4+S over a
+    ring holding 0..4+S (the last L of them when S + 5 > L), slot 2 a decode
+    row (one live token at the last column, the rest pads)."""
+    s = g // 2
+    fw = -(-feat // 32)
+    kp, vp = t(words(rng, (3, l, h, 4, fw))), t(words(rng, (3, l, h, 4, fw)))
+    ks = torch.from_numpy((rng.random((3, l, h)) * 0.5 + 0.01).astype(np.float32))
+    vs = torch.from_numpy((rng.random((3, l, h)) * 0.5 + 0.01).astype(np.float32))
+    pos_ids = np.full((3, l), -1)
+    cur = np.full((3, s), -1)
+    written = np.arange(max(0, s + 5 - l), s + 5)
+    pos_ids[1, written % l] = written
+    cur[1] = np.arange(5, 5 + s)
+    pos_ids[2, : l // 2] = np.arange(l // 2)
+    cur[2, -1] = l // 2 - 1
+    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= cur[..., None])
+    bias = torch.from_numpy(np.where(valid, 0.0, -1e30).astype(np.float32)).to(cuda)
+    bias = bias[:, None, :, None, :].expand(3, h, s, 2, l).reshape(3, h, g, l)
+    q = torch.from_numpy(rng.normal(size=(3, h, g, feat)).astype(np.float32))
+    q_planes, q_scale = kvcache.FusedBitPlaneCacheFormat._query_planes(q)
+    args = [x.to(cuda) for x in (q_planes, q_scale, kp, ks, vp, vs)] + [bias]
+    return args, 1.0 / np.sqrt(feat)
+
+
+@pytest.mark.gpu
+class TestSeventhSliceOnTheCard:
+    @pytest.mark.parametrize("l", [32, 512])
+    @pytest.mark.parametrize("g", [2, 34, 64, 512, 1024])
+    def test_plane_attention_takes_any_chunk(self, cuda, g, l):
+        """G from the decode shape to a 512-token chunk (the largest a
+        max_len 512 engine plans), one launch; G = 34 ends in a partial
+        tile of 16 query rows.  Within ATTN_TOL of the plain version, the
+        idle slot's rows uniform, two calls bitwise equal, and each tile's
+        first query rows bit-identical to a G = 2 launch of them alone (one
+        tile)."""
+        rng = np.random.default_rng(100 + g + l)
+        args, sm = _chunk_attention_case(rng, cuda, g, l)
+        got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
+        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        vals = bitplane.decode(args[4][0].permute(1, 0, 2, 3)).to(torch.float32)
+        idle = (vals * args[5][0].T[:, :, None]).mean(dim=1)  # [H, F]
+        torch.testing.assert_close(got[0], idle[:, None, :].expand_as(got[0]),
+                                   rtol=ATTN_TOL, atol=ATTN_TOL)
+        assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm))
+        q_planes, q_scale, *cache, bias = args
+        for g0 in range(0, g, 16):
+            part = plane_attn.plane_decode_attention(
+                q_planes[:, :, g0:g0 + 2], q_scale[:, :, g0:g0 + 2], *cache,
+                bias[:, :, g0:g0 + 2], sm_scale=sm)
+            assert torch.equal(got[:, :, g0:g0 + 2], part), g0
+
+    @pytest.mark.parametrize("stack", [("ffn=bsdp_fused,mixer=w8a16", "int4_bp_fused"),
+                                       ("w8a8", "int8")], ids=lambda c: f"{c[0]}+{c[1]}")
+    def test_token_budget_serve_matches_the_cpu(self, cuda, stack):
+        """A 2-layer float32 serve under token_budget:budget=4 (prompts of
+        5, 3 and 7 tokens in chunks, greedy) on the card: the CPU port's
+        schedule and tokens, logits within 1e-4 of the largest (the
+        kernels sum in their own order), and the kernels launched."""
+        mode, cache = stack
+        cfg = get_smoke_config("qwen3-1.7b").scaled(n_layers=2, dtype=torch.float32)
+        params = model_lib.materialize(cfg, seed=3, device="cpu")
+        runs = []
+        for dev in ("cpu", cuda):
+            ops.reset_counts()
+            eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
+                                     cache_format=cache, scheduler="token_budget:budget=4",
+                                     min_dim=16, trace_logits=True, device=dev)
+            rng = np.random.default_rng(0)
+            for n, mn in zip((5, 3, 7), (6, 2, 4)):
+                eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32), mn)
+            eng.run()
+            runs.append((eng, {k: v for k, v in ops.launch_counts().items() if v}))
+        (cpu, cpu_launches), (card, launches) = runs
+        assert cpu_launches == {}
+        assert launches.get("matmul_int8" if mode == "w8a8" else "plane_decode_attention")
+        assert [(k, sl) for k, sl, _ in card.logit_trace] == \
+            [(k, sl) for k, sl, _ in cpu.logit_trace]
+        assert [r.out for r in card.requests] == [r.out for r in cpu.requests]
+        for (_, _, a), (_, _, b) in zip(cpu.logit_trace, card.logit_trace):
+            assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max()
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import bitplane as ref_bitplane
 from repro.core import quant as ref_quant
 from repro.core.quant import QuantTensor
 from repro.kernels import ops as ref_ops
@@ -70,6 +71,26 @@ class TestBsdpKernels:
         x = torch.zeros((m, 4, 1), dtype=torch.int32)
         ops.bsdp_matmul_planes(x, torch.zeros((2, 4, 1), dtype=torch.int32))
         assert called == [want] == [ref_ops.bsdp_kernel_for(m)]
+
+    @pytest.mark.parametrize("m", [1, 4])
+    def test_bsdp_gemv_alias_and_bsdp_ref_match_reference(self, m):
+        """``ops.bsdp_gemv`` (the reference's alias of ``bsdp_matmul``, by
+        batch: the GEMV kernel at M = 1, the GEMM at M = 4) and the
+        ``bsdp_ref`` oracle, bit-exact against the reference's, K off the
+        32-element word."""
+        rng = np.random.default_rng(15 + m)
+        x = rng.integers(-8, 8, size=(m, 70)).astype(np.int8)
+        wq = rng.integers(-8, 8, size=(70, 24)).astype(np.int8)
+        w = bitplane.encode_weights(bitplane.pad_to_word(torch.from_numpy(wq), axis=0))
+        ref_w = ref_bitplane.encode_weights(ref_bitplane.pad_to_word(jnp.asarray(wq), axis=0))
+        got = ops.bsdp_gemv(torch.from_numpy(x), w)
+        want = ref_ops.bsdp_gemv(jnp.asarray(x), ref_w, interpret=True)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        oracle = ref.bsdp_ref(torch.from_numpy(x), torch.from_numpy(wq))
+        np.testing.assert_array_equal(
+            oracle.numpy(), np.asarray(ref_oracles.bsdp_ref(jnp.asarray(x), jnp.asarray(wq))))
+        np.testing.assert_array_equal(oracle.numpy(), got.numpy())
 
     def test_oracles_match_reference_oracles(self):
         rng = np.random.default_rng(12)

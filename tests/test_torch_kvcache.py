@@ -1,6 +1,7 @@
 """The port's ring cache against the JAX reference past the ring's end.
 
-Twins of ``tests/test_kvcache.py``'s wraparound tests.  A write whose
+Twins of ``tests/test_kvcache.py``'s wraparound tests, for every cache
+format the port registers (``int8`` too).  A write whose
 tokens map two of a row's positions to one slot (a prompt longer than the
 ring) keeps the newest token, as the reference's scatter does on the CPU:
 payload words, scales and ``pos_ids`` bit-identical to the reference's
@@ -30,7 +31,7 @@ from repro_torch.models import attention
 from repro_torch.models import model as model_lib
 
 VOCAB = 128
-FORMATS = ["bf16", "int4_bp", "int4_bp_fused"]
+FORMATS = ["bf16", "int8", "int4_bp", "int4_bp_fused"]
 #: the serve tests' logit tolerance (tests/test_torch_serve.py: float32
 #: rounding between the two frameworks, relative to the largest logit)
 LOGIT_RTOL = 1e-4
@@ -139,3 +140,48 @@ def test_decode_past_the_wrap_matches_reference(cache_format, prompt_len):
         np.testing.assert_array_equal(cache["pos_ids"].numpy(), ref_pos[i])
         assert sorted(cache["pos_ids"][0].tolist()) == list(range(prompt_len + 8 - 16,
                                                                   prompt_len + 8))
+
+
+class TestInt8CacheMatchesReference:
+    def test_formats_are_the_references_contiguous_ones(self):
+        assert kvcache.formats() == ("bf16", "int8", "int4_bp", "int4_bp_fused")
+        assert set(kvcache.formats()) <= set(ref_kvcache.formats())
+        fmt = kvcache.get_cache_format("int8")
+        store = fmt.init(2, 8, (3,), 40, device="cpu")
+        assert store[""].dtype == torch.int8 and tuple(store[""].shape) == (2, 8, 3, 40)
+        assert store["_scale"].dtype == torch.float32
+        assert tuple(store["_scale"].shape) == (2, 8, 3)
+
+    def test_qk_and_av_after_appends_with_pads(self):
+        """A write with left pads and one past the ring's end, then the
+        score and value reads on the same query and weights: payload and
+        scales bit-identical (checked by _write_both's caller below), qk
+        and av within 1e-6 of the reference's largest output."""
+        positions = np.stack([np.arange(-3, 9), np.arange(12)])  # row 1 wraps the ring of 8
+        ref_cache, cache = _write_both("int8", positions, seed=3)
+        _assert_caches_identical(ref_cache, cache)
+        ref_fmt = ref_kvcache.get_cache_format("int8")
+        fmt = kvcache.get_cache_format("int8")
+        rng = np.random.default_rng(4)
+        b, ln, hkv, f = cache["k"].shape
+        q = rng.normal(size=(b, hkv, 5, f)).astype(np.float32)
+        w = rng.random((b, hkv, 5, ln)).astype(np.float32)
+        pairs = (
+            (fmt.qk(torch.from_numpy(q), fmt.channel(cache, "k")),
+             ref_fmt.qk(jnp.asarray(q), ref_fmt.channel(ref_cache, "k"))),
+            (fmt.av(torch.from_numpy(w), fmt.channel(cache, "v"), f),
+             ref_fmt.av(jnp.asarray(w), ref_fmt.channel(ref_cache, "v"), f)),
+        )
+        for got, want in pairs:
+            want = np.asarray(want)
+            assert got.shape == want.shape
+            assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+    def test_int8_values_and_scales_bound_the_input(self):
+        """Each stored slot is round(x / scale) in [-127, 127] with scale =
+        max|x| / 127: the largest element of a slot stores as ±127."""
+        positions = np.arange(6)[None]
+        _, cache = _write_both("int8", positions, seed=5)
+        q = cache["k"][0, :6].to(torch.int32)
+        assert int(q.abs().amax()) == 127
+        assert bool((q.abs().amax(dim=-1) == 127).all())

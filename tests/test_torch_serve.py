@@ -344,6 +344,23 @@ class TestLauncherDefaults:
         assert "residency convert (w8a8)" in out
         assert "cache format: bf16" in out
         assert "served 2 requests / 4 tokens" in out
+        assert "scheduler: fcfs" in out
+
+    def test_scheduler_flag_serves_every_request_in_chunks(self, capsys):
+        """``--scheduler token_budget:budget=4``: prompts of 4-15 tokens
+        advance 4 tokens a step, and every request finishes."""
+        launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                           "--min-dim", "16", "--scheduler", "token_budget:budget=4",
+                           "--requests", "5", "--max-new", "3"])
+        out = capsys.readouterr().out
+        assert "scheduler: token_budget:budget=4" in out
+        assert "served 5 requests / 15 tokens" in out
+
+    def test_unknown_scheduler_is_refused_by_the_parser(self, capsys):
+        with pytest.raises(SystemExit):
+            launch_serve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                               "--scheduler", "nope"])
+        assert "unknown scheduler" in capsys.readouterr().err
 
 
 class TestEntryPointsNeedTheCard:
@@ -373,7 +390,7 @@ class TestEntryPointsNeedTheCard:
         cache = attention.init_kv_cache(cfg, 2, 8, device="cpu")
         assert {t.device.type for t in cache.values()} == {"cpu"}
 
-    @pytest.mark.parametrize("fmt", ["bf16", "int4_bp", "int4_bp_fused"])
+    @pytest.mark.parametrize("fmt", ["bf16", "int8", "int4_bp", "int4_bp_fused"])
     def test_cache_format_init_without_device_raises_when_no_gpu(self, monkeypatch, fmt):
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         cache_fmt = kvcache.get_cache_format(fmt)
