@@ -23,18 +23,31 @@ and two more at the same width and depth:
      under budget 256; phase 2 holds the kernel at G = 64, 384 and 512)
   F  ``w8a8`` with the ``int8`` cache under ``sjf``
 
-and drives the ops-level entry points ``ops.dim_matmul`` and
-``ops.matmul_int8_raw`` (path D).  Each path runs with the launch counts set
-to 0 just before it and read just after, and fails unless its kernels
-launched, no plain version ran on the card and its resident bytes match the
-analytic count.  Phase 4 compares the kernel path with the plain path on a
-2-layer cut for each weight format, the ``int8`` cache and a chunked serve.
-Any failure is a nonzero exit.  It needs a CUDA device and the repository's
-``src``; without either it fails before printing a result.
+then the two further dense configs at their full published width and depth,
+each on path A's and path B's stack (the same request mix, ``fcfs``):
 
-Paths E and F run at full depth: their serves take about 45-65 s of a run
-of about 150-210 s, far inside the 1200 s the run may take, and a cut
-would leave chunk steps of a depth no user runs.
+  G  starcoder2-3b (LayerNorm, GELU, 2 KV heads, untied head) on path A's stack
+  H  starcoder2-3b on path B's stack (``matmul_int8`` on the head too)
+  I  qwen1.5-32b (q/k/v biases, 64 layers, untied head) on path A's stack
+  J  qwen1.5-32b on path B's stack
+
+Their weights are drawn and converted leaf by leaf
+(``engine.materialize_converted``): qwen1.5-32b's, whole in bf16, would
+not fit one card beside their converted form.  The script then drives the ops-level
+entry points ``ops.dim_matmul`` and ``ops.matmul_int8_raw`` (path D).  Each
+path runs with the launch counts set to 0 just before it and read just
+after, and fails unless its kernels launched (exactly, a decode step), no
+plain version ran on the card and its resident bytes match the analytic
+count.  Phase 4 compares the kernel path with the plain path on a 2-layer
+cut for each weight format, the ``int8`` cache, a chunked serve and each
+further config on its two stacks, and qwen1.5-32b with path A's int4 steps
+taken out one at a time (the all-exact stack held to a zero difference).  Any failure is a nonzero exit.  It needs
+a CUDA device and the repository's ``src``; without either it fails before
+printing a result.
+
+Every path runs at full depth: paths E and F take about 45-65 s of a run and
+paths G-J a few hundred seconds, far inside the 1200 s the run may take, and
+a cut would leave steps of a depth no user runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -70,6 +83,38 @@ PATHS = {
            1: ("bsdp_gemv", "bsdp_gemm", "matmul_int4_packed")},
           {"bsdp_gemm": 56, "matmul_int4_packed": 112}),
 }
+#: the further dense configs, each at full width and depth on path A's and
+#: path B's stack: path → (arch, the stack's path, launches per decode step at
+#: slots=4: on A's stack 2 BSDP GEMMs, 4 W8A16 projections and one plane
+#: attention a layer, the head left in bf16; on B's 6 W8A8 projections a
+#: layer and the head)
+CONFIG_PATHS = {
+    "G": ("starcoder2-3b", "A",
+          {"bsdp_gemm_fused": 60, "dequant_matmul": 120, "plane_decode_attention": 30}),
+    "H": ("starcoder2-3b", "B", {"matmul_int8": 181}),
+    "I": ("qwen1.5-32b", "A",
+          {"bsdp_gemm_fused": 128, "dequant_matmul": 256, "plane_decode_attention": 64}),
+    "J": ("qwen1.5-32b", "B", {"matmul_int8": 385}),
+}
+#: paths G-J draw and convert leaf by leaf (``engine.materialize_converted``),
+#: and the peak allocation may exceed the resident bytes by two float32
+#: copies of the largest layer projection (a leaf's draw and its cast to
+#: the model's dtype alive together) and this much for the column blocks'
+#: temporaries.  The untied head's larger draw comes second, when only the
+#: embedding is resident.
+STREAM_SLACK_BYTES = 256 << 20
+
+
+def path_spec(path: str) -> tuple:
+    """(weights, cache, kernels that must launch by slots, launches a decode
+    step at slots=4) of any serving path."""
+    if path in PATHS:
+        return PATHS[path]
+    _, stack, per_step = CONFIG_PATHS[path]
+    mode, cache, must, _ = PATHS[stack]
+    return mode, cache, must, per_step
+
+
 #: phase 4's (weights, cache, scheduler): the three paths, the
 #: popcount-at-every-batch bit-plane format, the int8 cache (path F) and
 #: chunked prefill on path A (path E)
@@ -92,6 +137,19 @@ ATTN_TOL = 1e-4  # rtol = atol, as tests/test_kvcache.py holds the fused read
 # 2^-8, so the bf16 limits are the ones tests/test_serve_bsdp.py sets for
 # int4 noise against bf16.
 PATH_LIMITS = {"float32": (0.05, 0.999), "bfloat16": (0.5, 0.9)}
+#: phase 4's further cuts of qwen1.5-32b, each taking one of path A's int4
+#: steps out of its stack, to tell which one moves the kernel path off the
+#: plain path: (weights, cache, scheduler) → whether the two paths must
+#: agree to the bit.  With w8a8 attention and the bf16 cache every kernel
+#: the serve launches is bit-exact (BSDP, W8A8), so any difference there is
+#: a kernel fault; with w8a16 attention (float32 sums in another order) the
+#: int4 FFN re-quantizes the difference; with a w8a16 FFN only the int4
+#: cache does.
+DRIFT_MODES = {
+    ("ffn=bsdp_fused,mixer=w8a8", "bf16", "fcfs"): True,
+    ("ffn=bsdp_fused,mixer=w8a16", "bf16", "fcfs"): False,
+    ("w8a16", "int4_bp_fused", "fcfs"): False,
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -290,6 +348,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_dim(torch, device, gen, timer, rows)
     _rows_dequant(torch, device, gen, timer, rows)
     _rows_attention(torch, device, gen, timer, rows)
+    _rows_configs(torch, device, gen, timer, rows, min_m)
     for row in rows:
         print("kernel " + json.dumps(row))
     one = torch.zeros(1, device=device)
@@ -305,15 +364,21 @@ def step_gaps(rows) -> None:
     the kernels lose the most device time to their bounds.  Once with the
     ``Timer``'s ms and once with the queued ms; at slots=4 for every kernel
     of the path, at slots=1 for ``bsdp_gemv``."""
+    from repro_torch.configs import get_config
+
     lines = [(path, 4, entries) for path, entries in STEP_ROWS.items()]
     lines += [(path, 1, entries) for path, entries in STEP_ROWS_1.items()]
+    lines += [(path, 4, config_step_rows(path)) for path in CONFIG_PATHS]
+    lines += [(path, 1, config_step_rows(path, 1))
+              for path, (_, stack, _) in CONFIG_PATHS.items() if stack == "A"]
     for path, slots, entries in lines:
         per_step = {}
         for name, _, n in entries:
             per_step[name] = per_step.get(name, 0) + n
         if slots == 4:
-            check(per_step == PATHS[path][3],
-                  f"STEP_ROWS[{path}] != the path's launches per step")
+            check(per_step == path_spec(path)[3],
+                  f"the step rows of path {path} != the path's launches per step")
+        n_layers = get_config(CONFIG_PATHS[path][0]).n_layers if path in CONFIG_PATHS else 28
         for key in ("ms", "queued_ms"):
             gaps: dict = {}
             for name, shape, n in entries:
@@ -324,7 +389,7 @@ def step_gaps(rows) -> None:
                     gaps[name] = gaps.get(name, 0.0) + n * (row[key] - row["bound_ms"])
             ranked = ", ".join(f"{k} {v:.3f} ms"
                                for k, v in sorted(gaps.items(), key=lambda kv: -kv[1]))
-            print(f"path {path} decode step (slots={slots}, 28 layers): launches x ({key} - "
+            print(f"path {path} decode step (slots={slots}, {n_layers} layers): launches x ({key} - "
                   f"bound ms) summed {sum(gaps.values()):.3f} ms: {ranked}")
 
 
@@ -345,77 +410,88 @@ def _rows_bsdp(torch, device, gen, timer, rows, min_m):
     """The three BSDP kernels at the FFN's shapes: ``bsdp_gemv`` at M = 1
     (the slots=1 decode of A and C) and at M = 4 and 256 (``w4a4_bsdp``'s
     decode and prefill), the GEMMs at M = 4 and 256 and ``bsdp_gemm_fused``
-    also at M = 1 (the yardstick a GEMV route has to beat).  The library
-    yardstick is ``torch._int_mm`` on the int4 values decoded to int8 ahead
-    of time."""
+    also at M = 1 (the yardstick a GEMV route has to beat)."""
+    for layer in ("w_in", "w_out"):
+        _bsdp_rows_at(torch, device, gen, timer, rows, min_m, layer, *PROJ[layer],
+                      {"bsdp_gemv": (1, 4, 256), "bsdp_gemm_fused": (1, 4, 256),
+                       "bsdp_gemm": (4, 256)})
+
+
+def _bsdp_rows_at(torch, device, gen, timer, rows, min_m, label, k, n, ms_by_kernel):
+    """BSDP kernel rows at one weight ``[K, N]``, each kernel at its Ms.  The
+    library yardstick is ``torch._int_mm`` on the int4 values decoded to
+    int8 ahead of time."""
     from repro_torch.core import bitplane
     from repro_torch.kernels import bsdp_gemm, bsdp_kernel
 
-    for layer in ("w_in", "w_out"):
-        k, n = PROJ[layer]
-        kw = k // 32
-        w = _words(torch, gen, device, n, 4, kw)
-        w_dec = bitplane.decode(w).T.contiguous()  # [K, N] int8
-        for name, kernel, fn, plain, ms_ in (
-            ("bsdp_gemv", bsdp_kernel.KERNEL, bsdp_kernel.bsdp_matmul,
-             bsdp_kernel.bsdp_matmul_plain, (1, 4, 256)),
-            ("bsdp_gemm_fused", bsdp_gemm.KERNEL, bsdp_gemm.bsdp_gemm_fused,
-             bsdp_gemm.bsdp_gemm_fused_plain, (1, 4, 256)),
-            ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm,
-             bsdp_gemm.bsdp_gemm_plain, (4, 256)),
-        ):
-            for m in ms_:
-                x = _words(torch, gen, device, m, 4, kw)
-                got = fn(x, w)
-                err = _int_err(got, plain(x, w))
-                check(err == 0, f"{name} {layer} M={m}: not bit-exact (max err {err})")
-                check(torch.equal(got, fn(x, w)), f"{name} {layer} M={m}: two calls differ")
-                if name == "bsdp_gemm":
-                    check(torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w)),
-                          f"bsdp_gemm {layer} M={m}: differs from bsdp_gemm_fused")
-                lib, note = _int_mm(torch, bitplane.decode(x), w_dec, min_m)
-                nbytes = (m + n) * 4 * kw * 4 + m * n * 4
-                # the int4 dot product's multiply-adds at the int8 tensor rate
-                _row(rows, name, kernel, f"{layer} M={m} N={n} K={k}", err,
-                     timer, lambda: fn(x, w), timer.ms(lambda: plain(x, w)),
-                     bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
-                     note or "torch._int_mm on the int4 values decoded to int8 ahead of time")
+    kw = k // 32
+    w = _words(torch, gen, device, n, 4, kw)
+    w_dec = bitplane.decode(w).T.contiguous()  # [K, N] int8
+    for name, kernel, fn, plain in (
+        ("bsdp_gemv", bsdp_kernel.KERNEL, bsdp_kernel.bsdp_matmul,
+         bsdp_kernel.bsdp_matmul_plain),
+        ("bsdp_gemm_fused", bsdp_gemm.KERNEL, bsdp_gemm.bsdp_gemm_fused,
+         bsdp_gemm.bsdp_gemm_fused_plain),
+        ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm,
+         bsdp_gemm.bsdp_gemm_plain),
+    ):
+        for m in ms_by_kernel.get(name, ()):
+            x = _words(torch, gen, device, m, 4, kw)
+            got = fn(x, w)
+            err = _int_err(got, plain(x, w))
+            check(err == 0, f"{name} {label} M={m}: not bit-exact (max err {err})")
+            check(torch.equal(got, fn(x, w)), f"{name} {label} M={m}: two calls differ")
+            if name == "bsdp_gemm":
+                check(torch.equal(got, bsdp_gemm.bsdp_gemm_fused(x, w)),
+                      f"bsdp_gemm {label} M={m}: differs from bsdp_gemm_fused")
+            lib, note = _int_mm(torch, bitplane.decode(x), w_dec, min_m)
+            nbytes = (m + n) * 4 * kw * 4 + m * n * 4
+            # the int4 dot product's multiply-adds at the int8 tensor rate
+            _row(rows, name, kernel, f"{label} M={m} N={n} K={k}", err,
+                 timer, lambda: fn(x, w), timer.ms(lambda: plain(x, w)),
+                 bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+                 note or "torch._int_mm on the int4 values decoded to int8 ahead of time")
 
 
 def _rows_int8(torch, device, gen, timer, rows, min_m):
     """W8A8 at the projections of path B; scaled output bit-exact (the same
     integer sums, the same float32 multiplies in the same order)."""
+    for layer in ("wq", "wk", "w_in", "w_out"):
+        _int8_rows_at(torch, device, gen, timer, rows, min_m, layer, *PROJ[layer], (1, 4, 256))
+
+
+def _int8_rows_at(torch, device, gen, timer, rows, min_m, label, k, n, ms):
+    """``matmul_int8`` rows at one weight ``[K, N]``, and the raw int32
+    variant once (wq at M = 4)."""
     from repro_torch.kernels import gemv_int8
 
-    for layer in ("wq", "wk", "w_in", "w_out"):
-        k, n = PROJ[layer]
-        w = _int8(torch, gen, device, k, n)
-        ws = _scales(torch, gen, device, 1, n)
-        for m in (1, 4, 256):
-            x = _int8(torch, gen, device, m, k)
-            xs = _scales(torch, gen, device, m, 1)
-            err = (gemv_int8.matmul_int8(x, w, xs, ws)
-                   - gemv_int8.matmul_int8_plain(x, w, xs, ws)).abs().max().item()
-            check(err == 0, f"matmul_int8 {layer} M={m}: not bit-exact (max err {err})")
-            lib, note = _int_mm(torch, x, w, min_m)
-            acc = gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True)
-            check(torch.equal(acc, lib()[:m]), f"matmul_int8 {layer} M={m}: != torch._int_mm")
-            nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
-            _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k}", err,
-                 timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws),
-                 timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws)),
-                 bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
-                 note or "torch._int_mm (int32 out, no scales)")
-            if layer == "wq" and m == 4:  # the raw int32 variant, once
-                err = _int_err(acc, gemv_int8.matmul_int8_plain(x, w, xs, ws, out_int32=True))
-                check(err == 0, f"matmul_int8 out_int32: not bit-exact (max err {err})")
-                _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{layer} M={m} N={n} K={k} "
-                     "out_int32", err,
-                     timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True),
-                     timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws,
-                                                                  out_int32=True)),
-                     bound(m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS_PER_S),
-                     timer.ms(lib), note or "torch._int_mm")
+    w = _int8(torch, gen, device, k, n)
+    ws = _scales(torch, gen, device, 1, n)
+    for m in ms:
+        x = _int8(torch, gen, device, m, k)
+        xs = _scales(torch, gen, device, m, 1)
+        err = (gemv_int8.matmul_int8(x, w, xs, ws)
+               - gemv_int8.matmul_int8_plain(x, w, xs, ws)).abs().max().item()
+        check(err == 0, f"matmul_int8 {label} M={m}: not bit-exact (max err {err})")
+        lib, note = _int_mm(torch, x, w, min_m)
+        acc = gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True)
+        check(torch.equal(acc, lib()[:m]), f"matmul_int8 {label} M={m}: != torch._int_mm")
+        nbytes = m * k + k * n + 4 * (m + n) + 4 * m * n
+        _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{label} M={m} N={n} K={k}", err,
+             timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws),
+             timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws)),
+             bound(nbytes, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+             note or "torch._int_mm (int32 out, no scales)")
+        if label == "wq" and m == 4:  # the raw int32 variant, once
+            err = _int_err(acc, gemv_int8.matmul_int8_plain(x, w, xs, ws, out_int32=True))
+            check(err == 0, f"matmul_int8 out_int32: not bit-exact (max err {err})")
+            _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{label} M={m} N={n} K={k} "
+                 "out_int32", err,
+                 timer, lambda: gemv_int8.matmul_int8(x, w, xs, ws, out_int32=True),
+                 timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, xs, ws,
+                                                              out_int32=True)),
+                 bound(m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS_PER_S),
+                 timer.ms(lib), note or "torch._int_mm")
 
 
 def _rows_int4(torch, device, gen, timer, rows, min_m):
@@ -473,120 +549,133 @@ def _rows_dim(torch, device, gen, timer, rows):
 def _rows_dequant(torch, device, gen, timer, rows):
     """W8A16 at path A's attention projections: K = 2048 → N = 2048 (wq, wo)
     / 1024 (wk, wv), with float32 activations and with the model's bf16
-    ones (widened inside the kernel).  Two calls must be bitwise equal."""
+    ones (widened inside the kernel)."""
+    for n in (2048, 1024):
+        _dequant_rows_at(torch, device, gen, timer, rows, "", 2048, n,
+                         (torch.float32, torch.bfloat16), (1, 4, 256))
+
+
+def _dequant_rows_at(torch, device, gen, timer, rows, prefix, k, n, dtypes, ms):
+    """``dequant_matmul`` rows at one weight ``[K, N]``.  Two calls must be
+    bitwise equal."""
     from repro_torch.kernels import dequant_gemv
 
-    for n in (2048, 1024):
-        k = 2048
-        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=device)
-        ws = torch.rand((1, n), generator=gen, device=device) * 0.02 + 1e-3
-        w_deq = w.to(torch.float32) * ws  # the yardstick's pre-dequantized weight
-        for dtype in (torch.float32, torch.bfloat16):
-            for m in (1, 4, 256):
-                x = torch.randn((m, k), generator=gen, device=device).to(dtype)
-                xf = x.to(torch.float32)  # the yardstick's activations, widened ahead of time
-                got = dequant_gemv.dequant_matmul(x, w, ws)
-                want = dequant_gemv.dequant_matmul_plain(x, w, ws)
-                torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                scale = want.abs().max().item()
-                tag = "" if dtype == torch.float32 else " x=bf16"
-                check(err <= DEQUANT_RTOL * scale,
-                      f"dequant_matmul M={m} N={n}{tag}: err {err} > {DEQUANT_RTOL} * {scale}")
-                check(torch.equal(got, dequant_gemv.dequant_matmul(x, w, ws)),
-                      f"dequant_matmul M={m} N={n}{tag}: two calls differ")
-                nbytes = m * k * x.element_size() + k * n + n * 4 + m * n * 4
-                _row(rows, "dequant_matmul", dequant_gemv.KERNEL, f"M={m} N={n} K={k}{tag}",
-                     err, timer, lambda: dequant_gemv.dequant_matmul(x, w, ws),
-                     timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
-                     bound(nbytes, 2 * m * n * k / F32_OPS_PER_S),
-                     timer.ms(lambda: torch.matmul(xf, w_deq)),
-                     "torch.matmul against a weight dequantized (and bf16 activations "
-                     "widened) ahead of time")
+    w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=device)
+    ws = torch.rand((1, n), generator=gen, device=device) * 0.02 + 1e-3
+    w_deq = w.to(torch.float32) * ws  # the yardstick's pre-dequantized weight
+    for dtype in dtypes:
+        for m in ms:
+            x = torch.randn((m, k), generator=gen, device=device).to(dtype)
+            xf = x.to(torch.float32)  # the yardstick's activations, widened ahead of time
+            got = dequant_gemv.dequant_matmul(x, w, ws)
+            want = dequant_gemv.dequant_matmul_plain(x, w, ws)
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            tag = f"{prefix}M={m} N={n} K={k}" + ("" if dtype == torch.float32 else " x=bf16")
+            check(err <= DEQUANT_RTOL * scale,
+                  f"dequant_matmul {tag}: err {err} > {DEQUANT_RTOL} * {scale}")
+            check(torch.equal(got, dequant_gemv.dequant_matmul(x, w, ws)),
+                  f"dequant_matmul {tag}: two calls differ")
+            nbytes = m * k * x.element_size() + k * n + n * 4 + m * n * 4
+            _row(rows, "dequant_matmul", dequant_gemv.KERNEL, tag,
+                 err, timer, lambda: dequant_gemv.dequant_matmul(x, w, ws),
+                 timer.ms(lambda: dequant_gemv.dequant_matmul_plain(x, w, ws)),
+                 bound(nbytes, 2 * m * n * k / F32_OPS_PER_S),
+                 timer.ms(lambda: torch.matmul(xf, w_deq)),
+                 "torch.matmul against a weight dequantized (and bf16 activations "
+                 "widened) ahead of time")
 
 
 def _rows_attention(torch, device, gen, timer, rows):
     """Decode attention on the bit-plane cache at path A's two decode shapes:
-    slots=4 × Hkv=8 → R=32 and slots=1 → R=8, G=2, L=512, F=128 (Fw=4).
-    At R=32: slot 0 idle (every position masked), slot 1 a wrapped ring
-    (positions 100..611), slot 2 part-filled, slot 3 full, and the bias
-    materialised.  At R=8 the one slot is part-filled (300 positions: the
-    last L splits wholly masked in a live row) and the bias is the engine's
-    expanded view (stride 0 over heads and queries).  Two calls must be
-    bitwise equal."""
+    slots=4 × Hkv=8 → R=32 and slots=1 → R=8, G=2, L=512, F=128 (Fw=4),
+    then the chunk rows."""
+    for b in (4, 1):
+        _attention_decode_row(torch, device, gen, timer, rows, b, 8, 2)
+    for s_len in CHUNK_ROWS:
+        _row_attention_chunk(torch, device, gen, timer, rows, s_len)
+
+
+def _attention_decode_row(torch, device, gen, timer, rows, b, h, g):
+    """Plane attention at a decode shape: ``b`` slots × ``h`` kv heads → R
+    rows of G query heads, L=512, F=128 (Fw=4).  At b = 4: slot 0 idle
+    (every position masked), slot 1 a wrapped ring (positions 100..611),
+    slot 2 part-filled, slot 3 full, and the bias materialised.  At b = 1
+    the one slot is part-filled (300 positions: the last L splits wholly
+    masked in a live row) and the bias is the engine's expanded view
+    (stride 0 over heads and queries).  Two calls must be bitwise equal."""
     import torch.nn.functional as F
 
     from repro_torch.core import bitplane
     from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
     from repro_torch.kernels import plane_attn
 
-    h, g, l, feat = 8, 2, 512, 128
+    l, feat = 512, 128
     fw = feat // 32
-    for b in (4, 1):
-        kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
-                  _words(torch, gen, device, b, l, h, 4, fw))
-        ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
-        vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
-        pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
-        if b == 4:
-            ring = torch.arange(100, 612, device=device)
-            pos_ids[1, ring % l] = ring
-            pos_ids[2, :300] = torch.arange(300, device=device)
-            pos_ids[3] = torch.arange(l, device=device)
-            cur = torch.tensor([0, 611, 299, 511], device=device)
-        else:
-            pos_ids[0, :300] = torch.arange(300, device=device)
-            cur = torch.tensor([299], device=device)
-        valid = (pos_ids >= 0) & (pos_ids <= cur[:, None])
-        bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[:, None, None, :]
-        bias = bias.expand(b, h, g, l)
-        if b == 4:
-            bias = bias.contiguous()
-        q = torch.randn((b, h, g, feat), generator=gen, device=device)
-        q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
-        args = (q_planes, q_scale, kp, ks, vp, vs, bias)
-        sm = 1.0 / math.sqrt(feat)
-        r = b * h
-        got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
-        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()), f"plane_decode_attention R={r}: non-finite output")
-        check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
-              f"plane_decode_attention R={r}: max err {(got - want).abs().max().item()}")
-        check(torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm)),
-              f"plane_decode_attention R={r}: two calls differ")
-        if b == 4:  # the idle slot's rows get uniform weights: the mean of v_scale · v_int4
-            vals = bitplane.decode(vp[0].permute(1, 0, 2, 3)).to(torch.float32)  # [H, L, F]
-            idle = (vals * vs[0].T[:, :, None]).mean(dim=1)  # [H, F]
-            check(torch.allclose(got[0], idle[:, None, :].expand_as(got[0]), rtol=ATTN_TOL,
-                                 atol=ATTN_TOL),
-                  "plane_decode_attention: a fully masked row is not uniform")
+    kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
+              _words(torch, gen, device, b, l, h, 4, fw))
+    ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
+    if b == 4:
+        ring = torch.arange(100, 612, device=device)
+        pos_ids[1, ring % l] = ring
+        pos_ids[2, :300] = torch.arange(300, device=device)
+        pos_ids[3] = torch.arange(l, device=device)
+        cur = torch.tensor([0, 611, 299, 511], device=device)
+    else:
+        pos_ids[0, :300] = torch.arange(300, device=device)
+        cur = torch.tensor([299], device=device)
+    valid = (pos_ids >= 0) & (pos_ids <= cur[:, None])
+    bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[:, None, None, :]
+    bias = bias.expand(b, h, g, l)
+    if b == 4:
+        bias = bias.contiguous()
+    q = torch.randn((b, h, g, feat), generator=gen, device=device)
+    q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
+    args = (q_planes, q_scale, kp, ks, vp, vs, bias)
+    sm = 1.0 / math.sqrt(feat)
+    r = b * h
+    tag = f"R={r} G={g} L={l} Fw={fw}"
+    got = plane_attn.plane_decode_attention(*args, sm_scale=sm)
+    want = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), f"plane_decode_attention {tag}: non-finite output")
+    check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+          f"plane_decode_attention {tag}: max err {(got - want).abs().max().item()}")
+    check(torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+          f"plane_decode_attention {tag}: two calls differ")
+    if b == 4:  # the idle slot's rows get uniform weights: the mean of v_scale · v_int4
+        vals = bitplane.decode(vp[0].permute(1, 0, 2, 3)).to(torch.float32)  # [H, L, F]
+        idle = (vals * vs[0].T[:, :, None]).mean(dim=1)  # [H, F]
+        check(torch.allclose(got[0], idle[:, None, :].expand_as(got[0]), rtol=ATTN_TOL,
+                             atol=ATTN_TOL),
+              "plane_decode_attention: a fully masked row is not uniform")
 
-        # yardstick: scaled_dot_product_attention over K/V dequantized ahead of
-        # time (rows r = (b, h): q [R, 1, G, F], K/V [R, 1, L, F], mask [R, 1, G, L])
-        def dequant(planes, scale):
-            v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
-            return v.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous()
+    # yardstick: scaled_dot_product_attention over K/V dequantized ahead of
+    # time (rows r = (b, h): q [R, 1, G, F], K/V [R, 1, L, F], mask [R, 1, G, L])
+    def dequant(planes, scale):
+        v = bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
+        return v.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous()
 
-        kd, vd = dequant(kp, ks), dequant(vp, vs)
-        qd = q.reshape(r, 1, g, feat)
-        mask = bias.reshape(r, 1, g, l)
-        # each input read once: the bias counts at its stored size
-        nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4
-                  + 2 * (kp.numel() * 4 + ks.numel() * 4)
-                  + bias.untyped_storage().nbytes() + r * g * feat * 4)
-        ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
-        _row(rows, "plane_decode_attention", plane_attn.KERNEL,
-             f"R={r} G={g} L={l} Fw={fw}" + ("" if b == 4 else " bias expanded"),
-             (got - want).abs().max().item(),
-             timer, lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm),
-             timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
-             bound(nbytes, ops_s),
-             timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
-                                                             scale=sm)),
-             "F.scaled_dot_product_attention over K/V dequantized ahead of time")
-    for s_len in CHUNK_ROWS:
-        _row_attention_chunk(torch, device, gen, timer, rows, s_len)
+    kd, vd = dequant(kp, ks), dequant(vp, vs)
+    qd = q.reshape(r, 1, g, feat)
+    mask = bias.reshape(r, 1, g, l)
+    # each input read once: the bias counts at its stored size
+    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4
+              + 2 * (kp.numel() * 4 + ks.numel() * 4)
+              + bias.untyped_storage().nbytes() + r * g * feat * 4)
+    ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
+    _row(rows, "plane_decode_attention", plane_attn.KERNEL,
+         tag + ("" if b == 4 else " bias expanded"),
+         (got - want).abs().max().item(),
+         timer, lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm),
+         timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm)),
+         bound(nbytes, ops_s),
+         timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                         scale=sm)),
+         "F.scaled_dot_product_attention over K/V dequantized ahead of time")
 
 
 #: chunk lengths of the chunked-prefill attention rows (G = 2 · S): budget
@@ -666,6 +755,88 @@ def _row_attention_chunk(torch, device, gen, timer, rows, s_len):
          "F.scaled_dot_product_attention over K/V dequantized ahead of time")
 
 
+def config_projections(cfg) -> dict:
+    """name → (K, N) of a layer's projections, and of the untied head."""
+    d, dh = cfg.d_model, cfg.d_head
+    d_in = cfg.d_ff if cfg.act == "gelu" else 2 * cfg.d_ff  # SwiGLU: fused [gate; up]
+    proj = {"wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
+            "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d),
+            "w_in": (d, d_in), "w_out": (cfg.d_ff, d)}
+    if not cfg.tie_embeddings:
+        proj["head"] = (d, cfg.vocab_size)
+    return proj
+
+
+def config_row(cfg, name: str, m: int) -> str:
+    """The phase-2 row of projection ``name`` of ``cfg`` at M = m, named
+    after the first projection of its shape (wq stands for wo, wk for wv)."""
+    proj = config_projections(cfg)
+    k, n = proj[name]
+    first = next(p for p, shape in proj.items() if shape == (k, n))
+    return f"{cfg.name} {first} M={m} N={n} K={k}"
+
+
+def config_step_rows(path: str, slots: int = 4) -> list:
+    """STEP_ROWS for a path of :data:`CONFIG_PATHS`: (kernel, row, launches a
+    decode step) at slots=4, or ``bsdp_gemv``'s at slots=1 (A's stack)."""
+    from repro_torch.configs import get_config
+
+    arch, stack, _ = CONFIG_PATHS[path]
+    cfg = get_config(arch)
+    layers = cfg.n_layers
+    if slots == 1:
+        return [("bsdp_gemv", config_row(cfg, name, 1), layers) for name in ("w_in", "w_out")]
+    if stack == "B":
+        return [("matmul_int8", config_row(cfg, name, 4), 1 if name == "head" else layers)
+                for name in config_projections(cfg)]
+    return ([("bsdp_gemm_fused", config_row(cfg, name, 4), layers) for name in ("w_in", "w_out")]
+            + [("dequant_matmul", config_row(cfg, name, 4) + " x=bf16", layers)
+               for name in ("wq", "wk", "wv", "wo")]
+            + [("plane_decode_attention",
+                f"R={4 * cfg.n_kv_heads} G={cfg.n_heads // cfg.n_kv_heads} L=512 Fw=4",
+                layers)])
+
+
+#: the prefill rows of paths G-J: the phase-3 mix prefills prompts of 16-128
+#: tokens, left-padded over up to 4 slots, so the projections see M = B · S
+#: of 17 to 512 rows through the kernels' tile routes (M > 16)
+PREFILL_M = 256
+
+
+def _rows_configs(torch, device, gen, timer, rows, min_m):
+    """The kernels of paths G-J at the shapes the two further configs give
+    them: ``bsdp_gemv`` (M = 1) and ``bsdp_gemm_fused`` (M = 1, 4 and
+    :data:`PREFILL_M`) at each FFN projection (K = 27392 is 107 binary
+    256-wide K steps, an odd count), ``dequant_matmul`` (M = 1, 4 and
+    PREFILL_M, bf16 x) at each attention shape, ``matmul_int8`` at every
+    projection (M = 1, 4 and PREFILL_M) and the head (M = 1 and 4, the
+    rows a step's last tokens give it; 778.6 M int8 weights at
+    qwen1.5-32b's), and plane attention at G = 12 over R = 8 (starcoder2-3b)
+    and G = 1 over R = 160 (qwen1.5-32b)."""
+    from repro_torch.configs import get_config
+
+    ms = (1, 4, PREFILL_M)
+    for arch in dict.fromkeys(arch for arch, _, _ in CONFIG_PATHS.values()):
+        cfg = get_config(arch)
+        proj = config_projections(cfg)
+        shapes = {}  # each distinct (K, N) once, under its first projection
+        for name, shape in proj.items():
+            shapes.setdefault(shape, name)
+        for shape, name in shapes.items():
+            label = f"{arch} {name}"
+            if name in ("w_in", "w_out"):
+                _bsdp_rows_at(torch, device, gen, timer, rows, min_m, label, *shape,
+                              {"bsdp_gemv": (1,), "bsdp_gemm_fused": ms})
+            elif name != "head":
+                _dequant_rows_at(torch, device, gen, timer, rows, label + " ", *shape,
+                                 (torch.bfloat16,), ms)
+            _int8_rows_at(torch, device, gen, timer, rows, min_m, label, *shape,
+                          ms[:2] if name == "head" else ms)
+        _attention_decode_row(torch, device, gen, timer, rows, 4, cfg.n_kv_heads,
+                              cfg.n_heads // cfg.n_kv_heads)
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve full qwen3-1.7b through each path's kernels
 # ---------------------------------------------------------------------------
@@ -674,27 +845,38 @@ def _row_attention_chunk(torch, device, gen, timer, rows, s_len):
 def analytic_resident_bytes(cfg, mode: str, min_dim: int = 64) -> int:
     """Resident bytes of a converted model from its shapes alone: each
     projection's payload plus its float32 per-channel scale (a projection
-    narrower than ``min_dim``, the engine's conversion floor, stays float),
-    the float32 tied embedding and the float32 norms."""
+    narrower than ``min_dim``, the engine's conversion floor, or one the
+    policy keeps float, stays in ``cfg.dtype``), the untied head under
+    ``mode_for("embed.head")``, the float32 embedding, norms (a LayerNorm's
+    bias too) and q/k/v biases."""
     from repro_torch.core.residency import ResidencySpec
 
     spec = ResidencySpec.parse(mode)
     d, dh = cfg.d_model, cfg.d_head
-    shapes = {"mixer": {"wq": (d, cfg.n_heads * dh), "wk": (d, cfg.n_kv_heads * dh),
-                        "wv": (d, cfg.n_kv_heads * dh), "wo": (cfg.n_heads * dh, d)},
-              "ffn": {"w_in": (d, 2 * cfg.d_ff), "w_out": (cfg.d_ff, d)}}
+    proj = config_projections(cfg)
     payload = {"w8a16": lambda k, n: k * n, "w8a8": lambda k, n: k * n,
                "w4a8": lambda k, n: -(-k // 2) * n,
                **{f: (lambda k, n: n * 4 * -(-k // 32) * 4)
                   for f in ("w4a4_bsdp", "bsdp", "bsdp_fused")}}
-    total = cfg.vocab_size * d * 4 + d * 4  # embedding, final norm
+
+    def projection(path, k, n):
+        fmt = spec.mode_for(path)
+        if fmt in payload and min(k, n) >= min_dim:
+            return payload[fmt](k, n) + 4 * n
+        return k * n * cfg.dtype.itemsize
+
+    norm = (2 if cfg.norm == "layernorm" else 1) * d * 4  # scale (+ bias), float32
+    total = cfg.vocab_size * d * 4 + norm  # embedding, final norm
+    if "head" in proj:
+        total += projection("embed.head", *proj["head"])
     for i in range(cfg.n_layers):
-        total += (2 * d + (2 * dh if cfg.qk_norm else 0)) * 4  # ln1, ln2, q/k norms
-        for group, leaves in shapes.items():
-            for name, (k, n) in leaves.items():
-                fmt = spec.mode_for(f"layers.{i}.{group}.{name}")
-                total += (payload[fmt](k, n) + 4 * n if fmt in payload and min(k, n) >= min_dim
-                          else k * n * cfg.dtype.itemsize)
+        total += 2 * norm + (2 * dh * 4 if cfg.qk_norm else 0)  # ln1, ln2, q/k norms
+        if cfg.qkv_bias:
+            total += (cfg.n_heads + 2 * cfg.n_kv_heads) * dh * 4
+        for name, (k, n) in proj.items():
+            if name != "head":
+                group = "ffn" if name.startswith("w_") else "mixer"
+                total += projection(f"layers.{i}.{group}.{name}", k, n)
     return total
 
 
@@ -745,12 +927,54 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
     return counts
 
 
+def phase_configs(torch, device, card) -> dict[str, dict]:
+    """Paths G-J: each further config at full width and depth on path A's
+    and path B's stack, drawn from ``SEED`` and converted leaf by leaf
+    (qwen1.5-32b's float weights would not fit the card beside their
+    converted form), resident bytes held to the analytic count and the
+    peak allocation to its bound; each path served as A-C are and
+    profiled, its tree freed before the next.  Returns path → kernel →
+    launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+
+    counts = {}
+    for path, (arch, _, _) in CONFIG_PATHS.items():
+        cfg = get_config(arch)
+        mode = path_spec(path)[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+        peak = torch.cuda.max_memory_allocated() - base
+        largest = max(k * n for name, (k, n) in config_projections(cfg).items()
+                      if name != "head") * 4
+        limit = got + 2 * largest + STREAM_SLACK_BYTES
+        print(f"path {path}: {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
+              f"{cfg.d_ff}, vocab {cfg.vocab_size}) drawn and converted leaf by leaf ({mode}): "
+              f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
+              f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
+              f"2 x {largest} B, the largest layer projection in float32, + "
+              f"{STREAM_SLACK_BYTES} B)")
+        check(abs(got - want) <= RESIDENT_RTOL * want,
+              f"path {path}: resident bytes {got} vs analytic {want}")
+        check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
+        counts[path] = _serve_path(torch, device, card, engine, qparams, cfg, path)
+        phase_profile(torch, device, engine, qparams, cfg, card, path)
+        del qparams
+        torch.cuda.empty_cache()
+    return counts
+
+
 def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
     import numpy as np
 
     from repro_torch.kernels import ops
 
-    mode, cache, must, _ = PATHS[path]
+    mode, cache, must, _ = path_spec(path)
     rng = np.random.default_rng(SEED)
     counts: dict = {}
     for slots, n_requests in ((4, 8), (1, 2)):
@@ -766,9 +990,9 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
               f"path {path} slots={slots}: a plain version ran on a CUDA tensor: {plain}")
         for name in must[slots]:
             check(launches[name] > 0, f"path {path} slots={slots}: {name} never launched")
-        if slots == 1 and path in STEP_ROWS_1:  # the slots=1 gap line's launches per step
+        if slots == 1 and "bsdp_gemv" in must[1]:  # the slots=1 gap line's launches per step
             steps = sum(len(req.out) - 1 for req in eng.requests)  # decode steps: 1 row each
-            want = sum(n for _, _, n in STEP_ROWS_1[path]) * steps
+            want = 2 * cfg.n_layers * steps  # w_in and w_out a layer
             check(launches["bsdp_gemv"] == want,
                   f"path {path} slots=1: bsdp_gemv launched {launches['bsdp_gemv']} times in "
                   f"{steps} decode steps, expected {want}")
@@ -797,7 +1021,7 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
 
     from repro_torch.kernels import ops
 
-    mode, cache, _, per_step = PATHS[path]
+    mode, cache, _, per_step = path_spec(path)
     eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format=cache, slots=4,
                              max_len=512, device=device)
     rng = np.random.default_rng(SEED + 1)
@@ -1050,51 +1274,67 @@ def phase_ops_path(torch, device) -> dict:
 
 
 def phase_paths(torch, device) -> None:
-    import numpy as np
-
+    """Kernel path against plain path on 2-layer cuts at full width: qwen3-1.7b
+    under every stack of :data:`PATH_MODES`, each further config under its
+    two stacks (paths G-J), and qwen1.5-32b under :data:`DRIFT_MODES` (the
+    bit-exact stack held to a zero difference), in float32 and bf16."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
 
-    for dtype_name, (max_rel, min_cos) in PATH_LIMITS.items():
-        cfg = get_config("qwen3-1.7b").scaled(n_layers=2, dtype=getattr(torch, dtype_name))
-        float_params = model_lib.materialize(cfg, seed=SEED, device=device)
-        for mode, cache, sched in PATH_MODES:
-            params = engine.convert_params(float_params, cfg, mode)
-            traces, outs = [], []
-            for impl in (None, "plain"):
-                rng = np.random.default_rng(0)
-                eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
-                                         cache_format=cache, scheduler=sched,
-                                         trace_logits=True, impl=impl, device=device)
-                for n, mn in zip((5, 3, 7), (6, 2, 4)):
-                    eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
-                               mn, force=rng.integers(0, cfg.vocab_size,
-                                                      size=(mn,)).astype(np.int32))
-                eng.run()
-                traces.append(eng.logit_trace)
-                outs.append([r.out for r in eng.requests])
-            kinds = [[(k, s) for k, s, _ in t] for t in traces]
-            check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
-            check(outs[0] == outs[1], f"{mode}: kernel and plain paths emitted different tokens")
-            worst_rel, worst_cos, agree = 0.0, 1.0, 0
-            for (_, _, a), (_, _, p) in zip(*traces):
-                a, p = np.asarray(a, np.float64), np.asarray(p, np.float64)
-                worst_rel = max(worst_rel, float(np.abs(a - p).max() / np.abs(p).max()))
-                worst_cos = min(worst_cos, float((a.ravel() @ p.ravel())
-                                                 / (np.linalg.norm(a) * np.linalg.norm(p))))
-                agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
-                                            p.reshape(-1, p.shape[-1]).argmax(-1)))
-            print(f"kernel vs plain path ({mode}, cache {cache}, {sched}, 2 layers, "
-                  f"{dtype_name}): "
-                  f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
-                  f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
-                  f"{agree}/{len(traces[0])}")
-            check(worst_rel <= max_rel and worst_cos >= min_cos,
-                  f"{mode}: kernel path logits drift from the plain path ({dtype_name})")
-            del params, eng
-        del float_params
-        torch.cuda.empty_cache()
+    cuts = {"qwen3-1.7b": PATH_MODES}
+    for path, (arch, _, _) in CONFIG_PATHS.items():
+        cuts.setdefault(arch, []).append((*path_spec(path)[:2], "fcfs"))
+    cuts["qwen1.5-32b"] += list(DRIFT_MODES)
+    for dtype_name, limits in PATH_LIMITS.items():
+        for arch, modes in cuts.items():
+            cfg = get_config(arch).scaled(n_layers=2, dtype=getattr(torch, dtype_name))
+            float_params = model_lib.materialize(cfg, seed=SEED, device=device)
+            for mode, cache, sched in modes:
+                exact = arch == "qwen1.5-32b" and DRIFT_MODES.get((mode, cache, sched), False)
+                _kernel_vs_plain(engine, engine.convert_params(float_params, cfg, mode), cfg,
+                                 mode, cache, sched, dtype_name, (0.0, limits[1]) if exact else limits,
+                                 device)
+            del float_params
+            torch.cuda.empty_cache()
+
+
+def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device):
+    import numpy as np
+
+    max_rel, min_cos = limits
+    traces, outs = [], []
+    for impl in (None, "plain"):
+        rng = np.random.default_rng(0)
+        eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
+                                 cache_format=cache, scheduler=sched,
+                                 trace_logits=True, impl=impl, device=device)
+        for n, mn in zip((5, 3, 7), (6, 2, 4)):
+            eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
+                       mn, force=rng.integers(0, cfg.vocab_size,
+                                              size=(mn,)).astype(np.int32))
+        eng.run()
+        traces.append(eng.logit_trace)
+        outs.append([r.out for r in eng.requests])
+    kinds = [[(k, s) for k, s, _ in t] for t in traces]
+    check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
+    check(outs[0] == outs[1], f"{mode}: kernel and plain paths emitted different tokens")
+    worst_rel, worst_cos, agree = 0.0, 1.0, 0
+    for (_, _, a), (_, _, p) in zip(*traces):
+        a, p = np.asarray(a, np.float64), np.asarray(p, np.float64)
+        worst_rel = max(worst_rel, float(np.abs(a - p).max() / np.abs(p).max()))
+        worst_cos = min(worst_cos, float((a.ravel() @ p.ravel())
+                                         / (np.linalg.norm(a) * np.linalg.norm(p))))
+        agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
+                                    p.reshape(-1, p.shape[-1]).argmax(-1)))
+    arch = "" if cfg.name == "qwen3-1.7b" else f"{cfg.name}, "
+    print(f"kernel vs plain path ({arch}{mode}, cache {cache}, {sched}, 2 layers, "
+          f"{dtype_name}): "
+          f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
+          f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
+          f"{agree}/{len(traces[0])}")
+    check(worst_rel <= max_rel and worst_cos >= min_cos,
+          f"{arch}{mode}: kernel path logits drift from the plain path ({dtype_name})")
 
 
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
@@ -1118,6 +1358,7 @@ def main() -> int:
     del timer
     torch.cuda.empty_cache()
     counts = phase_serve(torch, device, card)
+    counts.update(phase_configs(torch, device, card))
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

@@ -10,6 +10,8 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
+    "qwen1.5-32b": "qwen1_5_32b",
+    "starcoder2-3b": "starcoder2_3b",
 }
 
 ARCH_NAMES = list(_MODULES)

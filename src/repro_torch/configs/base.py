@@ -2,8 +2,9 @@
 
 The port keeps its own copy of ``repro.configs.base.ModelConfig`` (it never
 imports the JAX package), holding the fields the dense GQA serving path
-reads.  The MoE, MLA, SSM, cross-attention, sliding-window, bias, norm and
-activation fields arrive with the architectures that use them.
+reads, with the reference's defaults.  The MoE, MLA, SSM,
+cross-attention and sliding-window fields arrive with the architectures
+that use them.
 """
 
 from __future__ import annotations
@@ -25,8 +26,11 @@ class ModelConfig:
     d_head: int
     d_ff: int
     vocab_size: int
+    qkv_bias: bool = False  # float32 biases added after the q, k, v projections
     qk_norm: bool = False  # per-head RMSNorm on q and k
     rope_theta: float = 10000.0
+    norm: str = "rmsnorm"  # rmsnorm | layernorm
+    act: str = "silu"  # silu (SwiGLU) | gelu
     tie_embeddings: bool = False
     dtype: torch.dtype = torch.bfloat16
     # Decode-cache residency format: a name registered in

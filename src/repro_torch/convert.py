@@ -4,8 +4,10 @@
 tree with every leaf as a numpy array (``jax.tree.map(np.asarray,
 params)``) and returns the port's layout: the reference stacks each layer
 leaf ``[n_superblocks, ...]`` under ``stack.slot0``; the port keeps one
-dict per layer.  With the same float weights both packages then convert to
-residency and compute the same thing.  bfloat16 arrays (numpy's
+dict per layer.  Every leaf must be one of :func:`repro_torch.models.model.specs`
+(norm scales and biases, the q/k/v biases, the untied ``embed.head``);
+any other raises.  With the same float weights both packages then convert
+to residency and compute the same thing.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) cross bit for bit.  Like every entry point of the
 port, it puts the tensors on the card unless the caller names a device.
 """
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.models import model as model_lib
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -27,10 +30,16 @@ def _tensor(a, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    return fn(tree)
+def _map(tree, spec, fn, path):
+    """``fn`` on every leaf of ``tree``, whose dicts must hold exactly the
+    keys of the port's ``spec``."""
+    if not isinstance(tree, dict):
+        return fn(tree)
+    if not isinstance(spec, dict) or set(tree) != set(spec):
+        want = sorted(spec) if isinstance(spec, dict) else "a leaf"
+        raise ValueError(f"params_from_numpy: {'.'.join(path)} holds {sorted(tree)}, "
+                         f"the port's parameters {want}")
+    return {k: _map(v, spec[k], fn, path + (k,)) for k, v in tree.items()}
 
 
 def params_from_numpy(tree: dict, cfg, device=None) -> dict:
@@ -43,10 +52,12 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     slots = tree["stack"]
     if set(slots) != {"slot0"}:
         raise ValueError("params_from_numpy: expected one layer per superblock")
-    slot = slots["slot0"]
+    spec = model_lib.specs(cfg)
     return {
-        "embed": _map(tree["embed"], lambda a: _tensor(a, device)),
-        "final_norm": _map(tree["final_norm"], lambda a: _tensor(a, device)),
-        "layers": [_map(slot, lambda a, i=i: _tensor(np.asarray(a)[i], device))
+        "embed": _map(tree["embed"], spec["embed"], lambda a: _tensor(a, device), ("embed",)),
+        "final_norm": _map(tree["final_norm"], spec["final_norm"],
+                           lambda a: _tensor(a, device), ("final_norm",)),
+        "layers": [_map(slots["slot0"], spec["layers"][i],
+                        lambda a, i=i: _tensor(np.asarray(a)[i], device), ("stack", "slot0"))
                    for i in range(cfg.n_layers)],
     }

@@ -66,6 +66,10 @@ class KernelPolicy:
         return self.gemv if m == 1 else self.gemm
 
 
+#: weight elements converted at a time by :meth:`ResidencyFormat.encode_by_columns`
+COLUMN_BLOCK = 1 << 22
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
@@ -76,9 +80,35 @@ class ResidencyFormat:
     name: str = ""
     #: convert_params leaves parameters of this format as float tensors
     keeps_float_params: bool = False
+    #: the payload's axis of output columns (N)
+    data_n_axis: int = 1
 
     def encode(self, w: torch.Tensor) -> QuantLinearState:
         raise NotImplementedError
+
+    def encode_by_columns(self, w: torch.Tensor,
+                          dtype: Optional[torch.dtype] = None) -> QuantLinearState:
+        """``encode(w.to(dtype))`` bit for bit, about :data:`COLUMN_BLOCK`
+        weights' columns at a time.  Every format quantizes and lays out
+        each output column on its own, so converting by columns changes no
+        bit; it bounds the temporaries (the cast, the bit-plane encode's
+        bits) by the block instead of the weight."""
+        k, n = w.shape
+        step = max(1, COLUMN_BLOCK // k)
+        if step >= n:
+            return self.encode(w if dtype is None else w.to(dtype))
+        data = scale = None
+        for c in range(0, n, step):
+            block = w[:, c:c + step]
+            part = self.encode(block if dtype is None else block.to(dtype))
+            if data is None:
+                shape = list(part.data.shape)
+                shape[self.data_n_axis] = n
+                data = torch.empty(shape, dtype=part.data.dtype, device=w.device)
+                scale = torch.empty((1, n), dtype=part.scale.dtype, device=w.device)
+            data.narrow(self.data_n_axis, c, part.n).copy_(part.data)
+            scale[:, c:c + part.n] = part.scale
+        return QuantLinearState(data=data, scale=scale, mode=self.name, k=k, n=n)
 
     def apply(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
         """Kernel path: ``x [M, K] → f32 [M, N]``."""
@@ -204,6 +234,8 @@ class BitPlaneFormat(ResidencyFormat):
     single-contraction GEMM.
     """
 
+    data_n_axis = 0
+
     def __init__(self, name: str, kernel_policy: KernelPolicy):
         self.name = name
         self.kernel_policy = kernel_policy
@@ -243,9 +275,12 @@ register_format(BitPlaneFormat("bsdp", KernelPolicy(gemv="gemv", gemm="gemm")))
 register_format(BitPlaneFormat("bsdp_fused", KernelPolicy(gemv="gemv", gemm="gemm_fused")))
 
 
-def from_float(w: torch.Tensor, mode: str = "w8a8") -> QuantLinearState:
-    """One-time convert of a float ``[K, N]`` weight to residency ``mode``."""
-    return get_format(mode).encode(w)
+def from_float(w: torch.Tensor, mode: str = "w8a8",
+               dtype: Optional[torch.dtype] = None) -> QuantLinearState:
+    """One-time convert of a float ``[K, N]`` weight (cast to ``dtype`` first,
+    if given) to residency ``mode``, a block of columns at a time
+    (:meth:`ResidencyFormat.encode_by_columns`)."""
+    return get_format(mode).encode_by_columns(w, dtype)
 
 
 def apply(state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,9 @@
 """Serving launcher: ``python -m repro_torch.launch.serve --arch <id> [...]``.
 
-Materialises a model from seed 0 on the device, converts its weights to
-the requested residency policy once, and serves synthetic requests
+Materialises a model from seed 0 on the device, converting each weight to
+the requested residency policy as it is drawn (so that qwen1.5-32b's
+float weights never sit whole beside their converted form), and serves
+synthetic requests
 through the continuous-batching engine, reporting throughput and
 TTFT/TPOT percentiles.  The defaults are the reference launcher's:
 ``--mode w8a8``, the config's own decode cache (``bf16`` for qwen3-1.7b)
@@ -25,7 +27,6 @@ import numpy as np
 
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core import kvcache, residency
-from repro_torch.models import model as model_lib
 from repro_torch.serve import engine
 from repro_torch.serve import scheduler as sched_lib
 
@@ -70,13 +71,14 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    params = model_lib.materialize(cfg, seed=0, device=args.device)
     t0 = time.perf_counter()
+    params = engine.materialize_converted(cfg, args.mode, seed=0, device=args.device,
+                                          min_dim=args.min_dim)
     eng = engine.ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
                              mode=args.mode, cache_format=args.cache_format,
                              scheduler=args.scheduler, min_dim=args.min_dim,
                              device=args.device)
-    print(f"residency convert ({eng.mode}): {time.perf_counter() - t0:.2f}s, "
+    print(f"draw + residency convert ({eng.mode}): {time.perf_counter() - t0:.2f}s, "
           f"{engine.resident_bytes(eng.params) / 1e6:.1f} MB resident")
     print(f"cache format: {eng.cache_format}  scheduler: {eng.scheduler.describe()}  "
           f"device: {eng.device}")

@@ -31,6 +31,10 @@ def _project_qkv(params, x, cfg, positions, impl=None):
     q = dense(params["wq"], x, impl=impl)
     k = dense(params["wk"], x, impl=impl)
     v = dense(params["wv"], x, impl=impl)
+    if cfg.qkv_bias:  # in the projection's dtype, after its cast
+        q = q + params["bq"].to(q.dtype)
+        k = k + params["bk"].to(k.dtype)
+        v = v + params["bv"].to(v.dtype)
     q = q.reshape(b, s, cfg.n_heads, dh)
     k = k.reshape(b, s, cfg.n_kv_heads, dh)
     v = v.reshape(b, s, cfg.n_kv_heads, dh)

@@ -1,7 +1,8 @@
-"""Shared model layers: dense dispatch, RMS norm, embeddings, RoPE, MLP.
+"""Shared model layers: dense dispatch, norms, embeddings, RoPE, MLPs.
 
-Counterpart of :mod:`repro.models.layers` for the dense SwiGLU family, as
-plain functions on tensors.  ``dense`` is the single projection entry
+Counterpart of :mod:`repro.models.layers` for the dense family (RMSNorm or
+LayerNorm, SwiGLU or GELU, tied or untied head), as plain functions on
+tensors.  ``dense`` is the single projection entry
 point: a weight converted to a
 :class:`~repro_torch.core.residency.QuantLinearState` goes through its
 residency format — the kernel path by default, the plain PyTorch path with
@@ -33,8 +34,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     return (y * scale).to(dtype)
 
 
-def norm_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
-    return rms_norm(x, params["scale"])
+def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """``cfg.norm`` in float32: RMSNorm, or LayerNorm (eps 1e-5) then
+    ``* scale + bias``."""
+    if cfg.norm != "layernorm":
+        return rms_norm(x, params["scale"])
+    dtype = x.dtype
+    x = x.to(torch.float32)
+    mu = x.mean(dim=-1, keepdim=True)
+    var = torch.square(x - mu).mean(dim=-1, keepdim=True)
+    y = (x - mu) * torch.rsqrt(var + 1e-5)
+    return (y * params["scale"] + params["bias"]).to(dtype)
 
 
 def embed_apply(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
@@ -42,10 +52,12 @@ def embed_apply(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
     return params["embedding"][tokens].to(cfg.dtype)
 
 
-def logits_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Tied logits; 1/sqrt(d) keeps them in the regime of a fan-in-scaled
-    head."""
-    return (x @ params["embedding"].to(x.dtype).T) * (cfg.d_model ** -0.5)
+def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:
+    """Tied logits, where 1/sqrt(d) keeps them in the regime of a
+    fan-in-scaled head; an untied model's ``head`` goes through ``dense``."""
+    if cfg.tie_embeddings and "head" not in params:
+        return (x @ params["embedding"].to(x.dtype).T) * (cfg.d_model ** -0.5)
+    return dense(params["head"], x, impl=impl)
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -65,7 +77,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
-def mlp_apply(params: dict, x: torch.Tensor, impl=None) -> torch.Tensor:
-    """SwiGLU with the fused ``[gate; up]`` input projection."""
-    gate, up = torch.chunk(dense(params["w_in"], x, impl=impl), 2, dim=-1)
-    return dense(params["w_out"], F.silu(gate) * up, impl=impl)
+def gelu(h: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default: the tanh approximation."""
+    return F.gelu(h, approximate="tanh")
+
+
+def mlp_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:
+    """GELU over ``w_in [d, d_ff]``, or SwiGLU with the fused ``[gate; up]``
+    input projection ``[d, 2·d_ff]``."""
+    h = dense(params["w_in"], x, impl=impl)
+    if cfg.act == "gelu":
+        h = gelu(h)
+    else:
+        gate, up = torch.chunk(h, 2, dim=-1)
+        h = F.silu(gate) * up
+    return dense(params["w_out"], h, impl=impl)

@@ -3,25 +3,28 @@
 Counterpart of the serving half of :mod:`repro.models.model` for the dense
 GQA family.  Parameters are a plain dict::
 
-    {"embed": {"embedding"}, "final_norm": {"scale"},
-     "layers": [{"ln1", "mixer": {wq, wk, wv, wo, q_norm, k_norm},
+    {"embed": {"embedding", "head" (untied models)},
+     "final_norm": {"scale", "bias" (layernorm)},
+     "layers": [{"ln1", "mixer": {wq, wk, wv, wo, bq, bk, bv (qkv_bias),
+                                  q_norm, k_norm (qk_norm)},
                  "ln2", "ffn": {w_in, w_out}}, ...]}
 
 one dict per layer where the reference stacks ``[n_superblocks, ...]``
-leaves.  :func:`materialize` follows the reference's ParamSpec init rules
-(``repro/sharding/partitioning.py``) with a ``torch.Generator``; the
-numbers differ from ``jax.random``'s, so parity tests bring the
-reference's own parameters across with :mod:`repro_torch.convert`.  On one
-device the vocab is not padded (the reference pads it to a multiple of its
-tensor-parallel width and masks the pad logits), so there is nothing to
-mask.
+leaves.  ``w_in`` is ``[d, 2·d_ff]`` (SwiGLU's fused gate and up) or
+``[d, d_ff]`` (GELU).  :func:`materialize` follows the reference's
+ParamSpec init rules (``repro/sharding/partitioning.py``) with a
+``torch.Generator``; the numbers differ from ``jax.random``'s, so parity
+tests bring the reference's own parameters across with
+:mod:`repro_torch.convert`.  On one device the vocab is not padded (the
+reference pads it to a multiple of its tensor-parallel width and masks the
+pad logits), so there is nothing to mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable, Optional
 
 import torch
 
@@ -34,7 +37,14 @@ class ParamSpec:
 
     shape: tuple
     dtype: Any = torch.bfloat16
-    init: str = "normal"  # normal (fan-in scaled) | embedding (unit) | ones
+    init: str = "normal"  # normal (fan-in scaled) | embedding (unit) | ones | zeros
+
+
+def _norm_specs(cfg) -> dict:
+    specs = {"scale": ParamSpec((cfg.d_model,), torch.float32, "ones")}
+    if cfg.norm == "layernorm":
+        specs["bias"] = ParamSpec((cfg.d_model,), torch.float32, "zeros")
+    return specs
 
 
 def _layer_specs(cfg) -> dict:
@@ -45,53 +55,71 @@ def _layer_specs(cfg) -> dict:
         "wv": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
         "wo": ParamSpec((cfg.n_heads * dh, d), cfg.dtype),
     }
+    if cfg.qkv_bias:
+        mixer["bq"] = ParamSpec((cfg.n_heads * dh,), torch.float32, "zeros")
+        mixer["bk"] = ParamSpec((cfg.n_kv_heads * dh,), torch.float32, "zeros")
+        mixer["bv"] = ParamSpec((cfg.n_kv_heads * dh,), torch.float32, "zeros")
     if cfg.qk_norm:
         mixer["q_norm"] = ParamSpec((dh,), torch.float32, "ones")
         mixer["k_norm"] = ParamSpec((dh,), torch.float32, "ones")
+    d_in = cfg.d_ff if cfg.act == "gelu" else 2 * cfg.d_ff  # SwiGLU: fused [gate; up]
     return {
-        "ln1": {"scale": ParamSpec((d,), torch.float32, "ones")},
+        "ln1": _norm_specs(cfg),
         "mixer": mixer,
-        "ln2": {"scale": ParamSpec((d,), torch.float32, "ones")},
-        # SwiGLU: fused [gate; up] input projection
-        "ffn": {"w_in": ParamSpec((d, 2 * cfg.d_ff), cfg.dtype),
+        "ln2": _norm_specs(cfg),
+        "ffn": {"w_in": ParamSpec((d, d_in), cfg.dtype),
                 "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)},
     }
 
 
 def specs(cfg) -> dict:
-    if cfg.family != "dense" or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"{cfg.name}: the port serves dense models with tied embeddings")
+    if cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the port serves dense models only")
+    embed = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), torch.float32,
+                                    "embedding")}
+    if not cfg.tie_embeddings:
+        embed["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.dtype)
     return {
-        "embed": {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model),
-                                         torch.float32, "embedding")},
-        "final_norm": {"scale": ParamSpec((cfg.d_model,), torch.float32, "ones")},
+        "embed": embed,
+        "final_norm": _norm_specs(cfg),
         "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],
     }
 
 
 def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
-    if spec.init == "ones":
-        return torch.ones(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init in ("ones", "zeros"):
+        fill = torch.ones if spec.init == "ones" else torch.zeros
+        return fill(spec.shape, dtype=spec.dtype, device=device)
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "normal":
-        w = w / math.sqrt(spec.shape[0])  # fan-in scaled
+        w.div_(math.sqrt(spec.shape[0]))  # fan-in scaled
     return w.to(spec.dtype)
+
+
+def draw(cfg, seed: int = 0, device=None,
+         leaf: Optional[Callable[[tuple, torch.Tensor], Any]] = None) -> dict:
+    """Random parameters from ``seed`` on ``device`` (default ``"cuda"``),
+    drawn leaf by leaf from one generator in the order of :func:`specs`;
+    each leaf goes through ``leaf(path, tensor)`` (``path`` the tuple of
+    keys, e.g. ``("layers", "3", "ffn", "w_in")``) before the next is drawn,
+    so that only what ``leaf`` returns is kept."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def walk(tree, path):
+        if isinstance(tree, ParamSpec):
+            w = _init(tree, gen, device)
+            return w if leaf is None else leaf(path, w)
+        if isinstance(tree, dict):
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
+        return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
+
+    return walk(specs(cfg), ())
 
 
 def materialize(cfg, seed: int = 0, device=None) -> dict:
     """Random parameters from ``seed`` on ``device`` (default ``"cuda"``)."""
-    device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
-
-    def walk(tree):
-        if isinstance(tree, ParamSpec):
-            return _init(tree, gen, device)
-        if isinstance(tree, dict):
-            return {k: walk(v) for k, v in tree.items()}
-        return [walk(v) for v in tree]
-
-    return walk(specs(cfg))
+    return draw(cfg, seed, device)
 
 
 def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
@@ -102,8 +130,8 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     x, caches = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
                                   pos=batch.get("positions"), cache_len=max_len,
                                   impl=impl)
-    x = layers.norm_apply(params["final_norm"], x)
-    logits = layers.logits_apply(params["embed"], x[:, -1:], cfg)
+    x = layers.norm_apply(params["final_norm"], x, cfg)
+    logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl)
     return logits.to(torch.float32), caches
 
 
@@ -114,6 +142,6 @@ def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
     x = layers.embed_apply(params["embed"], token, cfg)
     x, caches = stack.stack_apply(params["layers"], x, cfg, mode="decode",
                                   caches=caches, pos=pos, impl=impl)
-    x = layers.norm_apply(params["final_norm"], x)
-    logits = layers.logits_apply(params["embed"], x, cfg)
+    x = layers.norm_apply(params["final_norm"], x, cfg)
+    logits = layers.logits_apply(params["embed"], x, cfg, impl=impl)
     return logits.to(torch.float32), caches

@@ -15,7 +15,7 @@ from repro_torch.models import attention, layers
 def layer_apply(params: dict, x, cfg, *, mode: str, cache=None, pos=None,
                 cache_len: int = 0, impl=None):
     """One layer.  Returns (x, cache)."""
-    h = layers.norm_apply(params["ln1"], x)
+    h = layers.norm_apply(params["ln1"], x, cfg)
     if mode == "prefill":
         a, cache = attention.gqa_prefill(params["mixer"], h, cfg, cache_len=cache_len,
                                          positions=pos, impl=impl)
@@ -25,8 +25,8 @@ def layer_apply(params: dict, x, cfg, *, mode: str, cache=None, pos=None,
     else:
         raise ValueError(f"unknown mode {mode!r}")
     x = x + a.to(x.dtype)
-    h2 = layers.norm_apply(params["ln2"], x)
-    x = x + layers.mlp_apply(params["ffn"], h2, impl=impl).to(x.dtype)
+    h2 = layers.norm_apply(params["ln2"], x, cfg)
+    x = x + layers.mlp_apply(params["ffn"], h2, cfg, impl=impl).to(x.dtype)
     return x, cache
 
 

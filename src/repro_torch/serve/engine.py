@@ -1,8 +1,9 @@
 """Serving engine: scheduler-driven continuous batching over resident weights.
 
 Counterpart of :mod:`repro.serve.engine` with contiguous ring caches.
-Weights are converted once (``convert_params``) to the residency policy
-``mode`` and stay on the device; every prefill and decode step then runs
+Weights are converted once (``convert_params``, or
+``materialize_converted`` leaf by leaf as they are drawn) to the residency
+policy ``mode`` and stay on the device; every prefill and decode step then runs
 through each layer's format — the hand-written kernels on a CUDA device,
 their plain versions on the CPU, or the plain PyTorch path everywhere with
 ``impl="plain"``.  Each ``step()`` is ``scheduler.plan(view)`` followed by
@@ -47,41 +48,59 @@ from repro_torch.serve.scheduler import (
 )
 
 #: parameter dict keys eligible for quantized residency
-QUANTIZABLE_KEYS = ("wq", "wk", "wv", "wo", "w_in", "w_out")
+QUANTIZABLE_KEYS = ("wq", "wk", "wv", "wo", "w_in", "w_out", "head")
 
 
 def convert_params(params, cfg, spec, *, min_dim: int = 64):
     """One-time residency conversion (the amortized layout transform).
 
     ``spec`` is anything :meth:`ResidencySpec.parse` accepts.  The tree is
-    walked with dot-joined paths (``layers.3.ffn.w_in``); 2-D float leaves
-    under quantizable keys become the :class:`QuantLinearState` of the
-    format the policy selects; everything else stays float.
+    walked with dot-joined paths (``layers.3.ffn.w_in``) and each leaf goes
+    through :func:`leaf_converter`'s rule.
     """
     spec = residency.ResidencySpec.parse(spec)
     if spec.is_trivial:
         return params
+    convert = leaf_converter(spec, min_dim)
 
     def walk(tree, path):
         if isinstance(tree, dict):
-            return {
-                k: _convert_leaf(v, spec.mode_for(".".join(path + (k,))), min_dim)
-                if k in QUANTIZABLE_KEYS else walk(v, path + (k,))
-                for k, v in tree.items()
-            }
+            return {k: walk(v, path + (k,)) for k, v in tree.items()}
         if isinstance(tree, list):
             return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
-        return tree
+        return convert(path, tree)
 
     return walk(params, ())
 
 
-def _convert_leaf(w, mode, min_dim):
-    if residency.get_format(mode).keeps_float_params:
-        return w
-    if not isinstance(w, torch.Tensor) or w.ndim != 2 or min(w.shape) < min_dim:
-        return w
-    return residency.from_float(w.to(torch.float32), mode)
+def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int = 64):
+    """``convert_params(materialize(cfg, seed, device), cfg, spec)``, equal
+    to it bit for bit, with each leaf converted as soon as it is drawn: the
+    float tree is never held whole, so a model whose float weights do not
+    fit the card beside their converted form (qwen1.5-32b) fits."""
+    convert = leaf_converter(residency.ResidencySpec.parse(spec), min_dim)
+    return model_lib.draw(cfg, seed, device, leaf=convert)
+
+
+def leaf_converter(spec, min_dim: int):
+    """The conversion rule of one leaf, ``convert(path, w)`` with ``path``
+    the tuple of keys: a 2-D float tensor under a quantizable key, at least
+    ``min_dim`` on each side, becomes the :class:`QuantLinearState` of the
+    format the policy selects for the dot-joined path (converted from
+    float32, a block of columns at a time); everything else stays as it
+    is."""
+
+    def convert(path, w):
+        if not path or path[-1] not in QUANTIZABLE_KEYS:
+            return w
+        mode = spec.mode_for(".".join(path))
+        if residency.get_format(mode).keeps_float_params:
+            return w
+        if not isinstance(w, torch.Tensor) or w.ndim != 2 or min(w.shape) < min_dim:
+            return w
+        return residency.from_float(w, mode, dtype=torch.float32)
+
+    return convert
 
 
 def _tree_to(tree, device):

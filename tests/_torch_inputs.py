@@ -18,7 +18,8 @@ def t(a: np.ndarray) -> torch.Tensor:
 
 def attention_inputs(seed=30, b=3, h=2, g=4, l=16, feat=40):
     """Cache-layout inputs: slot 0 idle (all masked), slot 1 a wrapped ring,
-    slot 2 part-filled; plane words with every bit pattern."""
+    slot 2 part-filled, any further slot full; plane words with every bit
+    pattern."""
     rng = np.random.default_rng(seed)
     fw = -(-feat // 32)
     kp, vp = words(rng, (b, l, h, 4, fw)), words(rng, (b, l, h, 4, fw))
@@ -28,7 +29,8 @@ def attention_inputs(seed=30, b=3, h=2, g=4, l=16, feat=40):
     ring = np.arange(5, 5 + l)
     pos[1, ring % l] = ring
     pos[2, :7] = np.arange(7)
-    cur = np.array([0, 4 + l, 6])
+    pos[3:] = np.arange(l)
+    cur = np.array([0, 4 + l, 6] + [l - 1] * (b - 3))
     valid = (pos >= 0) & (pos <= cur[:, None])
     bias = np.where(valid, 0.0, -1e30).astype(np.float32)
     bias = np.ascontiguousarray(np.broadcast_to(bias[:, None, None, :], (b, h, g, l)))

@@ -13,7 +13,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import bitplane, kvcache, quant
+from repro_torch.core import bitplane, kvcache, quant, residency
 from repro_torch.kernels import (bsdp_gemm, bsdp_kernel, dequant_gemv, dim_kernel, gemv_int4,
                                  gemv_int8, ops, plane_attn, ref)
 from repro_torch.models import attention
@@ -443,3 +443,96 @@ class TestSeventhSliceOnTheCard:
         for (_, _, a), (_, _, b) in zip(cpu.logit_trace, card.logit_trace):
             assert np.abs(a - b).max() <= 1e-4 * np.abs(a).max()
         assert all(v == 0 for v in ops.plain_cuda_counts().values())
+
+
+@pytest.mark.gpu
+class TestEighthSliceOnTheCard:
+    """The kernels at the decode shapes of qwen1.5-32b and starcoder2-3b, and
+    the streamed materialization on the card."""
+
+    @pytest.mark.parametrize("h, g", [(40, 1), (2, 12)])
+    def test_plane_attention_at_the_configs_group_sizes(self, cuda, h, g):
+        """G = 1 (qwen1.5-32b: one query row in a 16-row tile, R = 160 at
+        slots=4) and G = 12 (starcoder2-3b: R = 8), L = 512, F = 128: within
+        ATTN_TOL of the plain version, two calls bitwise equal."""
+        a = attention_inputs(seed=200 + g, b=4, h=h, g=g, l=512, feat=128)
+        args = [a["q_planes"], a["q_scale"], t(a["kp"]), torch.from_numpy(a["ks"]),
+                t(a["vp"]), torch.from_numpy(a["vs"]), torch.from_numpy(a["bias"])]
+        args = [x.to(cuda) for x in args]
+        got = plane_attn.plane_decode_attention(*args, sm_scale=a["sm"])
+        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"])
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=a["sm"]))
+
+    @pytest.mark.parametrize("n", [5120, 200])
+    @pytest.mark.parametrize("m", [1, 4, 17, 256])
+    def test_bsdp_kernels_at_qwen_w_out_depth(self, cuda, m, n):
+        """K = 27392 (qwen1.5-32b's w_out): 856 plane words, 107 binary
+        256-wide K steps, an odd count; both BSDP kernels bit-exact at the
+        decode rows and at prefill's (17, the first past the decode tile,
+        and 256)."""
+        rng = np.random.default_rng(210 + m)
+        x, w = t(words(rng, (m, 4, 856))).to(cuda), t(words(rng, (n, 4, 856))).to(cuda)
+        want = ref.bsdp_gemm_ref(x, w)
+        assert torch.equal(bsdp_kernel.bsdp_matmul(x, w), want)
+        assert torch.equal(bsdp_gemm.bsdp_gemm_fused(x, w), want)
+
+    @pytest.mark.parametrize("k, n", [(5120, 54784), (27392, 5120)])
+    @pytest.mark.parametrize("m", [17, 256])
+    def test_tile_routes_at_qwen_ffn(self, cuda, m, k, n):
+        """The prefill (M > 16) routes of ``matmul_int8`` and
+        ``dequant_matmul`` at qwen1.5-32b's w_in and w_out: the int8 sums
+        bit-exact, the float32 sums within DEQUANT_RTOL of the largest
+        output (another summation order)."""
+        gen = torch.Generator(device=cuda).manual_seed(230 + m)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((1, n), generator=gen, device=cuda) * 0.02 + 1e-3
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen, device=cuda)
+        xs = torch.rand((m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+        assert torch.equal(gemv_int8.matmul_int8(x, w, xs, ws),
+                           gemv_int8.matmul_int8_plain(x, w, xs, ws))
+        xf = torch.randn((m, k), generator=gen, device=cuda).to(torch.bfloat16)
+        got = dequant_gemv.dequant_matmul(xf, w, ws)
+        want = dequant_gemv.dequant_matmul_plain(xf, w, ws)
+        assert (got - want).abs().max() <= DEQUANT_RTOL * want.abs().max()
+
+    @pytest.mark.parametrize("k, n", [(5120, 152064), (3072, 49152)])
+    def test_matmul_int8_at_the_untied_heads(self, cuda, k, n):
+        """The heads under w8a8: 778.6 M int8 weights at qwen1.5-32b's, K·N
+        near 2^30; scaled and int32 outputs bit-exact at M = 1 and 4."""
+        gen = torch.Generator(device=cuda).manual_seed(220)
+        w = torch.randint(-128, 128, (k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((1, n), generator=gen, device=cuda) * 0.05 + 1e-3
+        for m in (1, 4):
+            x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen, device=cuda)
+            xs = torch.rand((m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+            for out_int32 in (False, True):
+                assert torch.equal(
+                    gemv_int8.matmul_int8(x, w, xs, ws, out_int32=out_int32),
+                    gemv_int8.matmul_int8_plain(x, w, xs, ws, out_int32=out_int32)), m
+
+    @pytest.mark.parametrize("mode", ["ffn=bsdp_fused,mixer=w8a16", "w8a8"])
+    def test_streamed_materialization_on_the_card(self, cuda, mode):
+        """A 2-layer, full-width cut of qwen1.5-32b: ``materialize_converted``
+        equals ``convert_params(materialize(...))`` leaf for leaf, bit for
+        bit, on the card."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config("qwen1.5-32b").scaled(n_layers=2)
+        want = engine.convert_params(model_lib.materialize(cfg, seed=5, device=cuda), cfg, mode)
+        got = engine.materialize_converted(cfg, mode, seed=5, device=cuda)
+
+        def leaves(tree):
+            if isinstance(tree, dict):
+                return [x for v in tree.values() for x in leaves(v)]
+            if isinstance(tree, list):
+                return [x for v in tree for x in leaves(v)]
+            if isinstance(tree, residency.QuantLinearState):
+                return [tree.mode, tree.data, tree.scale]
+            return [tree]
+
+        pairs = list(zip(leaves(got), leaves(want), strict=True))
+        assert all(a == b if isinstance(a, str) else torch.equal(a, b) for a, b in pairs)
+        head = got["embed"]["head"]
+        assert (head.mode == "w8a8") if mode == "w8a8" else head.dtype == torch.bfloat16
