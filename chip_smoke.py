@@ -31,23 +31,39 @@ each on path A's and path B's stack (the same request mix, ``fcfs``):
   I  qwen1.5-32b (q/k/v biases, 64 layers, untied head) on path A's stack
   J  qwen1.5-32b on path B's stack
 
-Their weights are drawn and converted leaf by leaf
-(``engine.materialize_converted``): qwen1.5-32b's, whole in bf16, would
-not fit one card beside their converted form.  The script then drives the ops-level
+and the MLA and MoE configs, also at full published width and depth, on the
+same two stacks:
+
+  K  minicpm3-4b (MLA with a low-rank q, 62 layers) on path A's stack
+  L  minicpm3-4b on path B's stack
+  M  deepseek-v2-lite-16b (MLA, 64 routed experts top 6 + 2 shared, layer 0
+     dense) on path A's stack: the experts through one grouped launch of
+     ``bsdp_gemm_fused`` (``bsdp_gemv`` at slots=1) per projection
+  N  deepseek-v2-lite-16b on path B's stack: the experts through one
+     grouped ``matmul_int8`` per projection
+
+MLA reads its latent cache through the cache format's plain plane math, so
+K and M launch no plane attention.  Phase 2 holds each grouped launch
+against its plain version at deepseek's expert shapes.  Weights of G-N are
+drawn and converted leaf by leaf (``engine.materialize_converted``):
+qwen1.5-32b's, whole in bf16, would not fit one card beside their
+converted form.  The script then drives the ops-level
 entry points ``ops.dim_matmul`` and ``ops.matmul_int8_raw`` (path D).  Each
 path runs with the launch counts set to 0 just before it and read just
 after, and fails unless its kernels launched (exactly, a decode step), no
 plain version ran on the card and its resident bytes match the analytic
 count.  Phase 4 compares the kernel path with the plain path on a 2-layer
 cut for each weight format, the ``int8`` cache, a chunked serve and each
-further config on its two stacks, and qwen1.5-32b with path A's int4 steps
-taken out one at a time (the all-exact stack held to a zero difference).  Any failure is a nonzero exit.  It needs
+further config on its two stacks (with the share of MoE routing choices
+that agree), and qwen1.5-32b with path A's int4 steps taken out one at a
+time (the all-exact stacks held to a zero difference).  Any failure is a nonzero exit.  It needs
 a CUDA device and the repository's ``src``; without either it fails before
 printing a result.
 
-Every path runs at full depth: paths E and F take about 45-65 s of a run and
-paths G-J a few hundred seconds, far inside the 1200 s the run may take, and
-a cut would leave steps of a depth no user runs.
+Every path runs at full depth: paths E and F take about 45-65 s of a run,
+paths G-J a few hundred seconds and K-N a few hundred more, inside the
+1200 s the run may take, and a cut would leave steps of a depth no user
+runs.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -96,7 +112,30 @@ CONFIG_PATHS = {
           {"bsdp_gemm_fused": 128, "dequant_matmul": 256, "plane_decode_attention": 64}),
     "J": ("qwen1.5-32b", "B", {"matmul_int8": 385}),
 }
-#: paths G-J draw and convert leaf by leaf (``engine.materialize_converted``),
+#: the MLA and MoE configs at full width and depth: path → (arch, the
+#: stack's path, kernels that must launch by slots, launches per decode step
+#: at slots=4).  On A's stack: minicpm3-4b's 4 W8A16 projections a layer
+#: (w_dq, w_uq, w_dkv, wo; w_uk and w_uv are dequantized for the absorbed
+#: decode, not launched) and 2 BSDP GEMMs; deepseek-v2-lite-16b's 3 (wq,
+#: w_dkv, wo), layer 0's 2 BSDP GEMMs and each MoE layer's 4 (the routed
+#: experts' w_in and w_out one grouped launch each, the shared expert's
+#: two); the head left in bf16.  On B's stack the same projections and the
+#: head through ``matmul_int8``.
+MLA_PATHS = {
+    "K": ("minicpm3-4b", "A",
+          {4: ("bsdp_gemm_fused", "dequant_matmul"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul")},
+          {"dequant_matmul": 248, "bsdp_gemm_fused": 124}),
+    "L": ("minicpm3-4b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 373}),
+    "M": ("deepseek-v2-lite-16b", "A",
+          {4: ("bsdp_gemm_fused", "dequant_matmul"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul")},
+          {"bsdp_gemm_fused": 106, "dequant_matmul": 81}),
+    "N": ("deepseek-v2-lite-16b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 188}),
+}
+#: paths G-N draw and convert leaf by leaf (``engine.materialize_converted``),
 #: and the peak allocation may exceed the resident bytes by two float32
 #: copies of the largest layer projection (a leaf's draw and its cast to
 #: the model's dtype alive together) and this much for the column blocks'
@@ -110,6 +149,9 @@ def path_spec(path: str) -> tuple:
     step at slots=4) of any serving path."""
     if path in PATHS:
         return PATHS[path]
+    if path in MLA_PATHS:
+        _, stack, must, per_step = MLA_PATHS[path]
+        return (*PATHS[stack][:2], must, per_step)
     _, stack, per_step = CONFIG_PATHS[path]
     mode, cache, must, _ = PATHS[stack]
     return mode, cache, must, per_step
@@ -150,6 +192,13 @@ DRIFT_MODES = {
     ("ffn=bsdp_fused,mixer=w8a16", "bf16", "fcfs"): False,
     ("w8a16", "int4_bp_fused", "fcfs"): False,
 }
+
+
+#: phase 4's further cut of deepseek-v2-lite-16b: path A's FFN (the grouped
+#: BSDP experts) with W8A8 attention and the bf16 cache, every kernel it
+#: launches exact, so the two paths must agree to the bit, every expert
+#: choice included, in bf16 too
+MOE_EXACT_MODE = ("ffn=bsdp_fused,mixer=w8a8", "bf16", "fcfs")
 
 
 class SmokeFailure(RuntimeError):
@@ -349,6 +398,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_dequant(torch, device, gen, timer, rows)
     _rows_attention(torch, device, gen, timer, rows)
     _rows_configs(torch, device, gen, timer, rows, min_m)
+    _rows_grouped(torch, device, gen, timer, rows)
     for row in rows:
         print("kernel " + json.dumps(row))
     one = torch.zeros(1, device=device)
@@ -837,6 +887,80 @@ def _rows_configs(torch, device, gen, timer, rows, min_m):
         torch.cuda.empty_cache()
 
 
+#: deepseek-v2-lite-16b's routed experts (paths M and N): how many, and the
+#: (K, N) of their w_in (SwiGLU's fused gate and up) and w_out
+EXPERTS = 64
+EXPERT_PROJ = {"w_in": (2048, 2816), "w_out": (1408, 2048)}
+#: the rows an expert takes in one grouped launch, by kernel: a decode step
+#: at slots=1 and 4 (capacity 1 a row), and a prefill of 4 rows of 128
+#: tokens (capacity int(128 · 6 · 1.25 / 64 + 0.999) = 15 a row, M = 60)
+GROUPED_M = {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4, 60), "bsdp_gemm": (4, 60),
+             "matmul_int8": (1, 4, 60)}
+
+
+def _rows_grouped(torch, device, gen, timer, rows):
+    """The grouped launches at deepseek-v2-lite-16b's expert shapes (E =
+    64): each bit-exact against its plain version (the 2-D plain version
+    once an expert) and repeatable, timed against ``singles_ms``, the same
+    kernel launched once an expert (64 launches), and against one
+    ``torch.bmm`` in bf16 on operands dequantized ahead of time."""
+    from repro_torch.core import bitplane
+    from repro_torch.kernels import bsdp_gemm, bsdp_kernel, gemv_int8
+
+    e = EXPERTS
+    bmm_note = "torch.bmm in bf16 on operands dequantized ahead of time"
+    for label, (k, n) in EXPERT_PROJ.items():
+        kw = k // 32
+        w = _words(torch, gen, device, e, n, 4, kw)
+        w_bf = bitplane.decode(w).transpose(1, 2).to(torch.bfloat16)  # [E, K, N]
+        for name, kernel, grouped, single, plain in (
+            ("bsdp_gemv", bsdp_kernel.KERNEL, bsdp_kernel.bsdp_matmul_grouped,
+             bsdp_kernel.bsdp_matmul, bsdp_kernel.bsdp_matmul_grouped_plain),
+            ("bsdp_gemm_fused", bsdp_gemm.KERNEL, bsdp_gemm.bsdp_gemm_fused_grouped,
+             bsdp_gemm.bsdp_gemm_fused, bsdp_gemm.bsdp_gemm_fused_grouped_plain),
+            ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm_grouped,
+             bsdp_gemm.bsdp_gemm, bsdp_gemm.bsdp_gemm_grouped_plain),
+        ):
+            for m in GROUPED_M[name]:
+                x = _words(torch, gen, device, e, m, 4, kw)
+                got = grouped(x, w)
+                err = _int_err(got, plain(x, w))
+                tag = f"grouped E={e} {label} M={m} N={n} K={k}"
+                check(err == 0, f"{name} {tag}: not bit-exact (max err {err})")
+                check(torch.equal(got, grouped(x, w)), f"{name} {tag}: two calls differ")
+                x_bf = bitplane.decode(x).to(torch.bfloat16)
+                nbytes = e * ((m + n) * 4 * kw * 4 + m * n * 4)
+                _row(rows, name, kernel, tag, err, timer, lambda: grouped(x, w),
+                     timer.ms(lambda: plain(x, w)),
+                     bound(nbytes, 2 * e * m * n * k / INT8_OPS_PER_S),
+                     timer.ms(lambda: torch.bmm(x_bf, w_bf)), bmm_note)
+                rows[-1]["singles_ms"] = timer.ms(lambda: [single(x[i], w[i]) for i in range(e)])
+        del w, w_bf
+        w = _int8(torch, gen, device, e, k, n)
+        ws = _scales(torch, gen, device, e, 1, n)
+        w_deq = (w.to(torch.float32) * ws).to(torch.bfloat16)
+        for m in GROUPED_M["matmul_int8"]:
+            x = _int8(torch, gen, device, e, m, k)
+            xs = _scales(torch, gen, device, e, m, 1)
+            got = gemv_int8.matmul_int8_grouped(x, w, xs, ws)
+            err = (got - gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws)).abs().max().item()
+            tag = f"grouped E={e} {label} M={m} N={n} K={k}"
+            check(err == 0, f"matmul_int8 {tag}: not bit-exact (max err {err})")
+            check(torch.equal(got, gemv_int8.matmul_int8_grouped(x, w, xs, ws)),
+                  f"matmul_int8 {tag}: two calls differ")
+            x_deq = (x.to(torch.float32) * xs).to(torch.bfloat16)
+            nbytes = e * (m * k + k * n + 4 * (m + n) + 4 * m * n)
+            _row(rows, "matmul_int8", gemv_int8.KERNEL, tag, err, timer,
+                 lambda: gemv_int8.matmul_int8_grouped(x, w, xs, ws),
+                 timer.ms(lambda: gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws)),
+                 bound(nbytes, 2 * e * m * n * k / INT8_OPS_PER_S),
+                 timer.ms(lambda: torch.bmm(x_deq, w_deq)), bmm_note)
+            rows[-1]["singles_ms"] = timer.ms(
+                lambda: [gemv_int8.matmul_int8(x[i], w[i], xs[i], ws[i]) for i in range(e)])
+        del w, w_deq
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve full qwen3-1.7b through each path's kernels
 # ---------------------------------------------------------------------------
@@ -844,40 +968,34 @@ def _rows_configs(torch, device, gen, timer, rows, min_m):
 
 def analytic_resident_bytes(cfg, mode: str, min_dim: int = 64) -> int:
     """Resident bytes of a converted model from its shapes alone: each
-    projection's payload plus its float32 per-channel scale (a projection
-    narrower than ``min_dim``, the engine's conversion floor, or one the
-    policy keeps float, stays in ``cfg.dtype``), the untied head under
-    ``mode_for("embed.head")``, the float32 embedding, norms (a LayerNorm's
-    bias too) and q/k/v biases."""
+    weight of ``model.specs`` under a quantizable key whose last two axes
+    are at least ``min_dim`` (the engine's conversion floor) and that the
+    policy converts holds its payload plus a float32 per-channel scale, a
+    stacked expert weight ``[E, K, N]`` E of them; every other leaf (the
+    float32 embedding, norms, biases and router, the weights the policy
+    keeps float) its own dtype's bytes."""
     from repro_torch.core.residency import ResidencySpec
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve.engine import QUANTIZABLE_KEYS
 
     spec = ResidencySpec.parse(mode)
-    d, dh = cfg.d_model, cfg.d_head
-    proj = config_projections(cfg)
     payload = {"w8a16": lambda k, n: k * n, "w8a8": lambda k, n: k * n,
                "w4a8": lambda k, n: -(-k // 2) * n,
                **{f: (lambda k, n: n * 4 * -(-k // 32) * 4)
                   for f in ("w4a4_bsdp", "bsdp", "bsdp_fused")}}
 
-    def projection(path, k, n):
-        fmt = spec.mode_for(path)
-        if fmt in payload and min(k, n) >= min_dim:
-            return payload[fmt](k, n) + 4 * n
-        return k * n * cfg.dtype.itemsize
+    def walk(tree, path):
+        if isinstance(tree, dict):
+            return sum(walk(v, path + (k,)) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(walk(v, path + (str(i),)) for i, v in enumerate(tree))
+        shape, fmt = tree.shape, spec.mode_for(".".join(path))
+        if path[-1] in QUANTIZABLE_KEYS and fmt in payload and min(shape[-2:]) >= min_dim:
+            k, n = shape[-2:]
+            return math.prod(shape[:-2]) * (payload[fmt](k, n) + 4 * n)
+        return math.prod(shape) * tree.dtype.itemsize
 
-    norm = (2 if cfg.norm == "layernorm" else 1) * d * 4  # scale (+ bias), float32
-    total = cfg.vocab_size * d * 4 + norm  # embedding, final norm
-    if "head" in proj:
-        total += projection("embed.head", *proj["head"])
-    for i in range(cfg.n_layers):
-        total += 2 * norm + (2 * dh * 4 if cfg.qk_norm else 0)  # ln1, ln2, q/k norms
-        if cfg.qkv_bias:
-            total += (cfg.n_heads + 2 * cfg.n_kv_heads) * dh * 4
-        for name, (k, n) in proj.items():
-            if name != "head":
-                group = "ffn" if name.startswith("w_") else "mixer"
-                total += projection(f"layers.{i}.{group}.{name}", k, n)
-    return total
+    return walk(model_lib.specs(cfg), ())
 
 
 def _serve(engine_mod, params, cfg, mode, cache, slots, n_requests, rng, device):
@@ -969,6 +1087,63 @@ def phase_configs(torch, device, card) -> dict[str, dict]:
     return counts
 
 
+def _largest_leaf_bytes(cfg) -> int:
+    """Bytes in float32 of the largest weight of a layer: a projection, or
+    a MoE layer's stacked expert weight, drawn whole before conversion."""
+    from repro_torch.models import model as model_lib
+
+    def leaves(tree):
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, list):
+            return [x for v in tree for x in leaves(v)]
+        return [tree]
+
+    return 4 * max(math.prod(leaf.shape) for leaf in leaves(model_lib.specs(cfg)["layers"]))
+
+
+def phase_mla_moe(torch, device, card) -> dict[str, dict]:
+    """Paths K-N: minicpm3-4b and deepseek-v2-lite-16b at full width and
+    depth on path A's and path B's stack, drawn from ``SEED`` and converted
+    leaf by leaf (a stacked expert weight an expert at a time), resident
+    bytes held to the analytic count and the peak allocation to resident +
+    2 x the largest layer leaf in float32 + the slack; each served as A-C
+    are (MLA launching no plane attention) and profiled.  Returns path →
+    kernel → launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.serve import engine
+
+    counts = {}
+    for path, (arch, _, _, _) in MLA_PATHS.items():
+        cfg = get_config(arch)
+        mode = path_spec(path)[0]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
+        torch.cuda.synchronize()
+        got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+        peak = torch.cuda.max_memory_allocated() - base
+        largest = _largest_leaf_bytes(cfg)
+        limit = got + 2 * largest + STREAM_SLACK_BYTES
+        print(f"path {path}: {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}, "
+              f"experts {cfg.n_experts} top {cfg.experts_per_tok} + {cfg.n_shared_experts} "
+              f"shared, vocab {cfg.vocab_size}) drawn and converted leaf by leaf ({mode}): "
+              f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
+              f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
+              f"2 x {largest} B, the largest layer leaf in float32, + {STREAM_SLACK_BYTES} B)")
+        check(abs(got - want) <= RESIDENT_RTOL * want,
+              f"path {path}: resident bytes {got} vs analytic {want}")
+        check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
+        counts[path] = _serve_path(torch, device, card, engine, qparams, cfg, path)
+        phase_profile(torch, device, engine, qparams, cfg, card, path)
+        del qparams
+        torch.cuda.empty_cache()
+    return counts
+
+
 def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
     import numpy as np
 
@@ -992,10 +1167,16 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
             check(launches[name] > 0, f"path {path} slots={slots}: {name} never launched")
         if slots == 1 and "bsdp_gemv" in must[1]:  # the slots=1 gap line's launches per step
             steps = sum(len(req.out) - 1 for req in eng.requests)  # decode steps: 1 row each
-            want = 2 * cfg.n_layers * steps  # w_in and w_out a layer
+            # each BSDP GEMM launch of a slots=4 step is a GEMV at slots=1 (the
+            # FFN's w_in and w_out a layer; a MoE layer's grouped experts too)
+            per_step = path_spec(path)[3]
+            want = (per_step.get("bsdp_gemm_fused", 0) + per_step.get("bsdp_gemm", 0)) * steps
             check(launches["bsdp_gemv"] == want,
                   f"path {path} slots=1: bsdp_gemv launched {launches['bsdp_gemv']} times in "
                   f"{steps} decode steps, expected {want}")
+        if path in MLA_PATHS:  # MLA reads the latent through the formats' plane math
+            check(launches["plane_decode_attention"] == 0,
+                  f"path {path}: MLA launched plane attention")
         for name, v in ran.items():
             counts[name] = counts.get(name, 0) + v
         for req in eng.requests:
@@ -1276,49 +1457,93 @@ def phase_ops_path(torch, device) -> dict:
 def phase_paths(torch, device) -> None:
     """Kernel path against plain path on 2-layer cuts at full width: qwen3-1.7b
     under every stack of :data:`PATH_MODES`, each further config under its
-    two stacks (paths G-J), and qwen1.5-32b under :data:`DRIFT_MODES` (the
-    bit-exact stack held to a zero difference), in float32 and bf16."""
+    two stacks (paths G-N; path B's stack held to a zero difference on the
+    MLA and MoE configs), qwen1.5-32b under :data:`DRIFT_MODES` and
+    deepseek-v2-lite-16b under :data:`MOE_EXACT_MODE` (the bit-exact stacks
+    held to a zero difference), in float32 and bf16."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
 
     cuts = {"qwen3-1.7b": PATH_MODES}
-    for path, (arch, _, _) in CONFIG_PATHS.items():
+    for path in [*CONFIG_PATHS, *MLA_PATHS]:
+        arch = (CONFIG_PATHS.get(path) or MLA_PATHS[path])[0]
         cuts.setdefault(arch, []).append((*path_spec(path)[:2], "fcfs"))
     cuts["qwen1.5-32b"] += list(DRIFT_MODES)
+    cuts["deepseek-v2-lite-16b"].append(MOE_EXACT_MODE)
+    mla_archs = {arch for arch, *_ in MLA_PATHS.values()}
     for dtype_name, limits in PATH_LIMITS.items():
         for arch, modes in cuts.items():
             cfg = get_config(arch).scaled(n_layers=2, dtype=getattr(torch, dtype_name))
             float_params = model_lib.materialize(cfg, seed=SEED, device=device)
             for mode, cache, sched in modes:
-                exact = arch == "qwen1.5-32b" and DRIFT_MODES.get((mode, cache, sched), False)
+                # every kernel of path B's stack is exact: no difference at all
+                exact = (arch == "qwen1.5-32b" and DRIFT_MODES.get((mode, cache, sched), False)
+                         or arch in mla_archs and (mode, cache) == PATHS["B"][:2]
+                         or (mode, cache, sched) == MOE_EXACT_MODE)
                 _kernel_vs_plain(engine, engine.convert_params(float_params, cfg, mode), cfg,
                                  mode, cache, sched, dtype_name, (0.0, limits[1]) if exact else limits,
-                                 device)
+                                 device, exact_routes=exact)
             del float_params
             torch.cuda.empty_cache()
 
 
-def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device):
+def _record_routes(forced=None):
+    """Patch ``moe._route`` to record, per call, its top-k experts (as they
+    come and as a set, sorted) and the smallest gap between a token's k-th
+    and (k+1)-th router probability.  With ``forced`` (another serve's log)
+    the call's experts are replaced by that serve's, and the gates taken
+    from this serve's own probabilities as ``_route`` takes them: the
+    discrete choice is teacher-forced, as the tokens are.  Returns (log,
+    undo)."""
+    import torch
+
+    from repro_torch.models import moe
+
+    log, route = [], moe._route
+
+    def recording(params, x, cfg):
+        idx, gate, aux = route(params, x, cfg)
+        probs = torch.softmax(torch.einsum("bsd,de->bse", x.to(torch.float32),
+                                           params["router"]), dim=-1)
+        top = torch.topk(probs, cfg.experts_per_tok + 1, dim=-1).values
+        log.append((idx, torch.sort(idx, dim=-1).values.cpu(),
+                    (top[..., -2] - top[..., -1]).min()))
+        if forced is not None:
+            idx = forced[len(log) - 1][0]
+            gate = torch.gather(probs, -1, idx)
+            gate = (gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)).to(x.dtype)
+        return idx, gate, aux
+
+    moe._route = recording
+    return log, lambda: setattr(moe, "_route", route)
+
+
+def _serve_cut(engine, params, cfg, mode, cache, sched, impl, device, forced=None):
+    """One teacher-forced serve of the 2-layer cut: (logit trace, tokens,
+    routing log)."""
     import numpy as np
 
-    max_rel, min_cos = limits
-    traces, outs = [], []
-    for impl in (None, "plain"):
-        rng = np.random.default_rng(0)
-        eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
-                                 cache_format=cache, scheduler=sched,
-                                 trace_logits=True, impl=impl, device=device)
+    rng = np.random.default_rng(0)
+    eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
+                             cache_format=cache, scheduler=sched,
+                             trace_logits=True, impl=impl, device=device)
+    log, undo = _record_routes(forced)
+    try:
         for n, mn in zip((5, 3, 7), (6, 2, 4)):
             eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
-                       mn, force=rng.integers(0, cfg.vocab_size,
-                                              size=(mn,)).astype(np.int32))
+                       mn, force=rng.integers(0, cfg.vocab_size, size=(mn,)).astype(np.int32))
         eng.run()
-        traces.append(eng.logit_trace)
-        outs.append([r.out for r in eng.requests])
-    kinds = [[(k, s) for k, s, _ in t] for t in traces]
-    check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
-    check(outs[0] == outs[1], f"{mode}: kernel and plain paths emitted different tokens")
+    finally:
+        undo()
+    return eng.logit_trace, [r.out for r in eng.requests], log
+
+
+def _drift(traces) -> tuple:
+    """(max |Δ| / max |plain logit|, min cosine, argmax agreements) of the
+    kernel path's trace against the plain path's."""
+    import numpy as np
+
     worst_rel, worst_cos, agree = 0.0, 1.0, 0
     for (_, _, a), (_, _, p) in zip(*traces):
         a, p = np.asarray(a, np.float64), np.asarray(p, np.float64)
@@ -1327,9 +1552,51 @@ def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits
                                          / (np.linalg.norm(a) * np.linalg.norm(p))))
         agree += int(np.array_equal(a.reshape(-1, a.shape[-1]).argmax(-1),
                                     p.reshape(-1, p.shape[-1]).argmax(-1)))
+    return worst_rel, worst_cos, agree
+
+
+def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device,
+                     exact_routes=False):
+    """The kernel path against the plain path on one teacher-forced serve.
+    For a MoE config it prints the share of (token, k) routing choices on
+    which the kernel path's router agrees with the plain path's (all of
+    them with ``exact_routes``, the all-exact stacks) and the router's
+    smallest top-k margin.  An expert choice is discrete: a rounding
+    difference near a tie changes a token by a whole expert's output.  So
+    where the stack has float kernels, the logits held to ``limits`` come
+    from a kernel serve with the plain serve's expert choices forced, as
+    its tokens are; the unforced kernel serve's drift is printed beside it."""
+    max_rel, min_cos = limits
+    plain = _serve_cut(engine, params, cfg, mode, cache, sched, "plain", device)
+    kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device)
     arch = "" if cfg.name == "qwen3-1.7b" else f"{cfg.name}, "
+    if plain[2]:
+        routes = [[sorted_idx for _, sorted_idx, _ in run[2]] for run in (kernel, plain)]
+        check(len(routes[0]) == len(routes[1]), f"{mode}: the two paths routed differently often")
+        same = sum(int((a == b).sum()) for a, b in zip(*routes))
+        total = sum(a.numel() for a in routes[1])
+        margin = min(float(m) for run in (kernel, plain) for _, _, m in run[2])
+        print(f"kernel vs plain routing ({cfg.name}, {mode}, {dtype_name}): {same}/{total} "
+              f"(token, k) choices agree ({same / total:.6f}), smallest top-k router margin "
+              f"{margin:.3e}")
+        check(same == total or not exact_routes,
+              f"{cfg.name} {mode}: the all-exact stack routed differently ({same}/{total})")
+        if not exact_routes:
+            rel, cos, agree = _drift((kernel[0], plain[0]))
+            print(f"kernel vs plain path, routes unforced ({arch}{mode}, cache {cache}, "
+                  f"{sched}, 2 layers, {dtype_name}): max rel err {rel:.3e}, min cosine "
+                  f"{cos:.6f}, argmax agree {agree}/{len(plain[0])} (not held: "
+                  f"{total - same} expert choices differ)")
+            kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device,
+                                forced=plain[2])
+    traces = (kernel[0], plain[0])
+    kinds = [[(k, s) for k, s, _ in t] for t in traces]
+    check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
+    check(kernel[1] == plain[1], f"{mode}: kernel and plain paths emitted different tokens")
+    worst_rel, worst_cos, agree = _drift(traces)
+    forced = " with the plain path's expert choices" if plain[2] and not exact_routes else ""
     print(f"kernel vs plain path ({arch}{mode}, cache {cache}, {sched}, 2 layers, "
-          f"{dtype_name}): "
+          f"{dtype_name}{forced}): "
           f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
           f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
           f"{agree}/{len(traces[0])}")
@@ -1359,6 +1626,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     counts = phase_serve(torch, device, card)
     counts.update(phase_configs(torch, device, card))
+    counts.update(phase_mla_moe(torch, device, card))
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

@@ -1,7 +1,9 @@
 """Architecture registry: get_config(name) / get_smoke_config(name).
 
-The port registers the architectures whose serving path it carries; the
-other architectures of ``repro.configs`` follow with their model code.
+The port registers the architectures whose serving path it carries: the
+dense GQA configs, MLA (minicpm3-4b) and MLA with sort-dispatch MoE
+(deepseek-v2-lite-16b); the other architectures of ``repro.configs``
+follow with their model code.
 """
 
 from importlib import import_module
@@ -12,6 +14,8 @@ _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",
     "qwen1.5-32b": "qwen1_5_32b",
     "starcoder2-3b": "starcoder2_3b",
+    "minicpm3-4b": "minicpm3_4b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -3,10 +3,14 @@
 ``params_from_numpy(tree, cfg, device=None)`` takes the reference's parameter
 tree with every leaf as a numpy array (``jax.tree.map(np.asarray,
 params)``) and returns the port's layout: the reference stacks each layer
-leaf ``[n_superblocks, ...]`` under ``stack.slot0``; the port keeps one
-dict per layer.  Every leaf must be one of :func:`repro_torch.models.model.specs`
-(norm scales and biases, the q/k/v biases, the untied ``embed.head``);
-any other raises.  With the same float weights both packages then convert
+leaf ``[n_superblocks, ...]`` under ``stack.slot0`` and keeps its leading
+dense layers (``first_k_dense``, deepseek's layer 0) apart as
+``prefix.layer{i}``; the port keeps one dict per layer, ``prefix.layer{i}``
+as layer ``i`` and ``stack.slot0[j]`` as layer ``first_k_dense + j``.  Every
+leaf must be one of :func:`repro_torch.models.model.specs` (norm scales
+and biases, the q/k/v biases, the MLA projections and norms, the router,
+the stacked expert weights and the shared experts, the untied
+``embed.head``); any other raises.  With the same float weights both packages then convert
 to residency and compute the same thing.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) cross bit for bit.  Like every entry point of the
 port, it puts the tensors on the card unless the caller names a device.
@@ -46,18 +50,29 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     """Reference parameter tree (numpy leaves) → port parameters on
     ``device`` (default: the card; raises when there is none)."""
     device = resolve_device(device)
-    unknown = set(tree) - {"embed", "final_norm", "stack"}
+    k0 = cfg.first_k_dense
+    unknown = set(tree) - {"embed", "final_norm", "stack"} - ({"prefix"} if k0 else set())
     if unknown:
         raise ValueError(f"params_from_numpy: unsupported subtrees {sorted(unknown)}")
     slots = tree["stack"]
     if set(slots) != {"slot0"}:
         raise ValueError("params_from_numpy: expected one layer per superblock")
+    prefix = tree.get("prefix", {})
+    if set(prefix) != {f"layer{i}" for i in range(k0)}:
+        raise ValueError(f"params_from_numpy: prefix holds {sorted(prefix)}, expected "
+                         f"{k0} leading layers")
     spec = model_lib.specs(cfg)
+
+    def layer(i):
+        if i < k0:
+            return _map(prefix[f"layer{i}"], spec["layers"][i], lambda a: _tensor(a, device),
+                        ("prefix", f"layer{i}"))
+        return _map(slots["slot0"], spec["layers"][i],
+                    lambda a: _tensor(np.asarray(a)[i - k0], device), ("stack", "slot0"))
+
     return {
         "embed": _map(tree["embed"], spec["embed"], lambda a: _tensor(a, device), ("embed",)),
         "final_norm": _map(tree["final_norm"], spec["final_norm"],
                            lambda a: _tensor(a, device), ("final_norm",)),
-        "layers": [_map(slots["slot0"], spec["layers"][i],
-                        lambda a, i=i: _tensor(np.asarray(a)[i], device), ("stack", "slot0"))
-                   for i in range(cfg.n_layers)],
+        "layers": [layer(i) for i in range(cfg.n_layers)],
     }

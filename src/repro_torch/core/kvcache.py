@@ -1,10 +1,12 @@
 """Cache-residency registry for the decode K/V caches.
 
 Counterpart of :mod:`repro.core.kvcache`.  A format owns one *channel*
-(K or V): a ``[B, L, Hkv, F]`` per-slot tensor stored in its resident
-layout with per-slot scales.  Stores are suffix → tensor dicts (``""`` the
-payload, ``"_scale"`` the scales); the flat per-layer cache dict names them
-``k``/``k_scale``/``v``/``v_scale`` beside ``pos_ids``.
+(K, V, or the MLA latent ``c_kv``): a ``[B, L, *lead, F]`` per-slot tensor
+(``lead`` is ``(Hkv,)`` for K and V, ``()`` for the latent) stored in its
+resident layout with per-slot scales.  Stores are suffix → tensor dicts
+(``""`` the payload, ``"_scale"`` the scales); the flat per-layer cache dict
+names them ``k``/``k_scale``/``v``/``v_scale`` (``c_kv``/``c_scale``) beside
+``pos_ids``.
 
 ``init``    allocate ``[B, L, *lead, F]`` storage
 ``append``  ring-write new slots.  Unlike the reference's functional
@@ -40,7 +42,14 @@ _EPS = 1e-6
 CHANNEL_KEYS = {
     "k": ("k", "k_scale"),
     "v": ("v", "v_scale"),
+    "c_kv": ("c_kv", "c_scale"),
 }
+
+
+def _to_l_minor(a: torch.Tensor, payload_dims: int) -> torch.Tensor:
+    """Move the slot axis L from position 1 to just before the payload dims:
+    ``[B, L, *lead, *payload] → [B, *lead, L, *payload]``."""
+    return a.movedim(1, a.ndim - 1 - payload_dims)
 
 
 def _slot_scale(x: torch.Tensor, qmax: int) -> torch.Tensor:
@@ -89,11 +98,13 @@ class CacheFormat:
             store[sfx][b_idx, ring] = enc.to(store[sfx].dtype)
 
     def qk(self, q: torch.Tensor, store: dict) -> torch.Tensor:
-        """``q [B, H, G, F]`` · stored K → scores ``[B, H, G, L]`` float32."""
+        """``q [B, *lead, G, F]`` · the stored channel → scores ``[B, *lead,
+        G, L]`` float32."""
         raise NotImplementedError
 
     def av(self, w: torch.Tensor, store: dict, feat: int) -> torch.Tensor:
-        """``w [B, H, G, L]`` × stored V → ``[B, H, G, feat]`` float32."""
+        """``w [B, *lead, G, L]`` × the stored channel → ``[B, *lead, G,
+        feat]`` float32."""
         raise NotImplementedError
 
     def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat,
@@ -160,12 +171,12 @@ class BF16CacheFormat(CacheFormat):
         return {"": x}
 
     def qk(self, q, store):
-        t = store[""].permute(0, 2, 1, 3).to(torch.float32)  # [B, H, L, F]
-        return torch.einsum("bhgf,bhlf->bhgl", q.to(torch.float32), t)
+        t = _to_l_minor(store[""], 1).to(torch.float32)  # [B, *lead, L, F]
+        return torch.einsum("...gf,...lf->...gl", q.to(torch.float32), t)
 
     def av(self, w, store, feat):
-        t = store[""].permute(0, 2, 1, 3).to(torch.float32)
-        return torch.einsum("bhgl,bhlf->bhgf", w, t)
+        t = _to_l_minor(store[""], 1).to(torch.float32)
+        return torch.einsum("...gl,...lf->...gf", w, t)
 
 
 class Int8CacheFormat(CacheFormat):
@@ -191,15 +202,15 @@ class Int8CacheFormat(CacheFormat):
         return {"": q, "_scale": scale}
 
     def qk(self, q, store):
-        t = store[""].permute(0, 2, 1, 3).to(torch.float32)  # [B, H, L, F]
-        s = store["_scale"].permute(0, 2, 1)  # [B, H, L]
-        scores = torch.einsum("bhgf,bhlf->bhgl", q.to(torch.float32), t)
+        t = _to_l_minor(store[""], 1).to(torch.float32)  # [B, *lead, L, F]
+        s = _to_l_minor(store["_scale"], 0)  # [B, *lead, L]
+        scores = torch.einsum("...gf,...lf->...gl", q.to(torch.float32), t)
         return scores * s[..., None, :]
 
     def av(self, w, store, feat):
-        t = store[""].permute(0, 2, 1, 3).to(torch.float32)
-        s = store["_scale"].permute(0, 2, 1)
-        return torch.einsum("bhgl,bhlf->bhgf", w * s[..., None, :], t)
+        t = _to_l_minor(store[""], 1).to(torch.float32)
+        s = _to_l_minor(store["_scale"], 0)
+        return torch.einsum("...gl,...lf->...gf", w * s[..., None, :], t)
 
 
 class BitPlaneCacheFormat(CacheFormat):
@@ -234,23 +245,26 @@ class BitPlaneCacheFormat(CacheFormat):
         return bitplane.encode(bitplane.pad_to_word(qq)), qq_scale
 
     def qk(self, q, store):
-        q_planes, qq_scale = self._query_planes(q)  # [B, H, G, 4, Fw]
-        k_planes = store[""].permute(0, 2, 1, 3, 4)  # [B, H, L, 4, Fw]
-        k_scale = store["_scale"].permute(0, 2, 1)  # [B, H, L]
+        q_planes, qq_scale = self._query_planes(q)  # [B, *lead, G, 4, Fw]
+        k_planes = _to_l_minor(store[""], 2)  # [B, *lead, L, 4, Fw]
+        k_scale = _to_l_minor(store["_scale"], 0)  # [B, *lead, L]
         s_int = bsdp.bsdp_matmul_planes(q_planes, k_planes, signed=True)
         return s_int.to(torch.float32) * qq_scale[..., :, None] * k_scale[..., None, :]
 
     def av(self, w, store, feat):
-        vals = bitplane.decode(store[""].permute(0, 2, 1, 3, 4), signed=True)
-        v = vals[..., :feat].to(torch.float32)  # [B, H, L, F]
-        s = store["_scale"].permute(0, 2, 1)
-        return torch.einsum("bhgl,bhlf->bhgf", w * s[..., None, :], v)
+        vals = bitplane.decode(_to_l_minor(store[""], 2), signed=True)
+        v = vals[..., :feat].to(torch.float32)  # [B, *lead, L, F]
+        s = _to_l_minor(store["_scale"], 0)
+        return torch.einsum("...gl,...lf->...gf", w * s[..., None, :], v)
 
 
 class FusedBitPlaneCacheFormat(BitPlaneCacheFormat):
     """``int4_bp`` storage read by the fused ``plane_decode_attention``
     kernel: one pass per (batch × kv-head) row, on the stored planes.
-    ``impl="plain"`` takes the kernel's plain version instead."""
+    ``impl="plain"`` takes the kernel's plain version instead.  GQA decode
+    takes the fused read; MLA decode keeps the inherited ``qk``/``av`` plane
+    math, as the reference does, because its score adds a float rope term
+    between the two."""
 
     name = "int4_bp_fused"
     supports_fused_decode = True

@@ -13,7 +13,17 @@ A format owns one resident layout:
                           ``apply_jnp``): the kernel path's arithmetic with
                           each kernel replaced by its plain version, cast
                           to ``x.dtype``
+``to_float(state)``      dequantized ``[K, N]`` float32 (the absorbed MLA
+                          decode's ``w_uk`` / ``w_uv``)
 ``resident_bytes(state)`` device bytes of payload + scales
+
+A *stacked* state carries a leading expert axis on its payload and scales
+(``data [E, ...]``, ``scale [E, 1, N]``): the expert weights of a MoE
+layer, converted one expert at a time (:func:`from_float` of an ``[E, K,
+N]`` weight).  :func:`apply_stacked` runs ``x [E, M, K]`` through it; the
+``w8a8`` and bit-plane formats launch their kernel once for all experts
+(the grouped launch, the experts on the grid), ``w8a16`` and ``w4a8`` call
+theirs once an expert.
 
 The port registers the reference's seven formats: ``bf16``; ``w8a16``
 (``dequant_matmul``); ``w8a8`` (``matmul_int8``); ``w4a8``
@@ -43,8 +53,8 @@ from repro_torch.core import bitplane, bsdp, quant
 class QuantLinearState:
     """Payload for one resident linear layer (format-tagged)."""
 
-    data: torch.Tensor  # format-dependent payload
-    scale: torch.Tensor  # [1, N] per-output-channel float32
+    data: torch.Tensor  # format-dependent payload ([E, ...] when stacked)
+    scale: torch.Tensor  # [1, N] per-output-channel float32 ([E, 1, N] when stacked)
     mode: str = "w8a8"
     k: int = 0  # logical K
     n: int = 0  # logical N
@@ -52,6 +62,10 @@ class QuantLinearState:
     def to(self, device) -> "QuantLinearState":
         return dataclasses.replace(self, data=self.data.to(device),
                                    scale=self.scale.to(device))
+
+    def expert(self, e: int) -> "QuantLinearState":
+        """Expert ``e`` of a stacked state (views, no copy)."""
+        return dataclasses.replace(self, data=self.data[e], scale=self.scale[e])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,6 +94,8 @@ class ResidencyFormat:
     name: str = ""
     #: convert_params leaves parameters of this format as float tensors
     keeps_float_params: bool = False
+    #: absorbed MLA decode can dequantize this format to a float matrix
+    supports_absorbed_decode: bool = True
     #: the payload's axis of output columns (N)
     data_n_axis: int = 1
 
@@ -118,6 +134,22 @@ class ResidencyFormat:
         """Plain path ``[..., K] → [..., N]`` in ``x.dtype``."""
         raise NotImplementedError
 
+    def apply_stacked(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+        """Kernel path of a stacked state: ``x [E, M, K] → f32 [E, M, N]``.
+        Here :meth:`apply` once an expert; a format with a grouped launch
+        overrides it."""
+        return torch.stack([self.apply(state.expert(e), x[e]) for e in range(x.shape[0])])
+
+    def apply_stacked_plain(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+        """Plain path of a stacked state: :meth:`apply_plain` once an expert,
+        ``[E, M, K] → [E, M, N]`` in ``x.dtype``."""
+        return torch.stack([self.apply_plain(state.expert(e), x[e])
+                            for e in range(x.shape[0])])
+
+    def to_float(self, state: QuantLinearState) -> torch.Tensor:
+        """Dequantized ``[K, N]`` float32 weight."""
+        raise NotImplementedError
+
     def resident_bytes(self, state: QuantLinearState) -> int:
         return _nbytes(state.data) + _nbytes(state.scale)
 
@@ -154,6 +186,15 @@ class BF16Format(ResidencyFormat):
 
     name = "bf16"
     keeps_float_params = True
+
+    def encode(self, w):
+        k, n = w.shape
+        return QuantLinearState(data=w.to(torch.bfloat16),
+                                scale=torch.ones((1, n), dtype=torch.float32, device=w.device),
+                                mode=self.name, k=k, n=n)
+
+    def to_float(self, state):
+        return state.data.to(torch.float32)
 
 
 class Int8Format(ResidencyFormat):
@@ -194,6 +235,20 @@ class Int8Format(ResidencyFormat):
             out = gemv_int8.matmul_int8_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
 
+    def apply_stacked(self, state, x):
+        """``w8a8``: one grouped ``matmul_int8`` launch for every expert;
+        ``w8a16``: ``dequant_matmul`` once an expert."""
+        from repro_torch.kernels import ops
+
+        if self.act_bits is None:
+            return super().apply_stacked(state, x)
+        xq = quant.quantize_acts(x.to(torch.float32), bits=self.act_bits)
+        return ops.quant_matmul_grouped(xq, quant.QuantTensor(state.data, state.scale,
+                                                              bits=8, axis=0))
+
+    def to_float(self, state):
+        return state.data.to(torch.float32) * state.scale
+
 
 class PackedInt4Format(ResidencyFormat):
     """``w4a8``: int4 weights packed two per byte along K (half the bytes of
@@ -221,6 +276,10 @@ class PackedInt4Format(ResidencyFormat):
         xq = quant.quantize_acts(x.reshape(-1, x.shape[-1]).to(torch.float32), bits=8)
         out = gemv_int4.matmul_int4_packed_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
+
+    def to_float(self, state):
+        w = quant.unpack_int4(state.data, axis=0)[:state.k]
+        return w.to(torch.float32) * state.scale
 
 
 class BitPlaneFormat(ResidencyFormat):
@@ -265,6 +324,22 @@ class BitPlaneFormat(ResidencyFormat):
         out = acc.to(torch.float32) * xq.scale.reshape(-1, 1) * state.scale
         return out.reshape(*lead, state.n).to(x.dtype)
 
+    def apply_stacked(self, state, x):
+        """One grouped launch of the policy's kernel (by the rows an expert
+        takes) for every expert."""
+        from repro_torch.kernels import ops
+
+        e, m, _ = x.shape
+        xq = quant.quantize_acts(x.to(torch.float32), bits=4)
+        acc = ops.bsdp_matmul_grouped(xq.data, state.data, signed=True,
+                                      kernel=self.kernel_policy.kernel_for(m),
+                                      fmt_name=self.name)
+        return acc.to(torch.float32) * xq.scale.reshape(e, m, 1) * state.scale
+
+    def to_float(self, state):
+        w = bitplane.decode(state.data, signed=True).T[:state.k]  # [K, N]
+        return w.to(torch.float32) * state.scale
+
 
 register_format(BF16Format())
 register_format(Int8Format("w8a16", act_bits=None))
@@ -279,8 +354,22 @@ def from_float(w: torch.Tensor, mode: str = "w8a8",
                dtype: Optional[torch.dtype] = None) -> QuantLinearState:
     """One-time convert of a float ``[K, N]`` weight (cast to ``dtype`` first,
     if given) to residency ``mode``, a block of columns at a time
-    (:meth:`ResidencyFormat.encode_by_columns`)."""
-    return get_format(mode).encode_by_columns(w, dtype)
+    (:meth:`ResidencyFormat.encode_by_columns`).  A stacked ``[E, K, N]``
+    weight (a MoE layer's experts) converts one expert at a time into one
+    stacked state, ``data [E, ...]`` and ``scale [E, 1, N]``."""
+    fmt = get_format(mode)
+    if w.ndim == 2:
+        return fmt.encode_by_columns(w, dtype)
+    data = scale = None
+    for e in range(w.shape[0]):
+        part = fmt.encode_by_columns(w[e], dtype)
+        if data is None:
+            data = torch.empty((w.shape[0], *part.data.shape), dtype=part.data.dtype,
+                               device=w.device)
+            scale = torch.empty((w.shape[0], *part.scale.shape), dtype=part.scale.dtype,
+                                device=w.device)
+        data[e], scale[e] = part.data, part.scale
+    return QuantLinearState(data=data, scale=scale, mode=mode, k=part.k, n=part.n)
 
 
 def apply(state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
@@ -290,6 +379,11 @@ def apply(state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     out = fmt.apply(state, x2)
     return out.reshape(*lead, state.n)
+
+
+def apply_stacked(state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
+    """``x [E, M, K] → [E, M, N]`` float32 through a stacked state's kernel path."""
+    return get_format(state.mode).apply_stacked(state, x)
 
 
 def resident_bytes(state: QuantLinearState) -> int:

@@ -30,13 +30,15 @@ bsdp_gemm_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt
 
 }  // namespace
 
-extern "C" int bsdp_gemm(const void* x, const void* wt, void* out, int m, int n, int kw,
-                         int is_signed, void* stream) {
+// groups = 1: one [M, 4, Kw] x [N, 4, Kw] contraction; groups = G: G of them
+// stacked (the experts of a MoE layer), one launch.
+extern "C" int bsdp_gemm(const void* x, const void* wt, void* out, int groups, int m,
+                         int n, int kw, int is_signed, void* stream) {
   if (m <= 0 || n <= 0 || kw <= 0) return cudaErrorInvalidValue;
   if (m <= 4)
     return bsdp_mma::launch<1, 4>(bsdp_gemm_kernel<1, 4, true>,
-                                  bsdp_gemm_kernel<1, 4, false>, x, wt, out, m, n, kw,
+                                  bsdp_gemm_kernel<1, 4, false>, x, wt, out, groups, m, n, kw,
                                   is_signed, stream);
   return bsdp_mma::launch<4, 1>(bsdp_gemm_kernel<4, 1, true>, bsdp_gemm_kernel<4, 1, false>,
-                                x, wt, out, m, n, kw, is_signed, stream);
+                                x, wt, out, groups, m, n, kw, is_signed, stream);
 }

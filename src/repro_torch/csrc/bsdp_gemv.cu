@@ -46,6 +46,11 @@
 // leaves half of the SMs without a column block, where a K split could
 // pay (w_out: 128 blocks at M = 1; wk/wv of w4a4_bsdp: 64 blocks but one
 // pass of K).
+//
+// Grouped launch (the experts of a MoE layer at M = 1): the grid's third
+// axis walks `groups` independent products of the same shape, stacked in
+// memory — x [G, M, 4, Kw], wt [G, N, 4, Kw], out [G, M, N] — one launch
+// for a layer's 64 expert projections.
 
 #include "common.cuh"
 
@@ -94,12 +99,16 @@ __device__ __forceinline__ int bsdp_slice(const uint4 (&a)[4], const uint4 (&b)[
   return acc;
 }
 
-// Block (blockIdx.x, blockIdx.y) covers the kBN columns from
-// blockIdx.x · kBN, in passes of kPass words of K, for row blockIdx.y of x.
+// Block (blockIdx.x, blockIdx.y, blockIdx.z) covers the kBN columns from
+// blockIdx.x · kBN, in passes of kPass words of K, for row blockIdx.y of x
+// in group blockIdx.z.
 template <bool VEC, bool SIGNED, bool XAHEAD>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM<XAHEAD>)
 bsdp_gemv_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt,
-                 int32_t* __restrict__ out, int n_cols, int kw) {
+                 int32_t* __restrict__ out, int m_rows, int n_cols, int kw) {
+  x += static_cast<size_t>(blockIdx.z) * m_rows * 4 * kw;
+  wt += static_cast<size_t>(blockIdx.z) * n_cols * 4 * kw;
+  out += static_cast<size_t>(blockIdx.z) * m_rows * n_cols;
   const int lane = threadIdx.x % kLanes, col = threadIdx.x / kLanes;
   const int n = blockIdx.x * kBN + col;  // this thread's column
   const int m = blockIdx.y;
@@ -142,25 +151,29 @@ bsdp_gemv_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ wt
 }
 
 template <bool VEC, bool SIGNED, bool XAHEAD>
-cudaError_t launch(const uint32_t* x, const uint32_t* wt, int32_t* out, int m, int n, int kw,
-                   cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, m);  // one block per kBN columns and row of x
-  bsdp_gemv_kernel<VEC, SIGNED, XAHEAD><<<grid, kThreads, 0, stream>>>(x, wt, out, n, kw);
+cudaError_t launch(const uint32_t* x, const uint32_t* wt, int32_t* out, int groups, int m, int n,
+                   int kw, cudaStream_t stream) {
+  // one block per kBN columns, row of x and group
+  const dim3 grid((n + kBN - 1) / kBN, m, groups);
+  bsdp_gemv_kernel<VEC, SIGNED, XAHEAD><<<grid, kThreads, 0, stream>>>(x, wt, out, m, n, kw);
   return cudaGetLastError();
 }
 
 template <bool VEC, bool SIGNED>
-cudaError_t launch_for_m(const uint32_t* x, const uint32_t* wt, int32_t* out, int m, int n,
-                         int kw, cudaStream_t stream) {
-  if (m == 1) return launch<VEC, SIGNED, true>(x, wt, out, m, n, kw, stream);
-  return launch<VEC, SIGNED, false>(x, wt, out, m, n, kw, stream);
+cudaError_t launch_for_m(const uint32_t* x, const uint32_t* wt, int32_t* out, int groups, int m,
+                         int n, int kw, cudaStream_t stream) {
+  if (m == 1) return launch<VEC, SIGNED, true>(x, wt, out, groups, m, n, kw, stream);
+  return launch<VEC, SIGNED, false>(x, wt, out, groups, m, n, kw, stream);
 }
 
 }  // namespace
 
-extern "C" int bsdp_gemv(const void* x, const void* wt, void* out, int m, int n, int kw,
-                         int is_signed, void* stream) {
-  if (m <= 0 || n <= 0 || kw <= 0 || m > 65535) return cudaErrorInvalidValue;
+// groups = 1: one [M, 4, Kw] x [N, 4, Kw] product; groups = G: G of them
+// stacked (the experts of a MoE layer), one launch.
+extern "C" int bsdp_gemv(const void* x, const void* wt, void* out, int groups, int m, int n,
+                         int kw, int is_signed, void* stream) {
+  if (m <= 0 || n <= 0 || kw <= 0 || m > 65535 || groups <= 0 || groups > 65535)
+    return cudaErrorInvalidValue;
   const auto xp = static_cast<const uint32_t*>(x);
   const auto wp = static_cast<const uint32_t*>(wt);
   const auto op = static_cast<int32_t*>(out);
@@ -169,10 +182,10 @@ extern "C" int bsdp_gemv(const void* x, const void* wt, void* out, int m, int n,
                    reinterpret_cast<uintptr_t>(wt) % 16 == 0;
   cudaError_t err;
   if (vec)
-    err = is_signed ? launch_for_m<true, true>(xp, wp, op, m, n, kw, s)
-                    : launch_for_m<true, false>(xp, wp, op, m, n, kw, s);
+    err = is_signed ? launch_for_m<true, true>(xp, wp, op, groups, m, n, kw, s)
+                    : launch_for_m<true, false>(xp, wp, op, groups, m, n, kw, s);
   else
-    err = is_signed ? launch_for_m<false, true>(xp, wp, op, m, n, kw, s)
-                    : launch_for_m<false, false>(xp, wp, op, m, n, kw, s);
+    err = is_signed ? launch_for_m<false, true>(xp, wp, op, groups, m, n, kw, s)
+                    : launch_for_m<false, false>(xp, wp, op, groups, m, n, kw, s);
   return static_cast<int>(err);
 }

@@ -47,6 +47,12 @@
 // axis walks the tokens 16 at a time: prefill (M = a prompt's length) is
 // the same contraction, its weight words re-read from the L2 by each
 // 16-token block.  Row tiles past M are skipped (block-uniform).
+//
+// Grouped launch (the experts of a MoE layer): the grid's third axis walks
+// `groups` independent contractions of the same shape, stacked in memory —
+// x [G, M, 4, Kw], wt [G, N, 4, Kw], out [G, M, N] — so a layer's 64 expert
+// projections are one launch.  The K split counts the whole grid when it
+// asks whether one wave of the card is filled.
 #pragma once
 
 #include "common.cuh"
@@ -91,6 +97,10 @@ __device__ __forceinline__ void contract(const uint32_t* __restrict__ x,
                                          int kw, int is_signed, int col_groups,
                                          int units_per_warp) {
   __shared__ int part[kWarps][RT * 4][8];  // each warp's sums: token x column
+  // this block's group (expert) of a grouped launch, then its tokens
+  x += static_cast<size_t>(blockIdx.z) * m_rows * 4 * kw;
+  wt += static_cast<size_t>(blockIdx.z) * n_cols * 4 * kw;
+  out += static_cast<size_t>(blockIdx.z) * m_rows * n_cols;
   const int m0 = blockIdx.y * RT * 4;
   x += static_cast<size_t>(m0) * 4 * kw;
   out += static_cast<size_t>(m0) * n_cols;
@@ -203,13 +213,15 @@ __device__ __forceinline__ void contract(const uint32_t* __restrict__ x,
 
 using Kernel = void (*)(const uint32_t*, const uint32_t*, int32_t*, int, int, int, int, int, int);
 
-// Launch one kernel instance: `aligned` when x and wt are 16-byte aligned
-// and kw a multiple of 4, else `unaligned`.  K splits: the fewest (a power
-// of 2, at most one per warp and one per unit) for which a warp's units fit
-// UMAX and the grid fills one wave of the card.
+// Launch one kernel instance over `groups` stacked contractions: `aligned`
+// when x and wt are 16-byte aligned and kw a multiple of 4 (then every
+// group's operands are too), else `unaligned`.  K splits: the fewest (a
+// power of 2, at most one per warp and one per unit) for which a warp's
+// units fit UMAX and the grid fills one wave of the card.
 template <int RT, int UMAX>
-int launch(Kernel aligned, Kernel unaligned, const void* x, const void* wt, void* out, int m,
-           int n, int kw, int is_signed, void* stream) {
+int launch(Kernel aligned, Kernel unaligned, const void* x, const void* wt, void* out,
+           int groups, int m, int n, int kw, int is_signed, void* stream) {
+  if (groups <= 0 || groups > 65535) return cudaErrorInvalidValue;
   int sms = 0;
   const cudaError_t err = split_k::sm_count(&sms);
   if (err != cudaSuccess) return err;
@@ -223,13 +235,14 @@ int launch(Kernel aligned, Kernel unaligned, const void* x, const void* wt, void
   int splits = 1;
   while (splits < kMaxSplits && splits < units &&
          ((units + splits - 1) / splits > UMAX ||
-          static_cast<long long>(blocks(splits)) * row_blocks < sms))
+          static_cast<long long>(blocks(splits)) * row_blocks * groups < sms))
     splits *= 2;
   const int per_warp = (units + splits - 1) / splits;
   const bool vec = kw % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(wt) % 16 == 0;
   const Kernel kernel = vec ? aligned : unaligned;
-  kernel<<<dim3(blocks(splits), row_blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(blocks(splits), row_blocks, groups);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(x), static_cast<const uint32_t*>(wt),
       static_cast<int32_t*>(out), m, n, kw, is_signed, kWarps / splits, per_warp);
   return static_cast<int>(cudaGetLastError());

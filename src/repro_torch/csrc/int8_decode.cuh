@@ -42,6 +42,13 @@
 // of x at a time, into shared memory).  The weight is never staged in
 // shared memory.  One launch, no workspace in device memory, no atomics:
 // deterministic.
+//
+// Grouped launch (the experts of a MoE layer, matmul_int8): the grid's
+// third axis walks `groups` independent products of the same shape,
+// stacked in memory — x [G, M, K], the weight [G, rows, N], x_scale [G, M],
+// w_scale [G, N], out [G, M, N] — one launch for a layer's 64 expert
+// projections; the K split counts the whole grid.  The cluster stays along
+// the grid's second axis.
 #pragma once
 
 #include <algorithm>
@@ -181,6 +188,17 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
   uint32_t* part = red + kWarps * MT * kBN;  // [MT][kBN] this split
 
   cgr::cluster_group cluster = cgr::this_cluster();
+  {  // this block's group of a grouped launch (the weight: k_dim / kQuads rows)
+    constexpr int kPair = L::kDim ? 2 : 1;
+    const size_t z = blockIdx.z;
+    x += z * m_rows * k_dim;
+    w += z * (k_dim / L::kQuads) * n_cols;
+    if (!L::kDim) {
+      x_scale += z * m_rows;
+      w_scale += z * n_cols;
+    }
+    out = static_cast<char*>(out) + z * m_rows * (n_cols / kPair) * sizeof(int32_t);
+  }
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int unit = tid / TPR;              // unit within a load round
   const int n0 = blockIdx.x * kBN;
@@ -332,7 +350,8 @@ decode_kernel(const int8_t* __restrict__ x, const int8_t* __restrict__ w,
 
 template <typename L, int MT, int Q, int TPR, bool VEC, bool XVEC>
 cudaError_t launch_tile(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
-                        void* out, int m, int n, int k, int out_int32, cudaStream_t stream) {
+                        void* out, int groups, int m, int n, int k, int out_int32,
+                        cudaStream_t stream) {
   constexpr int kBN = Tile<TPR>::kBN;
   constexpr int kUnitK = 4 * L::kQuads;
   constexpr int kKC = Tile<TPR>::kUnits * kUnitK * Q;
@@ -342,7 +361,7 @@ cudaError_t launch_tile(const int8_t* x, const int8_t* w, const float* xs, const
   // K splits until the grid holds about kBlocksPerSM blocks per SM (one wave)
   const int col_blocks = (n + kBN - 1) / kBN;
   int splits = std::max(1, std::min({kMaxSplits, (k + kKC - 1) / kKC,
-                                     kBlocksPerSM * sms / col_blocks}));
+                                     kBlocksPerSM * sms / (col_blocks * groups)}));
   const int k_per_split = ((k + splits - 1) / splits + kUnitK - 1) / kUnitK * kUnitK;
   splits = (k + k_per_split - 1) / k_per_split;  // no empty split
   auto kernel = decode_kernel<L, MT, Q, TPR, VEC, XVEC>;
@@ -350,7 +369,7 @@ cudaError_t launch_tile(const int8_t* x, const int8_t* w, const float* xs, const
   err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(col_blocks, splits, 1);
+  cfg.gridDim = dim3(col_blocks, splits, groups);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -373,7 +392,8 @@ cudaError_t launch_tile(const int8_t* x, const int8_t* w, const float* xs, const
 // the 1-unit grid would not fit in one wave of a block per SM.
 template <typename L, bool VEC, bool XVEC>
 cudaError_t launch_for_m(const int8_t* x, const int8_t* w, const float* xs, const float* ws,
-                         void* out, int m, int n, int k, int out_int32, cudaStream_t stream) {
+                         void* out, int groups, int m, int n, int k, int out_int32,
+                         cudaStream_t stream) {
   if (m <= 1) {
     using T = Tile<8>;
     constexpr int kRound = T::kUnits * 4 * L::kQuads;  // K rows of one load round
@@ -381,21 +401,27 @@ cudaError_t launch_for_m(const int8_t* x, const int8_t* w, const float* xs, cons
     const cudaError_t err = split_k::sm_count(&sms);
     if (err != cudaSuccess) return err;
     const long long blocks1 = static_cast<long long>((n + T::kBN - 1) / T::kBN) *
-                              std::min(kMaxSplits, (k + kRound - 1) / kRound);
+                              std::min(kMaxSplits, (k + kRound - 1) / kRound) * groups;
     if (blocks1 > sms)
-      return launch_tile<L, 1, 2, 8, VEC, XVEC>(x, w, xs, ws, out, m, n, k, out_int32, stream);
-    return launch_tile<L, 1, 1, 8, VEC, XVEC>(x, w, xs, ws, out, m, n, k, out_int32, stream);
+      return launch_tile<L, 1, 2, 8, VEC, XVEC>(x, w, xs, ws, out, groups, m, n, k,
+                                                out_int32, stream);
+    return launch_tile<L, 1, 1, 8, VEC, XVEC>(x, w, xs, ws, out, groups, m, n, k,
+                                              out_int32, stream);
   }
   if (m <= 4)
-    return launch_tile<L, 4, 1, 8, VEC, XVEC>(x, w, xs, ws, out, m, n, k, out_int32, stream);
-  return launch_tile<L, 16, 1, 4, VEC, XVEC>(x, w, xs, ws, out, m, n, k, out_int32, stream);
+    return launch_tile<L, 4, 1, 8, VEC, XVEC>(x, w, xs, ws, out, groups, m, n, k,
+                                              out_int32, stream);
+  return launch_tile<L, 16, 1, 4, VEC, XVEC>(x, w, xs, ws, out, groups, m, n, k,
+                                             out_int32, stream);
 }
 
 // The decode route for 1 <= m <= 16; w is the loader's weight ([K, N] int8
-// or [K/2, N] packed int4, N bytes a row).  Returns the launch's cudaError_t.
+// or [K/2, N] packed int4, N bytes a row), `groups` of them stacked with
+// their x, scales and out.  Returns the launch's cudaError_t.
 template <typename L>
 int matmul(const void* x, const void* w, const void* x_scale, const void* w_scale, void* out,
-           int m, int n, int k, int out_int32, cudaStream_t stream) {
+           int m, int n, int k, int out_int32, cudaStream_t stream, int groups = 1) {
+  if (groups <= 0 || groups > 65535) return cudaErrorInvalidValue;
   const auto xp = static_cast<const int8_t*>(x);
   const auto wp = static_cast<const int8_t*>(w);
   const auto xs = static_cast<const float*>(x_scale);
@@ -404,11 +430,15 @@ int matmul(const void* x, const void* w, const void* x_scale, const void* w_scal
   const bool xvec = reinterpret_cast<uintptr_t>(x) % 4 == 0 && k % 4 == 0;
   cudaError_t err;
   if (vec)
-    err = xvec ? launch_for_m<L, true, true>(xp, wp, xs, ws, out, m, n, k, out_int32, stream)
-               : launch_for_m<L, true, false>(xp, wp, xs, ws, out, m, n, k, out_int32, stream);
+    err = xvec ? launch_for_m<L, true, true>(xp, wp, xs, ws, out, groups, m, n, k, out_int32,
+                                             stream)
+               : launch_for_m<L, true, false>(xp, wp, xs, ws, out, groups, m, n, k, out_int32,
+                                              stream);
   else
-    err = xvec ? launch_for_m<L, false, true>(xp, wp, xs, ws, out, m, n, k, out_int32, stream)
-               : launch_for_m<L, false, false>(xp, wp, xs, ws, out, m, n, k, out_int32, stream);
+    err = xvec ? launch_for_m<L, false, true>(xp, wp, xs, ws, out, groups, m, n, k, out_int32,
+                                              stream)
+               : launch_for_m<L, false, false>(xp, wp, xs, ws, out, groups, m, n, k, out_int32,
+                                               stream);
   return static_cast<int>(err);
 }
 

@@ -21,6 +21,11 @@
 //
 // Warps: each of the 8 warps owns kFrags/8 of the tile's output fragments
 // over the whole K.
+//
+// Grouped launch (the experts of a MoE layer, matmul_int8): the grid's
+// third axis walks `groups` independent products of the same shape,
+// stacked in memory — x [G, M, K], x_scale [G, M], w_scale [G, N], out
+// [G, M, N], and the weight, which the staging functor's `group(z)` offsets.
 
 #pragma once
 
@@ -123,7 +128,8 @@ __device__ __forceinline__ void zero(AccFrag (&acc)[Tile<BM, BN>::kFragsPerWarp]
 // The W8A8 / W4A8 kernel: out = (float(x·w) * x_scale[m]) * w_scale[n] in
 // the reference's order with round-to-nearest (bit-identical to the plain
 // versions), or the raw int32 sums when out_int32.  `stage_b(b_s, n0, k0)`
-// writes the int8 weight tile w[k0:k0+kBK, n0:n0+BN] into b_s, zero-padded.
+// writes the int8 weight tile w[k0:k0+kBK, n0:n0+BN] into b_s, zero-padded;
+// `stage_b.group(z)` is the functor of group z's weight.
 template <int BM, int BN, typename StageB>
 __global__ void __launch_bounds__(kThreads)
 scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
@@ -131,6 +137,12 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
                    void* __restrict__ out, int m_rows, int n_cols, int k_dim, int vec_x,
                    int out_int32) {
   using T = Tile<BM, BN>;
+  const size_t z = blockIdx.z;  // this block's group of a grouped launch
+  x += z * m_rows * k_dim;
+  x_scale += z * m_rows;
+  w_scale += z * n_cols;
+  out = static_cast<char*>(out) + z * m_rows * n_cols * sizeof(int32_t);
+  const StageB stage_w = stage_b.group(blockIdx.z);
   constexpr int kSmem = T::kABytes + T::kBBytes > T::kTableBytes
                             ? T::kABytes + T::kBBytes : T::kTableBytes;
   __shared__ __align__(256) unsigned char smem[kSmem];
@@ -144,7 +156,7 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
   zero<BM, BN>(acc);
   for (int k0 = 0; k0 < k_dim; k0 += kBK) {
     stage_a<BM>(x, m_rows, k_dim, m0, k0, vec_x, a_s);
-    stage_b(b_s, n0, k0);
+    stage_w(b_s, n0, k0);
     __syncthreads();
     mma_stage<BM, BN>(a_s, b_s, acc, warp);
     __syncthreads();
@@ -166,13 +178,15 @@ scaled_gemm_kernel(const int8_t* __restrict__ x, StageB stage_b,
   }
 }
 
-// Launch scaled_gemm_kernel on a BM x BN tile grid; returns the launch's
-// cudaError_t.  Both callers take 64 x 64 tiles.
+// Launch scaled_gemm_kernel on a BM x BN tile grid over `groups` stacked
+// products; returns the launch's cudaError_t.  Both callers take 64 x 64
+// tiles.
 template <int BM, int BN, typename StageB>
 int launch_scaled_gemm(const void* x, StageB stage_b, const void* x_scale, const void* w_scale,
-                       void* out, int m, int n, int k, int out_int32, cudaStream_t stream) {
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  if (grid.y > 65535) return cudaErrorInvalidValue;
+                       void* out, int m, int n, int k, int out_int32, cudaStream_t stream,
+                       int groups = 1) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM, groups);
+  if (grid.y > 65535 || groups <= 0 || groups > 65535) return cudaErrorInvalidValue;
   const int vec_x = (reinterpret_cast<uintptr_t>(x) % 16 == 0) && (k % 16 == 0);
   scaled_gemm_kernel<BM, BN><<<grid, kThreads, 0, stream>>>(
       static_cast<const int8_t*>(x), stage_b, static_cast<const float*>(x_scale),

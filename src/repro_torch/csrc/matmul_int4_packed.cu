@@ -87,6 +87,11 @@ struct StagePackedInt4 {
   const int8_t* wp;
   int n_cols, k_half, vec;
 
+  // the weight of group z of a grouped launch ([G, K/2, N] stacked)
+  __device__ __forceinline__ StagePackedInt4 group(int z) const {
+    return {wp + static_cast<size_t>(z) * k_half * n_cols, n_cols, k_half, vec};
+  }
+
   __device__ __forceinline__ void operator()(int8_t* b_s, int n0, int k0) const {
     constexpr int kGroups = BN / 16;
     for (int i = threadIdx.x; i < (kBK / 2) * kGroups; i += kThreads) {

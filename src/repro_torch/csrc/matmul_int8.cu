@@ -45,6 +45,11 @@ struct StageInt8 {
   const int8_t* w;
   int n_cols, k_dim, vec;
 
+  // the weight of group z of a grouped launch ([G, K, N] stacked)
+  __device__ __forceinline__ StageInt8 group(int z) const {
+    return {w + static_cast<size_t>(z) * k_dim * n_cols, n_cols, k_dim, vec};
+  }
+
   __device__ __forceinline__ void operator()(int8_t* b_s, int n0, int k0) const {
     constexpr int kGroups = BN / 16;
     for (int i = threadIdx.x; i < kBK * kGroups; i += kThreads) {
@@ -71,8 +76,10 @@ struct StageInt8 {
 
 using matmul_int8_detail::StageInt8;
 
+// groups = 1: one [M, K] x [K, N] product; groups = G: G of them stacked
+// with their scales and outputs (the experts of a MoE layer), one launch.
 extern "C" int matmul_int8(const void* x, const void* w, const void* x_scale,
-                           const void* w_scale, void* out, int m, int n, int k,
+                           const void* w_scale, void* out, int groups, int m, int n, int k,
                            int out_int32, void* stream) {
   if (m <= 0 || n <= 0 || k <= 0) return cudaErrorInvalidValue;
   const auto s = static_cast<cudaStream_t>(stream);
@@ -80,7 +87,7 @@ extern "C" int matmul_int8(const void* x, const void* w, const void* x_scale,
   const int vec = (reinterpret_cast<uintptr_t>(w) % 16 == 0) && (n % 16 == 0);
   if (m <= 16)
     return int8_decode::matmul<int8_decode::Int8Rows>(x, w, x_scale, w_scale, out, m, n, k,
-                                                       out_int32, s);
+                                                       out_int32, s, groups);
   return int8_tile::launch_scaled_gemm<64, 64>(x, StageInt8<64>{wp, n, k, vec}, x_scale,
-                                               w_scale, out, m, n, k, out_int32, s);
+                                               w_scale, out, m, n, k, out_int32, s, groups);
 }

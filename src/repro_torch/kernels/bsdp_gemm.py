@@ -40,16 +40,16 @@ import torch
 
 from repro_torch.core.bsdp import bits_to_int8, bsdp_matmul_planes, plane_weights
 from repro_torch.kernels import _build
-from repro_torch.kernels.bsdp_kernel import _check_planes
+from repro_torch.kernels.bsdp_kernel import _check_planes, check_grouped_planes
 
 KERNEL = _build.CudaKernel(
     "bsdp_gemm_fused", "bsdp_gemm_fused.cu", "bsdp_gemm_fused",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="src/repro/kernels/bsdp_gemm.py:197",
 )
 KERNEL_UNROLLED = _build.CudaKernel(
     "bsdp_gemm", "bsdp_gemm.cu", "bsdp_gemm",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="src/repro/kernels/bsdp_gemm.py:242",
 )
 
@@ -72,7 +72,7 @@ def bsdp_gemm_fused(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     x = x_planes.contiguous()
     w = w_planes.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, n, kw,
+    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), 1, m, n, kw,
                   int(signed), _build.stream())
     return out
 
@@ -106,6 +106,37 @@ def bsdp_gemm(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     x = x_planes.contiguous()
     w = w_planes.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    KERNEL_UNROLLED.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, n, kw,
+    KERNEL_UNROLLED.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), 1, m, n, kw,
                            int(signed), _build.stream())
     return out
+
+
+def _grouped(kernel, plain, name):
+    """The grouped form of one of the two GEMMs: ``G`` stacked products
+    ``x_planes [G,M,4,Kw] × w_planes [G,N,4,Kw] → [G,M,N] int32`` in one
+    launch, the groups on the grid's third axis (the experts of a MoE
+    layer); on CPU tensors, ``plain`` once per group."""
+
+    def grouped_plain(x_planes, w_planes, *, signed=True):
+        check_grouped_planes(name, x_planes, w_planes)
+        return torch.stack([plain(x, w, signed=signed) for x, w in zip(x_planes, w_planes)])
+
+    def grouped(x_planes, w_planes, *, signed=True):
+        g, m, n, kw = check_grouped_planes(name, x_planes, w_planes)
+        if x_planes.device.type == "cpu":
+            return grouped_plain(x_planes, w_planes, signed=signed)
+        _build.require_cuda(name, x_planes, w_planes)
+        x = x_planes.contiguous()
+        w = w_planes.contiguous()
+        out = torch.empty((g, m, n), dtype=torch.int32, device=x.device)
+        kernel.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), g, m, n, kw,
+                      int(signed), _build.stream())
+        return out
+
+    return grouped, grouped_plain
+
+
+bsdp_gemm_fused_grouped, bsdp_gemm_fused_grouped_plain = _grouped(
+    KERNEL, bsdp_gemm_fused_plain, "bsdp_gemm_fused")
+bsdp_gemm_grouped, bsdp_gemm_grouped_plain = _grouped(
+    KERNEL_UNROLLED, bsdp_gemm_plain, "bsdp_gemm")

@@ -28,7 +28,7 @@ from repro_torch.kernels import _build
 
 KERNEL = _build.CudaKernel(
     "bsdp_gemv", "bsdp_gemv.cu", "bsdp_gemv",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="src/repro/kernels/bsdp_kernel.py:94",
 )
 
@@ -45,6 +45,15 @@ def _check_planes(name, x_planes, w_planes):
     if x_planes.device != w_planes.device:
         raise ValueError(f"{name}: planes on {x_planes.device} and {w_planes.device}")
     return m, n, kw
+
+
+def check_grouped_planes(name, x_planes, w_planes):
+    """Shapes of a grouped call, ``x [G, M, 4, Kw] × w [G, N, 4, Kw]``;
+    returns ``(g, m, n, kw)``."""
+    if x_planes.ndim != 4 or w_planes.ndim != 4 or x_planes.shape[0] != w_planes.shape[0]:
+        raise ValueError(f"{name}: bad grouped plane shapes {tuple(x_planes.shape)} "
+                         f"× {tuple(w_planes.shape)}")
+    return (x_planes.shape[0], *_check_planes(name, x_planes[0], w_planes[0]))
 
 
 def bsdp_matmul_plain(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
@@ -65,6 +74,32 @@ def bsdp_matmul(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
     x = x_planes.contiguous()
     w = w_planes.contiguous()
     out = torch.empty((m, n), dtype=torch.int32, device=x.device)
-    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), m, n, kw,
+    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), 1, m, n, kw,
+                  int(signed), _build.stream())
+    return out
+
+
+def bsdp_matmul_grouped_plain(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
+                              signed: bool = True) -> torch.Tensor:
+    """Plain version of the grouped call: :func:`bsdp_matmul_plain` once per
+    group."""
+    check_grouped_planes("bsdp_gemv", x_planes, w_planes)
+    return torch.stack([bsdp_matmul_plain(x, w, signed=signed)
+                        for x, w in zip(x_planes, w_planes)])
+
+
+def bsdp_matmul_grouped(x_planes: torch.Tensor, w_planes: torch.Tensor, *,
+                        signed: bool = True) -> torch.Tensor:
+    """``G`` stacked products ``x_planes [G,M,4,Kw] × w_planes [G,N,4,Kw] →
+    [G,M,N] int32`` in one launch, the groups on the grid's third axis (the
+    experts of a MoE layer)."""
+    g, m, n, kw = check_grouped_planes("bsdp_gemv", x_planes, w_planes)
+    if x_planes.device.type == "cpu":
+        return bsdp_matmul_grouped_plain(x_planes, w_planes, signed=signed)
+    _build.require_cuda("bsdp_gemv", x_planes, w_planes)
+    x = x_planes.contiguous()
+    w = w_planes.contiguous()
+    out = torch.empty((g, m, n), dtype=torch.int32, device=x.device)
+    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(out), g, m, n, kw,
                   int(signed), _build.stream())
     return out

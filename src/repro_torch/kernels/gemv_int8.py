@@ -29,7 +29,7 @@ from repro_torch.kernels.ref import dot_i32
 
 KERNEL = _build.CudaKernel(
     "matmul_int8", "matmul_int8.cu", "matmul_int8",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
     replaces="src/repro/kernels/gemv_int8.py:81",
 )
 
@@ -83,5 +83,42 @@ def matmul_int8(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     out = torch.empty((m, n), dtype=torch.int32 if out_int32 else torch.float32,
                       device=x.device)
     KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(xs), _build.ptr(ws),
-                  _build.ptr(out), m, n, k, int(out_int32), _build.stream())
+                  _build.ptr(out), 1, m, n, k, int(out_int32), _build.stream())
+    return out
+
+
+def _check_grouped(x, w, x_scale, w_scale):
+    """``x [G, M, K]``, ``w [G, K, N]``, ``x_scale`` of G·M and ``w_scale`` of
+    G·N values; returns ``(g, m, n, k)``."""
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0] or \
+            x_scale.shape[0] != x.shape[0] or w_scale.shape[0] != x.shape[0]:
+        raise ValueError(f"matmul_int8: bad grouped shapes x {tuple(x.shape)}, "
+                         f"w {tuple(w.shape)}, scales {tuple(x_scale.shape)}, "
+                         f"{tuple(w_scale.shape)}")
+    return (x.shape[0], *check_scaled("matmul_int8", x[0], w[0], x_scale[0], w_scale[0]))
+
+
+def matmul_int8_grouped_plain(x, w, x_scale, w_scale) -> torch.Tensor:
+    """Plain version of the grouped call: :func:`matmul_int8_plain` once per
+    group."""
+    _check_grouped(x, w, x_scale, w_scale)
+    return torch.stack([matmul_int8_plain(*args) for args in zip(x, w, x_scale, w_scale)])
+
+
+def matmul_int8_grouped(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
+                        w_scale: torch.Tensor) -> torch.Tensor:
+    """``G`` stacked products ``x [G,M,K] int8 @ w [G,K,N] int8`` → f32
+    ``[G,M,N]``, each with its per-token and per-channel scales (``x_scale``
+    ``[G, M, ...]``, ``w_scale`` ``[G, ..., N]``), in one launch, the groups on
+    the grid's third axis (the experts of a MoE layer)."""
+    g, m, n, k = _check_grouped(x, w, x_scale, w_scale)
+    if x.device.type == "cpu":
+        return matmul_int8_grouped_plain(x, w, x_scale, w_scale)
+    _build.require_cuda("matmul_int8", x, w, x_scale, w_scale)
+    x, w = x.contiguous(), w.contiguous()
+    xs = x_scale.reshape(g, m).to(torch.float32).contiguous()
+    ws = w_scale.reshape(g, n).to(torch.float32).contiguous()
+    out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
+    KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(xs), _build.ptr(ws),
+                  _build.ptr(out), g, m, n, k, 0, _build.stream())
     return out

@@ -11,6 +11,10 @@ The CUDA kernels mask their own ragged M/N/K edges, so unlike the Pallas
 wrappers nothing is padded to block multiples and no block sizes are
 chosen here: each kernel picks its tile shape in its source.
 
+Grouped entry points (``*_grouped``) take ``G`` stacked operands — the
+experts of a MoE layer — and launch their kernel once, the groups on the
+grid's third axis.
+
 Counting: every kernel binding keeps ``launches``, incremented once per
 launch that the driver accepted (:func:`launch_counts`).  The JAX package's
 ``kernel.dispatch`` counter fires at trace time and so counts call sites
@@ -42,6 +46,12 @@ _BSDP_KERNELS = {
     "gemm": bsdp_gemm.bsdp_gemm,
     "gemm_fused": bsdp_gemm.bsdp_gemm_fused,
 }
+#: the same kernels' grouped launches (stacked expert weights)
+_BSDP_GROUPED = {
+    "gemv": bsdp_kernel.bsdp_matmul_grouped,
+    "gemm": bsdp_gemm.bsdp_gemm_grouped,
+    "gemm_fused": bsdp_gemm.bsdp_gemm_fused_grouped,
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -63,6 +73,12 @@ def quant_matmul(x: QuantTensor, w: QuantTensor, *,
     """W8A8: ``x [M,K]`` per-token × ``w [K,N]`` per-channel → f32 ``[M,N]``
     (or the raw int32 sums with ``out_int32``)."""
     return gemv_int8.matmul_int8(x.data, w.data, x.scale, w.scale, out_int32=out_int32)
+
+
+def quant_matmul_grouped(x: QuantTensor, w: QuantTensor) -> torch.Tensor:
+    """W8A8 over ``G`` stacked experts in one launch: ``x [G,M,K]`` per-token
+    × ``w [G,K,N]`` per-channel → f32 ``[G,M,N]``."""
+    return gemv_int8.matmul_int8_grouped(x.data, w.data, x.scale, w.scale)
 
 
 def matmul_int8_raw(x_i8: torch.Tensor, w_i8: torch.Tensor) -> torch.Tensor:
@@ -119,6 +135,25 @@ def bsdp_matmul(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
     x_planes = bitplane.encode_acts(bitplane.pad_to_word(x_i4))
     return bsdp_matmul_planes(x_planes, w_planes, signed=signed, kernel=kernel,
                               fmt_name=fmt_name)
+
+
+def bsdp_matmul_grouped(x_i4: torch.Tensor, w_planes: torch.Tensor, *,
+                        kernel: Optional[str] = None, signed: bool = True,
+                        fmt_name: Optional[str] = None) -> torch.Tensor:
+    """Raw int4 activations ``[G,M,K]`` × stacked encoded weights
+    ``[G,N,4,K/32]`` → int32 ``[G,M,N]``: the activation encode, then one
+    grouped launch of the BSDP kernel ``kernel`` (as for
+    :func:`bsdp_matmul_planes`, by M when None)."""
+    g, m, k = x_i4.shape
+    x_planes = bitplane.encode_acts(bitplane.pad_to_word(x_i4.reshape(g * m, k)))
+    kernel = kernel or bsdp_kernel_for(m)
+    if kernel not in _BSDP_GROUPED:
+        via = (f" (requested via residency format {fmt_name!r}'s KernelPolicy)"
+               if fmt_name else "")
+        raise ValueError(f"unknown BSDP kernel {kernel!r}{via}; registered "
+                         f"kernels: {sorted(_BSDP_GROUPED)}")
+    return _BSDP_GROUPED[kernel](x_planes.reshape(g, m, *x_planes.shape[1:]), w_planes,
+                                 signed=signed)
 
 
 def bsdp_gemv(x_i4: torch.Tensor, w_planes: torch.Tensor, *,

@@ -1,12 +1,18 @@
-"""GQA attention: prefill, ring-cache decode, chunked online softmax.
+"""Attention mixers: GQA and MLA — prefill, ring-cache decode, chunked
+online softmax.
 
-Counterpart of the GQA part of :mod:`repro.models.attention` (MLA and
-cross-attention come with their architectures).  Decode caches are
+Counterpart of the GQA and MLA parts of :mod:`repro.models.attention`
+(cross-attention comes with its architectures).  Decode caches are
 position-indexed ring buffers: slot = position mod L; ``pos_ids`` holds the
 absolute position per slot (-1 = empty).  Cache residency — how a slot is
 stored and read back — belongs to the cache format
 (:mod:`repro_torch.core.kvcache`).  Negative positions are pads: rope and
 the masks ignore them and the ring write skips them.
+
+MLA (DeepSeek-V2 / MiniCPM3) caches only the latent — ``c_kv`` through the
+cache format, the small rope key ``k_rope`` in float — and decodes in the
+absorbed form: the query is absorbed through ``w_uk`` and the context read
+back through ``w_uv``, both dequantized to float on every step.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ import math
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import kvcache
+from repro_torch.core import kvcache, residency
 from repro_torch.models import layers
 from repro_torch.models.layers import dense
 
@@ -99,21 +105,26 @@ def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -
     return cache
 
 
-def _ring_write(cache, k, v, positions, fmt) -> None:
-    """In place: write S new (k, v) at slots = position mod L; pads
-    (positions < 0) are masked out of the write.  A write of more than L
-    tokens a row (a prompt longer than the ring) keeps each row's last L
-    positions: a row's positions are distinct, so every slot is indexed at
-    most once and the result does not depend on the order in which the
-    device applies the writes (CUDA's ``index_put_`` names no winner among
-    repeated indices)."""
-    ln = cache["pos_ids"].shape[1]
+def _ring_slots(positions, ln: int):
+    """The tokens a ring write of ``positions [B, S]`` keeps and their slots
+    → ``(b_idx, s_idx, pos, ring)``.  Pads (positions < 0) are left out.  A
+    write of more than L tokens a row (a prompt longer than the ring) keeps
+    each row's last L positions: a row's positions are distinct, so every
+    slot is indexed at most once and the result does not depend on the
+    order in which the device applies the writes (CUDA's ``index_put_``
+    names no winner among repeated indices)."""
     keep = positions >= 0
     if positions.shape[1] > ln:  # only then can two tokens of a row share a slot
         keep &= positions > positions.amax(1, keepdim=True) - ln
     b_idx, s_idx = keep.nonzero(as_tuple=True)
     pos = positions[b_idx, s_idx]
-    ring = torch.remainder(pos, ln).to(torch.int64)
+    return b_idx, s_idx, pos, torch.remainder(pos, ln).to(torch.int64)
+
+
+def _ring_write(cache, k, v, positions, fmt) -> None:
+    """In place: write S new (k, v) at slots = position mod L
+    (:func:`_ring_slots`)."""
+    b_idx, s_idx, pos, ring = _ring_slots(positions, cache["pos_ids"].shape[1])
     for prefix, x in (("k", k), ("v", v)):
         fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring)
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
@@ -180,3 +191,133 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos) -> torch.Tensor:
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))  # [B, nq, Hkv, G, D]
     return torch.cat(outs, dim=1).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def _mla_q(params, x, cfg, positions, impl=None):
+    """Queries, split into the no-rope part and the roped part ``[B, S, H, *]``:
+    through the low-rank ``w_dq`` → RMSNorm → ``w_uq`` (q_lora_rank) or the
+    full-rank ``wq``."""
+    b, s, _ = x.shape
+    dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        cq = layers.rms_norm(dense(params["w_dq"], x, impl=impl), params["q_norm"])
+        q = dense(params["w_uq"], cq, impl=impl)
+    else:
+        q = dense(params["wq"], x, impl=impl)
+    q = q.reshape(b, s, cfg.n_heads, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(params, x, cfg, positions, impl=None):
+    """The latent ``c_kv [B, S, r]`` (RMSNormed) and the roped key
+    ``k_rope [B, S, dr]`` shared by every head."""
+    b, s, _ = x.shape
+    r, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+    ckv = dense(params["w_dkv"], x, impl=impl)
+    c_kv = layers.rms_norm(ckv[..., :r], params["kv_norm"])
+    k_rope = ckv[..., r:].reshape(b, s, 1, dr)
+    k_rope = layers.apply_rope(k_rope, positions, cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
+    """Prefill MLA (the reference's ``mla_apply`` with a cache): the latent
+    expanded through ``w_uk`` / ``w_uv`` to per-head keys and values, then
+    :func:`chunked_attention` with v padded to the q head width.  Returns
+    (output, cache)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
+    c_kv, k_rope = _mla_latent(params, x, cfg, positions, impl=impl)
+    k_nope = dense(params["w_uk"], c_kv, impl=impl).reshape(b, s, h, dn)
+    v = dense(params["w_uv"], c_kv, impl=impl).reshape(b, s, h, dv)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
+    out = chunked_attention(q, k, torch.nn.functional.pad(v, (0, dn + dr - dv)),
+                            q_pos=positions, kv_pos=positions)[..., :dv]
+    out = dense(params["wo"], out.reshape(b, s, h * dv), impl=impl)
+    cache = init_mla_cache(cfg, b, cache_len, dtype=c_kv.dtype, device=x.device)
+    _mla_write(cache, c_kv, k_rope, positions, kvcache.format_for(cfg))
+    return out, cache
+
+
+def init_mla_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
+    """The MLA latent cache on ``device`` (default ``"cuda"``): the ``c_kv``
+    channel (lead ``()``, feature = the lora rank) through ``cfg``'s cache
+    format; the rope key ``k_rope [B, L, dr]`` stays float, and ``pos_ids``."""
+    device = resolve_device(device)
+    dtype = dtype or cfg.dtype
+    fmt = kvcache.format_for(cfg)
+    cache = dict(fmt.channel_entries(
+        "c_kv", fmt.init(batch, cache_len, (), cfg.kv_lora_rank, dtype=dtype, device=device)))
+    cache["k_rope"] = torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype,
+                                  device=device)
+    cache["pos_ids"] = torch.full((batch, cache_len), -1, dtype=torch.int32, device=device)
+    return cache
+
+
+def _mla_write(cache, c_kv, k_rope, positions, fmt) -> None:
+    """In place: the latent and rope key of S new tokens at slots = position
+    mod L (:func:`_ring_slots`: pads left out, deterministic)."""
+    b_idx, s_idx, pos, ring = _ring_slots(positions, cache["pos_ids"].shape[1])
+    fmt.append(fmt.channel(cache, "c_kv"), c_kv, b_idx, s_idx, ring)
+    cache["k_rope"][b_idx, ring] = k_rope[b_idx, s_idx].to(cache["k_rope"].dtype)
+    cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
+
+
+def mla_decode(params, x, cache, cfg, *, pos, impl=None):
+    """Absorbed-form MLA decode of ``x [B, S, D]`` against the latent ring
+    (S > 1 appends a chunk and attends causally).  The latent reads go
+    through the cache format's ``qk`` / ``av`` with lead ``()``, the (S,
+    heads) axes folded into the group axis, so the int8 and bit-plane reads
+    apply to the latent as to K/V.  Updates ``cache`` in place and returns
+    it."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    positions = _decode_positions(pos, b, s, x.device)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
+    c_kv_new, k_rope_new = _mla_latent(params, x, cfg, positions, impl=impl)
+    fmt = kvcache.format_for(cfg)
+    _mla_write(cache, c_kv_new, k_rope_new, positions, fmt)
+    ln = cache["pos_ids"].shape[1]
+    # absorption needs the float matrices: the projections above run in their
+    # residency formats, the latent-space products below in float32
+    w_uk = _as_float(params["w_uk"], (r, h, dn), x.dtype).to(torch.float32)
+    w_uv = _as_float(params["w_uv"], (r, h, dv), x.dtype).to(torch.float32)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32), w_uk)
+    store = fmt.channel(cache, "c_kv")
+    s_nope = fmt.qk(q_abs.reshape(b, s * h, r), store).reshape(b, s, h, ln)
+    krope = cache["k_rope"].to(torch.float32)
+    scores = (s_nope + torch.einsum("bqhd,bld->bqhl", q_rope.to(torch.float32), krope)
+              ) / math.sqrt(dn + dr)
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= positions[..., None])
+    scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    ctx = fmt.av(w.reshape(b, s * h, ln), store, r).reshape(b, s, h, r)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    out = dense(params["wo"], out.reshape(b, s, h * dv).to(x.dtype), impl=impl)
+    return out, cache
+
+
+def _as_float(w, shape3, dtype):
+    """An up-projection (float, or any residency format that declares
+    ``supports_absorbed_decode``) as a ``[r, H, d]`` tensor of ``dtype``."""
+    if isinstance(w, residency.QuantLinearState):
+        fmt = residency.get_format(w.mode)
+        if not fmt.supports_absorbed_decode:
+            raise NotImplementedError(
+                f"residency format {w.mode!r} does not support absorbed MLA decode; "
+                "keep the latent up-projections in a dequantizable format")
+        return fmt.to_float(w).reshape(shape3).to(dtype)
+    return w.reshape(shape3).to(dtype)

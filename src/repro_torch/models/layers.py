@@ -1,9 +1,9 @@
 """Shared model layers: dense dispatch, norms, embeddings, RoPE, MLPs.
 
-Counterpart of :mod:`repro.models.layers` for the dense family (RMSNorm or
-LayerNorm, SwiGLU or GELU, tied or untied head), as plain functions on
-tensors.  ``dense`` is the single projection entry
-point: a weight converted to a
+Counterpart of :mod:`repro.models.layers` (RMSNorm or LayerNorm, SwiGLU or
+GELU, tied or untied head), as plain functions on tensors.  ``dense`` is the
+single projection entry point (``dense_stacked`` its counterpart for a MoE
+layer's stacked expert weights): a weight converted to a
 :class:`~repro_torch.core.residency.QuantLinearState` goes through its
 residency format — the kernel path by default, the plain PyTorch path with
 ``impl="plain"`` — and a float weight is a plain matmul.
@@ -25,6 +25,17 @@ def dense(w, x: torch.Tensor, impl=None) -> torch.Tensor:
             return residency.get_format(w.mode).apply_plain(w, x)
         return residency.apply(w, x).to(x.dtype)
     return x @ w.to(x.dtype)
+
+
+def dense_stacked(w, x: torch.Tensor, impl=None) -> torch.Tensor:
+    """``x [E, M, K] @ w [E, K, N]`` per expert: a stacked state through its
+    format (one grouped kernel launch for the formats that have one), a
+    float stack as one batched matmul in ``x.dtype``."""
+    if isinstance(w, residency.QuantLinearState):
+        if impl == "plain":
+            return residency.get_format(w.mode).apply_stacked_plain(w, x)
+        return residency.apply_stacked(w, x).to(x.dtype)
+    return torch.einsum("emk,ekn->emn", x, w.to(x.dtype))
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -82,13 +93,16 @@ def gelu(h: torch.Tensor) -> torch.Tensor:
     return F.gelu(h, approximate="tanh")
 
 
+def activation(h: torch.Tensor, cfg) -> torch.Tensor:
+    """GELU, or SwiGLU over the fused ``[gate; up]`` halves of ``h``."""
+    if cfg.act == "gelu":
+        return gelu(h)
+    gate, up = torch.chunk(h, 2, dim=-1)
+    return F.silu(gate) * up
+
+
 def mlp_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:
     """GELU over ``w_in [d, d_ff]``, or SwiGLU with the fused ``[gate; up]``
     input projection ``[d, 2·d_ff]``."""
-    h = dense(params["w_in"], x, impl=impl)
-    if cfg.act == "gelu":
-        h = gelu(h)
-    else:
-        gate, up = torch.chunk(h, 2, dim=-1)
-        h = F.silu(gate) * up
+    h = activation(dense(params["w_in"], x, impl=impl), cfg)
     return dense(params["w_out"], h, impl=impl)

@@ -1,21 +1,27 @@
 """The causal LM: parameter specs, initialisation, prefill and decode.
 
 Counterpart of the serving half of :mod:`repro.models.model` for the dense
-GQA family.  Parameters are a plain dict::
+and MoE families, with GQA or MLA attention.  Parameters are a plain dict::
 
     {"embed": {"embedding", "head" (untied models)},
      "final_norm": {"scale", "bias" (layernorm)},
-     "layers": [{"ln1", "mixer": {wq, wk, wv, wo, bq, bk, bv (qkv_bias),
-                                  q_norm, k_norm (qk_norm)},
-                 "ln2", "ffn": {w_in, w_out}}, ...]}
+     "layers": [{"ln1", "mixer": {...}, "ln2", "ffn": {...}}, ...]}
 
 one dict per layer where the reference stacks ``[n_superblocks, ...]``
-leaves.  ``w_in`` is ``[d, 2·d_ff]`` (SwiGLU's fused gate and up) or
-``[d, d_ff]`` (GELU).  :func:`materialize` follows the reference's
+leaves (and keeps deepseek's leading dense layers apart, under
+``prefix``).  The mixer is GQA ``{wq, wk, wv, wo, bq, bk, bv (qkv_bias),
+q_norm, k_norm (qk_norm)}`` or MLA ``{w_dkv, kv_norm, w_uk, w_uv, wo, and
+w_dq, q_norm, w_uq (q_lora_rank) or wq}``; the FFN dense ``{w_in, w_out}``
+(``w_in`` ``[d, 2·d_ff]``, SwiGLU's fused gate and up, or ``[d, d_ff]``,
+GELU) or MoE ``{router [d, E] float32, w_in [E, d, 2·moe_d_ff], w_out [E,
+moe_d_ff, d], shared_w_in, shared_w_out (shared experts)}`` by
+``cfg.ffn_kind(i)``.  :func:`materialize` follows the reference's
 ParamSpec init rules (``repro/sharding/partitioning.py``) with a
-``torch.Generator``; the numbers differ from ``jax.random``'s, so parity
-tests bring the reference's own parameters across with
-:mod:`repro_torch.convert`.  On one device the vocab is not padded (the
+``torch.Generator``: fan-in is a leaf's first axis, which for the stacked
+expert weights is the expert axis, as in the reference, whose scan stacking
+puts the expert axis where it reads the fan-in.  The numbers differ from
+``jax.random``'s, so parity tests bring the reference's own parameters
+across with :mod:`repro_torch.convert`.  On one device the vocab is not padded (the
 reference pads it to a multiple of its tensor-parallel width and masks the
 pad logits), so there is nothing to mask.
 """
@@ -47,7 +53,7 @@ def _norm_specs(cfg) -> dict:
     return specs
 
 
-def _layer_specs(cfg) -> dict:
+def _gqa_specs(cfg) -> dict:
     d, dh = cfg.d_model, cfg.d_head
     mixer = {
         "wq": ParamSpec((d, cfg.n_heads * dh), cfg.dtype),
@@ -62,19 +68,65 @@ def _layer_specs(cfg) -> dict:
     if cfg.qk_norm:
         mixer["q_norm"] = ParamSpec((dh,), torch.float32, "ones")
         mixer["k_norm"] = ParamSpec((dh,), torch.float32, "ones")
-    d_in = cfg.d_ff if cfg.act == "gelu" else 2 * cfg.d_ff  # SwiGLU: fused [gate; up]
+    return mixer
+
+
+def _mla_specs(cfg) -> dict:
+    h, d = cfg.n_heads, cfg.d_model
+    dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    mixer = {
+        "w_dkv": ParamSpec((d, r + dr), cfg.dtype),
+        "kv_norm": ParamSpec((r,), torch.float32, "ones"),
+        "w_uk": ParamSpec((r, h * dn), cfg.dtype),
+        "w_uv": ParamSpec((r, h * dv), cfg.dtype),
+        "wo": ParamSpec((h * dv, d), cfg.dtype),
+    }
+    if cfg.q_lora_rank:
+        mixer["w_dq"] = ParamSpec((d, cfg.q_lora_rank), cfg.dtype)
+        mixer["q_norm"] = ParamSpec((cfg.q_lora_rank,), torch.float32, "ones")
+        mixer["w_uq"] = ParamSpec((cfg.q_lora_rank, h * (dn + dr)), cfg.dtype)
+    else:
+        mixer["wq"] = ParamSpec((d, h * (dn + dr)), cfg.dtype)
+    return mixer
+
+
+def _d_in(cfg, d_ff: int) -> int:
+    return d_ff if cfg.act == "gelu" else 2 * d_ff  # SwiGLU: fused [gate; up]
+
+
+def _moe_specs(cfg) -> dict:
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+    ffn = {
+        "router": ParamSpec((d, e), torch.float32),
+        "w_in": ParamSpec((e, d, _d_in(cfg, f)), cfg.dtype),
+        "w_out": ParamSpec((e, f, d), cfg.dtype),
+    }
+    if cfg.n_shared_experts:
+        fs = f * cfg.n_shared_experts
+        ffn["shared_w_in"] = ParamSpec((d, _d_in(cfg, fs)), cfg.dtype)
+        ffn["shared_w_out"] = ParamSpec((fs, d), cfg.dtype)
+    return ffn
+
+
+def _layer_specs(cfg, i: int) -> dict:
+    d = cfg.d_model
+    if cfg.ffn_kind(i) == "moe":
+        ffn = _moe_specs(cfg)
+    else:
+        ffn = {"w_in": ParamSpec((d, _d_in(cfg, cfg.d_ff)), cfg.dtype),
+               "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)}
     return {
         "ln1": _norm_specs(cfg),
-        "mixer": mixer,
+        "mixer": _mla_specs(cfg) if cfg.attn_type == "mla" else _gqa_specs(cfg),
         "ln2": _norm_specs(cfg),
-        "ffn": {"w_in": ParamSpec((d, d_in), cfg.dtype),
-                "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)},
+        "ffn": ffn,
     }
 
 
 def specs(cfg) -> dict:
-    if cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the port serves dense models only")
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(f"{cfg.name}: the port serves the dense and moe "
+                                  f"families, not {cfg.family!r}")
     embed = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), torch.float32,
                                     "embedding")}
     if not cfg.tie_embeddings:
@@ -82,7 +134,7 @@ def specs(cfg) -> dict:
     return {
         "embed": embed,
         "final_norm": _norm_specs(cfg),
-        "layers": [_layer_specs(cfg) for _ in range(cfg.n_layers)],
+        "layers": [_layer_specs(cfg, i) for i in range(cfg.n_layers)],
     }
 
 
@@ -92,7 +144,7 @@ def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
         return fill(spec.shape, dtype=spec.dtype, device=device)
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "normal":
-        w.div_(math.sqrt(spec.shape[0]))  # fan-in scaled
+        w.div_(math.sqrt(spec.shape[0]))  # fan-in: the first axis (see the module doc)
     return w.to(spec.dtype)
 
 

@@ -1,33 +1,45 @@
-"""The layer stack: the dense attention + MLP layer, looped over depth.
+"""The layer stack: one attention + FFN layer, looped over depth.
 
-Counterpart of :mod:`repro.models.stack` for the dense GQA family.  The
-reference stacks every leaf ``[n_superblocks, ...]`` and runs the depth
-with ``lax.scan``; the port keeps one parameter dict and one cache dict per
-layer and runs a Python loop.  Modes: ``prefill`` (full sequence, builds
-the caches) and ``decode`` (tokens against the caches).
+Counterpart of :mod:`repro.models.stack`.  The reference stacks every leaf
+``[n_superblocks, ...]`` and runs the depth with ``lax.scan`` (with
+deepseek's leading dense layers as an unscanned prefix); the port keeps one
+parameter dict and one cache dict per layer and runs a Python loop, each
+layer picking its mixer by ``cfg.attn_type`` (GQA or MLA) and its FFN by
+``cfg.ffn_kind(i)`` (dense, or MoE).  Modes: ``prefill`` (full sequence,
+builds the caches) and ``decode`` (tokens against the caches).
 """
 
 from __future__ import annotations
 
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, moe
 
 
-def layer_apply(params: dict, x, cfg, *, mode: str, cache=None, pos=None,
-                cache_len: int = 0, impl=None):
-    """One layer.  Returns (x, cache)."""
-    h = layers.norm_apply(params["ln1"], x, cfg)
+def _mixer(params, h, cfg, *, mode, cache, pos, cache_len, impl):
+    mla = cfg.attn_type == "mla"
     if mode == "prefill":
-        a, cache = attention.gqa_prefill(params["mixer"], h, cfg, cache_len=cache_len,
-                                         positions=pos, impl=impl)
-    elif mode == "decode":
-        a, cache = attention.gqa_decode(params["mixer"], h, cache, cfg, pos=pos,
-                                        impl=impl)
-    else:
-        raise ValueError(f"unknown mode {mode!r}")
+        fn = attention.mla_prefill if mla else attention.gqa_prefill
+        return fn(params, h, cfg, cache_len=cache_len, positions=pos, impl=impl)
+    if mode == "decode":
+        fn = attention.mla_decode if mla else attention.gqa_decode
+        return fn(params, h, cache, cfg, pos=pos, impl=impl)
+    raise ValueError(f"unknown mode {mode!r}")
+
+
+def layer_apply(params: dict, x, cfg, *, mode: str, ffn: str = "dense", cache=None,
+                pos=None, cache_len: int = 0, impl=None):
+    """One layer with FFN kind ``ffn`` (``dense`` or ``moe``).  Returns (x,
+    cache)."""
+    h = layers.norm_apply(params["ln1"], x, cfg)
+    a, cache = _mixer(params["mixer"], h, cfg, mode=mode, cache=cache, pos=pos,
+                      cache_len=cache_len, impl=impl)
     x = x + a.to(x.dtype)
     h2 = layers.norm_apply(params["ln2"], x, cfg)
-    x = x + layers.mlp_apply(params["ffn"], h2, cfg, impl=impl).to(x.dtype)
-    return x, cache
+    if ffn == "moe":
+        moe_fn = moe.moe_apply_einsum if cfg.moe_impl == "einsum" else moe.moe_apply
+        y, _ = moe_fn(params["ffn"], h2, cfg, impl=impl)
+    else:
+        y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl)
+    return x + y.to(x.dtype), cache
 
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
@@ -35,7 +47,7 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
     """Run every layer in order.  Returns (x, per-layer caches)."""
     new_caches = []
     for i, p in enumerate(layer_params):
-        x, c = layer_apply(p, x, cfg, mode=mode,
+        x, c = layer_apply(p, x, cfg, mode=mode, ffn=cfg.ffn_kind(i),
                            cache=None if caches is None else caches[i],
                            pos=pos, cache_len=cache_len, impl=impl)
         new_caches.append(c)

@@ -18,6 +18,10 @@ seconds, engine steps, processed positions) from which
 :meth:`ServeEngine.stats` derives TTFT and TPOT.  Each step ends by
 copying its logits to the host, so the wall clock covers the device work.
 
+Every layer the port serves is self-attention (GQA or MLA), which ignores
+pad tokens, so refills microbatch and prompts chunk for every config; a
+MoE layer routes pad tokens like any other, as the reference does.
+
 Not ported yet: paging and prefix sharing (and with them the
 ``prefix_cache`` scheduler), the observability spans.
 """
@@ -47,8 +51,14 @@ from repro_torch.serve.scheduler import (
     StepPlan,
 )
 
-#: parameter dict keys eligible for quantized residency
-QUANTIZABLE_KEYS = ("wq", "wk", "wv", "wo", "w_in", "w_out", "head")
+#: parameter dict keys eligible for quantized residency (the reference's
+#: list but for the SSM projections, which come with the SSM families)
+QUANTIZABLE_KEYS = (
+    "wq", "wk", "wv", "wo",
+    "w_in", "w_out", "w_uq", "w_dq", "w_dkv", "w_uk", "w_uv",
+    "shared_w_in", "shared_w_out",
+    "head",
+)
 
 
 def convert_params(params, cfg, spec, *, min_dim: int = 64):
@@ -84,19 +94,24 @@ def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int
 
 def leaf_converter(spec, min_dim: int):
     """The conversion rule of one leaf, ``convert(path, w)`` with ``path``
-    the tuple of keys: a 2-D float tensor under a quantizable key, at least
-    ``min_dim`` on each side, becomes the :class:`QuantLinearState` of the
-    format the policy selects for the dot-joined path (converted from
-    float32, a block of columns at a time); everything else stays as it
-    is."""
+    the tuple of keys: a float tensor under a quantizable key whose last two
+    axes are at least ``min_dim`` long becomes the :class:`QuantLinearState`
+    of the format the policy selects for the dot-joined path (converted
+    from float32, a block of columns at a time): a ``[K, N]`` weight one
+    state, a stacked ``[E, K, N]`` expert weight one stacked state,
+    converted an expert at a time.  Everything else stays as it is; a
+    quantizable leaf of any other rank raises."""
 
     def convert(path, w):
         if not path or path[-1] not in QUANTIZABLE_KEYS:
             return w
         mode = spec.mode_for(".".join(path))
-        if residency.get_format(mode).keeps_float_params:
+        if residency.get_format(mode).keeps_float_params or not isinstance(w, torch.Tensor):
             return w
-        if not isinstance(w, torch.Tensor) or w.ndim != 2 or min(w.shape) < min_dim:
+        if w.ndim not in (2, 3):
+            raise ValueError(f"{'.'.join(path)}: cannot convert a {w.ndim}-D weight "
+                             f"{tuple(w.shape)} to {mode}")
+        if min(w.shape[-2:]) < min_dim:
             return w
         return residency.from_float(w, mode, dtype=torch.float32)
 

@@ -1,5 +1,8 @@
 """The two further dense configs, qwen1.5-32b and starcoder2-3b, against the
-JAX reference.
+JAX reference, and the registry pieces of the MLA and MoE configs
+(minicpm3-4b, deepseek-v2-lite-16b): their fields, parameter transfer,
+streamed materialization and launcher (their layers and serves are held in
+tests/test_torch_mla.py and tests/test_torch_moe.py).
 
 qwen1.5-32b adds float32 biases after the q, k and v projections;
 starcoder2-3b LayerNorm (with a bias), the tanh GELU over an unfused
@@ -42,6 +45,8 @@ from test_torch_serve import (LOGIT_RTOL, _assert_logits_close, _assert_same_tra
                               _schedule)
 
 ARCHS = ("qwen1.5-32b", "starcoder2-3b")
+#: the further configs with every registry test: the dense ones and MLA / MoE
+ALL_ARCHS = ARCHS + ("minicpm3-4b", "deepseek-v2-lite-16b")
 #: path B's stack (the reference launcher's default) and path A's
 STACKS = [("w8a8", "bf16"), ("ffn=bsdp_fused,mixer=w8a16", "int4_bp_fused")]
 STACK_IDS = ["w8a8+bf16", "bsdp_fused+int4_bp_fused"]
@@ -62,7 +67,7 @@ def _nonzero_leaves(tree, seed=7):
         a = np.asarray(a)
         if name in ("bq", "bk", "bv", "bias"):
             return jnp.asarray(rng.normal(0.0, 0.5, a.shape).astype(a.dtype))
-        if name in ("scale", "q_norm", "k_norm"):
+        if name in ("scale", "q_norm", "k_norm", "kv_norm"):
             return jnp.asarray((1.0 + rng.normal(0.0, 0.3, a.shape)).astype(a.dtype))
         return jnp.asarray(a)
 
@@ -120,7 +125,7 @@ def _leaves(tree, path=()):
         yield ".".join(path), tree
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_configs_match_reference_field_for_field(arch):
     """CONFIG and SMOKE: every field the port keeps equals the reference's
     (dtypes by name), n_kv_heads=40 of qwen1.5-32b included."""
@@ -207,11 +212,13 @@ def test_layer_pieces_match_reference(case):
     assert np.abs(got - want).max() <= tol * np.abs(want).max(), case
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_params_from_numpy_carries_every_leaf(arch):
-    """Biases, LayerNorm biases and the untied head come across bit for bit,
-    in the port's own tree (the shapes of ``model.specs``); an unknown leaf
-    raises."""
+    """Biases, LayerNorm biases, the MLA leaves, the router, the stacked
+    experts and the untied head come across bit for bit, in the port's own
+    tree (the shapes of ``model.specs``), deepseek's leading dense layer
+    from ``prefix.layer0`` and its MoE layers from the stack after it; an
+    unknown leaf raises."""
     ref_tree = jax.tree_util.tree_map(np.asarray, _ref_params(arch))
     params = convert.params_from_numpy(ref_tree, _cfgs(arch)[1], "cpu")
     drawn = dict(_leaves(model_lib.materialize(_cfgs(arch)[1], device="cpu")))
@@ -222,21 +229,45 @@ def test_params_from_numpy_carries_every_leaf(arch):
     np.testing.assert_array_equal(params["embed"]["head"].float().numpy(),
                                   ref_tree["embed"]["head"].astype(np.float32))
     slot = ref_tree["stack"]["slot0"]
+    cfg = _cfgs(arch)[1]
+    k0 = cfg.first_k_dense
     if arch == "qwen1.5-32b":
         np.testing.assert_array_equal(params["layers"][1]["mixer"]["bk"].numpy(),
                                       slot["mixer"]["bk"][1])
-    else:
+    elif arch == "starcoder2-3b":
         np.testing.assert_array_equal(params["layers"][1]["ln2"]["bias"].numpy(),
                                       slot["ln2"]["bias"][1])
         np.testing.assert_array_equal(params["final_norm"]["bias"].numpy(),
                                       ref_tree["final_norm"]["bias"])
-    slot["mixer"]["w_extra"] = slot["mixer"]["wq"]
+    else:
+        mixer = params["layers"][k0 + 1]["mixer"]
+        for name in ("w_dkv", "kv_norm", "w_uk", "w_uv"):
+            np.testing.assert_array_equal(mixer[name].float().numpy(),
+                                          slot["mixer"][name][1].astype(np.float32))
+    if k0:
+        np.testing.assert_array_equal(params["layers"][0]["ffn"]["w_in"].float().numpy(),
+                                      ref_tree["prefix"]["layer0"]["ffn"]["w_in"])
+        for name in ("router", "w_in", "shared_w_out"):
+            np.testing.assert_array_equal(params["layers"][k0]["ffn"][name].float().numpy(),
+                                          slot["ffn"][name][0])
+    slot["mixer"]["w_extra"] = slot["mixer"]["wo"]
     with pytest.raises(ValueError, match="w_extra"):
         convert.params_from_numpy(ref_tree, _cfgs(arch)[1], "cpu")
 
 
+def _n_projections(cfg) -> int:
+    """The quantizable projections of a config's layers: GQA's four or
+    MLA's five or six, and the FFN's two, plus a MoE layer's shared
+    expert's two (its routed experts are one stacked leaf each)."""
+    n = 0
+    for i in range(cfg.n_layers):
+        n += (5 + bool(cfg.q_lora_rank)) if cfg.attn_type == "mla" else 4
+        n += 4 if cfg.ffn_kind(i) == "moe" and cfg.n_shared_experts else 2
+    return n
+
+
 @pytest.mark.parametrize("stack", STACKS, ids=STACK_IDS)
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_streamed_materialization_is_bit_identical(arch, stack):
     """``materialize_converted`` equals ``convert_params(materialize(...))``
     leaf for leaf: payloads, scales and float leaves, bit for bit."""
@@ -257,9 +288,9 @@ def test_streamed_materialization_is_bit_identical(arch, stack):
             assert g.dtype == w.dtype and torch.equal(g, w), path
     head = got["embed.head"]
     if stack[0] == "w8a8":
-        assert converted == 6 * cfg.n_layers + 1 and head.mode == "w8a8"
+        assert converted == _n_projections(cfg) + 1 and head.mode == "w8a8"
     else:  # path A's stack leaves the head at the model's dtype
-        assert converted == 6 * cfg.n_layers and head.dtype == cfg.dtype
+        assert converted == _n_projections(cfg) and head.dtype == cfg.dtype
 
 
 @pytest.mark.parametrize("mode", ["w8a16", "w8a8", "w4a8", "bsdp_fused"])
@@ -328,7 +359,7 @@ def test_planted_faults_fail_the_limit(fault, stack, monkeypatch):
     assert _max_rel_err(ref, eng) > LOGIT_RTOL
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_launcher_serves_the_smoke_config(arch, capsys):
     launch_serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--min-dim", "16",
                        "--requests", "2", "--max-new", "3"])

@@ -536,3 +536,85 @@ class TestEighthSliceOnTheCard:
         assert all(a == b if isinstance(a, str) else torch.equal(a, b) for a, b in pairs)
         head = got["embed"]["head"]
         assert (head.mode == "w8a8") if mode == "w8a8" else head.dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+class TestNinthSliceOnTheCard:
+    """The grouped (expert) launches and the MLA / MoE serves on the card."""
+
+    @pytest.mark.parametrize("m", [1, 4, 5, 37])
+    @pytest.mark.parametrize("kernel", ["gemv", "gemm", "gemm_fused"])
+    def test_grouped_bsdp_launches_bit_exact(self, cuda, kernel, m):
+        """Each BSDP kernel's grouped launch (3 groups, ragged N and Kw, and
+        Kw not a multiple of 4: the word loads) equals its plain version
+        group by group, and is one launch."""
+        fn = ops._BSDP_GROUPED[kernel]
+        rng = np.random.default_rng(300 + m)
+        for n, kw in ((70, 9), (40, 16)):
+            x = t(words(rng, (3, m, 4, kw))).to(cuda)
+            w = t(words(rng, (3, n, 4, kw))).to(cuda)
+            ops.reset_counts()
+            got = fn(x, w)
+            assert sum(ops.launch_counts().values()) == 1
+            want = torch.stack([ref.bsdp_gemm_ref(a, b) for a, b in zip(x, w)])
+            assert torch.equal(got, want), (n, kw)
+
+    @pytest.mark.parametrize("m", [1, 4, 16, 37])
+    def test_grouped_matmul_int8_both_routes(self, cuda, m):
+        """The grouped W8A8 launch on the decode route (M <= 16) and the tile
+        route: each group bit-exact against ``matmul_int8_plain`` with its
+        own scales; N = 40 takes the unaligned loads."""
+        gen = torch.Generator(device=cuda).manual_seed(310 + m)
+        for k, n in ((256, 1024), (130, 40)):
+            x = torch.randint(-128, 128, (5, m, k), dtype=torch.int8, generator=gen, device=cuda)
+            w = torch.randint(-128, 128, (5, k, n), dtype=torch.int8, generator=gen, device=cuda)
+            xs = torch.rand((5, m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+            ws = torch.rand((5, 1, n), generator=gen, device=cuda) * 0.05 + 1e-3
+            ops.reset_counts()
+            got = gemv_int8.matmul_int8_grouped(x, w, xs, ws)
+            assert ops.launch_counts()["matmul_int8"] == 1
+            assert torch.equal(got, gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws)), (k, n)
+
+    @pytest.mark.parametrize("mode", ["w8a8", "bsdp_fused", "bsdp", "w4a4_bsdp", "w8a16",
+                                      "w4a8"])
+    def test_stacked_apply_matches_the_cpu(self, cuda, mode):
+        """A stacked state's kernel path on the card equals the CPU's (the
+        grouped plain versions), bit for bit for the integer formats."""
+        rng = np.random.default_rng(320)
+        w = torch.from_numpy(rng.normal(size=(6, 96, 80)).astype(np.float32))
+        x = torch.from_numpy(rng.normal(size=(6, 4, 96)).astype(np.float32))
+        state = residency.from_float(w, mode)
+        want = residency.apply_stacked(state, x)
+        got = residency.apply_stacked(state.to(cuda), x.to(cuda)).cpu()
+        if mode == "w8a16":
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            assert torch.equal(got, want)
+
+    @pytest.mark.parametrize("arch", ["minicpm3-4b", "deepseek-v2-lite-16b"])
+    def test_mla_moe_serve_kernel_path_equals_plain_path(self, cuda, arch):
+        """The smoke config on path B's stack, where every kernel is exact,
+        under ``token_budget``: on the card the kernel path's logits equal
+        the plain path's to the bit (the same float operations around
+        exact integer kernels), two kernel-path serves agree to the bit,
+        and the grouped ``matmul_int8`` launched."""
+        cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+        params = model_lib.materialize(cfg, seed=1, device=cuda)
+
+        def serve(impl):
+            eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode="w8a8",
+                                     min_dim=16, scheduler="token_budget:budget=3",
+                                     trace_logits=True, impl=impl, device=cuda)
+            rng = np.random.default_rng(0)
+            for n in (5, 3, 7):
+                eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32), 4)
+            eng.run()
+            return [lg for _, _, lg in eng.logit_trace]
+
+        ops.reset_counts()
+        card, again = serve(None), serve(None)
+        assert ops.launch_counts()["matmul_int8"] > 0
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())
+        plain = serve("plain")
+        assert all(np.array_equal(a, b) for a, b in zip(card, again))
+        assert all(np.array_equal(a, b) for a, b in zip(card, plain))
