@@ -23,18 +23,19 @@ and two more at the same width and depth:
      under budget 256; phase 2 holds the kernel at G = 64, 384 and 512)
   F  ``w8a8`` with the ``int8`` cache under ``sjf``
 
-then the two further dense configs at their full published width and depth,
-each on path A's and path B's stack (the same request mix, ``fcfs``):
+then the two further dense configs at their full published width, depth
+cut to 8 layers (below), each on path A's and path B's stack (the same
+request mix, ``fcfs``):
 
   G  starcoder2-3b (LayerNorm, GELU, 2 KV heads, untied head) on path A's stack
   H  starcoder2-3b on path B's stack (``matmul_int8`` on the head too)
-  I  qwen1.5-32b (q/k/v biases, 64 layers, untied head) on path A's stack
+  I  qwen1.5-32b (q/k/v biases, untied head) on path A's stack
   J  qwen1.5-32b on path B's stack
 
-and the MLA and MoE configs, also at full published width and depth, on the
-same two stacks:
+and the MLA and MoE configs, also at full published width and 8 layers, on
+the same two stacks:
 
-  K  minicpm3-4b (MLA with a low-rank q, 62 layers) on path A's stack
+  K  minicpm3-4b (MLA with a low-rank q) on path A's stack
   L  minicpm3-4b on path B's stack
   M  deepseek-v2-lite-16b (MLA, 64 routed experts top 6 + 2 shared, layer 0
      dense) on path A's stack: the experts through one grouped launch of
@@ -42,10 +43,36 @@ same two stacks:
   N  deepseek-v2-lite-16b on path B's stack: the experts through one
      grouped ``matmul_int8`` per projection
 
+and the sliding-window MoE and Mamba configs, at full published width and
+depth, on the same two stacks:
+
+  O  mixtral-8x7b (32 layers, 8 experts top 2, window 4096, untied head) on
+     path A's stack: the experts through one grouped ``bsdp_gemm_fused``
+     per projection at E = 8, K 4096 / N 28672
+  P  mixtral-8x7b on path B's stack: grouped ``matmul_int8``, the head too
+  Q  falcon-mamba-7b (64 Mamba-1 layers, d_inner 8192, no attention, tied
+     head) on path A's stack: ``dequant_matmul`` on in_proj, x_proj (N =
+     288) and out_proj
+  R  falcon-mamba-7b on path B's stack: ``matmul_int8`` on the same
+
+and one windowed serve:
+
+  S  mixtral-8x7b at full width, depth cut to 2 layers, path A's stack,
+     slots=4, max_len 4352 (a 4096-position ring): one 4,160-token prompt
+     and three of 64 tokens, 64 new tokens each, under ``fcfs`` and
+     ``token_budget:budget=256``; each row's ring must hold exactly its last
+     <= 4096 positions and plane attention run at L = 4096; then, in
+     float32 under both schedulers, the kernel path against the plain
+     path: the all-exact stack at a zero difference, ``w8a16`` with the
+     fused int4 cache within ``PATH_LIMITS``; under ``fcfs`` path A's
+     stack printed (``S_MODES`` says why)
+
 MLA reads its latent cache through the cache format's plain plane math, so
-K and M launch no plane attention.  Phase 2 holds each grouped launch
-against its plain version at deepseek's expert shapes.  Weights of G-N are
-drawn and converted leaf by leaf (``engine.materialize_converted``):
+K and M launch no plane attention; Q and R have no attention at all.
+Phase 2 holds each grouped launch against its plain version at
+deepseek's and mixtral's expert shapes, and ``dequant_matmul`` and
+``matmul_int8`` at falcon-mamba's projections (N = 288 included).  Weights
+of G-R are drawn and converted leaf by leaf (``engine.materialize_converted``):
 qwen1.5-32b's, whole in bf16, would not fit one card beside their
 converted form.  The script then drives the ops-level
 entry points ``ops.dim_matmul`` and ``ops.matmul_int8_raw`` (path D).  Each
@@ -55,15 +82,19 @@ plain version ran on the card and its resident bytes match the analytic
 count.  Phase 4 compares the kernel path with the plain path on a 2-layer
 cut for each weight format, the ``int8`` cache, a chunked serve and each
 further config on its two stacks (with the share of MoE routing choices
-that agree), and qwen1.5-32b with path A's int4 steps taken out one at a
-time (the all-exact stacks held to a zero difference).  Any failure is a nonzero exit.  It needs
-a CUDA device and the repository's ``src``; without either it fails before
-printing a result.
+that agree; O-R's configs too, B's stack held to a zero difference), and
+qwen1.5-32b with path A's int4 steps taken out one at a time (the
+all-exact stacks held to a zero difference).  Any failure is a nonzero
+exit.  It needs a CUDA device and the repository's ``src``; without either
+it fails before printing a result.
 
-Every path runs at full depth: paths E and F take about 45-65 s of a run,
-paths G-J a few hundred seconds and K-N a few hundred more, inside the
-1200 s the run may take, and a cut would leave steps of a depth no user
-runs.
+Every serving path runs at full width, and at full depth but for cuts
+made to keep the run well inside the 1200 s it may take: paths G-N serve
+their configs at 8 layers (``CONFIG_DEPTH``; at full depth, PR 18-19,
+they took ~380 s of a 1,063 s run with O-S), and S serves mixtral-8x7b at
+2 of its 32 layers (its 4,160-token prefill and its plain-path
+comparisons at full depth would take many minutes).  A cut layer
+launches what a full-depth layer does, at the same shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -99,22 +130,22 @@ PATHS = {
            1: ("bsdp_gemv", "bsdp_gemm", "matmul_int4_packed")},
           {"bsdp_gemm": 56, "matmul_int4_packed": 112}),
 }
-#: the further dense configs, each at full width and depth on path A's and
-#: path B's stack: path → (arch, the stack's path, launches per decode step at
-#: slots=4: on A's stack 2 BSDP GEMMs, 4 W8A16 projections and one plane
-#: attention a layer, the head left in bf16; on B's 6 W8A8 projections a
-#: layer and the head)
+#: the further dense configs, each at full width, depth cut by CONFIG_DEPTH,
+#: on path A's and path B's stack: path → (arch, the stack's path, launches
+#: per decode step at slots=4 on 8 layers: on A's stack 2 BSDP GEMMs, 4
+#: W8A16 projections and one plane attention a layer, the head left in bf16;
+#: on B's 6 W8A8 projections a layer and the head)
 CONFIG_PATHS = {
     "G": ("starcoder2-3b", "A",
-          {"bsdp_gemm_fused": 60, "dequant_matmul": 120, "plane_decode_attention": 30}),
-    "H": ("starcoder2-3b", "B", {"matmul_int8": 181}),
+          {"bsdp_gemm_fused": 16, "dequant_matmul": 32, "plane_decode_attention": 8}),
+    "H": ("starcoder2-3b", "B", {"matmul_int8": 49}),
     "I": ("qwen1.5-32b", "A",
-          {"bsdp_gemm_fused": 128, "dequant_matmul": 256, "plane_decode_attention": 64}),
-    "J": ("qwen1.5-32b", "B", {"matmul_int8": 385}),
+          {"bsdp_gemm_fused": 16, "dequant_matmul": 32, "plane_decode_attention": 8}),
+    "J": ("qwen1.5-32b", "B", {"matmul_int8": 49}),
 }
-#: the MLA and MoE configs at full width and depth: path → (arch, the
-#: stack's path, kernels that must launch by slots, launches per decode step
-#: at slots=4).  On A's stack: minicpm3-4b's 4 W8A16 projections a layer
+#: the MLA and MoE configs at full width, depth cut by CONFIG_DEPTH: path →
+#: (arch, the stack's path, kernels that must launch by slots, launches per
+#: decode step at slots=4 on CONFIG_DEPTH's 8 layers).  On A's stack: minicpm3-4b's 4 W8A16 projections a layer
 #: (w_dq, w_uq, w_dkv, wo; w_uk and w_uv are dequantized for the absorbed
 #: decode, not launched) and 2 BSDP GEMMs; deepseek-v2-lite-16b's 3 (wq,
 #: w_dkv, wo), layer 0's 2 BSDP GEMMs and each MoE layer's 4 (the routed
@@ -125,17 +156,55 @@ MLA_PATHS = {
     "K": ("minicpm3-4b", "A",
           {4: ("bsdp_gemm_fused", "dequant_matmul"),
            1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul")},
-          {"dequant_matmul": 248, "bsdp_gemm_fused": 124}),
+          {"dequant_matmul": 32, "bsdp_gemm_fused": 16}),
     "L": ("minicpm3-4b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 373}),
+          {"matmul_int8": 49}),
     "M": ("deepseek-v2-lite-16b", "A",
           {4: ("bsdp_gemm_fused", "dequant_matmul"),
            1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul")},
-          {"bsdp_gemm_fused": 106, "dequant_matmul": 81}),
+          {"bsdp_gemm_fused": 30, "dequant_matmul": 24}),
     "N": ("deepseek-v2-lite-16b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 188}),
+          {"matmul_int8": 55}),
 }
-#: paths G-N draw and convert leaf by leaf (``engine.materialize_converted``),
+#: paths G-N serve their configs at 8 layers (deepseek-v2-lite-16b's dense
+#: layer 0 and 7 MoE layers), so that the run with paths O-S stays well
+#: inside its time limit: at full depth (PR 18-19) G-N took ~380 s of a
+#: 1,063 s run.  A layer's shapes, and so each kernel launch, are those of
+#: the full depth; O-R serve their configs whole.
+CONFIG_DEPTH = {arch: 8 for arch in ("starcoder2-3b", "qwen1.5-32b", "minicpm3-4b",
+                                     "deepseek-v2-lite-16b")}
+
+
+def config_for(arch: str):
+    """The config a serving path of G-R serves: the registry's, cut to
+    :data:`CONFIG_DEPTH` where it names the arch."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.scaled(n_layers=CONFIG_DEPTH[arch]) if arch in CONFIG_DEPTH else cfg
+
+
+#: the sliding-window MoE and Mamba configs at full width and depth: path →
+#: (arch, the stack's path, kernels that must launch by slots, launches per
+#: decode step at slots=4).  On A's stack: mixtral-8x7b's 4 W8A16 attention
+#: projections, 2 grouped BSDP GEMMs (w_in, w_out over 8 experts) and one
+#: plane attention a layer, the head left in bf16; falcon-mamba-7b's 3
+#: W8A16 projections a layer (in_proj, x_proj, out_proj; its head tied).
+#: On B's stack the same projections through ``matmul_int8``, mixtral's
+#: head too.
+WINDOW_SSM_PATHS = {
+    "O": ("mixtral-8x7b", "A",
+          {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
+          {"dequant_matmul": 128, "bsdp_gemm_fused": 64, "plane_decode_attention": 32}),
+    "P": ("mixtral-8x7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 193}),
+    "Q": ("falcon-mamba-7b", "A", {4: ("dequant_matmul",), 1: ("dequant_matmul",)},
+          {"dequant_matmul": 192}),
+    "R": ("falcon-mamba-7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 192}),
+}
+#: paths G-R draw and convert leaf by leaf (``engine.materialize_converted``),
 #: and the peak allocation may exceed the resident bytes by two float32
 #: copies of the largest layer projection (a leaf's draw and its cast to
 #: the model's dtype alive together) and this much for the column blocks'
@@ -149,8 +218,8 @@ def path_spec(path: str) -> tuple:
     step at slots=4) of any serving path."""
     if path in PATHS:
         return PATHS[path]
-    if path in MLA_PATHS:
-        _, stack, must, per_step = MLA_PATHS[path]
+    if path in MLA_PATHS or path in WINDOW_SSM_PATHS:
+        _, stack, must, per_step = MLA_PATHS.get(path) or WINDOW_SSM_PATHS[path]
         return (*PATHS[stack][:2], must, per_step)
     _, stack, per_step = CONFIG_PATHS[path]
     mode, cache, must, _ = PATHS[stack]
@@ -399,6 +468,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_attention(torch, device, gen, timer, rows)
     _rows_configs(torch, device, gen, timer, rows, min_m)
     _rows_grouped(torch, device, gen, timer, rows)
+    _rows_window_ssm(torch, device, gen, timer, rows, min_m)
     for row in rows:
         print("kernel " + json.dumps(row))
     one = torch.zeros(1, device=device)
@@ -414,13 +484,13 @@ def step_gaps(rows) -> None:
     the kernels lose the most device time to their bounds.  Once with the
     ``Timer``'s ms and once with the queued ms; at slots=4 for every kernel
     of the path, at slots=1 for ``bsdp_gemv``."""
-    from repro_torch.configs import get_config
-
     lines = [(path, 4, entries) for path, entries in STEP_ROWS.items()]
     lines += [(path, 1, entries) for path, entries in STEP_ROWS_1.items()]
     lines += [(path, 4, config_step_rows(path)) for path in CONFIG_PATHS]
     lines += [(path, 1, config_step_rows(path, 1))
               for path, (_, stack, _) in CONFIG_PATHS.items() if stack == "A"]
+    lines += [(path, 4, window_ssm_step_rows(path)) for path in WINDOW_SSM_PATHS]
+    lines += [("O", 1, window_ssm_step_rows("O", 1))]
     for path, slots, entries in lines:
         per_step = {}
         for name, _, n in entries:
@@ -428,7 +498,8 @@ def step_gaps(rows) -> None:
         if slots == 4:
             check(per_step == path_spec(path)[3],
                   f"the step rows of path {path} != the path's launches per step")
-        n_layers = get_config(CONFIG_PATHS[path][0]).n_layers if path in CONFIG_PATHS else 28
+        arch = (CONFIG_PATHS.get(path) or WINDOW_SSM_PATHS.get(path) or ("qwen3-1.7b",))[0]
+        n_layers = config_for(arch).n_layers
         for key in ("ms", "queued_ms"):
             gaps: dict = {}
             for name, shape, n in entries:
@@ -647,21 +718,23 @@ def _rows_attention(torch, device, gen, timer, rows):
         _row_attention_chunk(torch, device, gen, timer, rows, s_len)
 
 
-def _attention_decode_row(torch, device, gen, timer, rows, b, h, g):
+def _attention_decode_row(torch, device, gen, timer, rows, b, h, g, l=512, window=None):
     """Plane attention at a decode shape: ``b`` slots × ``h`` kv heads → R
-    rows of G query heads, L=512, F=128 (Fw=4).  At b = 4: slot 0 idle
-    (every position masked), slot 1 a wrapped ring (positions 100..611),
-    slot 2 part-filled, slot 3 full, and the bias materialised.  At b = 1
-    the one slot is part-filled (300 positions: the last L splits wholly
-    masked in a live row) and the bias is the engine's expanded view
-    (stride 0 over heads and queries).  Two calls must be bitwise equal."""
+    rows of G query heads, L (512, or 4096: mixtral-8x7b's window-long
+    ring), F=128 (Fw=4).  At b = 4: slot 0 idle (every position masked),
+    slot 1 a wrapped ring (positions 100..99+L), slot 2 part-filled, slot 3
+    full, and the bias materialised, with the window term where the config
+    has one.  At b = 1 the one slot is part-filled (300 positions: the last
+    L splits wholly masked in a live row) and the bias is the engine's
+    expanded view (stride 0 over heads and queries).  Two calls must be
+    bitwise equal."""
     import torch.nn.functional as F
 
     from repro_torch.core import bitplane
     from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
     from repro_torch.kernels import plane_attn
 
-    l, feat = 512, 128
+    feat = 128
     fw = feat // 32
     kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
               _words(torch, gen, device, b, l, h, 4, fw))
@@ -669,15 +742,17 @@ def _attention_decode_row(torch, device, gen, timer, rows, b, h, g):
     vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
     pos_ids = torch.full((b, l), -1, dtype=torch.int64, device=device)
     if b == 4:
-        ring = torch.arange(100, 612, device=device)
+        ring = torch.arange(100, 100 + l, device=device)
         pos_ids[1, ring % l] = ring
         pos_ids[2, :300] = torch.arange(300, device=device)
         pos_ids[3] = torch.arange(l, device=device)
-        cur = torch.tensor([0, 611, 299, 511], device=device)
+        cur = torch.tensor([0, 99 + l, 299, l - 1], device=device)
     else:
         pos_ids[0, :300] = torch.arange(300, device=device)
         cur = torch.tensor([299], device=device)
     valid = (pos_ids >= 0) & (pos_ids <= cur[:, None])
+    if window is not None:
+        valid &= pos_ids > cur[:, None] - window
     bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[:, None, None, :]
     bias = bias.expand(b, h, g, l)
     if b == 4:
@@ -829,10 +904,8 @@ def config_row(cfg, name: str, m: int) -> str:
 def config_step_rows(path: str, slots: int = 4) -> list:
     """STEP_ROWS for a path of :data:`CONFIG_PATHS`: (kernel, row, launches a
     decode step) at slots=4, or ``bsdp_gemv``'s at slots=1 (A's stack)."""
-    from repro_torch.configs import get_config
-
     arch, stack, _ = CONFIG_PATHS[path]
-    cfg = get_config(arch)
+    cfg = config_for(arch)
     layers = cfg.n_layers
     if slots == 1:
         return [("bsdp_gemv", config_row(cfg, name, 1), layers) for name in ("w_in", "w_out")]
@@ -898,18 +971,29 @@ GROUPED_M = {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4, 60), "bsdp_gemm": (4, 60)
              "matmul_int8": (1, 4, 60)}
 
 
-def _rows_grouped(torch, device, gen, timer, rows):
-    """The grouped launches at deepseek-v2-lite-16b's expert shapes (E =
-    64): each bit-exact against its plain version (the 2-D plain version
-    once an expert) and repeatable, timed against ``singles_ms``, the same
-    kernel launched once an expert (64 launches), and against one
+#: mixtral-8x7b's experts (paths O, P and S): how many, the (K, N) of w_in
+#: and w_out, and the rows an expert takes: a decode step at slots=1 and 4
+#: (capacity 1 a row), and the prefill of one 128-token prompt (capacity
+#: int(128 · 2 · 1.25 / 8 + 0.999) = 40)
+MIXTRAL_EXPERTS = 8
+MIXTRAL_EXPERT_PROJ = {"w_in": (4096, 28672), "w_out": (14336, 4096)}
+MIXTRAL_GROUPED_M = {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4, 40), "matmul_int8": (1, 4, 40)}
+
+
+def _rows_grouped(torch, device, gen, timer, rows, e=EXPERTS, proj=EXPERT_PROJ,
+                  grouped_m=GROUPED_M, prefix="", plain_reps=25):
+    """The grouped launches at an expert shape (deepseek-v2-lite-16b's by
+    default, E = 64; mixtral-8x7b's with ``prefix``): each bit-exact against
+    its plain version (the 2-D plain version once an expert, timed over
+    ``plain_reps`` calls) and repeatable, timed against ``singles_ms``, the
+    same kernel launched once an expert (E launches), and against one
     ``torch.bmm`` in bf16 on operands dequantized ahead of time."""
     from repro_torch.core import bitplane
     from repro_torch.kernels import bsdp_gemm, bsdp_kernel, gemv_int8
 
-    e = EXPERTS
     bmm_note = "torch.bmm in bf16 on operands dequantized ahead of time"
-    for label, (k, n) in EXPERT_PROJ.items():
+    for label, (k, n) in proj.items():
+        label = prefix + label
         kw = k // 32
         w = _words(torch, gen, device, e, n, 4, kw)
         w_bf = bitplane.decode(w).transpose(1, 2).to(torch.bfloat16)  # [E, K, N]
@@ -921,7 +1005,7 @@ def _rows_grouped(torch, device, gen, timer, rows):
             ("bsdp_gemm", bsdp_gemm.KERNEL_UNROLLED, bsdp_gemm.bsdp_gemm_grouped,
              bsdp_gemm.bsdp_gemm, bsdp_gemm.bsdp_gemm_grouped_plain),
         ):
-            for m in GROUPED_M[name]:
+            for m in grouped_m.get(name, ()):
                 x = _words(torch, gen, device, e, m, 4, kw)
                 got = grouped(x, w)
                 err = _int_err(got, plain(x, w))
@@ -931,7 +1015,7 @@ def _rows_grouped(torch, device, gen, timer, rows):
                 x_bf = bitplane.decode(x).to(torch.bfloat16)
                 nbytes = e * ((m + n) * 4 * kw * 4 + m * n * 4)
                 _row(rows, name, kernel, tag, err, timer, lambda: grouped(x, w),
-                     timer.ms(lambda: plain(x, w)),
+                     timer.ms(lambda: plain(x, w), reps=plain_reps),
                      bound(nbytes, 2 * e * m * n * k / INT8_OPS_PER_S),
                      timer.ms(lambda: torch.bmm(x_bf, w_bf)), bmm_note)
                 rows[-1]["singles_ms"] = timer.ms(lambda: [single(x[i], w[i]) for i in range(e)])
@@ -939,7 +1023,7 @@ def _rows_grouped(torch, device, gen, timer, rows):
         w = _int8(torch, gen, device, e, k, n)
         ws = _scales(torch, gen, device, e, 1, n)
         w_deq = (w.to(torch.float32) * ws).to(torch.bfloat16)
-        for m in GROUPED_M["matmul_int8"]:
+        for m in grouped_m["matmul_int8"]:
             x = _int8(torch, gen, device, e, m, k)
             xs = _scales(torch, gen, device, e, m, 1)
             got = gemv_int8.matmul_int8_grouped(x, w, xs, ws)
@@ -952,13 +1036,78 @@ def _rows_grouped(torch, device, gen, timer, rows):
             nbytes = e * (m * k + k * n + 4 * (m + n) + 4 * m * n)
             _row(rows, "matmul_int8", gemv_int8.KERNEL, tag, err, timer,
                  lambda: gemv_int8.matmul_int8_grouped(x, w, xs, ws),
-                 timer.ms(lambda: gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws)),
+                 timer.ms(lambda: gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws),
+                          reps=plain_reps),
                  bound(nbytes, 2 * e * m * n * k / INT8_OPS_PER_S),
                  timer.ms(lambda: torch.bmm(x_deq, w_deq)), bmm_note)
             rows[-1]["singles_ms"] = timer.ms(
                 lambda: [gemv_int8.matmul_int8(x[i], w[i], xs[i], ws[i]) for i in range(e)])
         del w, w_deq
         torch.cuda.empty_cache()
+
+
+#: mixtral-8x7b's attention projections and untied head (paths O and P):
+#: name → (K, N); wo has wq's shape and wv wk's
+MIXTRAL_PROJ = {"wq": (4096, 4096), "wk": (4096, 1024), "head": (4096, 32000)}
+#: falcon-mamba-7b's Mamba projections (paths Q and R): name → (K, N)
+MAMBA_PROJ = {"in_proj": (4096, 16384), "x_proj": (8192, 288), "out_proj": (8192, 4096)}
+#: falcon-mamba-7b's prefill rows: an SSM config refills one slot at a time,
+#: and phase 3's prompts are at most 128 tokens long
+MAMBA_PREFILL_M = 128
+
+
+def _rows_window_ssm(torch, device, gen, timer, rows, min_m):
+    """The kernels of paths O-S at their new shapes: plane attention at
+    mixtral-8x7b's decode shape (R = 32, G = 4) over its window-long ring
+    (L = 4096, the window term in the bias); ``dequant_matmul`` (bf16 x)
+    and ``matmul_int8`` at its attention projections and ``matmul_int8`` at
+    its head (M = 1, 4); the grouped launches at its experts (E = 8, the
+    plain versions timed over 5 calls); and both kernels at falcon-mamba-7b's
+    projections (M = 1, 4 and 128), x_proj's N = 288 a 32-column tail past
+    the 64- and 128-wide tiles."""
+    _attention_decode_row(torch, device, gen, timer, rows, 4, 8, 4, l=4096, window=4096)
+    for name, (k, n) in MIXTRAL_PROJ.items():
+        label = f"mixtral-8x7b {name}"
+        if name != "head":
+            _dequant_rows_at(torch, device, gen, timer, rows, label + " ", k, n,
+                             (torch.bfloat16,), (1, 4))
+        _int8_rows_at(torch, device, gen, timer, rows, min_m, label, k, n, (1, 4))
+    _rows_grouped(torch, device, gen, timer, rows, MIXTRAL_EXPERTS, MIXTRAL_EXPERT_PROJ,
+                  MIXTRAL_GROUPED_M, prefix="mixtral-8x7b ", plain_reps=5)
+    for name, (k, n) in MAMBA_PROJ.items():
+        label = f"falcon-mamba-7b {name}"
+        _dequant_rows_at(torch, device, gen, timer, rows, label + " ", k, n,
+                         (torch.bfloat16,), (1, 4, MAMBA_PREFILL_M))
+        _int8_rows_at(torch, device, gen, timer, rows, min_m, label, k, n,
+                      (1, 4, MAMBA_PREFILL_M))
+    torch.cuda.empty_cache()
+
+
+def window_ssm_step_rows(path: str, slots: int = 4) -> list:
+    """STEP_ROWS for a path of :data:`WINDOW_SSM_PATHS`: (kernel, row,
+    launches a decode step) at slots=4, or the grouped ``bsdp_gemv``'s at
+    slots=1 (path O)."""
+    from repro_torch.configs import get_config
+
+    arch, stack, _, _ = WINDOW_SSM_PATHS[path]
+    layers = get_config(arch).n_layers
+    a_stack = stack == "A"
+    kernel, suffix = ("dequant_matmul", " x=bf16") if a_stack else ("matmul_int8", "")
+    if arch == "falcon-mamba-7b":
+        return [(kernel, f"{arch} {name} M=4 N={n} K={k}{suffix}", layers)
+                for name, (k, n) in MAMBA_PROJ.items()]
+    experts = [(f"grouped E={MIXTRAL_EXPERTS} {arch} {name} M={{m}} N={n} K={k}", layers)
+               for name, (k, n) in MIXTRAL_EXPERT_PROJ.items()]
+    if slots == 1:
+        return [("bsdp_gemv", row.format(m=1), n) for row, n in experts]
+    rows = [(kernel, f"{arch} {name} M=4 N={n} K={k}{suffix}", 2 * layers)
+            for name, (k, n) in MIXTRAL_PROJ.items() if name != "head"]
+    rows += [("bsdp_gemm_fused" if a_stack else "matmul_int8", row.format(m=4), n)
+             for row, n in experts]
+    if a_stack:
+        return rows + [("plane_decode_attention", "R=32 G=4 L=4096 Fw=4", layers)]
+    k, n = MIXTRAL_PROJ["head"]
+    return rows + [("matmul_int8", f"{arch} head M=4 N={n} K={k}", 1)]
 
 
 # ---------------------------------------------------------------------------
@@ -1046,19 +1195,18 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
 
 
 def phase_configs(torch, device, card) -> dict[str, dict]:
-    """Paths G-J: each further config at full width and depth on path A's
-    and path B's stack, drawn from ``SEED`` and converted leaf by leaf
-    (qwen1.5-32b's float weights would not fit the card beside their
-    converted form), resident bytes held to the analytic count and the
-    peak allocation to its bound; each path served as A-C are and
-    profiled, its tree freed before the next.  Returns path → kernel →
-    launches."""
-    from repro_torch.configs import get_config
+    """Paths G-J: each further config at full width (and depth, but where
+    :data:`CONFIG_DEPTH` cuts it) on path A's and path B's stack, drawn from
+    ``SEED`` and converted leaf by leaf (qwen1.5-32b's float weights would
+    not fit the card beside their converted form), resident bytes held to
+    the analytic count and the peak allocation to its bound; each path
+    served as A-C are and profiled, its tree freed before the next.
+    Returns path → kernel → launches."""
     from repro_torch.serve import engine
 
     counts = {}
     for path, (arch, _, _) in CONFIG_PATHS.items():
-        cfg = get_config(arch)
+        cfg = config_for(arch)
         mode = path_spec(path)[0]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1102,20 +1250,38 @@ def _largest_leaf_bytes(cfg) -> int:
     return 4 * max(math.prod(leaf.shape) for leaf in leaves(model_lib.specs(cfg)["layers"]))
 
 
-def phase_mla_moe(torch, device, card) -> dict[str, dict]:
-    """Paths K-N: minicpm3-4b and deepseek-v2-lite-16b at full width and
-    depth on path A's and path B's stack, drawn from ``SEED`` and converted
-    leaf by leaf (a stacked expert weight an expert at a time), resident
-    bytes held to the analytic count and the peak allocation to resident +
-    2 x the largest layer leaf in float32 + the slack; each served as A-C
-    are (MLA launching no plane attention) and profiled.  Returns path →
-    kernel → launches."""
-    from repro_torch.configs import get_config
+def describe(cfg) -> str:
+    """A config's shape in one line: depth, widths, mixer and FFN."""
+    parts = [f"{cfg.n_layers} layers", f"d_model {cfg.d_model}"]
+    if cfg.family == "ssm":
+        parts.append(f"d_inner {cfg.d_inner}, d_state {cfg.d_state}, dt_rank "
+                     f"{cfg.dt_rank_actual}")
+    else:
+        parts.append(f"{cfg.n_heads} / {cfg.n_kv_heads} kv heads")
+    if cfg.attn_type == "mla":
+        parts.append(f"kv_lora {cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}")
+    if cfg.sliding_window:
+        parts.append(f"window {cfg.sliding_window}")
+    if cfg.n_experts:
+        parts.append(f"experts {cfg.n_experts} top {cfg.experts_per_tok} + "
+                     f"{cfg.n_shared_experts} shared, expert d_ff {cfg.moe_d_ff}")
+    return ", ".join(parts + [f"vocab {cfg.vocab_size}"])
+
+
+def phase_full_paths(torch, device, card, paths) -> dict[str, dict]:
+    """Each path of ``paths`` (path → (arch, ...)): paths K-N (minicpm3-4b
+    and deepseek-v2-lite-16b, MLA launching no plane attention) or O-R
+    (mixtral-8x7b and falcon-mamba-7b), at full width and at full depth
+    but where :data:`CONFIG_DEPTH` cuts it, drawn from ``SEED`` and converted leaf by leaf (a stacked expert weight
+    an expert at a time), resident bytes held to the analytic count and the
+    peak allocation to resident + 2 x the largest layer leaf in float32 +
+    the slack; each served as A-C are and profiled, its tree freed before
+    the next.  Returns path → kernel → launches."""
     from repro_torch.serve import engine
 
     counts = {}
-    for path, (arch, _, _, _) in MLA_PATHS.items():
-        cfg = get_config(arch)
+    for path, (arch, _, _, _) in paths.items():
+        cfg = config_for(arch)
         mode = path_spec(path)[0]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
@@ -1127,10 +1293,7 @@ def phase_mla_moe(torch, device, card) -> dict[str, dict]:
         peak = torch.cuda.max_memory_allocated() - base
         largest = _largest_leaf_bytes(cfg)
         limit = got + 2 * largest + STREAM_SLACK_BYTES
-        print(f"path {path}: {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-              f"{cfg.n_heads} heads, kv_lora {cfg.kv_lora_rank}, q_lora {cfg.q_lora_rank}, "
-              f"experts {cfg.n_experts} top {cfg.experts_per_tok} + {cfg.n_shared_experts} "
-              f"shared, vocab {cfg.vocab_size}) drawn and converted leaf by leaf ({mode}): "
+        print(f"path {path}: {arch} ({describe(cfg)}) drawn and converted leaf by leaf ({mode}): "
               f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
               f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
               f"2 x {largest} B, the largest layer leaf in float32, + {STREAM_SLACK_BYTES} B)")
@@ -1174,9 +1337,10 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
             check(launches["bsdp_gemv"] == want,
                   f"path {path} slots=1: bsdp_gemv launched {launches['bsdp_gemv']} times in "
                   f"{steps} decode steps, expected {want}")
-        if path in MLA_PATHS:  # MLA reads the latent through the formats' plane math
+        # MLA reads its latent through the formats' plane math; an SSM has no attention
+        if path in MLA_PATHS or cfg.family == "ssm":
             check(launches["plane_decode_attention"] == 0,
-                  f"path {path}: MLA launched plane attention")
+                  f"path {path}: {cfg.name} launched plane attention")
         for name, v in ran.items():
             counts[name] = counts.get(name, 0) + v
         for req in eng.requests:
@@ -1259,14 +1423,17 @@ E_SCHEDULERS = {"fcfs": 2, "token_budget:budget=32": 64, "token_budget:budget=25
 E_LONG = 448  # the long prompt, submitted first
 
 
-def _plane_attention_rows(plane_attn):
+def _plane_attention_rows(plane_attn, ring_lengths=None):
     """Wrap ``plane_attn.plane_decode_attention`` to record the query rows G
-    of every call; returns (the list, a function that restores it)."""
+    of every call (and the ring length L into ``ring_lengths``); returns
+    (the list, a function that restores it)."""
     seen, fn = [], plane_attn.plane_decode_attention
 
-    def recording(q_planes, *args, **kw):
+    def recording(q_planes, q_scale, k_planes, *args, **kw):
         seen.append(q_planes.shape[2])
-        return fn(q_planes, *args, **kw)
+        if ring_lengths is not None:
+            ring_lengths.append(k_planes.shape[1])
+        return fn(q_planes, q_scale, k_planes, *args, **kw)
 
     plane_attn.plane_decode_attention = recording
     return seen, lambda: setattr(plane_attn, "plane_decode_attention", fn)
@@ -1418,6 +1585,146 @@ def phase_int8_cache(torch, device, card, engine, qparams, cfg) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Path S: the sliding window across a 4096-position ring
+# ---------------------------------------------------------------------------
+
+#: path S: mixtral-8x7b at full width, depth cut to S_LAYERS, path A's stack,
+#: slots=4, a ring of min(window, S_MAX_LEN) = 4096 positions; one prompt
+#: longer than the window and three short ones, S_NEW new tokens each, under
+#: each of S_SCHEDULERS (token_budget's chunk rows run past position 4096,
+#: plane attention at G up to 4 query heads a kv head · 256)
+S_LAYERS = 2
+S_MAX_LEN = 4352
+S_PROMPTS = (4160, 64, 64, 64)
+S_NEW = 64
+S_SCHEDULERS = ("fcfs", "token_budget:budget=256")
+#: path S's kernel-vs-plain comparisons, float32 on S's schedule: ((weights,
+#: cache), schedulers, how it is held).  "exact": a zero difference with
+#: every expert choice the same (every kernel of the stack is exact), so no
+#: kernel is at fault at S's shapes; "limits": PATH_LIMITS with the plain
+#: path's expert choices forced (w8a16's float32 sums in another order,
+#: through the int4 cache and the window's bias); "printed": the drift is
+#: printed and not held.  Path A's stack is printed: its int4 FFN re-quantizes
+#: w8a16's last-bit differences (a row's int4 scale is its max |x|, so one
+#: moved element can re-round the whole row) over S's 4,160-token rows, and
+#: the fcfs line of the int4 FFN beside the bf16 cache shows that the drift
+#: starts there and not at the cache.
+S_MODES = (
+    (MOE_EXACT_MODE[:2], S_SCHEDULERS, "exact"),
+    (("w8a16", "int4_bp_fused"), S_SCHEDULERS, "limits"),
+    (("ffn=bsdp_fused,mixer=w8a16", "bf16"), ("fcfs",), "printed"),
+    (PATHS["A"][:2], ("fcfs",), "printed"),
+)
+
+
+def phase_window(torch, device, card) -> dict:
+    """Path S under each of :data:`S_SCHEDULERS`: every request finishes with
+    S_NEW tokens in the vocabulary and finite logits, plane attention runs at
+    L = 4096 (and, chunked, at G = 4 · the chunk, the long prompt's chunks
+    reaching past position 4096) with no plain version on the card, and each slot's
+    ring holds exactly its request's last <= 4096 written positions.  Then
+    the kernel path against the plain path in float32 for each stack of
+    :data:`S_MODES`.  Returns the kernel launches of the bf16 serves."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, plane_attn
+    from repro_torch.serve import engine
+    from repro_torch.serve.scheduler import PREFILLING
+
+    cfg = get_config("mixtral-8x7b").scaled(n_layers=S_LAYERS)
+    ring = min(cfg.sliding_window, S_MAX_LEN)
+    mode, cache = PATHS["A"][:2]
+    qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
+    rng = np.random.default_rng(SEED + 4)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n).astype(np.int32) for n in S_PROMPTS]
+    tops = sorted(n + S_NEW - 2 for n in S_PROMPTS)  # the last position each request writes
+    counts: dict = {}
+    for sched in S_SCHEDULERS:
+        eng = engine.ServeEngine(qparams, cfg, mode=mode, cache_format=cache, scheduler=sched,
+                                 slots=4, max_len=S_MAX_LEN, trace_logits=True, device=device)
+        reqs = [eng.submit(p, S_NEW) for p in prompts]
+        ring_lengths: list = []
+        seen_g, restore = _plane_attention_rows(plane_attn, ring_lengths)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        chunks = []  # (first, last + 1) positions of the long prompt's decode-call chunks
+        t0 = time.perf_counter()
+        try:
+            while True:
+                before = reqs[0].prefilled if reqs[0].state == PREFILLING else None
+                if not eng.step():
+                    break
+                if before is not None:
+                    chunks.append((before, reqs[0].prefilled))
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        wall = time.perf_counter() - t0
+        launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        ran = {k: v for k, v in launches.items() if v}
+        for name, v in ran.items():
+            counts[name] = counts.get(name, 0) + v
+        check(all(v == 0 for v in plain.values()),
+              f"path S {sched}: a plain version ran on a CUDA tensor: {plain}")
+        for name in PATHS["A"][2][4]:
+            check(launches[name] > 0, f"path S {sched}: {name} never launched")
+        check(set(ring_lengths) == {ring},
+              f"path S {sched}: plane attention ran over rings of {sorted(set(ring_lengths))}")
+        chunked = sched != "fcfs"
+        longest = max((b - a for a, b in chunks), default=1)
+        check(bool(chunks) == chunked and (not chunked or max(b for _, b in chunks) > ring),
+              f"path S {sched}: the long prompt's chunks {chunks}")
+        # G = query heads a kv head × the call's longest chunk (a short prompt's may be longer)
+        grp = cfg.n_heads // cfg.n_kv_heads
+        check(grp * longest <= max(seen_g) <= grp * (256 if chunked else 1),
+              f"path S {sched}: plane attention took G up to {max(seen_g)}, the long "
+              f"prompt's longest chunk {longest}")
+        for req in reqs:
+            check(req.state == "done" and len(req.out) == S_NEW,
+                  f"path S {sched}: request {req.uid} unfinished")
+            check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
+        for kind, _, logits in eng.logit_trace:
+            check(bool(np.isfinite(logits).all()) and logits.shape[-1] == cfg.vocab_size,
+                  f"path S {sched}: {kind} logits not finite / wrong width")
+        for i, layer in enumerate(eng.caches):
+            pos_ids = layer["pos_ids"].cpu().numpy()
+            check(pos_ids.shape == (4, ring), f"path S: layer {i}'s ring is {pos_ids.shape}")
+            got_tops = []
+            for row in pos_ids:
+                live = row[row >= 0]
+                top = int(live.max())
+                check(sorted(live.tolist()) == list(range(max(0, top - ring + 1), top + 1)),
+                      f"path S {sched}: layer {i}: a ring does not hold exactly its last "
+                      f"<= {ring} positions (up to {top})")
+                got_tops.append(top)
+            check(sorted(got_tops) == tops, f"path S {sched}: the rings end at {got_tops}")
+        st = eng.stats()
+        print(f"path S serve {sched} (mixtral-8x7b, {S_LAYERS} layers, ring {ring}, prompts "
+              f"{list(S_PROMPTS)}) on {card}: {st.total_tokens} tokens in {wall:.2f} s, "
+              f"TTFT p50 {st.percentile('ttft_s', 50):.4f} s, TPOT p50 "
+              f"{st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, chunk steps "
+              f"{len(chunks)} (the last ending at {chunks[-1][1] if chunks else '-'}), plane "
+              f"attention G up to {max(seen_g)} at L {ring}; every ring holds its last <= "
+              f"{ring} positions; launches {ran}")
+    del qparams, eng
+    torch.cuda.empty_cache()
+    cfg32 = cfg.scaled(dtype=torch.float32)
+    schedule = (4, S_MAX_LEN, tuple((n, S_NEW) for n in S_PROMPTS))
+    for (mode, cache), schedulers, held in S_MODES:
+        params32 = engine.materialize_converted(cfg32, mode, seed=SEED, device=device)
+        exact = held == "exact"
+        for sched in schedulers:
+            _kernel_vs_plain(engine, params32, cfg32, mode, cache, sched, "float32",
+                             (0.0, PATH_LIMITS["float32"][1]) if exact else
+                             PATH_LIMITS["float32"], device, exact_routes=exact,
+                             schedule=schedule, held=held != "printed")
+        del params32
+        torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Path D: the ops-level entry points of the DIM and raw int32 W8A8 kernels
 # ---------------------------------------------------------------------------
 
@@ -1457,8 +1764,8 @@ def phase_ops_path(torch, device) -> dict:
 def phase_paths(torch, device) -> None:
     """Kernel path against plain path on 2-layer cuts at full width: qwen3-1.7b
     under every stack of :data:`PATH_MODES`, each further config under its
-    two stacks (paths G-N; path B's stack held to a zero difference on the
-    MLA and MoE configs), qwen1.5-32b under :data:`DRIFT_MODES` and
+    two stacks (paths G-R; path B's stack held to a zero difference on the
+    MLA, MoE, window and Mamba configs), qwen1.5-32b under :data:`DRIFT_MODES` and
     deepseek-v2-lite-16b under :data:`MOE_EXACT_MODE` (the bit-exact stacks
     held to a zero difference), in float32 and bf16."""
     from repro_torch.configs import get_config
@@ -1466,12 +1773,13 @@ def phase_paths(torch, device) -> None:
     from repro_torch.serve import engine
 
     cuts = {"qwen3-1.7b": PATH_MODES}
-    for path in [*CONFIG_PATHS, *MLA_PATHS]:
-        arch = (CONFIG_PATHS.get(path) or MLA_PATHS[path])[0]
+    for path in [*CONFIG_PATHS, *MLA_PATHS, *WINDOW_SSM_PATHS]:
+        arch = (CONFIG_PATHS.get(path) or MLA_PATHS.get(path) or WINDOW_SSM_PATHS[path])[0]
         cuts.setdefault(arch, []).append((*path_spec(path)[:2], "fcfs"))
     cuts["qwen1.5-32b"] += list(DRIFT_MODES)
     cuts["deepseek-v2-lite-16b"].append(MOE_EXACT_MODE)
-    mla_archs = {arch for arch, *_ in MLA_PATHS.values()}
+    # B's stack is all-exact on the MLA, MoE, window and Mamba configs
+    exact_b = {arch for arch, *_ in [*MLA_PATHS.values(), *WINDOW_SSM_PATHS.values()]}
     for dtype_name, limits in PATH_LIMITS.items():
         for arch, modes in cuts.items():
             cfg = get_config(arch).scaled(n_layers=2, dtype=getattr(torch, dtype_name))
@@ -1479,7 +1787,7 @@ def phase_paths(torch, device) -> None:
             for mode, cache, sched in modes:
                 # every kernel of path B's stack is exact: no difference at all
                 exact = (arch == "qwen1.5-32b" and DRIFT_MODES.get((mode, cache, sched), False)
-                         or arch in mla_archs and (mode, cache) == PATHS["B"][:2]
+                         or arch in exact_b and (mode, cache) == PATHS["B"][:2]
                          or (mode, cache, sched) == MOE_EXACT_MODE)
                 _kernel_vs_plain(engine, engine.convert_params(float_params, cfg, mode), cfg,
                                  mode, cache, sched, dtype_name, (0.0, limits[1]) if exact else limits,
@@ -1519,18 +1827,25 @@ def _record_routes(forced=None):
     return log, lambda: setattr(moe, "_route", route)
 
 
-def _serve_cut(engine, params, cfg, mode, cache, sched, impl, device, forced=None):
-    """One teacher-forced serve of the 2-layer cut: (logit trace, tokens,
-    routing log)."""
+#: phase 4's schedule on a cut: (slots, max_len, (prompt tokens, new tokens)
+#: a request)
+CUT_SCHEDULE = (2, 32, ((5, 6), (3, 2), (7, 4)))
+
+
+def _serve_cut(engine, params, cfg, mode, cache, sched, impl, device, forced=None,
+               schedule=CUT_SCHEDULE):
+    """One teacher-forced serve of a cut under ``schedule``: (logit trace,
+    tokens, routing log)."""
     import numpy as np
 
+    slots, max_len, requests = schedule
     rng = np.random.default_rng(0)
-    eng = engine.ServeEngine(params, cfg, slots=2, max_len=32, mode=mode,
+    eng = engine.ServeEngine(params, cfg, slots=slots, max_len=max_len, mode=mode,
                              cache_format=cache, scheduler=sched,
                              trace_logits=True, impl=impl, device=device)
     log, undo = _record_routes(forced)
     try:
-        for n, mn in zip((5, 3, 7), (6, 2, 4)):
+        for n, mn in requests:
             eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32),
                        mn, force=rng.integers(0, cfg.vocab_size, size=(mn,)).astype(np.int32))
         eng.run()
@@ -1556,7 +1871,7 @@ def _drift(traces) -> tuple:
 
 
 def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device,
-                     exact_routes=False):
+                     exact_routes=False, schedule=CUT_SCHEDULE, held=True):
     """The kernel path against the plain path on one teacher-forced serve.
     For a MoE config it prints the share of (token, k) routing choices on
     which the kernel path's router agrees with the plain path's (all of
@@ -1565,10 +1880,13 @@ def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits
     difference near a tie changes a token by a whole expert's output.  So
     where the stack has float kernels, the logits held to ``limits`` come
     from a kernel serve with the plain serve's expert choices forced, as
-    its tokens are; the unforced kernel serve's drift is printed beside it."""
+    its tokens are; the unforced kernel serve's drift is printed beside it.
+    With ``held`` False the drift is printed and not held to ``limits``."""
     max_rel, min_cos = limits
-    plain = _serve_cut(engine, params, cfg, mode, cache, sched, "plain", device)
-    kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device)
+    plain = _serve_cut(engine, params, cfg, mode, cache, sched, "plain", device,
+                       schedule=schedule)
+    kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device,
+                        schedule=schedule)
     arch = "" if cfg.name == "qwen3-1.7b" else f"{cfg.name}, "
     if plain[2]:
         routes = [[sorted_idx for _, sorted_idx, _ in run[2]] for run in (kernel, plain)]
@@ -1584,23 +1902,24 @@ def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits
         if not exact_routes:
             rel, cos, agree = _drift((kernel[0], plain[0]))
             print(f"kernel vs plain path, routes unforced ({arch}{mode}, cache {cache}, "
-                  f"{sched}, 2 layers, {dtype_name}): max rel err {rel:.3e}, min cosine "
+                  f"{sched}, {cfg.n_layers} layers, {dtype_name}): max rel err {rel:.3e}, min cosine "
                   f"{cos:.6f}, argmax agree {agree}/{len(plain[0])} (not held: "
                   f"{total - same} expert choices differ)")
             kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device,
-                                forced=plain[2])
+                                forced=plain[2], schedule=schedule)
     traces = (kernel[0], plain[0])
     kinds = [[(k, s) for k, s, _ in t] for t in traces]
     check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
     check(kernel[1] == plain[1], f"{mode}: kernel and plain paths emitted different tokens")
     worst_rel, worst_cos, agree = _drift(traces)
     forced = " with the plain path's expert choices" if plain[2] and not exact_routes else ""
-    print(f"kernel vs plain path ({arch}{mode}, cache {cache}, {sched}, 2 layers, "
+    limit = (f"limit {max_rel}), min cosine {worst_cos:.6f} (limit {min_cos})" if held else
+             f"printed, not held), min cosine {worst_cos:.6f}")
+    print(f"kernel vs plain path ({arch}{mode}, cache {cache}, {sched}, {cfg.n_layers} layers, "
           f"{dtype_name}{forced}): "
-          f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} (limit "
-          f"{max_rel}), min cosine {worst_cos:.6f} (limit {min_cos}), argmax agree "
+          f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} ({limit}, argmax agree "
           f"{agree}/{len(traces[0])}")
-    check(worst_rel <= max_rel and worst_cos >= min_cos,
+    check(not held or worst_rel <= max_rel and worst_cos >= min_cos,
           f"{arch}{mode}: kernel path logits drift from the plain path ({dtype_name})")
 
 
@@ -1619,17 +1938,31 @@ def main() -> int:
         return 1
     device = torch.device("cuda")
     card = card_line()
+    t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"elapsed {time.perf_counter() - t0:.1f} s after {phase}", flush=True)
+
     phase_toolchain(torch)
     timer = Timer(torch, device)
     rows = phase_kernels(torch, device, timer)
     del timer
     torch.cuda.empty_cache()
+    done("phases 1-2 (build, kernels)")
     counts = phase_serve(torch, device, card)
+    done("paths A-C, E, F")
     counts.update(phase_configs(torch, device, card))
-    counts.update(phase_mla_moe(torch, device, card))
+    done("paths G-J")
+    counts.update(phase_full_paths(torch, device, card, MLA_PATHS))
+    done("paths K-N")
+    counts.update(phase_full_paths(torch, device, card, WINDOW_SSM_PATHS))
+    done("paths O-R")
+    counts["S"] = phase_window(torch, device, card)
+    done("path S")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)
+    done("path D, phase 4")
 
     launches: dict = {}
     for path_counts in counts.values():

@@ -1,9 +1,11 @@
 """Architecture registry: get_config(name) / get_smoke_config(name).
 
 The port registers the architectures whose serving path it carries: the
-dense GQA configs, MLA (minicpm3-4b) and MLA with sort-dispatch MoE
-(deepseek-v2-lite-16b); the other architectures of ``repro.configs``
-follow with their model code.
+dense GQA configs, MLA (minicpm3-4b), MLA with sort-dispatch MoE
+(deepseek-v2-lite-16b), sliding-window MoE (mixtral-8x7b), Mamba-1
+(falcon-mamba-7b) and the Mamba/attention/MoE hybrid
+(jamba-1.5-large-398b); the cross-attention architectures of
+``repro.configs`` follow with their model code.
 """
 
 from importlib import import_module
@@ -16,6 +18,9 @@ _MODULES = {
     "starcoder2-3b": "starcoder2_3b",
     "minicpm3-4b": "minicpm3_4b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -3,9 +3,11 @@
 The port keeps its own copy of ``repro.configs.base.ModelConfig`` (it never
 imports the JAX package), holding the fields its serving path reads, with
 the reference's defaults: the dense family (GQA attention or MLA, a dense
-FFN a layer) and the MoE family (sort-dispatch experts, shared experts and
-leading dense layers).  The SSM, cross-attention and sliding-window fields
-arrive with the architectures that use them.
+FFN a layer), the MoE family (sort-dispatch experts, shared experts and
+leading dense layers, a sliding window), the SSM family (Mamba-1 mixers
+and no FFN) and the hybrid family (Mamba and attention interleaved in a
+periodic superblock).  The cross-attention fields arrive with the
+architectures that use them.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe
+    family: str  # dense | moe | ssm | hybrid
     n_layers: int
     d_model: int
     n_heads: int
@@ -31,6 +33,7 @@ class ModelConfig:
     attn_type: str = "gqa"  # gqa | mla
     qkv_bias: bool = False  # float32 biases added after the q, k, v projections
     qk_norm: bool = False  # per-head RMSNorm on q and k
+    sliding_window: Optional[int] = None  # keep a key iff q_pos - k_pos < window
     rope_theta: float = 10000.0
 
     # --- MLA (minicpm3 / deepseek-v2) ---
@@ -51,6 +54,14 @@ class ModelConfig:
     capacity_factor: float = 1.25
     moe_impl: str = "sort"  # sort (compute-optimal) | einsum (SPMD-friendly)
 
+    # --- mamba / hybrid ---
+    attn_period: int = 0  # 0 = every layer attn; >0: attn iff i % p == offset
+    attn_offset: int = 0
+    d_state: int = 0
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0  # 0 -> ceil(d_model / 16)
+
     # --- misc ---
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     act: str = "silu"  # silu (SwiGLU) | gelu
@@ -60,6 +71,17 @@ class ModelConfig:
     # repro_torch.core.kvcache.FORMATS; None means "bf16".
     cache_format: Optional[str] = None
 
+    # --- layout ---
+    block_period: int = 1  # layers per superblock of the reference's stacking
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def dt_rank_actual(self) -> int:
+        return self.dt_rank or -(-self.d_model // 16)
+
     @property
     def q_head_dim(self) -> int:
         """Per-head q/k dimension (MLA concatenates nope+rope parts)."""
@@ -68,13 +90,18 @@ class ModelConfig:
         return self.d_head
 
     def mixer_kind(self, layer_idx: int) -> str:
-        """The mixer of a layer: every layer the port serves is self-attention
-        (GQA or MLA by ``attn_type``)."""
-        del layer_idx
+        """'attn' (GQA or MLA by ``attn_type``) | 'mamba' for global layer
+        index."""
+        if self.family == "ssm":
+            return "mamba"
+        if self.attn_period > 0 and layer_idx % self.attn_period != self.attn_offset:
+            return "mamba"
         return "attn"
 
     def ffn_kind(self, layer_idx: int) -> str:
-        """'dense' | 'moe' for global layer index."""
+        """'dense' | 'moe' | 'none' for global layer index."""
+        if self.family == "ssm":
+            return "none"  # the Mamba block subsumes the FFN
         if self.n_experts and layer_idx >= self.first_k_dense:
             if layer_idx % self.moe_period == self.moe_offset:
                 return "moe"

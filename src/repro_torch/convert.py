@@ -3,14 +3,15 @@
 ``params_from_numpy(tree, cfg, device=None)`` takes the reference's parameter
 tree with every leaf as a numpy array (``jax.tree.map(np.asarray,
 params)``) and returns the port's layout: the reference stacks each layer
-leaf ``[n_superblocks, ...]`` under ``stack.slot0`` and keeps its leading
-dense layers (``first_k_dense``, deepseek's layer 0) apart as
-``prefix.layer{i}``; the port keeps one dict per layer, ``prefix.layer{i}``
-as layer ``i`` and ``stack.slot0[j]`` as layer ``first_k_dense + j``.  Every
-leaf must be one of :func:`repro_torch.models.model.specs` (norm scales
-and biases, the q/k/v biases, the MLA projections and norms, the router,
-the stacked expert weights and the shared experts, the untied
-``embed.head``); any other raises.  With the same float weights both packages then convert
+leaf ``[n_superblocks, ...]`` under ``stack.slot{j}`` (``block_period``
+slots a superblock: jamba's 8) and keeps its leading dense layers
+(``first_k_dense``, deepseek's layer 0) apart as ``prefix.layer{i}``; the
+port keeps one dict per layer, ``prefix.layer{i}`` as layer ``i`` and
+``stack.slot{j}[s]`` as layer ``first_k_dense + s·block_period + j``.
+Every leaf must be one of :func:`repro_torch.models.model.specs` (norm
+scales and biases, the q/k/v biases, the MLA projections and norms, the
+Mamba mixer's leaves, the router, the stacked expert weights and the
+shared experts, the untied ``embed.head``); any other raises.  With the same float weights both packages then convert
 to residency and compute the same thing.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) cross bit for bit.  Like every entry point of the
 port, it puts the tensors on the card unless the caller names a device.
@@ -55,8 +56,10 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     if unknown:
         raise ValueError(f"params_from_numpy: unsupported subtrees {sorted(unknown)}")
     slots = tree["stack"]
-    if set(slots) != {"slot0"}:
-        raise ValueError("params_from_numpy: expected one layer per superblock")
+    period = cfg.block_period
+    if set(slots) != {f"slot{j}" for j in range(period)}:
+        raise ValueError(f"params_from_numpy: stack holds {sorted(slots)}, expected "
+                         f"{period} slot(s) a superblock")
     prefix = tree.get("prefix", {})
     if set(prefix) != {f"layer{i}" for i in range(k0)}:
         raise ValueError(f"params_from_numpy: prefix holds {sorted(prefix)}, expected "
@@ -67,8 +70,9 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
         if i < k0:
             return _map(prefix[f"layer{i}"], spec["layers"][i], lambda a: _tensor(a, device),
                         ("prefix", f"layer{i}"))
-        return _map(slots["slot0"], spec["layers"][i],
-                    lambda a: _tensor(np.asarray(a)[i - k0], device), ("stack", "slot0"))
+        sb, j = divmod(i - k0, period)
+        return _map(slots[f"slot{j}"], spec["layers"][i],
+                    lambda a: _tensor(np.asarray(a)[sb], device), ("stack", f"slot{j}"))
 
     return {
         "embed": _map(tree["embed"], spec["embed"], lambda a: _tensor(a, device), ("embed",)),

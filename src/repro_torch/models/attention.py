@@ -7,7 +7,13 @@ position-indexed ring buffers: slot = position mod L; ``pos_ids`` holds the
 absolute position per slot (-1 = empty).  Cache residency — how a slot is
 stored and read back — belongs to the cache format
 (:mod:`repro_torch.core.kvcache`).  Negative positions are pads: rope and
-the masks ignore them and the ring write skips them.
+the masks ignore them and the ring write skips them.  A sliding window
+(``cfg.sliding_window``) keeps a key only if ``q_pos - k_pos < window``,
+in the prefill mask and in the decode mask, and the ring is then at most
+the window long (:func:`cache_len_for`).  As in the reference, a decode
+call writes its tokens to the ring before it attends, so a chunk of S
+tokens into a window-long ring overwrites up to S - 1 keys that its
+earlier tokens would still see.
 
 MLA (DeepSeek-V2 / MiniCPM3) caches only the latent — ``c_kv`` through the
 cache format, the small rope key ``k_rope`` in float — and decodes in the
@@ -58,7 +64,8 @@ def gqa_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
     if positions is None:
         positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
-    out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions)
+    out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
+                            window=cfg.sliding_window)
     out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
     cache = init_kv_cache(cfg, b, cache_len, dtype=k.dtype, device=x.device)
     _ring_write(cache, k, v, positions, kvcache.format_for(cfg))
@@ -84,9 +91,18 @@ def gqa_decode(params, x, cache, cfg, *, pos, impl=None):
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
     _ring_write(cache, k, v, positions, fmt)
-    out = _decode_attention(q, cache, cur=positions, fmt=fmt, impl=impl)
+    out = _decode_attention(q, cache, cur=positions, window=cfg.sliding_window, fmt=fmt,
+                            impl=impl)
     out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
     return out, cache
+
+
+def cache_len_for(cfg, max_len: int) -> int:
+    """The ring length: the window for a sliding-window config (when shorter
+    than ``max_len``), ``max_len`` otherwise."""
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, max_len)
+    return max_len
 
 
 def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
@@ -130,9 +146,10 @@ def _ring_write(cache, k, v, positions, fmt) -> None:
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
 
 
-def _decode_attention(q, cache, *, cur, fmt, impl=None):
+def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None):
     """q: [B, S, H, D] against the whole ring cache, masked by the stored
-    positions (``pos_ids <= the token's own position``)."""
+    positions (``pos_ids <= the token's own position``, and ``> position -
+    window`` with a window)."""
     b, s, hq, dh = q.shape
     hkv = cache["k"].shape[2]
     g = hq // hkv
@@ -141,6 +158,8 @@ def _decode_attention(q, cache, *, cur, fmt, impl=None):
     qg = qg.reshape(b, hkv, s * g, dh).to(torch.float32)
     pos_ids = cache["pos_ids"]
     valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= cur[..., None])
+    if window is not None:
+        valid &= pos_ids[:, None, :] > cur[..., None] - window
     if fmt.supports_fused_decode:
         bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)  # [B, S, L]
         bias = bias[:, None, :, None, :].expand(b, hkv, s, g, ln).reshape(b, hkv, s * g, ln)
@@ -157,11 +176,12 @@ def _decode_attention(q, cache, *, cur, fmt, impl=None):
     return out.reshape(b, s, hq, dh).to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, q_pos, kv_pos) -> torch.Tensor:
+def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None) -> torch.Tensor:
     """Causal attention by the flash recurrence over KV chunks with a
     running (max, sum, acc) carry, so no S×S score matrix is held for long
     prompts.  q [B, Sq, H, D]; k, v [B, Skv, Hkv, D]; negative positions
-    are pads."""
+    are pads; with ``window`` a key is kept only if ``q_pos - k_pos <
+    window``."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -181,6 +201,8 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos) -> torch.Tensor:
             s = torch.einsum("bqhgd,bshd->bhgqs", qi, kj) * scale
             mask = (kpj[:, None, None, None, :] >= 0) & (
                 qpi[:, None, None, :, None] >= kpj[:, None, None, None, :])
+            if window is not None:
+                mask &= (qpi[:, None, None, :, None] - kpj[:, None, None, None, :]) < window
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])

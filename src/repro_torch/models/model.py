@@ -1,7 +1,8 @@
 """The causal LM: parameter specs, initialisation, prefill and decode.
 
-Counterpart of the serving half of :mod:`repro.models.model` for the dense
-and MoE families, with GQA or MLA attention.  Parameters are a plain dict::
+Counterpart of the serving half of :mod:`repro.models.model` for the dense,
+MoE, SSM and hybrid families, with GQA or MLA attention and Mamba-1 mixers.
+Parameters are a plain dict::
 
     {"embed": {"embedding", "head" (untied models)},
      "final_norm": {"scale", "bias" (layernorm)},
@@ -9,9 +10,12 @@ and MoE families, with GQA or MLA attention.  Parameters are a plain dict::
 
 one dict per layer where the reference stacks ``[n_superblocks, ...]``
 leaves (and keeps deepseek's leading dense layers apart, under
-``prefix``).  The mixer is GQA ``{wq, wk, wv, wo, bq, bk, bv (qkv_bias),
-q_norm, k_norm (qk_norm)}`` or MLA ``{w_dkv, kv_norm, w_uk, w_uv, wo, and
-w_dq, q_norm, w_uq (q_lora_rank) or wq}``; the FFN dense ``{w_in, w_out}``
+``prefix``).  The mixer, by ``cfg.mixer_kind(i)``, is GQA ``{wq, wk, wv,
+wo, bq, bk, bv (qkv_bias), q_norm, k_norm (qk_norm)}``, MLA ``{w_dkv,
+kv_norm, w_uk, w_uv, wo, and w_dq, q_norm, w_uq (q_lora_rank) or wq}`` or
+Mamba ``{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D, out_proj}``
+(:mod:`repro_torch.models.mamba`); a layer whose ``cfg.ffn_kind(i)`` is
+``"none"`` (the SSM family) has no ``ln2`` and no ``ffn``; the FFN dense ``{w_in, w_out}``
 (``w_in`` ``[d, 2·d_ff]``, SwiGLU's fused gate and up, or ``[d, d_ff]``,
 GELU) or MoE ``{router [d, E] float32, w_in [E, d, 2·moe_d_ff], w_out [E,
 moe_d_ff, d], shared_w_in, shared_w_out (shared experts)}`` by
@@ -35,7 +39,7 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models import attention, layers, stack
+from repro_torch.models import attention, layers, mamba, stack
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
@@ -43,7 +47,10 @@ class ParamSpec:
 
     shape: tuple
     dtype: Any = torch.bfloat16
-    init: str = "normal"  # normal (fan-in scaled) | embedding (unit) | ones | zeros
+    #: normal (fan-in scaled) | embedding (unit) | ones | zeros | ssm_a
+    #: (Mamba's A_log: log(1..d_state) over channels) | ssm_dt (Mamba's dt
+    #: bias: the softplus-inverse of U[1e-3, 1e-1])
+    init: str = "normal"
 
 
 def _norm_specs(cfg) -> dict:
@@ -110,23 +117,26 @@ def _moe_specs(cfg) -> dict:
 
 def _layer_specs(cfg, i: int) -> dict:
     d = cfg.d_model
-    if cfg.ffn_kind(i) == "moe":
+    if cfg.mixer_kind(i) == "mamba":
+        mixer = mamba.mamba_specs(cfg)
+    else:
+        mixer = _mla_specs(cfg) if cfg.attn_type == "mla" else _gqa_specs(cfg)
+    layer = {"ln1": _norm_specs(cfg), "mixer": mixer}
+    kind = cfg.ffn_kind(i)
+    if kind == "none":
+        return layer
+    if kind == "moe":
         ffn = _moe_specs(cfg)
     else:
         ffn = {"w_in": ParamSpec((d, _d_in(cfg, cfg.d_ff)), cfg.dtype),
                "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)}
-    return {
-        "ln1": _norm_specs(cfg),
-        "mixer": _mla_specs(cfg) if cfg.attn_type == "mla" else _gqa_specs(cfg),
-        "ln2": _norm_specs(cfg),
-        "ffn": ffn,
-    }
+    return {**layer, "ln2": _norm_specs(cfg), "ffn": ffn}
 
 
 def specs(cfg) -> dict:
-    if cfg.family not in ("dense", "moe"):
-        raise NotImplementedError(f"{cfg.name}: the port serves the dense and moe "
-                                  f"families, not {cfg.family!r}")
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: the port serves the dense, moe, ssm and "
+                                  f"hybrid families, not {cfg.family!r}")
     embed = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), torch.float32,
                                     "embedding")}
     if not cfg.tie_embeddings:
@@ -142,6 +152,13 @@ def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     if spec.init in ("ones", "zeros"):
         fill = torch.ones if spec.init == "ones" else torch.zeros
         return fill(spec.shape, dtype=spec.dtype, device=device)
+    if spec.init == "ssm_a":  # log(1..n) over the channels, rounded once; draws nothing
+        a = torch.arange(1, spec.shape[-1] + 1, dtype=torch.float64, device=device)
+        return torch.log(a).to(spec.dtype).expand(spec.shape).contiguous()
+    if spec.init == "ssm_dt":
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float32, device=device)
+        u = u * (1e-1 - 1e-3) + 1e-3
+        return torch.log(torch.expm1(u)).to(spec.dtype)
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "normal":
         w.div_(math.sqrt(spec.shape[0]))  # fan-in: the first axis (see the module doc)
@@ -176,12 +193,15 @@ def materialize(cfg, seed: int = 0, device=None) -> dict:
 
 def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     """Run the prompt, build the decode caches → (last logits [B,1,V] f32,
-    per-layer caches).  ``batch["positions"]`` (optional [B,S]) marks
-    left-pad tokens with negative positions."""
+    per-layer caches: an attention layer's ring is ``min(sliding_window,
+    max_len)`` long, a Mamba layer's state O(1)).  ``batch["positions"]``
+    (optional [B,S]) marks left-pad tokens with negative positions, which
+    attention ignores and a Mamba layer cannot (the engine never pads an
+    SSM config's prompts)."""
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
     x, caches = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
-                                  pos=batch.get("positions"), cache_len=max_len,
-                                  impl=impl)
+                                  pos=batch.get("positions"),
+                                  cache_len=attention.cache_len_for(cfg, max_len), impl=impl)
     x = layers.norm_apply(params["final_norm"], x, cfg)
     logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl)
     return logits.to(torch.float32), caches

@@ -18,9 +18,13 @@ seconds, engine steps, processed positions) from which
 :meth:`ServeEngine.stats` derives TTFT and TPOT.  Each step ends by
 copying its logits to the host, so the wall clock covers the device work.
 
-Every layer the port serves is self-attention (GQA or MLA), which ignores
-pad tokens, so refills microbatch and prompts chunk for every config; a
-MoE layer routes pad tokens like any other, as the reference does.
+Attention (GQA or MLA) ignores pad tokens, so a config whose every mixer
+is attention refills in one microbatch and may chunk its prompts; a Mamba
+state would absorb pad tokens, so an SSM or hybrid config refills one
+slot at a time and never chunks (the scheduler refills whole prompts), as
+the reference does.  A MoE layer routes pad tokens like any other, and an
+idle slot's Mamba state takes its pad token at every decode step until a
+refill overwrites it, both as in the reference.
 
 Not ported yet: paging and prefix sharing (and with them the
 ``prefix_cache`` scheduler), the observability spans.
@@ -51,11 +55,11 @@ from repro_torch.serve.scheduler import (
     StepPlan,
 )
 
-#: parameter dict keys eligible for quantized residency (the reference's
-#: list but for the SSM projections, which come with the SSM families)
+#: parameter dict keys eligible for quantized residency (the reference's)
 QUANTIZABLE_KEYS = (
     "wq", "wk", "wv", "wo",
     "w_in", "w_out", "w_uq", "w_dq", "w_dkv", "w_uk", "w_uv",
+    "in_proj", "out_proj", "x_proj",
     "shared_w_in", "shared_w_out",
     "head",
 )
@@ -221,6 +225,9 @@ class ServeEngine:
         self.requests: list[Request] = []
         self.caches = None
         self.pos = np.zeros(slots, np.int32)
+        # left-padded microbatched refills and chunked prefill need layers
+        # that ignore pad tokens: attention does, a Mamba state does not
+        self._pad_ok = all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
         self._clock = clock
         self._next_uid = 0
         self._uids: set = set()
@@ -260,11 +267,9 @@ class ServeEngine:
         return Stamp(self._clock(), self.step_index, self.work)
 
     def _view(self) -> EngineView:
-        # chunking_ok keeps its default, True: every layer the port serves is
-        # attention, which ignores pad tokens
         return EngineView(slots=self.slots, active=tuple(self.active),
-                          queue=tuple(self.queue), max_len=self.max_len,
-                          step_index=self.step_index)
+                          queue=tuple(self.queue), chunking_ok=self._pad_ok,
+                          max_len=self.max_len, step_index=self.step_index)
 
     @staticmethod
     def _next_token(req: Request, logits_row: np.ndarray) -> int:
@@ -407,7 +412,11 @@ class ServeEngine:
             self.queue.remove(req)
             refills.append((slot, req, min(n, req.prompt_len)))
         if refills:
-            self._prefill_slots(refills)
+            if self._pad_ok:
+                self._prefill_slots(refills)
+            else:  # a Mamba state cannot skip pad tokens: one refill a call
+                for one in refills:
+                    self._prefill_slots([one])
         chunks = [
             (slot, min(n, self.active[slot].prompt_len - self.active[slot].prefilled))
             for slot, n in plan.chunks

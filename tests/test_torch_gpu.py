@@ -618,3 +618,100 @@ class TestNinthSliceOnTheCard:
         plain = serve("plain")
         assert all(np.array_equal(a, b) for a, b in zip(card, again))
         assert all(np.array_equal(a, b) for a, b in zip(card, plain))
+
+
+@pytest.mark.gpu
+class TestTenthSliceOnTheCard:
+    """The kernels at the new shapes of mixtral-8x7b and falcon-mamba-7b, and
+    the two configs' smoke serves on the card."""
+
+    @pytest.mark.parametrize("window", [None, 1000])
+    def test_plane_attention_at_a_4096_ring_with_a_window(self, cuda, window):
+        """mixtral-8x7b's decode shape, R = 32 (4 slots × 8 kv heads), G = 4,
+        L = 4096, F = 128, the window cutting into the ring: within ATTN_TOL
+        of the plain version, two calls bitwise equal."""
+        a = attention_inputs(seed=400, b=4, h=8, g=4, l=4096, feat=128, window=window)
+        args = [a["q_planes"], a["q_scale"], t(a["kp"]), torch.from_numpy(a["ks"]),
+                t(a["vp"]), torch.from_numpy(a["vs"]), torch.from_numpy(a["bias"])]
+        args = [x.to(cuda) for x in args]
+        got = plane_attn.plane_decode_attention(*args, sm_scale=a["sm"])
+        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"])
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=a["sm"]))
+
+    @pytest.mark.parametrize("k, n", [(4096, 28672), (14336, 4096)])
+    def test_grouped_launches_at_eight_experts(self, cuda, k, n):
+        """mixtral-8x7b's experts (E = 8, w_in 4096 × 28672, w_out 14336 ×
+        4096): grouped ``bsdp_gemv`` (M = 1), ``bsdp_gemm_fused`` (M = 4 and
+        a prefill's 40) and ``matmul_int8`` (M = 1, 4, 40) bit-exact against
+        their plain versions, one launch each."""
+        gen = torch.Generator(device=cuda).manual_seed(410)
+        kw = k // 32
+        w = torch.randint(-2**31, 2**31, (8, n, 4, kw), dtype=torch.int32, generator=gen,
+                          device=cuda)
+        for m, fns in ((1, ("gemv", "gemm_fused")), (4, ("gemm_fused",)),
+                       (40, ("gemm_fused",))):
+            x = torch.randint(-2**31, 2**31, (8, m, 4, kw), dtype=torch.int32, generator=gen,
+                              device=cuda)
+            want = bsdp_kernel.bsdp_matmul_grouped_plain(x, w)
+            for kernel in fns:
+                ops.reset_counts()
+                assert torch.equal(ops._BSDP_GROUPED[kernel](x, w), want), (kernel, m)
+                assert sum(ops.launch_counts().values()) == 1
+        del w
+        w = torch.randint(-128, 128, (8, k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((8, 1, n), generator=gen, device=cuda) * 0.05 + 1e-3
+        for m in (1, 4, 40):
+            x = torch.randint(-128, 128, (8, m, k), dtype=torch.int8, generator=gen, device=cuda)
+            xs = torch.rand((8, m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+            assert torch.equal(gemv_int8.matmul_int8_grouped(x, w, xs, ws),
+                               gemv_int8.matmul_int8_grouped_plain(x, w, xs, ws)), m
+
+    @pytest.mark.parametrize("m", [1, 4, 17, 64])
+    def test_the_n288_projection(self, cuda, m):
+        """falcon-mamba-7b's ``x_proj`` (K 8192, N 288: a 32-column tail past
+        the 64- and 128-wide tiles): ``matmul_int8`` bit-exact, scaled and
+        int32, and ``dequant_matmul`` (f32 and bf16 x) within DEQUANT_RTOL of
+        the largest output, against their plain versions."""
+        gen = torch.Generator(device=cuda).manual_seed(420 + m)
+        k, n = 8192, 288
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((1, n), generator=gen, device=cuda) * 0.02 + 1e-3
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen, device=cuda)
+        xs = torch.rand((m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+        for out_int32 in (False, True):
+            assert torch.equal(gemv_int8.matmul_int8(x, w, xs, ws, out_int32=out_int32),
+                               gemv_int8.matmul_int8_plain(x, w, xs, ws, out_int32=out_int32))
+        for dtype in (torch.float32, torch.bfloat16):
+            xf = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+            got = dequant_gemv.dequant_matmul(xf, w, ws)
+            want = dequant_gemv.dequant_matmul_plain(xf, w, ws)
+            assert (got - want).abs().max() <= DEQUANT_RTOL * want.abs().max()
+
+    @pytest.mark.parametrize("arch", ["mixtral-8x7b", "falcon-mamba-7b",
+                                      "jamba-1.5-large-398b"])
+    def test_window_and_mamba_serves_kernel_path_equals_plain_path(self, cuda, arch):
+        """The smoke config on path B's stack (every kernel exact) under
+        ``token_budget``, prompts longer than mixtral's 32-token window: on
+        the card the kernel path's logits equal the plain path's to the bit,
+        and ``matmul_int8`` launched with no plain version on the card."""
+        cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+        params = model_lib.materialize(cfg, seed=2, device=cuda)
+
+        def serve(impl):
+            eng = engine.ServeEngine(params, cfg, slots=2, max_len=64, mode="w8a8",
+                                     min_dim=16, scheduler="token_budget:budget=8",
+                                     trace_logits=True, impl=impl, device=cuda)
+            rng = np.random.default_rng(0)
+            for n in (40, 12, 45):
+                eng.submit(rng.integers(0, cfg.vocab_size, size=(n,)).astype(np.int32), 6)
+            eng.run()
+            return [lg for _, _, lg in eng.logit_trace]
+
+        ops.reset_counts()
+        card = serve(None)
+        assert ops.launch_counts()["matmul_int8"] > 0
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())
+        plain = serve("plain")
+        assert all(np.array_equal(a, b) for a, b in zip(card, plain))
