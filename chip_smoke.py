@@ -65,14 +65,37 @@ and one windowed serve:
      float32 under both schedulers, the kernel path against the plain
      path: the all-exact stack at a zero difference, ``w8a16`` with the
      fused int4 cache within ``PATH_LIMITS``; under ``fcfs`` path A's
-     stack printed (``S_MODES`` says why)
+     stack printed (``S_MODES`` says why), and both of its paths' distances
+     from a reference serve whose ``w8a16`` products are taken in float64
+     (``_reference_distances``: whether a kernel is at fault)
+
+and the cross-attention configs at full published width and depth, on
+the same two stacks, through ``model.prefill`` and ``model.decode_step``
+(neither engine serves a context), every cross gate set to ``CROSS_GATE``
+after the draw (llama-vision's initialises to 0, which would close its
+cross branch):
+
+  T  llama-3.2-vision-11b (40 layers, cross-attention in place of
+     self-attention at layers i % 5 == 3, over [4, 1601, 4096] patch
+     embeddings) on path A's stack
+  U  llama-3.2-vision-11b on path B's stack (the head too)
+  V  seamless-m4t-medium (12 non-causal encoder layers over [4, 1536,
+     1024] frames, 12 decoder layers each self- then cross-attending,
+     LayerNorm, GELU, d_head 64, vocab 256206) on path A's stack: plane
+     attention at Fw = 2, G = 1; the ``layers.i.cross`` leaves match
+     neither of the stack's patterns and stay bf16
+  W  seamless-m4t-medium on path B's stack (``matmul_int8`` at the head's
+     unaligned N = 256206)
 
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
 Phase 2 holds each grouped launch against its plain version at
-deepseek's and mixtral's expert shapes, and ``dequant_matmul`` and
-``matmul_int8`` at falcon-mamba's projections (N = 288 included).  Weights
-of G-R are drawn and converted leaf by leaf (``engine.materialize_converted``):
+deepseek's and mixtral's expert shapes, ``dequant_matmul`` and
+``matmul_int8`` at falcon-mamba's projections (N = 288 included), and the
+kernels at T-W's shapes: the decode projections and heads, plane attention
+at d_head 64, the cross K/V prefill (M = 4 x 1601) and the encoder's FFN
+input (M = 4 x 1536).  Weights
+of G-W are drawn and converted leaf by leaf (``engine.materialize_converted``):
 qwen1.5-32b's, whole in bf16, would not fit one card beside their
 converted form.  The script then drives the ops-level
 entry points ``ops.dim_matmul`` and ``ops.matmul_int8_raw`` (path D).  Each
@@ -82,11 +105,16 @@ plain version ran on the card and its resident bytes match the analytic
 count.  Phase 4 compares the kernel path with the plain path on a 2-layer
 cut for each weight format, the ``int8`` cache, a chunked serve and each
 further config on its two stacks (with the share of MoE routing choices
-that agree; O-R's configs too, B's stack held to a zero difference), and
+that agree; O-R's configs too, B's stack held to a zero difference),
 qwen1.5-32b with path A's int4 steps taken out one at a time (the
-all-exact stacks held to a zero difference).  Any failure is a nonzero
-exit.  It needs a CUDA device and the repository's ``src``; without either
-it fails before printing a result.
+all-exact stacks held to a zero difference), and one period of
+llama-vision (its cross layer 3) and a 2 + 2-layer seamless on both stacks
+(B's at a zero difference), gates open; there, in float32, a value the two
+paths round to different int4 codes at a boundary (within ``FLIP_TOL`` of
+a step) is forced to the plain path's code, as MoE routes are forced, and
+a code that differs farther fails.  Any failure is a nonzero exit.  It
+needs a CUDA device and the repository's ``src``; without either it fails
+before printing a result.
 
 Every serving path runs at full width, and at full depth but for cuts
 made to keep the run well inside the 1200 s it may take: paths G-N serve
@@ -211,6 +239,38 @@ WINDOW_SSM_PATHS = {
 #: temporaries.  The untied head's larger draw comes second, when only the
 #: embedding is resident.
 STREAM_SLACK_BYTES = 256 << 20
+#: the cross-attention configs at full width and depth: path → (arch, the
+#: stack's path, kernels that must launch by slots, launches per decode step
+#: at slots=4).  Neither engine serves a context, so these paths drive
+#: ``model.prefill`` and ``model.decode_step`` directly.  A decode step
+#: reads each cross layer's context K/V from its cache, so a cross branch
+#: launches its wq and wo alone.  On A's stack: llama-3.2-vision-11b's 32
+#: self-attention layers 4 W8A16 projections and one plane attention each,
+#: its 8 cross layers (``layers.i.mixer``, which the pattern ``mixer``
+#: matches) 2 W8A16 projections each, every layer's FFN 2 BSDP GEMMs;
+#: seamless-m4t-medium's 12 decoder layers 4 W8A16 self-attention
+#: projections, 2 BSDP GEMMs and one plane attention each, while their
+#: ``layers.i.cross`` leaves match neither pattern and stay bf16, launching
+#: nothing.  On B's stack every projection through ``matmul_int8``, the
+#: untied head too.
+CROSS_PATHS = {
+    "T": ("llama-3.2-vision-11b", "A",
+          {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
+          {"dequant_matmul": 144, "bsdp_gemm_fused": 80, "plane_decode_attention": 32}),
+    "U": ("llama-3.2-vision-11b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 225}),
+    "V": ("seamless-m4t-medium", "A",
+          {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
+           1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
+          {"dequant_matmul": 48, "bsdp_gemm_fused": 24, "plane_decode_attention": 12}),
+    "W": ("seamless-m4t-medium", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
+          {"matmul_int8": 97}),
+}
+#: every cross layer's tanh gate is set to this after the draw: llama-vision's
+#: gate initialises to 0, which would close its cross branch (it would add
+#: exactly nothing, so no check could see it broken)
+CROSS_GATE = 0.5
 
 
 def path_spec(path: str) -> tuple:
@@ -218,8 +278,9 @@ def path_spec(path: str) -> tuple:
     step at slots=4) of any serving path."""
     if path in PATHS:
         return PATHS[path]
-    if path in MLA_PATHS or path in WINDOW_SSM_PATHS:
-        _, stack, must, per_step = MLA_PATHS.get(path) or WINDOW_SSM_PATHS[path]
+    if path in MLA_PATHS or path in WINDOW_SSM_PATHS or path in CROSS_PATHS:
+        _, stack, must, per_step = (MLA_PATHS.get(path) or WINDOW_SSM_PATHS.get(path)
+                                    or CROSS_PATHS[path])
         return (*PATHS[stack][:2], must, per_step)
     _, stack, per_step = CONFIG_PATHS[path]
     mode, cache, must, _ = PATHS[stack]
@@ -445,14 +506,23 @@ def int_mm_min_m(torch, device) -> int:
 
 def _int_mm(torch, x_i8, w_i8, min_m):
     """``torch._int_mm`` on the same int8 operands — a yardstick the port
-    never calls — with rows padded up to ``min_m``; returns (fn, note)."""
-    m = x_i8.shape[0]
-    if m >= min_m:
+    never calls — with rows padded up to ``min_m`` and columns up to a
+    multiple of 8 (it refuses others); returns (fn, note), fn giving the
+    ``[M, N]`` result."""
+    m, n = x_i8.shape[0], w_i8.shape[1]
+    notes = []
+    if m < min_m:
+        xp = torch.zeros((min_m, x_i8.shape[1]), dtype=torch.int8, device=x_i8.device)
+        xp[:m] = x_i8
+        x_i8 = xp
+        notes.append(f"M padded from {m} to {min_m} (it refuses M <= 16)")
+    if n % 8:
+        w_i8 = torch.nn.functional.pad(w_i8, (0, -n % 8))
+        notes.append(f"N padded from {n} to {w_i8.shape[1]} (it takes multiples of 8)")
+    if not notes:
         return (lambda: torch._int_mm(x_i8, w_i8)), None
-    xp = torch.zeros((min_m, x_i8.shape[1]), dtype=torch.int8, device=x_i8.device)
-    xp[:m] = x_i8
-    return ((lambda: torch._int_mm(xp, w_i8)),
-            f"torch._int_mm at M padded from {m} to {min_m} (it refuses M <= 16)")
+    return ((lambda: torch._int_mm(x_i8, w_i8)[:m, :n]),
+            "torch._int_mm at " + ", ".join(notes))
 
 
 def phase_kernels(torch, device, timer) -> list[dict]:
@@ -469,6 +539,8 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_configs(torch, device, gen, timer, rows, min_m)
     _rows_grouped(torch, device, gen, timer, rows)
     _rows_window_ssm(torch, device, gen, timer, rows, min_m)
+    _rows_cross(torch, device, gen, timer, rows, min_m)
+    dequant_accuracy(torch, device, gen)
     for row in rows:
         print("kernel " + json.dumps(row))
     one = torch.zeros(1, device=device)
@@ -491,6 +563,8 @@ def step_gaps(rows) -> None:
               for path, (_, stack, _) in CONFIG_PATHS.items() if stack == "A"]
     lines += [(path, 4, window_ssm_step_rows(path)) for path in WINDOW_SSM_PATHS]
     lines += [("O", 1, window_ssm_step_rows("O", 1))]
+    lines += [(path, slots, cross_step_rows(path, slots)) for path in CROSS_PATHS
+              for slots in ((4, 1) if CROSS_PATHS[path][1] == "A" else (4,))]
     for path, slots, entries in lines:
         per_step = {}
         for name, _, n in entries:
@@ -498,7 +572,8 @@ def step_gaps(rows) -> None:
         if slots == 4:
             check(per_step == path_spec(path)[3],
                   f"the step rows of path {path} != the path's launches per step")
-        arch = (CONFIG_PATHS.get(path) or WINDOW_SSM_PATHS.get(path) or ("qwen3-1.7b",))[0]
+        arch = (CONFIG_PATHS.get(path) or WINDOW_SSM_PATHS.get(path) or CROSS_PATHS.get(path)
+                or ("qwen3-1.7b",))[0]
         n_layers = config_for(arch).n_layers
         for key in ("ms", "queued_ms"):
             gaps: dict = {}
@@ -718,15 +793,17 @@ def _rows_attention(torch, device, gen, timer, rows):
         _row_attention_chunk(torch, device, gen, timer, rows, s_len)
 
 
-def _attention_decode_row(torch, device, gen, timer, rows, b, h, g, l=512, window=None):
+def _attention_decode_row(torch, device, gen, timer, rows, b, h, g, l=512, window=None,
+                          feat=128):
     """Plane attention at a decode shape: ``b`` slots × ``h`` kv heads → R
     rows of G query heads, L (512, or 4096: mixtral-8x7b's window-long
-    ring), F=128 (Fw=4).  At b = 4: slot 0 idle (every position masked),
-    slot 1 a wrapped ring (positions 100..99+L), slot 2 part-filled, slot 3
-    full, and the bias materialised, with the window term where the config
-    has one.  At b = 1 the one slot is part-filled (300 positions: the last
-    L splits wholly masked in a live row) and the bias is the engine's
-    expanded view (stride 0 over heads and queries).  Two calls must be
+    ring), F=128 (Fw=4; seamless-m4t-medium's 64: Fw=2).  At b = 4: slot 0
+    idle (every position masked), slot 1 a wrapped ring (positions
+    100..99+L), slot 2 part-filled, slot 3 full, and the bias materialised,
+    with the window term where the config has one.  At b = 1 the one slot
+    is part-filled (300 positions: the last L splits wholly masked in a
+    live row) and the bias is the engine's expanded view (stride 0 over
+    heads and queries).  Two calls must be
     bitwise equal."""
     import torch.nn.functional as F
 
@@ -734,7 +811,6 @@ def _attention_decode_row(torch, device, gen, timer, rows, b, h, g, l=512, windo
     from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
     from repro_torch.kernels import plane_attn
 
-    feat = 128
     fw = feat // 32
     kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
               _words(torch, gen, device, b, l, h, 4, fw))
@@ -1110,6 +1186,121 @@ def window_ssm_step_rows(path: str, slots: int = 4) -> list:
     return rows + [("matmul_int8", f"{arch} head M=4 N={n} K={k}", 1)]
 
 
+def _rows_cross(torch, device, gen, timer, rows, min_m):
+    """The kernels of paths T-W at their decode shapes: for each distinct
+    projection shape of the two cross-attention configs ``bsdp_gemv`` (M =
+    1) and ``bsdp_gemm_fused`` (M = 4) at the FFN's, ``dequant_matmul``
+    (bf16 x, M = 4) at attention's, ``matmul_int8`` (M = 4) at every one,
+    the untied heads included (seamless-m4t-medium's N = 256206 is no
+    multiple of 16: the kernels' unaligned route); plane attention at each
+    config's decode shape (llama-vision R = 32, G = 4, Fw = 4; seamless R =
+    64, G = 1, Fw = 2); then the prefill rows at the context's M:
+    ``dequant_matmul`` and ``matmul_int8`` at llama-vision's cross K/V
+    projection (K 4096, N 1024, M = 4 x 1601) and ``bsdp_gemm_fused`` at
+    seamless's encoder w_in (K 1024, N 4096, M = 4 x 1536)."""
+    from repro_torch.configs import get_config
+
+    for arch in dict.fromkeys(arch for arch, *_ in CROSS_PATHS.values()):
+        cfg = get_config(arch)
+        shapes = {}  # each distinct (K, N) once, under its first projection
+        for name, shape in config_projections(cfg).items():
+            shapes.setdefault(shape, name)
+        for (k, n), name in shapes.items():
+            label = f"{arch} {name}"
+            if name in ("w_in", "w_out"):
+                _bsdp_rows_at(torch, device, gen, timer, rows, min_m, label, k, n,
+                              {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4,)})
+            elif name != "head":
+                _dequant_rows_at(torch, device, gen, timer, rows, label + " ", k, n,
+                                 (torch.bfloat16,), (4,))
+            _int8_rows_at(torch, device, gen, timer, rows, min_m, label, k, n, (4,))
+        _attention_decode_row(torch, device, gen, timer, rows, 4, cfg.n_kv_heads,
+                              cfg.n_heads // cfg.n_kv_heads, feat=cfg.d_head)
+        torch.cuda.empty_cache()
+    vlm, enc_dec = (get_config(arch) for arch in dict.fromkeys(a for a, *_ in
+                                                               CROSS_PATHS.values()))
+    k, n = config_projections(vlm)["wk"]
+    m = 4 * vlm.encoder_tokens
+    _dequant_rows_at(torch, device, gen, timer, rows, f"{vlm.name} cross wk ", k, n,
+                     (torch.bfloat16,), (m,))
+    _int8_rows_at(torch, device, gen, timer, rows, min_m, f"{vlm.name} cross wk", k, n, (m,))
+    k, n = config_projections(enc_dec)["w_in"]
+    _bsdp_rows_at(torch, device, gen, timer, rows, min_m, f"{enc_dec.name} encoder w_in", k, n,
+                  {"bsdp_gemm_fused": (4 * enc_dec.encoder_tokens,)})
+    torch.cuda.empty_cache()
+
+
+#: ``dequant_matmul``'s prefill shapes where path S's drift was weighed (M,
+#: K, N, x dtype): S's attention projections over its 4,160-token prompt and
+#: three of 64 (M = 16640; wq, and wk's N = 1024)
+DEQUANT_ACCURACY_SHAPES = ((16640, 4096, 4096, "float32"), (16640, 4096, 1024, "float32"))
+
+
+def dequant_accuracy(torch, device, gen) -> None:
+    """How far ``dequant_matmul`` and its plain version (``torch.matmul``
+    on the dequantized weight) each sit from the same product taken in
+    float64 and rounded once, at :data:`DEQUANT_ACCURACY_SHAPES`: max and
+    mean |Δ| over max |exact|.  Printed, not held: it says whether the
+    kernel's float32 sums round further from the exact product than the
+    plain path's."""
+    from repro_torch.kernels import dequant_gemv
+
+    for m, k, n, dtype in DEQUANT_ACCURACY_SHAPES:
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=device)
+        ws = torch.rand((1, n), generator=gen, device=device) * 0.02 + 1e-3
+        x = torch.randn((m, k), generator=gen, device=device).to(getattr(torch, dtype))
+        exact = (x.double() @ (w.double() * ws.double())).float().double()
+        scale = exact.abs().max().item()
+        errs = []
+        for fn in (dequant_gemv.dequant_matmul, dequant_gemv.dequant_matmul_plain):
+            got = fn(x, w, ws)
+            d = (got.double() - exact).abs()
+            errs.append((d.max().item() / scale, d.mean().item() / scale))
+        del exact, x
+        print(f"dequant_matmul accuracy M={m} N={n} K={k} x={dtype} against the float64 product: "
+              f"kernel max {errs[0][0]:.3e} mean {errs[0][1]:.3e}, plain max {errs[1][0]:.3e} "
+              f"mean {errs[1][1]:.3e} (of max |exact| {scale:.4g}; printed, not held)")
+        torch.cuda.empty_cache()
+
+
+def _cross_converted(cfg, mode: str, i: int) -> bool:
+    """Whether the residency policy ``mode`` converts layer ``i``'s
+    cross-attention projections: a ``cross`` layer's sit under
+    ``layers.i.mixer``, an ``attn_cross`` layer's under ``layers.i.cross``."""
+    from repro_torch.core.residency import ResidencySpec
+
+    key = "mixer" if cfg.mixer_kind(i) == "cross" else "cross"
+    return ResidencySpec.parse(mode).mode_for(f"layers.{i}.{key}.wq") != "bf16"
+
+
+def cross_step_rows(path: str, slots: int = 4) -> list:
+    """STEP_ROWS for a path of :data:`CROSS_PATHS`, counted from the
+    config's layers: (kernel, row, launches a decode step) at slots=4, or
+    ``bsdp_gemv``'s at slots=1 (A's stack).  A self-attention layer
+    launches wq, wk, wv and wo, a converted cross branch wq and wo (its K/V
+    come from the cache)."""
+    from repro_torch.configs import get_config
+
+    arch, stack, _, _ = CROSS_PATHS[path]
+    cfg = get_config(arch)
+    mode = PATHS[stack][0]
+    n = cfg.n_layers
+    if slots == 1:
+        return [("bsdp_gemv", config_row(cfg, name, 1), n) for name in ("w_in", "w_out")]
+    n_self = sum(cfg.mixer_kind(i) != "cross" for i in range(n))
+    n_cross = sum(cfg.mixer_kind(i) != "attn" and _cross_converted(cfg, mode, i)
+                  for i in range(n))
+    attn = [("wq", 2 * n_self + 2 * n_cross), ("wk", 2 * n_self)]
+    if stack == "B":
+        return ([("matmul_int8", config_row(cfg, name, 4), k) for name, k in attn]
+                + [("matmul_int8", config_row(cfg, name, 4), 1 if name == "head" else n)
+                   for name in ("w_in", "w_out", "head")])
+    return ([("dequant_matmul", config_row(cfg, name, 4) + " x=bf16", k) for name, k in attn]
+            + [("bsdp_gemm_fused", config_row(cfg, name, 4), n) for name in ("w_in", "w_out")]
+            + [("plane_decode_attention", f"R={4 * cfg.n_kv_heads} G="
+                f"{cfg.n_heads // cfg.n_kv_heads} L=512 Fw={cfg.d_head // 32}", n_self)])
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: serve full qwen3-1.7b through each path's kernels
 # ---------------------------------------------------------------------------
@@ -1194,6 +1385,36 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
     return counts
 
 
+def draw_converted(torch, device, cfg, path, header, largest, what, prepare=None):
+    """``path``'s weights for ``cfg``, drawn from ``SEED`` and converted leaf
+    by leaf (``engine.materialize_converted``), then ``prepare(params)`` if
+    given; resident bytes held to :func:`analytic_resident_bytes` and the
+    peak allocation to resident + 2 x ``largest`` (``what``: the largest
+    float32 leaf drawn whole) + :data:`STREAM_SLACK_BYTES`."""
+    from repro_torch.serve import engine
+
+    mode = path_spec(path)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
+    if prepare is not None:
+        prepare(qparams)
+    torch.cuda.synchronize()
+    got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = got + 2 * largest + STREAM_SLACK_BYTES
+    print(f"path {path}: {header} drawn and converted leaf by leaf ({mode}): "
+          f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
+          f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
+          f"2 x {largest} B, {what}, + {STREAM_SLACK_BYTES} B)")
+    check(abs(got - want) <= RESIDENT_RTOL * want,
+          f"path {path}: resident bytes {got} vs analytic {want}")
+    check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
+    return qparams
+
+
 def phase_configs(torch, device, card) -> dict[str, dict]:
     """Paths G-J: each further config at full width (and depth, but where
     :data:`CONFIG_DEPTH` cuts it) on path A's and path B's stack, drawn from
@@ -1207,27 +1428,12 @@ def phase_configs(torch, device, card) -> dict[str, dict]:
     counts = {}
     for path, (arch, _, _) in CONFIG_PATHS.items():
         cfg = config_for(arch)
-        mode = path_spec(path)[0]
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
-        torch.cuda.synchronize()
-        got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
-        peak = torch.cuda.max_memory_allocated() - base
         largest = max(k * n for name, (k, n) in config_projections(cfg).items()
                       if name != "head") * 4
-        limit = got + 2 * largest + STREAM_SLACK_BYTES
-        print(f"path {path}: {arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, d_ff "
-              f"{cfg.d_ff}, vocab {cfg.vocab_size}) drawn and converted leaf by leaf ({mode}): "
-              f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
-              f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
-              f"2 x {largest} B, the largest layer projection in float32, + "
-              f"{STREAM_SLACK_BYTES} B)")
-        check(abs(got - want) <= RESIDENT_RTOL * want,
-              f"path {path}: resident bytes {got} vs analytic {want}")
-        check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
+        qparams = draw_converted(
+            torch, device, cfg, path,
+            f"{arch} ({cfg.n_layers} layers, d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab "
+            f"{cfg.vocab_size})", largest, "the largest layer projection in float32")
         counts[path] = _serve_path(torch, device, card, engine, qparams, cfg, path)
         phase_profile(torch, device, engine, qparams, cfg, card, path)
         del qparams
@@ -1282,24 +1488,8 @@ def phase_full_paths(torch, device, card, paths) -> dict[str, dict]:
     counts = {}
     for path, (arch, _, _, _) in paths.items():
         cfg = config_for(arch)
-        mode = path_spec(path)[0]
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        qparams = engine.materialize_converted(cfg, mode, seed=SEED, device=device)
-        torch.cuda.synchronize()
-        got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
-        peak = torch.cuda.max_memory_allocated() - base
-        largest = _largest_leaf_bytes(cfg)
-        limit = got + 2 * largest + STREAM_SLACK_BYTES
-        print(f"path {path}: {arch} ({describe(cfg)}) drawn and converted leaf by leaf ({mode}): "
-              f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
-              f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
-              f"2 x {largest} B, the largest layer leaf in float32, + {STREAM_SLACK_BYTES} B)")
-        check(abs(got - want) <= RESIDENT_RTOL * want,
-              f"path {path}: resident bytes {got} vs analytic {want}")
-        check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
+        qparams = draw_converted(torch, device, cfg, path, f"{arch} ({describe(cfg)})",
+                                 _largest_leaf_bytes(cfg), "the largest layer leaf in float32")
         counts[path] = _serve_path(torch, device, card, engine, qparams, cfg, path)
         phase_profile(torch, device, engine, qparams, cfg, card, path)
         del qparams
@@ -1382,12 +1572,13 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
     print(f"path {path} launches per decode step (slots=4): {step_launches}")
     check(step_launches == per_step,
           f"path {path}: decode step launched {step_launches}, expected {per_step}")
-    profile_steps(torch, eng, steps, f"path {path} profile decode step (slots=4, "
+    profile_steps(torch, eng.step, steps, f"path {path} profile decode step (slots=4, "
                   f"{cfg.n_layers} layers, {card}, under the profiler)")
 
 
-def profile_steps(torch, eng, steps: int, label: str) -> None:
-    """``torch.profiler`` over ``steps`` engine steps: wall time, device-busy
+def profile_steps(torch, step, steps: int, label: str) -> None:
+    """``torch.profiler`` over ``steps`` calls of ``step`` (an engine step,
+    or a decode step of the cross paths): wall time, device-busy
     time (the sum of the device-side kernel and copy durations), idle share,
     device operations per step and the kernels taking most device time."""
     from torch.autograd import DeviceType
@@ -1396,7 +1587,7 @@ def profile_steps(torch, eng, steps: int, label: str) -> None:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            eng.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     dev_events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1526,7 +1717,7 @@ def phase_chunked(torch, device, card, engine, qparams, cfg) -> dict:
             eng.submit(p, 32)
         eng.step()  # refill: the long prompt's first chunk, the shorts' whole prompts
         n = min(int(sched.split("=")[1]), E_LONG - eng.requests[0].prefilled)
-        profile_steps(torch, eng, 1, f"path E profile chunk step ({sched}: S={n}, G={2 * n}, "
+        profile_steps(torch, eng.step, 1, f"path E profile chunk step ({sched}: S={n}, G={2 * n}, "
                       f"3 decode rows, {cfg.n_layers} layers, {card}, under the profiler)")
         torch.cuda.empty_cache()
     return counts
@@ -1608,7 +1799,8 @@ S_SCHEDULERS = ("fcfs", "token_budget:budget=256")
 #: w8a16's last-bit differences (a row's int4 scale is its max |x|, so one
 #: moved element can re-round the whole row) over S's 4,160-token rows, and
 #: the fcfs line of the int4 FFN beside the bf16 cache shows that the drift
-#: starts there and not at the cache.
+#: starts there and not at the cache; :func:`_reference_distances` then
+#: measures both of its paths against a more exact run.
 S_MODES = (
     (MOE_EXACT_MODE[:2], S_SCHEDULERS, "exact"),
     (("w8a16", "int4_bp_fused"), S_SCHEDULERS, "limits"),
@@ -1719,9 +1911,216 @@ def phase_window(torch, device, card) -> dict:
                              (0.0, PATH_LIMITS["float32"][1]) if exact else
                              PATH_LIMITS["float32"], device, exact_routes=exact,
                              schedule=schedule, held=held != "printed")
+        if (mode, cache) == PATHS["A"][:2]:
+            _reference_distances(
+                torch, f"path S ({cfg32.name}, {cfg32.n_layers} layers, {mode}, cache {cache}, "
+                f"fcfs)",
+                lambda impl, forced: _serve_cut(engine, params32, cfg32, mode, cache, "fcfs",
+                                                impl, device, forced=forced, schedule=schedule))
         del params32
         torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Paths T-W: cross-attention through model.prefill and model.decode_step
+# ---------------------------------------------------------------------------
+
+#: paths T-W: new tokens a request (greedy), and the ring length
+CROSS_NEW, CROSS_MAX_LEN = 32, 512
+
+
+def open_gates(params, cfg, value: float = CROSS_GATE) -> None:
+    """Set every cross layer's tanh ``gate`` to ``value`` in place (a
+    ``cross`` layer's under ``mixer``, an ``attn_cross`` layer's under
+    ``cross``; the encoder-decoder does not read its gate)."""
+    for i, layer in enumerate(params["layers"]):
+        kind = cfg.mixer_kind(i)
+        if kind != "attn":
+            layer["mixer" if kind == "cross" else "cross"]["gate"].fill_(value)
+
+
+class CrossDrive:
+    """One batch of requests of a cross-attention config driven through
+    ``model.prefill`` (prompts left-padded with negative positions, each
+    row's context drawn from ``SEED``) and greedy ``model.decode_step``
+    calls; each call's logits are checked finite and as wide as the vocab,
+    and its tokens copied to the host (as the engine copies its logits)."""
+
+    def __init__(self, torch, params, cfg, lens, device, impl=None, forced=None):
+        import numpy as np
+
+        from repro_torch.models import model as model_lib
+
+        self.torch, self.model, self.params, self.cfg, self.impl = (
+            torch, model_lib, params, cfg, impl)
+        self.forced = forced
+        b, s = len(lens), max(lens)
+        rng = np.random.default_rng(SEED + 5)
+        tokens = rng.integers(0, cfg.vocab_size, size=(b, s))
+        pos = np.stack([np.arange(s) - (s - n) for n in lens])
+        gen = torch.Generator(device=device).manual_seed(SEED + 5)
+        ctx = torch.randn((b, cfg.encoder_tokens, cfg.d_model), generator=gen, device=device)
+        key = "enc_embeds" if cfg.is_enc_dec else "ctx_embeds"
+        self.batch = {"tokens": torch.from_numpy(tokens).to(device),
+                      "positions": torch.from_numpy(pos.astype(np.int32)).to(device), key: ctx}
+        self.pos = torch.tensor(lens, dtype=torch.int32, device=device)
+        self.out: list = []  # tokens a call, on the host
+        self.logits: list = []  # [(kind, rows, host logits)] in the order of the calls
+        self.caches = None
+
+    def _take(self, kind, logits):
+        torch = self.torch
+        check(tuple(logits.shape) == (self.pos.shape[0], 1, self.cfg.vocab_size)
+              and bool(torch.isfinite(logits).all()),
+              f"{self.cfg.name}: {kind} logits not finite / wrong shape {tuple(logits.shape)}")
+        step = len(self.out)
+        if self.forced is not None:
+            tok = torch.as_tensor(self.forced[step], device=logits.device)[:, None]
+        else:
+            tok = logits[:, -1].argmax(-1, keepdim=True)
+        self.tok = tok
+        host = logits.cpu().numpy()
+        self.logits.append((kind, tok.shape[0], host))
+        self.out.append(tok.cpu().numpy()[:, 0])
+
+    def prefill(self):
+        logits, self.caches = self.model.prefill(self.params, self.batch, self.cfg,
+                                                 max_len=CROSS_MAX_LEN, impl=self.impl)
+        self._take("prefill", logits)
+
+    def step(self):
+        logits, self.caches = self.model.decode_step(self.params, self.tok, self.caches,
+                                                     self.pos, self.cfg, impl=self.impl)
+        self.pos = self.pos + 1
+        self._take("decode", logits)
+
+
+def phase_cross(torch, device, card) -> dict[str, dict]:
+    """Paths T-W: llama-3.2-vision-11b and seamless-m4t-medium at full width
+    and depth on A's and B's stacks, drawn from ``SEED`` and converted leaf
+    by leaf, every cross gate set to :data:`CROSS_GATE`, resident bytes held
+    to the analytic count (the cross and encoder leaves included) and the
+    peak allocation to its bound.  Each serves, through ``model.prefill``
+    and greedy ``model.decode_step``, four prompts of 16-128 tokens
+    (left-padded) with their contexts (llama-vision's [4, 1601, 4096] patch
+    embeddings, seamless's [4, 1536, 1024] frames through its encoder) for
+    :data:`CROSS_NEW` tokens, then one request at slots=1; the kernels of
+    the path must launch with no plain version on the card (``bsdp_gemv``
+    exactly twice a layer a decode step at slots=1), and one decode step at
+    slots=4 launch exactly the path's count; then 3 decode steps under the
+    profiler.  Returns path → kernel → launches."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    counts = {}
+    for path, (arch, _, must, per_step) in CROSS_PATHS.items():
+        cfg = config_for(arch).scaled(cache_format=path_spec(path)[1])
+        # the untied head's draw may be the largest (seamless's 256206-row vocab)
+        largest = max(_largest_leaf_bytes(cfg), 4 * cfg.d_model * cfg.vocab_size)
+        enc = f", encoder {cfg.n_enc_layers} layers" if cfg.is_enc_dec else ""
+        qparams = draw_converted(
+            torch, device, cfg, path,
+            f"{arch} ({describe(cfg)}, context {cfg.encoder_tokens} tokens{enc}, cross layers "
+            f"{[i for i in range(cfg.n_layers) if cfg.mixer_kind(i) != 'attn']}, gates "
+            f"{CROSS_GATE})", largest, "the largest leaf in float32",
+            prepare=lambda params: open_gates(params, cfg))
+        rng = np.random.default_rng(SEED)
+        counts[path] = {}
+        for slots in (4, 1):
+            lens = [int(n) for n in rng.integers(16, 129, size=slots)]
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            t0 = time.perf_counter()
+            drive = CrossDrive(torch, qparams, cfg, lens, device)
+            drive.prefill()
+            ttft = time.perf_counter() - t0
+            for _ in range(CROSS_NEW - 1):
+                drive.step()
+            wall = time.perf_counter() - t0
+            launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+            ran = {k: v for k, v in launches.items() if v}
+            print(f"path {path} slots={slots}: launches {ran} plain-on-cuda {sum(plain.values())}")
+            check(all(v == 0 for v in plain.values()),
+                  f"path {path} slots={slots}: a plain version ran on a CUDA tensor: {plain}")
+            for name in must[slots]:
+                check(launches[name] > 0, f"path {path} slots={slots}: {name} never launched")
+            if slots == 1 and "bsdp_gemv" in must[1]:
+                want_gemv = per_step["bsdp_gemm_fused"] * (CROSS_NEW - 1)
+                check(launches["bsdp_gemv"] == want_gemv,
+                      f"path {path} slots=1: bsdp_gemv launched {launches['bsdp_gemv']} times, "
+                      f"expected {want_gemv}")
+            for name, v in ran.items():
+                counts[path][name] = counts[path].get(name, 0) + v
+            toks = np.stack(drive.out)
+            check(toks.shape == (CROSS_NEW, slots) and bool(((toks >= 0)
+                                                             & (toks < cfg.vocab_size)).all()),
+                  f"path {path}: tokens {toks.shape} out of the vocab")
+            print(f"path {path} slots={slots} (prompts {lens}) on {card}: {slots * CROSS_NEW} "
+                  f"tokens in {wall:.2f} s, {slots * CROSS_NEW / wall:.2f} tok/s, TTFT (prefill, "
+                  f"encoder included) {ttft * 1e3:.2f} ms, TPOT "
+                  f"{(wall - ttft) / (CROSS_NEW - 1) * 1e3:.2f} ms, peak mem "
+                  f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        drive = CrossDrive(torch, qparams, cfg, [64] * 4, device)
+        drive.prefill()
+        drive.step()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        drive.step()
+        torch.cuda.synchronize()
+        step_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        print(f"path {path} launches per decode step (slots=4): {step_launches}")
+        check(step_launches == per_step,
+              f"path {path}: decode step launched {step_launches}, expected {per_step}")
+        profile_steps(torch, drive.step, 3, f"path {path} profile decode step (slots=4, "
+                      f"{cfg.n_layers} layers, {card}, under the profiler)")
+        del qparams, drive
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _reference_distances(torch, label: str, run) -> tuple:
+    """Whether a kernel path's drift from its plain path is a kernel's
+    fault or the stack's sensitivity to rounding: ``run(impl, forced)``
+    serves one teacher-forced schedule → (logit trace, tokens, MoE routes),
+    with ``forced`` another run's routes.  One reference run, the plain
+    path with every ``w8a16`` product taken in float64 and rounded once to
+    float32 (``dequant_matmul_plain`` wrapped for that run alone), then the
+    plain path and the kernel path with the reference's expert choices
+    forced; prints each path's distance from the reference and from each
+    other.  Within about 2x of each other, the kernel path is as far from
+    the more exact run as the plain path is: no kernel is at fault.
+    Printed, not held.  Returns the two distances (kernel, plain)."""
+    from repro_torch.kernels import dequant_gemv
+
+    plain_fn = dequant_gemv.dequant_matmul_plain
+
+    def wide(x, w_i8, w_scale):
+        w = w_i8.to(torch.float64) * w_scale.reshape(1, -1).to(torch.float64)
+        return (x.to(torch.float64) @ w).to(torch.float32)
+
+    dequant_gemv.dequant_matmul_plain = wide
+    try:
+        ref = run("plain", None)
+    finally:
+        dequant_gemv.dequant_matmul_plain = plain_fn
+    plain, kernel = run("plain", ref[2]), run(None, ref[2])
+    for other in (plain, kernel):
+        check([(k, s) for k, s, _ in other[0]] == [(k, s) for k, s, _ in ref[0]]
+              and other[1] == ref[1], f"{label}: a run scheduled or emitted differently")
+    (k_rel, k_cos, _), (p_rel, p_cos, _), (kp_rel, kp_cos, _) = (
+        _drift((kernel[0], ref[0])), _drift((plain[0], ref[0])), _drift((kernel[0], plain[0])))
+    ratio = k_rel / p_rel if p_rel else float("inf")
+    verdict = ("same order (within 2x): no kernel is at fault" if ratio <= 2 else
+               "the kernel path more than 2x further: a kernel is at fault")
+    forced = ", the reference's expert choices forced" if ref[2] else ""
+    print(f"{label} against a float64-w8a16 reference (float32{forced}, {len(ref[0])} logit "
+          f"vectors): kernel path max rel err {k_rel:.3e} / min cosine {k_cos:.6f}, plain path "
+          f"{p_rel:.3e} / {p_cos:.6f}, kernel vs plain {kp_rel:.3e} / {kp_cos:.6f}; kernel / "
+          f"plain distance {ratio:.3f}: {verdict} (printed, not held)")
+    return k_rel, p_rel
 
 
 # ---------------------------------------------------------------------------
@@ -1765,9 +2164,12 @@ def phase_paths(torch, device) -> None:
     """Kernel path against plain path on 2-layer cuts at full width: qwen3-1.7b
     under every stack of :data:`PATH_MODES`, each further config under its
     two stacks (paths G-R; path B's stack held to a zero difference on the
-    MLA, MoE, window and Mamba configs), qwen1.5-32b under :data:`DRIFT_MODES` and
+    MLA, MoE, window and Mamba configs), qwen1.5-32b under :data:`DRIFT_MODES`,
     deepseek-v2-lite-16b under :data:`MOE_EXACT_MODE` (the bit-exact stacks
-    held to a zero difference), in float32 and bf16."""
+    held to a zero difference) and the cuts of :data:`CROSS_CUTS` on their
+    two stacks (paths T-W; B's at a zero difference; A's in float32 with its
+    boundary codes forced, :class:`CodeLog`), seamless's also under
+    :data:`CROSS_DRIFT_MODES`, in float32 and bf16."""
     from repro_torch.configs import get_config
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
@@ -1794,6 +2196,47 @@ def phase_paths(torch, device) -> None:
                                  device, exact_routes=exact)
             del float_params
             torch.cuda.empty_cache()
+        for arch, depth in CROSS_CUTS.items():
+            cfg = get_config(arch).scaled(dtype=getattr(torch, dtype_name), **depth)
+            float_params = model_lib.materialize(cfg, seed=SEED, device=device)
+            open_gates(float_params, cfg)
+            modes = {path_spec(path)[:2]: "exact" if stack == "B" else "limits"
+                     for path, (p_arch, stack, _, _) in CROSS_PATHS.items() if p_arch == arch}
+            if cfg.is_enc_dec and dtype_name == "float32":
+                modes.update(CROSS_DRIFT_MODES)
+            enc = f" + {cfg.n_enc_layers} encoder" if cfg.is_enc_dec else ""
+            for (mode, cache), held in modes.items():
+                cut = cfg.scaled(cache_format=cache)
+                qparams = engine.convert_params(float_params, cut, mode)
+                # float32 rounds each float kernel's last bits into int4 codes
+                _hold(f"{cfg.name}, {mode}, cache {cache}, {cfg.n_layers}{enc} layers, "
+                      f"{dtype_name}, gates {CROSS_GATE}",
+                      lambda impl, _: _cross_run(torch, qparams, cut, impl, device),
+                      (0.0, limits[1]) if held == "exact" else limits,
+                      codes=dtype_name == "float32" and held != "exact")
+                del qparams
+            del float_params
+            torch.cuda.empty_cache()
+
+
+#: phase 4's cuts of the cross-attention configs: one period of
+#: llama-vision's superblock (its cross layer 3 among four self-attention
+#: layers) and seamless with 2 encoder and 2 decoder layers
+CROSS_CUTS = {"llama-3.2-vision-11b": {"n_layers": 5},
+              "seamless-m4t-medium": {"n_layers": 2, "n_enc_layers": 2}}
+#: their drive: two prompts left-padded to one prefill with their full-size
+#: contexts, then teacher-forced decode steps
+CROSS_CUT_LENS, CROSS_CUT_STEPS = (5, 3), 6
+#: the seamless cut in float32 under two more stacks, as DRIFT_MODES holds
+#: qwen1.5-32b's, each taking some of path A's steps out: (weights, cache)
+#: → "exact" (a zero difference: every kernel of the stack is exact, so no
+#: integer kernel is at fault at the encoder's M = 2 x 1536) or "limits"
+#: (PATH_LIMITS: w8a16's float32 sums in another order, through the int4
+#: cache)
+CROSS_DRIFT_MODES = {
+    ("ffn=bsdp_fused,mixer=w8a8", "bf16"): "exact",
+    ("w8a16", "int4_bp_fused"): "limits",
+}
 
 
 def _record_routes(forced=None):
@@ -1870,57 +2313,196 @@ def _drift(traces) -> tuple:
     return worst_rel, worst_cos, agree
 
 
-def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device,
-                     exact_routes=False, schedule=CUT_SCHEDULE, held=True):
-    """The kernel path against the plain path on one teacher-forced serve.
+class CodeLog:
+    """One drive's roundings of floats to integer codes, at the stacks' two
+    rounding sites: ``quant.quantize`` (the activations of ``w8a8``,
+    ``w4a8`` and the BSDP formats) and ``kvcache._quant_slots`` (the int8
+    and int4 caches, the plane cache's queries).  Without ``plain`` it
+    records each call's value over its scale and its codes.  With
+    ``plain`` (the plain run's log; the runs round in the same order) it
+    counts the codes that differ from that run's, and the largest |Δ|
+    between the two runs' values in steps; a code that differs by one where
+    both values lie within :data:`FLIP_TOL` of the half-step between the two
+    codes is a float32 rounding difference at a boundary, which ``force``
+    replaces by the plain run's code.  Any other difference is counted in
+    ``far``.  Used as a context manager around one drive."""
+
+    def __init__(self, plain=None, force=False):
+        self.plain, self.force = plain, force
+        self.calls: list = []
+        self.differ = self.forced = self.far = 0
+        self.drift = self.edge = 0.0  # largest |Δ value| and |value - boundary|, in steps
+        self.first = None  # the first differing code: (call, shape, its value in both runs)
+
+    def codes(self, v, q):
+        import torch
+
+        i = len(self.calls)
+        if self.plain is None:
+            self.calls.append((v, q))
+            return q
+        self.calls.append(None)
+        check(i < len(self.plain.calls) and self.plain.calls[i][1].numel() == q.numel(),
+              "the kernel run rounded other tensors than the plain run")
+        vp, qp = (t.reshape(-1) for t in self.plain.calls[i])
+        v, flat = v.reshape(-1), q.reshape(-1)
+        self.drift = max(self.drift, float((v - vp).abs().max()))
+        idx = (flat != qp).nonzero()[:, 0]
+        if not len(idx):
+            return q
+        qd, qpd = flat[idx].float(), qp[idx].float()
+        mid = (qd + qpd) / 2
+        dist = torch.maximum((v[idx] - mid).abs(), (vp[idx] - mid).abs())
+        near = ((qd - qpd).abs() == 1) & (dist <= FLIP_TOL)
+        if self.first is None:
+            self.first = (i, tuple(q.shape), float(v[idx[0]]), float(vp[idx[0]]))
+        self.differ += len(idx)
+        self.far += int((~near).sum())
+        self.edge = max(self.edge, float(dist.max()))
+        if self.force:
+            flat = flat.clone()
+            flat[idx[near]] = qp[idx[near]]
+            self.forced += int(near.sum())
+        return flat.reshape(q.shape)
+
+    def __enter__(self):
+        import dataclasses
+
+        from repro_torch.core import kvcache, quant
+
+        quantize, slots = quant.quantize, kvcache._quant_slots
+
+        def quantize_(x, *, bits=8, axis=-1, scale=None):
+            qt = quantize(x, bits=bits, axis=axis, scale=scale)
+            return dataclasses.replace(qt, data=self.codes(x / qt.scale, qt.data))
+
+        def slots_(x, qmax, qmin):
+            q, scale = slots(x, qmax, qmin)
+            return self.codes(x.to(scale.dtype) / scale[..., None], q), scale
+
+        quant.quantize, kvcache._quant_slots = quantize_, slots_
+        self._undo = lambda: (setattr(quant, "quantize", quantize),
+                              setattr(kvcache, "_quant_slots", slots))
+        return self
+
+    def __exit__(self, *exc):
+        self._undo()
+
+
+#: how near the half-step between two codes (in steps of the code) a value
+#: must lie in both runs for :class:`CodeLog` to count a code that differs
+#: as a float32 rounding difference at the boundary.  The two runs' values
+#: differ by float32 sums taken in another order, far below this; a kernel
+#: at fault moves them by a sizeable part of a step
+FLIP_TOL = 1e-3
+
+
+def _hold(label, run, limits, held=True, exact_routes=False, codes=False):
+    """The kernel path against the plain path on one teacher-forced drive:
+    ``run(impl, forced)`` → (logit trace, tokens, MoE routing log), with
+    ``forced`` another run's routing log.  ``label`` names the drive.
+
     For a MoE config it prints the share of (token, k) routing choices on
     which the kernel path's router agrees with the plain path's (all of
     them with ``exact_routes``, the all-exact stacks) and the router's
     smallest top-k margin.  An expert choice is discrete: a rounding
     difference near a tie changes a token by a whole expert's output.  So
     where the stack has float kernels, the logits held to ``limits`` come
-    from a kernel serve with the plain serve's expert choices forced, as
-    its tokens are; the unforced kernel serve's drift is printed beside it.
-    With ``held`` False the drift is printed and not held to ``limits``."""
+    from a kernel run with the plain run's expert choices forced, as its
+    tokens are; the unforced run's drift is printed beside it.
+
+    With ``codes`` the integer codes are treated the same way
+    (:class:`CodeLog`): where the kernel run rounds a value to another
+    code than the plain run, at a boundary within :data:`FLIP_TOL` of a
+    step, the held logits come from a kernel run with those codes forced
+    to the plain run's, and any code that differs farther fails.  An int4
+    step is 1/7 of a row's range, so one float32 last bit at a boundary
+    moves a row by a whole step.  With ``held`` False the drift is printed
+    and not held to ``limits``."""
+    from contextlib import nullcontext
+
     max_rel, min_cos = limits
-    plain = _serve_cut(engine, params, cfg, mode, cache, sched, "plain", device,
-                       schedule=schedule)
-    kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device,
-                        schedule=schedule)
-    arch = "" if cfg.name == "qwen3-1.7b" else f"{cfg.name}, "
+    plain_log = CodeLog() if codes else None
+    with plain_log or nullcontext():
+        plain = run("plain", None)
+    seen = CodeLog(plain_log) if codes else None
+    with seen or nullcontext():
+        kernel = run(None, None)
+    notes = []
     if plain[2]:
-        routes = [[sorted_idx for _, sorted_idx, _ in run[2]] for run in (kernel, plain)]
-        check(len(routes[0]) == len(routes[1]), f"{mode}: the two paths routed differently often")
+        routes = [[sorted_idx for _, sorted_idx, _ in r[2]] for r in (kernel, plain)]
+        check(len(routes[0]) == len(routes[1]), f"{label}: the two paths routed differently often")
         same = sum(int((a == b).sum()) for a, b in zip(*routes))
         total = sum(a.numel() for a in routes[1])
-        margin = min(float(m) for run in (kernel, plain) for _, _, m in run[2])
-        print(f"kernel vs plain routing ({cfg.name}, {mode}, {dtype_name}): {same}/{total} "
-              f"(token, k) choices agree ({same / total:.6f}), smallest top-k router margin "
-              f"{margin:.3e}")
+        margin = min(float(m) for r in (kernel, plain) for _, _, m in r[2])
+        print(f"kernel vs plain routing ({label}): {same}/{total} (token, k) choices agree "
+              f"({same / total:.6f}), smallest top-k router margin {margin:.3e}")
         check(same == total or not exact_routes,
-              f"{cfg.name} {mode}: the all-exact stack routed differently ({same}/{total})")
+              f"{label}: the all-exact stack routed differently ({same}/{total})")
         if not exact_routes:
             rel, cos, agree = _drift((kernel[0], plain[0]))
-            print(f"kernel vs plain path, routes unforced ({arch}{mode}, cache {cache}, "
-                  f"{sched}, {cfg.n_layers} layers, {dtype_name}): max rel err {rel:.3e}, min cosine "
-                  f"{cos:.6f}, argmax agree {agree}/{len(plain[0])} (not held: "
+            print(f"kernel vs plain path, routes unforced ({label}): max rel err {rel:.3e}, min "
+                  f"cosine {cos:.6f}, argmax agree {agree}/{len(plain[0])} (not held: "
                   f"{total - same} expert choices differ)")
-            kernel = _serve_cut(engine, params, cfg, mode, cache, sched, None, device,
-                                forced=plain[2], schedule=schedule)
+            kernel = run(None, plain[2])
+            notes.append("the plain path's expert choices")
+    if codes:
+        rel, cos, agree = _drift((kernel[0], plain[0]))
+        print(f"kernel vs plain path, codes unforced ({label}): max rel err {rel:.3e}, min cosine "
+              f"{cos:.6f}, argmax agree {agree}/{len(plain[0])}; {seen.differ} of the codes "
+              f"rounded in {len(plain_log.calls)} calls differ, {seen.far} of them farther than "
+              f"{FLIP_TOL} of a step from their boundary (after a first flip the runs part: "
+              f"not held)")
+        if seen.differ:
+            forced = CodeLog(plain_log, force=True)
+            with forced:
+                kernel = run(None, None)
+            call, shape, v, vp = forced.first
+            print(f"codes forced ({label}): {forced.forced} of {forced.differ} differing codes "
+                  f"lay within {FLIP_TOL} of a step of their boundary in both runs (farthest "
+                  f"{forced.edge:.3e}), {forced.far} farther; largest |Δ value| {forced.drift:.3e} "
+                  f"steps; the first at rounding call {call} of {len(plain_log.calls)} (a "
+                  f"{list(shape)} tensor), value {v!r} against the plain run's {vp!r}")
+            check(forced.far == 0, f"{label}: {forced.far} codes differ away from a rounding "
+                  f"boundary with the boundary codes forced (a kernel at fault)")
+            notes.append(f"{forced.forced} boundary codes forced to the plain path's")
     traces = (kernel[0], plain[0])
     kinds = [[(k, s) for k, s, _ in t] for t in traces]
-    check(kinds[0] == kinds[1], f"{mode}: kernel and plain paths scheduled differently")
-    check(kernel[1] == plain[1], f"{mode}: kernel and plain paths emitted different tokens")
+    check(kinds[0] == kinds[1], f"{label}: kernel and plain paths scheduled differently")
+    check(kernel[1] == plain[1], f"{label}: kernel and plain paths emitted different tokens")
     worst_rel, worst_cos, agree = _drift(traces)
-    forced = " with the plain path's expert choices" if plain[2] and not exact_routes else ""
     limit = (f"limit {max_rel}), min cosine {worst_cos:.6f} (limit {min_cos})" if held else
              f"printed, not held), min cosine {worst_cos:.6f}")
-    print(f"kernel vs plain path ({arch}{mode}, cache {cache}, {sched}, {cfg.n_layers} layers, "
-          f"{dtype_name}{forced}): "
+    print(f"kernel vs plain path ({label}{''.join(f', with {n}' for n in notes)}): "
           f"{len(traces[0])} logit vectors, max rel err {worst_rel:.3e} ({limit}, argmax agree "
           f"{agree}/{len(traces[0])}")
     check(not held or worst_rel <= max_rel and worst_cos >= min_cos,
-          f"{arch}{mode}: kernel path logits drift from the plain path ({dtype_name})")
+          f"{label}: kernel path logits drift from the plain path")
+
+
+def _kernel_vs_plain(engine, params, cfg, mode, cache, sched, dtype_name, limits, device,
+                     exact_routes=False, schedule=CUT_SCHEDULE, held=True):
+    """:func:`_hold` on one teacher-forced serve of a cut under ``schedule``."""
+    arch = "" if cfg.name == "qwen3-1.7b" else f"{cfg.name}, "
+    _hold(f"{arch}{mode}, cache {cache}, {sched}, {cfg.n_layers} layers, {dtype_name}",
+          lambda impl, forced: _serve_cut(engine, params, cfg, mode, cache, sched, impl, device,
+                                          forced=forced, schedule=schedule),
+          limits, held=held, exact_routes=exact_routes)
+
+
+def _cross_run(torch, qparams, cfg, impl, device):
+    """One teacher-forced :class:`CrossDrive` of a cut (prompts
+    :data:`CROSS_CUT_LENS`, :data:`CROSS_CUT_STEPS` decode steps, inputs
+    from ``SEED``) → (logit trace, tokens, no routes)."""
+    import numpy as np
+
+    forced = np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, size=(CROSS_CUT_STEPS + 1, len(CROSS_CUT_LENS)))
+    drive = CrossDrive(torch, qparams, cfg, CROSS_CUT_LENS, device, impl=impl, forced=forced)
+    drive.prefill()
+    for _ in range(CROSS_CUT_STEPS):
+        drive.step()
+    return drive.logits, [t.tolist() for t in drive.out], []
 
 
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
@@ -1959,6 +2541,8 @@ def main() -> int:
     done("paths O-R")
     counts["S"] = phase_window(torch, device, card)
     done("path S")
+    counts.update(phase_cross(torch, device, card))
+    done("paths T-W")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

@@ -1,11 +1,12 @@
 """Architecture registry: get_config(name) / get_smoke_config(name).
 
-The port registers the architectures whose serving path it carries: the
+The port registers every model architecture of ``repro.configs``: the
 dense GQA configs, MLA (minicpm3-4b), MLA with sort-dispatch MoE
 (deepseek-v2-lite-16b), sliding-window MoE (mixtral-8x7b), Mamba-1
-(falcon-mamba-7b) and the Mamba/attention/MoE hybrid
-(jamba-1.5-large-398b); the cross-attention architectures of
-``repro.configs`` follow with their model code.
+(falcon-mamba-7b), the Mamba/attention/MoE hybrid (jamba-1.5-large-398b)
+and the cross-attention architectures: the VLM llama-3.2-vision-11b and
+the encoder-decoder seamless-m4t-medium, which ``model.prefill`` and
+``model.decode_step`` serve with a context (the engine serves none).
 """
 
 from importlib import import_module
@@ -21,6 +22,8 @@ _MODULES = {
     "mixtral-8x7b": "mixtral_8x7b",
     "falcon-mamba-7b": "falcon_mamba_7b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "llama-3.2-vision-11b": "llama_3_2_vision_11b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
 }
 
 ARCH_NAMES = list(_MODULES)

@@ -5,9 +5,11 @@ imports the JAX package), holding the fields its serving path reads, with
 the reference's defaults: the dense family (GQA attention or MLA, a dense
 FFN a layer), the MoE family (sort-dispatch experts, shared experts and
 leading dense layers, a sliding window), the SSM family (Mamba-1 mixers
-and no FFN) and the hybrid family (Mamba and attention interleaved in a
-periodic superblock).  The cross-attention fields arrive with the
-architectures that use them.
+and no FFN), the hybrid family (Mamba and attention interleaved in a
+periodic superblock), the VLM family (cross-attention layers over a
+context of patch embeddings in place of self-attention) and the audio
+family (an encoder-decoder whose every decoder layer cross-attends to the
+encoder's output).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str  # dense | moe | ssm | hybrid
+    family: str  # dense | moe | ssm | hybrid | vlm | audio
     n_layers: int
     d_model: int
     n_heads: int
@@ -62,6 +64,15 @@ class ModelConfig:
     expand: int = 2
     dt_rank: int = 0  # 0 -> ceil(d_model / 16)
 
+    # --- cross-attention (vlm / enc-dec decoder) ---
+    cross_attn_period: int = 0  # >0: layer i has cross-attn iff i % p == offset
+    cross_attn_offset: int = 0
+    encoder_tokens: int = 0  # stub frontend sequence length (patches/frames)
+
+    # --- encoder-decoder ---
+    is_enc_dec: bool = False
+    n_enc_layers: int = 0
+
     # --- misc ---
     norm: str = "rmsnorm"  # rmsnorm | layernorm
     act: str = "silu"  # silu (SwiGLU) | gelu
@@ -90,12 +101,20 @@ class ModelConfig:
         return self.d_head
 
     def mixer_kind(self, layer_idx: int) -> str:
-        """'attn' (GQA or MLA by ``attn_type``) | 'mamba' for global layer
-        index."""
+        """'attn' (GQA or MLA by ``attn_type``) | 'mamba' | 'cross' |
+        'attn_cross' for global layer index.
+
+        'cross' (vlm): the layer's mixer IS cross-attention (replaces self).
+        'attn_cross' (enc-dec decoder): self-attention followed by
+        cross-attention within the same layer.
+        """
         if self.family == "ssm":
             return "mamba"
         if self.attn_period > 0 and layer_idx % self.attn_period != self.attn_offset:
             return "mamba"
+        if (self.cross_attn_period > 0
+                and layer_idx % self.cross_attn_period == self.cross_attn_offset):
+            return "attn_cross" if self.is_enc_dec else "cross"
         return "attn"
 
     def ffn_kind(self, layer_idx: int) -> str:

@@ -15,7 +15,9 @@ and ``--scheduler fcfs``::
         --scheduler token_budget:budget=32
 
 ``--device`` defaults to ``cuda`` and the run fails when no GPU is
-present; ``--device cpu`` runs the kernels' plain versions instead.
+present; ``--device cpu`` runs the kernels' plain versions instead.  The
+VLM and encoder-decoder configs need a context that no request carries,
+so the launcher refuses them, as the reference's does.
 """
 
 from __future__ import annotations
@@ -71,6 +73,12 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.is_enc_dec or cfg.family == "vlm":
+        raise SystemExit(
+            f"{args.arch} needs a frontend-context request path; use the "
+            "prefill/decode API directly (repro_torch.models.model.prefill and "
+            "decode_step take the context)."
+        )
     t0 = time.perf_counter()
     params = engine.materialize_converted(cfg, args.mode, seed=0, device=args.device,
                                           min_dim=args.min_dim)

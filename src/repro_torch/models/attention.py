@@ -1,8 +1,8 @@
 """Attention mixers: GQA and MLA — prefill, ring-cache decode, chunked
 online softmax.
 
-Counterpart of the GQA and MLA parts of :mod:`repro.models.attention`
-(cross-attention comes with its architectures).  Decode caches are
+Counterpart of :mod:`repro.models.attention`: GQA, MLA and
+cross-attention.  Decode caches are
 position-indexed ring buffers: slot = position mod L; ``pos_ids`` holds the
 absolute position per slot (-1 = empty).  Cache residency — how a slot is
 stored and read back — belongs to the cache format
@@ -19,6 +19,14 @@ MLA (DeepSeek-V2 / MiniCPM3) caches only the latent — ``c_kv`` through the
 cache format, the small rope key ``k_rope`` in float — and decodes in the
 absorbed form: the query is absorbed through ``w_uk`` and the context read
 back through ``w_uv``, both dequantized to float on every step.
+
+Cross-attention (llama-3.2-vision's image layers, seamless-m4t's decoder)
+attends over a context the decoder did not write: :func:`cross_kv`
+projects the context's K and V once, at prefill, and they stay per-slot
+float state ``{"ck", "cv"}`` ``[B, ctx, Hkv, dh]`` in the config's dtype,
+through no cache format; :func:`cross_apply` attends to them with no rope
+and no mask (queries and keys all at position 0), under a tanh ``gate``
+where the config is not an encoder-decoder.
 """
 
 from __future__ import annotations
@@ -176,12 +184,12 @@ def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None):
     return out.reshape(b, s, hq, dh).to(q.dtype)
 
 
-def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None) -> torch.Tensor:
-    """Causal attention by the flash recurrence over KV chunks with a
-    running (max, sum, acc) carry, so no S×S score matrix is held for long
-    prompts.  q [B, Sq, H, D]; k, v [B, Skv, Hkv, D]; negative positions
-    are pads; with ``window`` a key is kept only if ``q_pos - k_pos <
-    window``."""
+def chunked_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None) -> torch.Tensor:
+    """Attention by the flash recurrence over KV chunks with a running
+    (max, sum, acc) carry, so no S×S score matrix is held for long prompts.
+    q [B, Sq, H, D]; k, v [B, Skv, Hkv, D]; negative key positions are
+    pads; ``causal`` keeps a key only if ``k_pos <= q_pos``, and with
+    ``window`` only if ``q_pos - k_pos < window``."""
     b, sq, hq, dh = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -199,10 +207,12 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None) -> torch.Tensor:
         for k0 in range(0, skv, ckv):
             kj, vj, kpj = kf[:, k0:k0 + ckv], vf[:, k0:k0 + ckv], kv_pos[:, k0:k0 + ckv]
             s = torch.einsum("bqhgd,bshd->bhgqs", qi, kj) * scale
-            mask = (kpj[:, None, None, None, :] >= 0) & (
-                qpi[:, None, None, :, None] >= kpj[:, None, None, None, :])
+            mask = kpj[:, None, None, None, :] >= 0
+            if causal:
+                mask = mask & (qpi[:, None, None, :, None] >= kpj[:, None, None, None, :])
             if window is not None:
-                mask &= (qpi[:, None, None, :, None] - kpj[:, None, None, None, :]) < window
+                mask = mask & ((qpi[:, None, None, :, None] - kpj[:, None, None, None, :])
+                               < window)
             s = torch.where(mask, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
@@ -213,6 +223,50 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, window=None) -> torch.Tensor:
         out = acc / torch.clamp_min(l[..., None], 1e-30)
         outs.append(out.permute(0, 3, 1, 2, 4))  # [B, nq, Hkv, G, D]
     return torch.cat(outs, dim=1).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision / encoder-decoder memory)
+# ---------------------------------------------------------------------------
+
+
+def cross_specs(cfg) -> dict:
+    """The cross-attention projections, and llama-vision's tanh ``gate``
+    (a float32 scalar, zero at init: the branch starts closed)."""
+    from repro_torch.models.model import ParamSpec
+
+    d, dh = cfg.d_model, cfg.d_head
+    return {
+        "wq": ParamSpec((d, cfg.n_heads * dh), cfg.dtype),
+        "wk": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
+        "wv": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
+        "wo": ParamSpec((cfg.n_heads * dh, d), cfg.dtype),
+        "gate": ParamSpec((), torch.float32, "zeros"),
+    }
+
+
+def cross_kv(params, ctx, cfg, impl=None) -> dict:
+    """Project the context ``[B, ctx, D]`` once → ``{"ck", "cv"}`` ``[B,
+    ctx, Hkv, dh]``, reused by every decode step."""
+    b, s, _ = ctx.shape
+    k = dense(params["wk"], ctx, impl=impl).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    v = dense(params["wv"], ctx, impl=impl).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    return {"ck": k, "cv": v}
+
+
+def cross_apply(params, x, kv, cfg, *, gated=True, impl=None) -> torch.Tensor:
+    """``x [B, S, D]`` attends over the projected context ``kv`` with no
+    rope and no mask; ``gated`` scales the output by ``tanh(gate)``."""
+    b, s, _ = x.shape
+    q = dense(params["wq"], x, impl=impl).reshape(b, s, cfg.n_heads, cfg.d_head)
+    k, v = kv["ck"], kv["cv"]
+    q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
+    kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
+    out = chunked_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=False)
+    out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
+    if gated:
+        out = torch.tanh(params["gate"]).to(out.dtype) * out
+    return out
 
 
 # ---------------------------------------------------------------------------

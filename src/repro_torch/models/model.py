@@ -1,21 +1,31 @@
-"""The causal LM: parameter specs, initialisation, prefill and decode.
+"""The causal LM, the VLM and the encoder-decoder: parameter specs,
+initialisation, encoder, prefill and decode.
 
 Counterpart of the serving half of :mod:`repro.models.model` for the dense,
-MoE, SSM and hybrid families, with GQA or MLA attention and Mamba-1 mixers.
-Parameters are a plain dict::
+MoE, SSM, hybrid, VLM and audio (encoder-decoder) families, with GQA or MLA
+attention, Mamba-1 mixers and cross-attention.  Parameters are a plain
+dict::
 
     {"embed": {"embedding", "head" (untied models)},
      "final_norm": {"scale", "bias" (layernorm)},
-     "layers": [{"ln1", "mixer": {...}, "ln2", "ffn": {...}}, ...]}
+     "layers": [{"ln1", "mixer": {...}, "ln_x", "cross": {...} (attn_cross),
+                 "ln2", "ffn": {...}}, ...],
+     "encoder": {"layers": [{"ln1", "mixer", "ln2", "ffn"}, ...],
+                 "final_norm"}  (encoder-decoder only)}
 
 one dict per layer where the reference stacks ``[n_superblocks, ...]``
 leaves (and keeps deepseek's leading dense layers apart, under
 ``prefix``).  The mixer, by ``cfg.mixer_kind(i)``, is GQA ``{wq, wk, wv,
 wo, bq, bk, bv (qkv_bias), q_norm, k_norm (qk_norm)}``, MLA ``{w_dkv,
-kv_norm, w_uk, w_uv, wo, and w_dq, q_norm, w_uq (q_lora_rank) or wq}`` or
+kv_norm, w_uk, w_uv, wo, and w_dq, q_norm, w_uq (q_lora_rank) or wq}``,
 Mamba ``{in_proj, conv_w, conv_b, x_proj, dt_w, dt_b, A_log, D, out_proj}``
-(:mod:`repro_torch.models.mamba`); a layer whose ``cfg.ffn_kind(i)`` is
-``"none"`` (the SSM family) has no ``ln2`` and no ``ffn``; the FFN dense ``{w_in, w_out}``
+(:mod:`repro_torch.models.mamba`) or cross-attention ``{wq, wk, wv, wo,
+gate}`` (``cross``: llama-vision's image layers, in place of
+self-attention); an ``attn_cross`` layer (an encoder-decoder's decoder)
+holds GQA under ``mixer`` and cross-attention under ``cross`` with its
+norm ``ln_x``.  The encoder's ``n_enc_layers`` layers are GQA + dense FFN,
+run without a mask.  A layer whose ``cfg.ffn_kind(i)`` is ``"none"`` (the
+SSM family) has no ``ln2`` and no ``ffn``; the FFN dense ``{w_in, w_out}``
 (``w_in`` ``[d, 2·d_ff]``, SwiGLU's fused gate and up, or ``[d, d_ff]``,
 GELU) or MoE ``{router [d, E] float32, w_in [E, d, 2·moe_d_ff], w_out [E,
 moe_d_ff, d], shared_w_in, shared_w_out (shared experts)}`` by
@@ -28,6 +38,12 @@ puts the expert axis where it reads the fan-in.  The numbers differ from
 across with :mod:`repro_torch.convert`.  On one device the vocab is not padded (the
 reference pads it to a multiple of its tensor-parallel width and masks the
 pad logits), so there is nothing to mask.
+
+The context the cross layers attend to comes with the prompt: a VLM's
+``batch["ctx_embeds"]`` (patch embeddings, cast to ``cfg.dtype``), or an
+encoder-decoder's ``batch["enc_embeds"]`` (frame embeddings) run through
+:func:`encode`.  :func:`prefill` projects it once a cross layer and keeps
+the K/V in that layer's cache; :func:`decode_step` reads them there.
 """
 
 from __future__ import annotations
@@ -115,17 +131,20 @@ def _moe_specs(cfg) -> dict:
     return ffn
 
 
-def _layer_specs(cfg, i: int) -> dict:
+def _layer_specs(cfg, mixer_kind: str, ffn_kind: str) -> dict:
     d = cfg.d_model
-    if cfg.mixer_kind(i) == "mamba":
+    if mixer_kind == "mamba":
         mixer = mamba.mamba_specs(cfg)
+    elif mixer_kind == "cross":
+        mixer = attention.cross_specs(cfg)
     else:
         mixer = _mla_specs(cfg) if cfg.attn_type == "mla" else _gqa_specs(cfg)
     layer = {"ln1": _norm_specs(cfg), "mixer": mixer}
-    kind = cfg.ffn_kind(i)
-    if kind == "none":
+    if mixer_kind == "attn_cross":
+        layer.update(ln_x=_norm_specs(cfg), cross=attention.cross_specs(cfg))
+    if ffn_kind == "none":
         return layer
-    if kind == "moe":
+    if ffn_kind == "moe":
         ffn = _moe_specs(cfg)
     else:
         ffn = {"w_in": ParamSpec((d, _d_in(cfg, cfg.d_ff)), cfg.dtype),
@@ -133,19 +152,29 @@ def _layer_specs(cfg, i: int) -> dict:
     return {**layer, "ln2": _norm_specs(cfg), "ffn": ffn}
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
+
+
 def specs(cfg) -> dict:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: the port serves the dense, moe, ssm and "
-                                  f"hybrid families, not {cfg.family!r}")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: the port serves the families {FAMILIES}, "
+                                  f"not {cfg.family!r}")
     embed = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), torch.float32,
                                     "embedding")}
     if not cfg.tie_embeddings:
         embed["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.dtype)
-    return {
+    tree = {
         "embed": embed,
         "final_norm": _norm_specs(cfg),
-        "layers": [_layer_specs(cfg, i) for i in range(cfg.n_layers)],
+        "layers": [_layer_specs(cfg, cfg.mixer_kind(i), cfg.ffn_kind(i))
+                   for i in range(cfg.n_layers)],
     }
+    if cfg.is_enc_dec:
+        tree["encoder"] = {
+            "layers": [_layer_specs(cfg, "attn", "dense") for _ in range(cfg.n_enc_layers)],
+            "final_norm": _norm_specs(cfg),
+        }
+    return tree
 
 
 def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
@@ -191,17 +220,41 @@ def materialize(cfg, seed: int = 0, device=None) -> dict:
     return draw(cfg, seed, device)
 
 
+def encode(params, enc_embeds: torch.Tensor, cfg, *, impl=None) -> torch.Tensor:
+    """The encoder (encoder-decoder only): ``enc_embeds [B, S, D]`` (the
+    stub frontend's frames, cast to ``cfg.dtype``) through the
+    ``n_enc_layers`` non-causal layers and the encoder's final norm."""
+    x = enc_embeds.to(cfg.dtype)
+    for p in params["encoder"]["layers"]:
+        x, _ = stack.layer_apply(p, x, cfg, mode="encode", impl=impl)
+    return layers.norm_apply(params["encoder"]["final_norm"], x, cfg)
+
+
+def _context(params, batch: dict, cfg, impl=None):
+    """The context the cross layers attend to: the encoder's output, a VLM's
+    patch embeddings, or None."""
+    if cfg.is_enc_dec:
+        return encode(params, batch["enc_embeds"], cfg, impl=impl)
+    if cfg.family == "vlm":
+        return batch["ctx_embeds"].to(cfg.dtype)
+    return None
+
+
 def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     """Run the prompt, build the decode caches → (last logits [B,1,V] f32,
     per-layer caches: an attention layer's ring is ``min(sliding_window,
-    max_len)`` long, a Mamba layer's state O(1)).  ``batch["positions"]``
-    (optional [B,S]) marks left-pad tokens with negative positions, which
-    attention ignores and a Mamba layer cannot (the engine never pads an
-    SSM config's prompts)."""
+    max_len)`` long, a Mamba layer's state O(1), a cross layer's the
+    projected context).  ``batch["positions"]`` (optional [B,S]) marks
+    left-pad tokens with negative positions, which attention ignores and a
+    Mamba layer cannot (the engine never pads an SSM config's prompts);
+    ``batch["ctx_embeds"]`` (VLM) or ``batch["enc_embeds"]``
+    (encoder-decoder) carries the context."""
+    ctx = _context(params, batch, cfg, impl=impl)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
     x, caches = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
                                   pos=batch.get("positions"),
-                                  cache_len=attention.cache_len_for(cfg, max_len), impl=impl)
+                                  cache_len=attention.cache_len_for(cfg, max_len), ctx=ctx,
+                                  impl=impl)
     x = layers.norm_apply(params["final_norm"], x, cfg)
     logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl)
     return logits.to(torch.float32), caches
@@ -209,7 +262,8 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
 
 def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
     """One decode step: ``token [B,S]`` against the caches (updated in
-    place) at scalar, per-slot ``[B]`` or per-token ``[B,S]`` positions."""
+    place) at scalar, per-slot ``[B]`` or per-token ``[B,S]`` positions.
+    Cross-attention reads its context from the caches."""
     pos = attention._decode_positions(pos, token.shape[0], token.shape[1], token.device)
     x = layers.embed_apply(params["embed"], token, cfg)
     x, caches = stack.stack_apply(params["layers"], x, cfg, mode="decode",

@@ -18,8 +18,8 @@ seconds, engine steps, processed positions) from which
 :meth:`ServeEngine.stats` derives TTFT and TPOT.  Each step ends by
 copying its logits to the host, so the wall clock covers the device work.
 
-Attention (GQA or MLA) ignores pad tokens, so a config whose every mixer
-is attention refills in one microbatch and may chunk its prompts; a Mamba
+Attention (GQA, MLA or cross-attention) ignores pad tokens, so a config
+whose every mixer is attention refills in one microbatch and may chunk its prompts; a Mamba
 state would absorb pad tokens, so an SSM or hybrid config refills one
 slot at a time and never chunks (the scheduler refills whole prompts), as
 the reference does.  A MoE layer routes pad tokens like any other, and an
@@ -226,8 +226,10 @@ class ServeEngine:
         self.caches = None
         self.pos = np.zeros(slots, np.int32)
         # left-padded microbatched refills and chunked prefill need layers
-        # that ignore pad tokens: attention does, a Mamba state does not
-        self._pad_ok = all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+        # that ignore pad tokens: attention (self or cross) does, a Mamba
+        # state does not
+        self._pad_ok = all(cfg.mixer_kind(i) in ("attn", "attn_cross", "cross")
+                           for i in range(cfg.n_layers))
         self._clock = clock
         self._next_uid = 0
         self._uids: set = set()

@@ -125,10 +125,11 @@ def _leaves(tree, path=()):
         yield ".".join(path), tree
 
 
-@pytest.mark.parametrize("arch", ALL_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS + ("llama-3.2-vision-11b", "seamless-m4t-medium"))
 def test_configs_match_reference_field_for_field(arch):
     """CONFIG and SMOKE: every field the port keeps equals the reference's
-    (dtypes by name), n_kv_heads=40 of qwen1.5-32b included."""
+    (dtypes by name), n_kv_heads=40 of qwen1.5-32b included; the
+    cross-attention configs' cross and encoder fields too."""
     for port, ref in ((configs.get_config(arch), ref_get_config(arch)),
                       (configs.get_smoke_config(arch), ref_smoke_config(arch))):
         for field in dataclasses.fields(port):

@@ -715,3 +715,137 @@ class TestTenthSliceOnTheCard:
         assert all(v == 0 for v in ops.plain_cuda_counts().values())
         plain = serve("plain")
         assert all(np.array_equal(a, b) for a, b in zip(card, plain))
+
+
+@pytest.mark.gpu
+class TestEleventhSliceOnTheCard:
+    """The kernels at the new shapes of llama-3.2-vision-11b and
+    seamless-m4t-medium (the cross K/V and encoder prefills, the untied
+    heads, plane attention at d_head 64) and one decode step's launches of
+    both configs on path A's stack."""
+
+    def test_cross_kv_and_encoder_prefill_shapes(self, cuda):
+        """llama-vision's cross K/V projection over 4 slots' 1601 patches (K
+        4096, N 1024, M = 6404): ``matmul_int8`` bit-exact and
+        ``dequant_matmul`` (f32 and bf16 x) within DEQUANT_RTOL; seamless's
+        encoder w_in over 4 × 1536 frames (K 1024, N 4096, M = 6144):
+        ``bsdp_gemm_fused`` bit-exact against its plain version."""
+        gen = torch.Generator(device=cuda).manual_seed(430)
+        k, n, m = 4096, 1024, 4 * 1601
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((1, n), generator=gen, device=cuda) * 0.02 + 1e-3
+        x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen, device=cuda)
+        xs = torch.rand((m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+        assert torch.equal(gemv_int8.matmul_int8(x, w, xs, ws),
+                           gemv_int8.matmul_int8_plain(x, w, xs, ws))
+        for dtype in (torch.float32, torch.bfloat16):
+            xf = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+            got = dequant_gemv.dequant_matmul(xf, w, ws)
+            want = dequant_gemv.dequant_matmul_plain(xf, w, ws)
+            assert (got - want).abs().max() <= DEQUANT_RTOL * want.abs().max(), dtype
+        k, n, m = 1024, 4096, 4 * 1536
+        wp = torch.randint(-2**31, 2**31, (n, 4, k // 32), dtype=torch.int32, generator=gen,
+                           device=cuda)
+        xp = torch.randint(-2**31, 2**31, (m, 4, k // 32), dtype=torch.int32, generator=gen,
+                           device=cuda)
+        assert torch.equal(bsdp_gemm.bsdp_gemm_fused(xp, wp),
+                           bsdp_gemm.bsdp_gemm_fused_plain(xp, wp))
+
+    @pytest.mark.parametrize("k, n", [(1024, 256206), (4096, 128256)])
+    def test_matmul_int8_at_the_untied_heads(self, cuda, k, n):
+        """seamless's head (N = 256206, no multiple of 16: the unaligned
+        route) and llama-vision's at M = 1 and 4, bit-exact."""
+        gen = torch.Generator(device=cuda).manual_seed(440)
+        w = torch.randint(-127, 128, (k, n), dtype=torch.int8, generator=gen, device=cuda)
+        ws = torch.rand((1, n), generator=gen, device=cuda) * 0.02 + 1e-3
+        for m in (1, 4):
+            x = torch.randint(-128, 128, (m, k), dtype=torch.int8, generator=gen, device=cuda)
+            xs = torch.rand((m, 1), generator=gen, device=cuda) * 0.05 + 1e-3
+            assert torch.equal(gemv_int8.matmul_int8(x, w, xs, ws),
+                               gemv_int8.matmul_int8_plain(x, w, xs, ws)), m
+
+    def test_plane_attention_at_d_head_64(self, cuda):
+        """seamless's decode shape: R = 64 (4 slots × 16 kv heads), G = 1, L
+        = 512, F = 64 (Fw = 2): within ATTN_TOL of the plain version, two
+        calls bitwise equal."""
+        a = attention_inputs(seed=450, b=4, h=16, g=1, l=512, feat=64)
+        args = [a["q_planes"], a["q_scale"], t(a["kp"]), torch.from_numpy(a["ks"]),
+                t(a["vp"]), torch.from_numpy(a["vs"]), torch.from_numpy(a["bias"])]
+        args = [x.to(cuda) for x in args]
+        got = plane_attn.plane_decode_attention(*args, sm_scale=a["sm"])
+        want = plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"])
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, want, rtol=ATTN_TOL, atol=ATTN_TOL)
+        assert torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=a["sm"]))
+
+    @pytest.mark.parametrize("arch, depth, per_step", [
+        ("llama-3.2-vision-11b", {"n_layers": 5},
+         {"dequant_matmul": 18, "bsdp_gemm_fused": 10, "plane_decode_attention": 4}),
+        ("seamless-m4t-medium", {"n_layers": 2, "n_enc_layers": 2},
+         {"dequant_matmul": 8, "bsdp_gemm_fused": 4, "plane_decode_attention": 2}),
+    ])
+    def test_decode_step_launches_on_path_a(self, cuda, arch, depth, per_step):
+        """Full width, depth cut (llama-vision's one period, cross layer 3;
+        seamless 2 + 2): one decode step at slots=4 launches, per layer, 4
+        W8A16 projections a self-attention and 2 a converted cross branch
+        (llama-vision's; seamless's ``cross`` leaves stay bf16), 2 BSDP GEMMs
+        and one plane attention a self-attention layer, with no plain
+        version on the card and finite logits."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config(arch).scaled(cache_format="int4_bp_fused", **depth)
+        params = engine.materialize_converted(cfg, "ffn=bsdp_fused,mixer=w8a16", seed=4,
+                                              device=cuda)
+        for i, layer in enumerate(params["layers"]):
+            if cfg.mixer_kind(i) != "attn":
+                layer["mixer" if cfg.mixer_kind(i) == "cross" else "cross"]["gate"].fill_(0.5)
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        key = "enc_embeds" if cfg.is_enc_dec else "ctx_embeds"
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 9), generator=gen, device=cuda),
+                 key: torch.randn((4, cfg.encoder_tokens, cfg.d_model), generator=gen,
+                                  device=cuda)}
+        logits, caches = model_lib.prefill(params, batch, cfg, max_len=64)
+        tok = logits[:, -1].argmax(-1, keepdim=True)
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        logits, _ = model_lib.decode_step(params, tok, caches, 9, cfg)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in ops.launch_counts().items() if v} == per_step
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())
+        assert torch.isfinite(logits).all()
+
+    @pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "seamless-m4t-medium"])
+    def test_cross_prefill_decode_kernel_path_equals_plain_path(self, cuda, arch):
+        """The smoke config on path B's stack (every kernel exact), gates
+        open: on the card the kernel path's logits equal the plain path's to
+        the bit through prefill and 4 decode steps."""
+        cfg = get_smoke_config(arch).scaled(dtype=torch.float32)
+        params = engine.convert_params(model_lib.materialize(cfg, seed=2, device=cuda), cfg,
+                                       "w8a8", min_dim=16)
+        for i, layer in enumerate(params["layers"]):
+            if cfg.mixer_kind(i) != "attn":
+                layer["mixer" if cfg.mixer_kind(i) == "cross" else "cross"]["gate"].fill_(0.5)
+        gen = torch.Generator(device=cuda).manual_seed(6)
+        key = "enc_embeds" if cfg.is_enc_dec else "ctx_embeds"
+        batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 7), generator=gen, device=cuda),
+                 "positions": torch.tensor([list(range(7)), list(range(-3, 4))],
+                                           dtype=torch.int32, device=cuda),
+                 key: torch.randn((2, cfg.encoder_tokens, cfg.d_model), generator=gen,
+                                  device=cuda)}
+        forced = torch.randint(0, cfg.vocab_size, (4, 2, 1), generator=gen, device=cuda)
+
+        def run(impl):
+            logits, caches = model_lib.prefill(params, batch, cfg, max_len=32, impl=impl)
+            out = [logits]
+            for step in range(4):
+                logits, caches = model_lib.decode_step(
+                    params, forced[step], caches, torch.tensor([7 + step, 4 + step], device=cuda),
+                    cfg, impl=impl)
+                out.append(logits)
+            return out
+
+        ops.reset_counts()
+        card = run(None)
+        assert ops.launch_counts()["matmul_int8"] > 0
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())
+        assert all(torch.equal(a, b) for a, b in zip(card, run("plain")))
