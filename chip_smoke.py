@@ -23,6 +23,21 @@ and two more at the same width and depth:
      under budget 256; phase 2 holds the kernel at G = 64, 384 and 512)
   F  ``w8a8`` with the ``int8`` cache under ``sjf``
 
+and, after E, two paths of path A's weights over ``paged_int4_bp_fused``
+pages (8 tokens a page, 64 a slot at max_len 512):
+
+  X  under ``fcfs`` with the default pool (slots × 64 pages), phase 3's
+     mix: every token and logit row equal to A's serves, A's launches a
+     decode step, the cache's bytes the analytic pool + tables + pos_ids
+     count, and the block-table gathers profiled alone
+  Y  under ``prefix_cache`` at slots=4 on a 176-page pool: twelve
+     requests behind one 256-token system prompt, the last wrapping its
+     ring into the shared pages, traced (``trace=True`` and a Chrome-trace
+     sink): prefix hits, copy-on-write, the shared pages' bytes intact,
+     the trace valid, stats, ``kernel.dispatch`` and ``pages.*`` equal to
+     their twins; an untraced rerun bitwise equal; the contiguous cache's
+     agreement printed
+
 then the two further dense configs at their full published width, depth
 cut to 8 layers (below), each on path A's and path B's stack (the same
 request mix, ``fcfs``):
@@ -273,11 +288,20 @@ CROSS_PATHS = {
 CROSS_GATE = 0.5
 
 
+#: the paged paths: path A's weights over the paged lifting of its cache,
+#: path → (scheduler, ``page_pool_pages``; None: the default slots × 64)
+PAGED_CACHE = "paged_int4_bp_fused"
+PAGED_PATHS = {"X": ("fcfs", None), "Y": ("prefix_cache", 176)}
+
+
 def path_spec(path: str) -> tuple:
     """(weights, cache, kernels that must launch by slots, launches a decode
     step at slots=4) of any serving path."""
     if path in PATHS:
         return PATHS[path]
+    if path in PAGED_PATHS:
+        mode, _, must, per_step = PATHS["A"]
+        return mode, PAGED_CACHE, must, per_step
     if path in MLA_PATHS or path in WINDOW_SSM_PATHS or path in CROSS_PATHS:
         _, stack, must, per_step = (MLA_PATHS.get(path) or WINDOW_SSM_PATHS.get(path)
                                     or CROSS_PATHS[path])
@@ -1375,9 +1399,14 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
     torch.cuda.empty_cache()
     counts = {}
     for path in PATHS:
-        counts[path] = _serve_path(torch, device, card, engine, qparams[path], cfg, path)
+        served = [] if path == "A" else None
+        counts[path] = _serve_path(torch, device, card, engine, qparams[path], cfg, path,
+                                   keep=served)
         if path == "A":
             counts["E"] = phase_chunked(torch, device, card, engine, qparams[path], cfg)
+            counts["X"] = phase_paged(torch, device, card, engine, qparams[path], cfg, served)
+            del served
+            counts["Y"] = phase_prefix(torch, device, card, engine, qparams[path], cfg)
         if path == "B":
             counts["F"] = phase_int8_cache(torch, device, card, engine, qparams[path], cfg)
         phase_profile(torch, device, engine, qparams.pop(path), cfg, card, path)
@@ -1497,7 +1526,9 @@ def phase_full_paths(torch, device, card, paths) -> dict[str, dict]:
     return counts
 
 
-def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
+def _serve_path(torch, device, card, engine, qparams, cfg, path, keep=None) -> dict:
+    """Phase 3's mix on ``path``; returns kernel → launches, and appends
+    each serve's (engine, its launches) to ``keep`` if given."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1533,6 +1564,8 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
                   f"path {path}: {cfg.name} launched plane attention")
         for name, v in ran.items():
             counts[name] = counts.get(name, 0) + v
+        if keep is not None:
+            keep.append((eng, ran))
         for req in eng.requests:
             check(req.state == "done" and len(req.out) == 32,
                   f"path {path}: request {req.uid} unfinished")
@@ -1548,10 +1581,11 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path) -> dict:
     return counts
 
 
-def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 3) -> None:
+def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 3):
     """Where a decode step's time goes on one path: the launches of one
     decode step at slots=4 (checked against the path's count), then
-    :func:`profile_steps` over a few steady decode steps."""
+    :func:`profile_steps` over a few steady decode steps.  Returns the
+    engine."""
     import numpy as np
 
     from repro_torch.kernels import ops
@@ -1574,6 +1608,7 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
           f"path {path}: decode step launched {step_launches}, expected {per_step}")
     profile_steps(torch, eng.step, steps, f"path {path} profile decode step (slots=4, "
                   f"{cfg.n_layers} layers, {card}, under the profiler)")
+    return eng
 
 
 def profile_steps(torch, step, steps: int, label: str) -> None:
@@ -1721,6 +1756,275 @@ def phase_chunked(torch, device, card, engine, qparams, cfg) -> dict:
                       f"3 decode rows, {cfg.n_layers} layers, {card}, under the profiler)")
         torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# Paths X and Y: path A's stack over paged bit-plane pages
+# ---------------------------------------------------------------------------
+
+
+def analytic_paged_cache_bytes(cfg, slots: int, max_len: int, num_pages: int,
+                               page: int = 8) -> int:
+    """``paged_int4_bp_fused``'s bytes from its shapes: per layer, K's and
+    V's pool (a page: ``page`` positions × kv heads × 4 plane words of
+    ceil(d_head / 32) int32 words and a float32 scale), their int32 block
+    tables (``slots × pages a slot``) and the int32 ``pos_ids`` (``slots ×
+    the page-rounded ring``)."""
+    npp, fw = -(-max_len // page), -(-cfg.d_head // 32)
+    pool = 2 * num_pages * page * cfg.n_kv_heads * (4 * fw * 4 + 4)
+    return cfg.n_layers * (pool + 2 * slots * npp * 4 + slots * npp * page * 4)
+
+
+def profile_gather(torch, eng, steps: int, card) -> None:
+    """The block-table gathers of one decode step alone (K and V of every
+    layer, as the fused read takes them) on the engine's live caches, under
+    :func:`profile_steps`: their device time and operations a step."""
+    fmt = eng._fmt
+
+    def gathers():
+        for layer in eng.caches:
+            for prefix in ("k", "v"):
+                fmt._gather(fmt.channel(layer, prefix))
+
+    profile_steps(torch, gathers, steps, f"path X profile gather alone ({len(eng.caches)} "
+                  f"layers x K and V, slots={eng.slots}, {card}, under the profiler)")
+
+
+def phase_paged(torch, device, card, engine, qparams, cfg, served_a) -> dict:
+    """Path X: path A's weights over ``paged_int4_bp_fused`` pages under
+    ``fcfs``, the default pool (slots × 64 pages), phase 3's mix from the
+    same seed.  Each serve must equal path A's serve of the same requests
+    (``served_a``) bit for bit, every token and every logit row, with the
+    same launches and no plain version on the card; the cache's bytes must
+    equal the analytic pool + tables + pos_ids count.  Then the decode-step
+    profile, launches per step equal to A's, and the gathers' share of it
+    alone.  Returns the kernel launches."""
+    import numpy as np
+
+    from repro_torch.core import kvcache
+
+    served: list = []
+    counts = _serve_path(torch, device, card, engine, qparams, cfg, "X", keep=served)
+    for (eng, ran), (ref, ran_a), slots in zip(served, served_a, (4, 1)):
+        check(ran == ran_a, f"path X slots={slots}: launches {ran} != path A's {ran_a}")
+        check([r.out for r in eng.requests] == [r.out for r in ref.requests],
+              f"path X slots={slots}: tokens differ from path A's")
+        check([(k, s) for k, s, _ in eng.logit_trace] == [(k, s) for k, s, _ in ref.logit_trace]
+              and all(np.array_equal(a, b) for (_, _, a), (_, _, b)
+                      in zip(eng.logit_trace, ref.logit_trace)),
+              f"path X slots={slots}: logits differ from path A's")
+        got = kvcache.cache_resident_bytes(eng.caches)
+        want = analytic_paged_cache_bytes(cfg, slots, 512, eng.page_pool.num_pages)
+        print(f"path X slots={slots}: {len(eng.logit_trace)} logit rows and "
+              f"{sum(len(r.out) for r in eng.requests)} tokens bit-identical to path A's; "
+              f"cache {got} B (analytic {want} B; path A's {kvcache.cache_resident_bytes(ref.caches)}"
+              f" B), pages {eng.stats().pages}")
+        check(got == want, f"path X: cache bytes {got} != analytic {want}")
+    del served
+    eng = phase_profile(torch, device, engine, qparams, cfg, card, "X")
+    profile_gather(torch, eng, 3, card)
+    return counts
+
+
+#: path Y's mix: one system prompt of Y_SHARED tokens (32 pages) before
+#: every request; Y_REQUESTS with 16-64 distinct tokens after it and 32 new
+#: tokens each, then one with Y_LONG distinct tokens and Y_LONG_NEW new
+#: tokens, whose positions run to 551 and wrap its ring into pages 0-4,
+#: which the prefix index still holds.  All are submitted at step 0.
+Y_SHARED, Y_REQUESTS, Y_LONG, Y_LONG_NEW = 256, 11, 200, 96
+
+
+def _prefix_mix(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 5)
+    shared = rng.integers(0, cfg.vocab_size, size=Y_SHARED).astype(np.int32)
+    lens = [int(n) for n in rng.integers(16, 65, size=Y_REQUESTS)] + [Y_LONG]
+    prompts = [np.concatenate([shared, rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)])
+               for n in lens]
+    return shared, prompts, [32] * Y_REQUESTS + [Y_LONG_NEW]
+
+
+def _serve_prefix(engine, qparams, cfg, device, cache, prompts, max_news, trace=False,
+                  on_register=None):
+    """One serve of path Y's mix on path A's weights and ``cache`` under
+    ``prefix_cache`` (slots=4, max_len 512, the pool of PAGED_PATHS["Y"]
+    for a paged cache).  Returns (engine, wall ms a step, most slots live at
+    once, uid → the first token's logits)."""
+    import numpy as np
+
+    kw = {"page_pool_pages": PAGED_PATHS["Y"][1]} if cache.startswith("paged") else {}
+    eng = engine.ServeEngine(qparams, cfg, mode=PATHS["A"][0], cache_format=cache,
+                             scheduler="prefix_cache", slots=4, max_len=512, trace=trace,
+                             trace_logits=True, device=device, **kw)
+    first, emit, register = {}, eng._emit, eng._register_prefix
+
+    def emit_first(req, row):
+        if not req.out:
+            first[req.uid] = np.array(row)
+        emit(req, row)
+
+    def registering(slot, req):
+        register(slot, req)
+        if on_register is not None:
+            on_register(eng, slot)
+
+    eng._emit, eng._register_prefix = emit_first, registering
+    reqs = [eng.submit(p, n) for p, n in zip(prompts, max_news)]
+    live, t0 = 0, time.perf_counter()
+    while eng.step():
+        live = max(live, sum(r is not None for r in eng.active))
+    wall_ms = (time.perf_counter() - t0) * 1e3 / eng.step_index
+    for req, n in zip(reqs, max_news):
+        check(req.state == "done" and len(req.out) == n, f"path Y: request {req.uid} unfinished")
+        check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
+    for kind, _, logits in eng.logit_trace:
+        check(bool(np.isfinite(logits).all()), f"path Y: {kind} logits not finite")
+    return eng, wall_ms, live, first
+
+
+def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
+    """Path Y: path A's weights over ``paged_int4_bp_fused`` pages under
+    ``prefix_cache``, slots=4, a pool of 176 pages (two private reservations
+    of 64, or four attached slots: 32 shared + 4 × 32), on :func:`_prefix_mix`.
+    Traced (``trace=True`` and a Chrome-trace sink), it must hold: (a) 10
+    prefix hits saving 2,560 tokens (all but the two requests that prefill
+    the shared prompt first), a copy-on-write, the pool's peak within 176
+    and 4 slots live at once; (b) the 32 indexed pages' bytes in every
+    layer's K and V pool, taken when the first request registers them,
+    unchanged after the run; (c) the trace valid under
+    ``repro_torch.obs.validate``; (d) the per-request stats rebuilt from the
+    events equal to ``stats()``; (e) the ``kernel.dispatch`` totals equal to
+    the launch counts; (f) the ``pages.*`` counters equal to
+    ``stats().pages`` and the last ``bytes.cache`` gauge to the cache's
+    bytes.  Run again with no sink, its tokens and logits must equal the
+    traced run's bit for bit (wall ms a step of both: obs's overhead).  The
+    contiguous ``int4_bp_fused`` cache under ``prefix_cache`` serves the
+    same mix: the share of equal tokens and each request's first-logit
+    distance are printed, not held (an attached request reads K/V its donor
+    computed at another M).  Returns the traced run's kernel launches."""
+    import json
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch import obs
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import ops
+
+    shared, prompts, max_news = _prefix_mix(cfg)
+    snap: dict = {}
+
+    def on_register(eng, slot):
+        if snap:
+            return
+        pages = torch.from_numpy(eng.prefix_index.match(shared)).to(device)
+        check(len(pages) == Y_SHARED // 8, f"path Y: {len(pages)} indexed prefix pages")
+        snap["pages"] = pages
+        snap["bytes"] = [{k: layer[k][pages].clone() for k in ("k", "k_scale", "v", "v_scale")}
+                         for layer in eng.caches]
+
+    obs.clear_sinks()
+    obs.reset_metrics()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        chrome = obs.register_sink(obs.ChromeTraceSink(path))
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        eng, wall_traced, live, first_paged = _serve_prefix(
+            engine, qparams, cfg, device, PAGED_CACHE, prompts, max_news,
+            trace=obs.RingSink(capacity=1 << 22), on_register=on_register)
+        torch.cuda.synchronize()
+        launches, plain = ops.launch_counts(), ops.plain_cuda_counts()
+        timeline = eng.timeline()
+        counters = {name: obs.counter_total(name) for name in (
+            "pages.alloc", "pages.free", "pages.cow", "pages.evict", "pages.prefix_hit",
+            "pages.prefix_tokens_saved")}
+        bytes_gauge = obs.gauge_value("bytes.cache")
+        n_records = len(chrome)
+        chrome.close()
+        obs.clear_sinks()
+        obs.reset_metrics()
+        with open(path) as f:
+            valid = obs.validate_chrome(json.load(f))
+    ran = {k: v for k, v in launches.items() if v}
+    st = eng.stats()
+    pages = st.pages
+    print(f"path Y serve (prefix_cache, slots=4, pool {pages['num_pages']} pages, traced) on "
+          f"{card}: {st.total_tokens} tokens, {st.tok_per_s:.2f} tok/s, TTFT p50 "
+          f"{st.percentile('ttft_s', 50) * 1e3:.2f} ms p95 {st.percentile('ttft_s', 95) * 1e3:.2f}"
+          f" ms, TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, "
+          f"{live} slots live at most, launches {ran}; pages {pages}")
+    check(all(v == 0 for v in plain.values()), f"path Y: a plain version ran on the card: {plain}")
+    for name in PATHS["A"][2][4]:
+        check(launches[name] > 0, f"path Y: {name} never launched")
+    # (a)
+    check(pages["prefix_hits"] == Y_REQUESTS - 1
+          and pages["prefix_tokens_saved"] == (Y_REQUESTS - 1) * Y_SHARED,
+          f"path Y: prefix hits {pages['prefix_hits']}, tokens saved "
+          f"{pages['prefix_tokens_saved']}")
+    check(pages["cow_copies"] >= 1, "path Y: no copy-on-write")
+    check(pages["peak_in_use"] <= pages["num_pages"] and live == 4,
+          f"path Y: peak {pages['peak_in_use']} pages, {live} slots live at most")
+    # (b)
+    same = all(torch.equal(layer[k][snap["pages"]], t0)
+               for layer, before in zip(eng.caches, snap["bytes"]) for k, t0 in before.items())
+    print(f"path Y: the {len(snap['pages'])} indexed prefix pages of {len(eng.caches)} layers' "
+          f"K and V pools bit-identical after the run: {same}")
+    check(same, "path Y: an indexed prefix page changed (a write missed its copy)")
+    # (c)
+    print(f"path Y trace: {n_records} records, valid: {valid['events']} events, "
+          f"{valid['spans']} spans, {valid['counters']} counter samples, "
+          f"{valid['instants']} instants")
+    # (d)
+    check(obs.request_stats_from_events(timeline) == st.requests,
+          "path Y: the request stats rebuilt from the trace differ from stats()")
+    # (e)
+    dispatched: dict = {}
+    for key, n in obs.dispatch_table(timeline).items():
+        labels = dict(key)
+        check(labels["impl"] == "cuda", f"path Y: a plain dispatch {labels}")
+        dispatched[labels["kernel"]] = dispatched.get(labels["kernel"], 0) + n
+    check(dispatched == ran, f"path Y: kernel.dispatch {dispatched} != launches {ran}")
+    # (f)
+    want = {"pages.alloc": pages["total_allocated"], "pages.free": pages["total_freed"],
+            "pages.cow": pages["cow_copies"], "pages.evict": pages["evictions"],
+            "pages.prefix_hit": pages["prefix_hits"],
+            "pages.prefix_tokens_saved": pages["prefix_tokens_saved"]}
+    check(counters == want, f"path Y: pages counters {counters} != stats {want}")
+    cache_bytes = kvcache.cache_resident_bytes(eng.caches)
+    check(bytes_gauge == cache_bytes, f"path Y: bytes.cache {bytes_gauge} != {cache_bytes}")
+    summary = obs.summarize_spans(timeline)
+    print("path Y spans (host ms, p50 / p95 / count): " + ", ".join(
+        f"{name.split('.')[1]} {summary[name]['p50_s'] * 1e3:.3f} / "
+        f"{summary[name]['p95_s'] * 1e3:.3f} / {summary[name]['count']}"
+        for name in ("engine.step", "engine.plan", "engine.reserve", "engine.prefill",
+                     "engine.cow", "engine.decode", "engine.complete") if name in summary))
+    traced = eng
+    del timeline, eng
+    untraced, wall_plain, _, _ = _serve_prefix(engine, qparams, cfg, device, PAGED_CACHE,
+                                               prompts, max_news)
+    check([r.out for r in untraced.requests] == [r.out for r in traced.requests]
+          and all(np.array_equal(a, b) for (_, _, a), (_, _, b)
+                  in zip(untraced.logit_trace, traced.logit_trace))
+          and len(untraced.logit_trace) == len(traced.logit_trace),
+          "path Y: the untraced run differs from the traced run")
+    print(f"path Y obs overhead on {card}: wall {wall_traced:.2f} ms/step traced, "
+          f"{wall_plain:.2f} ms/step with no sink ({traced.step_index} steps each); tokens and "
+          f"logits bitwise equal")
+    del untraced
+    ring, _, _, first_ring = _serve_prefix(engine, qparams, cfg, device, "int4_bp_fused",
+                                           prompts, max_news)
+    pairs = list(zip(traced.requests, ring.requests))
+    equal = sum(a == b for x, y in pairs for a, b in zip(x.out, y.out))
+    dist = [float(np.abs(first_paged[x.uid] - first_ring[y.uid]).max()
+                  / np.abs(first_ring[y.uid]).max()) for x, y in pairs]
+    print(f"path Y against the contiguous int4_bp_fused cache under prefix_cache (printed, not "
+          f"held): {equal} of {sum(max_news)} tokens equal ({equal / sum(max_news):.4f}); "
+          f"first logits max |d| / max |logit| by request {['%.3g' % d for d in dist]}; "
+          f"contiguous run {ring.step_index} steps, {ring.stats().tok_per_s:.2f} tok/s")
+    return ran
 
 
 def analytic_int8_cache_bytes(cfg, slots: int, max_len: int) -> int:
@@ -2532,7 +2836,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     done("phases 1-2 (build, kernels)")
     counts = phase_serve(torch, device, card)
-    done("paths A-C, E, F")
+    done("paths A-C, E, F, X, Y")
     counts.update(phase_configs(torch, device, card))
     done("paths G-J")
     counts.update(phase_full_paths(torch, device, card, MLA_PATHS))

@@ -22,8 +22,11 @@ float32 scale a slot ``[B, L, Hkv]``, both folded after the contraction
 bit-plane layout, payload ``[B, L, Hkv, 4, ceil(F/32)]`` int32 plane words,
 whose plain plane math (integer scores on the planes, V decoded to int4
 values) is the plain version of plane attention; ``int4_bp_fused`` — the
-same storage read by the hand-written ``plane_decode_attention`` kernel.
-The ``paged_*`` formats are not ported yet.
+same storage read by the hand-written ``plane_decode_attention`` kernel,
+which counts its own dispatch (``kernel.dispatch``, see
+:mod:`repro_torch.kernels.ops`) on the kernel route and on the plain one.
+The ``paged_*`` formats (:mod:`repro_torch.core.paging`) lift each of the
+four onto a page pool; importing this module registers them.
 """
 
 from __future__ import annotations
@@ -110,6 +113,12 @@ class CacheFormat:
     def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat,
                          impl=None) -> torch.Tensor:
         raise NotImplementedError(f"cache format {self.name!r} has no fused decode path")
+
+    def slot_capacity(self, cache_len: int) -> int:
+        """Ring length allocated for a requested ``cache_len``: itself for
+        the contiguous formats; the paged formats round it up to whole
+        pages, so the gathered storage and ``pos_ids`` stay congruent."""
+        return cache_len
 
     def channel(self, cache: dict, prefix: str) -> dict:
         data_key, scale_key = CHANNEL_KEYS[prefix]
@@ -286,3 +295,9 @@ register_cache_format(BF16CacheFormat())
 register_cache_format(Int8CacheFormat())
 register_cache_format(BitPlaneCacheFormat())
 register_cache_format(FusedBitPlaneCacheFormat())
+
+# The paged formats register themselves on import (paged_bf16 ...
+# paged_int4_bp_fused), so asking the registry is a complete answer for
+# every consumer.  At the bottom: paging imports this module back, and
+# finds it whole.
+from repro_torch.core import paging as _paging  # noqa: E402,F401

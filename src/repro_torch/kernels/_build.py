@@ -15,7 +15,11 @@ adds one to ``launches``.  ``launches`` counts executions — unlike the JAX
 package's ``kernel.dispatch`` counter, which fires once per call site at
 trace time.  ``plain_cuda_calls`` counts calls of the kernel's plain
 PyTorch version on CUDA tensors, so a run can show that the served path
-never took it.
+never took it.  While an observability sink is registered
+(:func:`repro_torch.obs.active`), each launch also emits the counter
+``kernel.dispatch`` with ``kernel=<name>, impl="cuda"`` and each call of
+the plain version ``impl="plain"`` (on any device): with no sink, the cost
+is one boolean test.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from pathlib import Path
 from typing import Optional
 
 import torch
+
+from repro_torch.obs import trace as obs
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -156,11 +162,16 @@ class CudaKernel:
                 f"{self.name}: CUDA error {rc} "
                 f"({lib.repro_error_string(rc).decode()})")
         self.launches += 1
+        if obs.active():
+            obs.counter("kernel.dispatch", kernel=self.name, impl="cuda")
 
     def note_plain(self, t: torch.Tensor) -> None:
-        """Record a call of the plain version (counted only on CUDA)."""
+        """Record a call of the plain version (``plain_cuda_calls`` counts
+        only those on CUDA tensors)."""
         if t.is_cuda:
             self.plain_cuda_calls += 1
+        if obs.active():
+            obs.counter("kernel.dispatch", kernel=self.name, impl="plain")
 
 
 def reset_counts() -> None:

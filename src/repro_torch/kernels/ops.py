@@ -16,9 +16,14 @@ experts of a MoE layer — and launch their kernel once, the groups on the
 grid's third axis.
 
 Counting: every kernel binding keeps ``launches``, incremented once per
-launch that the driver accepted (:func:`launch_counts`).  The JAX package's
-``kernel.dispatch`` counter fires at trace time and so counts call sites
-per compiled program; the port has no tracing and counts executions.
+launch that CUDA accepted (:func:`launch_counts`), and, while an
+observability sink is registered, emits ``kernel.dispatch`` with
+``kernel=`` and ``impl=`` (``"cuda"`` at a launch, ``"plain"`` at a call
+of the plain version) in the same place (``kernels/_build.py``), so the
+counter's ``impl="cuda"`` totals equal :func:`launch_counts`.  The JAX
+package's ``kernel.dispatch`` fires at trace time and so counts call
+sites per compiled program; the port has no tracing and counts
+executions.
 """
 
 from __future__ import annotations

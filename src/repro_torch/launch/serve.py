@@ -14,10 +14,16 @@ and ``--scheduler fcfs``::
         --mode ffn=bsdp_fused,mixer=w8a16 --cache-format int4_bp_fused \\
         --scheduler token_budget:budget=32
 
-``--device`` defaults to ``cuda`` and the run fails when no GPU is
-present; ``--device cpu`` runs the kernels' plain versions instead.  The
-VLM and encoder-decoder configs need a context that no request carries,
-so the launcher refuses them, as the reference's does.
+``--cache-format`` and ``--scheduler`` take any registered name, the
+``paged_*`` cache formats and the ``prefix_cache`` scheduler included.
+``--trace out.json`` writes the run's observability stream as a
+Chrome-trace / Perfetto document (check it with ``python -m
+repro_torch.obs.validate out.json``) and ``--stats-every N`` prints one
+stats line to stderr every N engine steps.  ``--device`` defaults to
+``cuda`` and the run fails when no GPU is present; ``--device cpu`` runs
+the kernels' plain versions instead.  The VLM and encoder-decoder configs
+need a context that no request carries, so the launcher refuses them, as
+the reference's does.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import time
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core import kvcache, residency
 from repro_torch.serve import engine
@@ -70,7 +77,30 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="write the run's spans, counters and request events as a "
+                         "Chrome-trace / Perfetto JSON document to this path")
+    ap.add_argument("--stats-every", type=int, default=0, metavar="N",
+                    help="print one serving stats line to stderr every N engine "
+                         "steps (0 = off)")
     args = ap.parse_args(argv)
+
+    trace_sink = stats_sink = None
+    if args.trace:
+        trace_sink = obs.register_sink(obs.ChromeTraceSink(args.trace))
+    if args.stats_every > 0:
+        stats_sink = obs.register_sink(obs.StatsLineSink(every=args.stats_every))
+    try:
+        _serve(args)
+    finally:
+        for sink in (trace_sink, stats_sink):
+            obs.unregister_sink(sink)
+    if trace_sink is not None:
+        trace_sink.close()
+        print(f"trace: {len(trace_sink)} records -> {args.trace}")
+
+
+def _serve(args) -> None:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if cfg.is_enc_dec or cfg.family == "vlm":
@@ -109,6 +139,9 @@ def main(argv=None):
 
     print(f"TTFT p50/p95: {ms(st.percentile('ttft_s', 50))}/"
           f"{ms(st.percentile('ttft_s', 95))}  TPOT p50: {ms(st.percentile('tpot_s', 50))}")
+    if st.pages is not None:
+        print("pages: " + ", ".join(f"{k} {v:.3g}" if isinstance(v, float) else f"{k} {v}"
+                                    for k, v in st.pages.items()))
 
 
 if __name__ == "__main__":

@@ -116,9 +116,13 @@ def cache_len_for(cfg, max_len: int) -> int:
 def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
     """Allocate the GQA ring cache through ``cfg``'s cache format on
     ``device`` (default ``"cuda"``; raises without a GPU unless the caller
-    asks for ``"cpu"``)."""
+    asks for ``"cpu"``).  The ring is ``fmt.slot_capacity(cache_len)``
+    long: ``cache_len`` for a contiguous format, rounded up to whole pages
+    for a paged one, so the gathered pages and ``pos_ids`` cover the same
+    slots."""
     device = resolve_device(device)
     fmt = kvcache.format_for(cfg)
+    cache_len = fmt.slot_capacity(cache_len)
     cache = {}
     for prefix in ("k", "v"):
         store = fmt.init(batch, cache_len, (cfg.n_kv_heads,), cfg.d_head,
@@ -329,10 +333,12 @@ def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
 def init_mla_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
     """The MLA latent cache on ``device`` (default ``"cuda"``): the ``c_kv``
     channel (lead ``()``, feature = the lora rank) through ``cfg``'s cache
-    format; the rope key ``k_rope [B, L, dr]`` stays float, and ``pos_ids``."""
+    format (paged under a paged format); the rope key ``k_rope [B, L, dr]``
+    stays float a slot, and ``pos_ids``.  L is ``fmt.slot_capacity(cache_len)``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     fmt = kvcache.format_for(cfg)
+    cache_len = fmt.slot_capacity(cache_len)
     cache = dict(fmt.channel_entries(
         "c_kv", fmt.init(batch, cache_len, (), cfg.kv_lora_rank, dtype=dtype, device=device)))
     cache["k_rope"] = torch.zeros((batch, cache_len, cfg.qk_rope_dim), dtype=dtype,

@@ -26,8 +26,24 @@ the reference does.  A MoE layer routes pad tokens like any other, and an
 idle slot's Mamba state takes its pad token at every decode step until a
 refill overwrites it, both as in the reference.
 
-Not ported yet: paging and prefix sharing (and with them the
-``prefix_cache`` scheduler), the observability spans.
+A ``paged_*`` cache format (:mod:`repro_torch.core.paging`) breaks the
+slot → storage identity: the pool tensors hold ``page_pool_pages`` pages
+(default ``slots × pages_per_slot``), each slot's block table names its
+pages, a refill reserves a slot's pages before its prefill (waiting in the
+queue while the pool is short), and under a scheduler that
+``wants_prefix_cache`` (``prefix_cache``) a request attaches the pages of
+the longest registered prefix of its prompt, refcounted, with a copy of a
+shared page made on the device before any write into it.
+
+Each step is instrumented through :mod:`repro_torch.obs`: the spans
+``engine.step`` / ``plan`` / ``reserve`` / ``prefill`` / ``cow`` /
+``decode`` / ``complete``, the counters ``sched.admit``, ``sched.requeue``
+and ``engine.tokens``, the ``request.*`` lifecycle events (carrying the
+stamps :meth:`ServeEngine.stats` reads) and the ``bytes.weights`` /
+``bytes.cache`` gauges.  ``ServeEngine(..., trace=True)`` keeps them in a
+ring (:meth:`ServeEngine.timeline`); with no sink registered every site is
+one boolean test.  The spans time the host; a span covers device work
+only up to the logits' copy to the host inside it.
 """
 
 from __future__ import annotations
@@ -40,8 +56,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import kvcache, residency
+from repro_torch.core import kvcache, paging, residency
 from repro_torch.models import model as model_lib
+from repro_torch.obs import trace as obs
 from repro_torch.serve import scheduler as sched_lib
 from repro_torch.serve.scheduler import (
     CANCELLED,
@@ -194,15 +211,19 @@ class ServeEngine:
     ``scheduler``: anything :func:`~repro_torch.serve.scheduler.make_scheduler`
     takes (``"fcfs"``, ``"sjf"``, ``"token_budget:budget=16"``, a class or
     an instance); ``impl="plain"`` serves through the plain PyTorch paths
-    instead of the kernels; ``clock`` stamps the wall-time clock;
-    ``device`` defaults to ``"cuda"`` and raises when there is none.
+    instead of the kernels; ``page_pool_pages`` caps the page pool of a
+    ``paged_*`` cache (default ``slots × pages_per_slot``); ``trace=True``
+    (or a sink) records the observability stream for :meth:`timeline`;
+    ``clock`` stamps the wall-time clock; ``device`` defaults to
+    ``"cuda"`` and raises when there is none.
     """
 
     def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 256,
                  impl: Optional[str] = None, mode: residency.SpecLike = "bf16",
                  cache_format: Optional[str] = None,
                  scheduler: sched_lib.SchedulerLike = "fcfs", min_dim: int = 64,
-                 trace_logits: bool = False,
+                 trace_logits: bool = False, trace=False,
+                 page_pool_pages: Optional[int] = None,
                  clock: Callable[[], float] = time.perf_counter, device=None):
         self.device = resolve_device(device)
         spec = residency.ResidencySpec.parse(mode)
@@ -214,7 +235,8 @@ class ServeEngine:
         self.params, self.cfg = params, cfg
         self.slots, self.max_len, self.impl = slots, max_len, impl
         self.mode = spec.describe()
-        self.cache_format = kvcache.format_for(cfg).name
+        self._fmt = kvcache.format_for(cfg)
+        self.cache_format = self._fmt.name
         self.scheduler = sched_lib.make_scheduler(scheduler)
         self.trace_logits = trace_logits
         #: when ``trace_logits``: [(kind, slots, np.ndarray logits)] in order;
@@ -230,6 +252,31 @@ class ServeEngine:
         # state does not
         self._pad_ok = all(cfg.mixer_kind(i) in ("attn", "attn_cross", "cross")
                            for i in range(cfg.n_layers))
+        # -- paged residency: the pool, host mirrors of the block tables and
+        # the prefix index
+        self._paged = isinstance(self._fmt, paging.PagedCacheFormat)
+        self.page_pool: Optional[paging.PagePool] = None
+        self.prefix_index: Optional[paging.RadixPrefixIndex] = None
+        if self._paged:
+            self._page = self._fmt.page_size
+            self._npp = self._fmt.pages_per_slot(max_len)
+            self._ring_len = self._fmt.slot_capacity(max_len)
+            pool_pages = slots * self._npp if page_pool_pages is None else int(page_pool_pages)
+            self.page_pool = paging.PagePool(pool_pages, self._page)
+            self.prefix_index = paging.RadixPrefixIndex(self._page)
+            self._tables = np.zeros((slots, self._npp), np.int64)
+            self._table_valid = np.zeros(slots, bool)
+            # True: the page is held by the prefix index or another slot too,
+            # so a write into it must copy it first
+            self._shared_mask = np.zeros((slots, self._npp), bool)
+        # prefix sharing remaps pool rows only, so every per-position leaf
+        # must be paged: pure GQA self-attention (MLA keeps a float k_rope a
+        # slot; cross and SSM layers keep per-slot state)
+        self._prefix_sharing = (
+            self._paged and self._pad_ok
+            and bool(getattr(self.scheduler, "wants_prefix_cache", False))
+            and all(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+            and not getattr(cfg, "kv_lora_rank", 0))
         self._clock = clock
         self._next_uid = 0
         self._uids: set = set()
@@ -237,6 +284,12 @@ class ServeEngine:
         self.work = 0
         self.wall_s = 0.0
         self._total_tokens = 0
+        # trace=True registers a ring of this engine's stream; an outside
+        # sink (the launcher's --trace) sees the same stream without it
+        self._ring: Optional[obs.RingSink] = None
+        if trace:
+            self._ring = obs.register_sink(obs.RingSink() if trace is True else trace)
+        self._weight_bytes: Optional[int] = None
 
     # -- admission ------------------------------------------------------
     def submit(self, prompt, max_new: int = 0, *, uid: Optional[int] = None,
@@ -262,16 +315,39 @@ class ServeEngine:
         req.arrival = self._stamp()
         self.queue.append(req)
         self.requests.append(req)
+        if obs.active():
+            obs.counter("sched.admit", scheduler=self.scheduler.name)
+            self._note_lifecycle("request.arrival", req, req.arrival)
         return req
 
     # -- bookkeeping ----------------------------------------------------
     def _stamp(self) -> Stamp:
         return Stamp(self._clock(), self.step_index, self.work)
 
+    def _note_lifecycle(self, name: str, req: Request, stamp: Stamp) -> None:
+        """One lifecycle event carrying the stamp the engine recorded, from
+        which :func:`repro_torch.obs.metrics.request_stats_from_events`
+        rebuilds the same TTFT/TPOT as :meth:`stats`."""
+        obs.event(name, uid=req.uid, state=req.state, t=stamp.time, step=stamp.step,
+                  work=stamp.work, prompt_len=req.prompt_len, new_tokens=len(req.out))
+
+    def timeline(self) -> list:
+        """The records this engine's ring kept (``trace=True``), in emission
+        order: for :func:`~repro_torch.obs.export.chrome_trace`,
+        :func:`~repro_torch.obs.metrics.summarize_spans` or
+        :func:`~repro_torch.obs.metrics.dispatch_table`."""
+        if self._ring is None:
+            raise RuntimeError("timeline() requires ServeEngine(..., trace=True)")
+        return self._ring.records()
+
+    def _pool_stats(self) -> Optional[dict]:
+        return None if self.page_pool is None else self.page_pool.stats()
+
     def _view(self) -> EngineView:
         return EngineView(slots=self.slots, active=tuple(self.active),
                           queue=tuple(self.queue), chunking_ok=self._pad_ok,
-                          max_len=self.max_len, step_index=self.step_index)
+                          max_len=self.max_len, step_index=self.step_index,
+                          pages=self._pool_stats())
 
     @staticmethod
     def _next_token(req: Request, logits_row: np.ndarray) -> int:
@@ -284,16 +360,28 @@ class ServeEngine:
         tok = self._next_token(req, logits_row)
         req.out.append(tok)
         self._total_tokens += 1
+        if obs.active():
+            obs.counter("engine.tokens")
         if req.first_token is None:
             req.first_token = self._stamp()
+            if obs.active():
+                self._note_lifecycle("request.first_token", req, req.first_token)
         if req.on_token is not None:
             req.on_token(req, tok)
 
     def _finish(self, req: Request, slot: Optional[int], state: str) -> None:
         req.state = state
         req.finished = self._stamp()
+        if obs.active():
+            self._note_lifecycle("request.finished", req, req.finished)
         if slot is not None:
             self.active[slot] = None
+            if self._paged and self._table_valid[slot]:
+                # drop this slot's references: pages the prefix index or
+                # another slot holds stay resident
+                self.page_pool.release(self._tables[slot])
+                self._table_valid[slot] = False
+                self._shared_mask[slot] = False
         self.scheduler.on_complete(req, self._view())
 
     def _sweep_terminal(self) -> None:
@@ -310,6 +398,111 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    # -- paged residency ------------------------------------------------
+    def _alloc_pages(self, n: int) -> np.ndarray:
+        """``n`` pages from the pool, evicting the least recently matched
+        prefix-index leaves held by the index alone until it can give them."""
+        while True:
+            try:
+                return self.page_pool.alloc(n)
+            except paging.PoolExhausted:
+                page = self.prefix_index.evict_lru(lambda p: self.page_pool.refs[p] == 1)
+                if page is None:
+                    raise
+                self.page_pool.release([page])
+                self.page_pool.note_eviction()
+
+    def _try_attach_prefix(self, slot: int, req: Request) -> bool:
+        """Map the request's leading block-table entries onto the pages of
+        the longest registered prefix of its prompt (refcounted) and give it
+        private pages for the rest.  It enters PREFILLING at the matched
+        length, so the scheduler's chunks prefill only the rest; at least
+        one prompt token is always left for the chunk that gives the first
+        token's logits."""
+        if not self._prefix_sharing or self.caches is None:
+            return False
+        matched = self.prefix_index.match(req.prompt)
+        k = min(len(matched), (req.prompt_len - 1) // self._page, self._npp - 1)
+        if k <= 0:
+            return False
+        shared = matched[:k]
+        self.page_pool.retain(shared)
+        try:
+            private = self._alloc_pages(self._npp - k)
+        except paging.PoolExhausted:
+            self.page_pool.release(shared)
+            raise
+        self._tables[slot, :k] = shared
+        self._tables[slot, k:] = private
+        self._table_valid[slot] = True
+        self._shared_mask[slot] = False
+        self._shared_mask[slot, :k] = True
+        n_tok = k * self._page
+        table_row = self._tensor(self._tables[slot].astype(np.int32))
+        pos_row = np.full(self._ring_len, -1, np.int32)
+        pos_row[:n_tok] = np.arange(n_tok, dtype=np.int32)
+        pos_row = self._tensor(pos_row)
+        for layer in self.caches:
+            for name, t in layer.items():
+                if name in paging.TABLE_KEYS:
+                    t[slot] = table_row
+                elif name == "pos_ids":
+                    t[slot] = pos_row
+        self.active[slot] = req
+        self.pos[slot] = n_tok
+        req.prefilled = n_tok
+        req.state = PREFILLING
+        self.page_pool.note_prefix_hit(n_tok)
+        return True
+
+    def _register_prefix(self, slot: int, req: Request) -> None:
+        """Register a wholly prefilled prompt's page-aligned prefix in the
+        radix index (at its PREFILLING → DECODING transition)."""
+        if not self._prefix_sharing:
+            return
+        k = min(req.prompt_len // self._page, self._npp)
+        if k <= 0:
+            return
+        new = self.prefix_index.insert(req.prompt[:k * self._page], self._tables[slot, :k])
+        if new:
+            self.page_pool.retain(new)
+        # the slot's prefix pages now held elsewhere too must be copied
+        # before the ring wraps into them
+        for j in range(k):
+            if self.page_pool.refs[self._tables[slot, j]] > 1:
+                self._shared_mask[slot, j] = True
+
+    def _cow_writes(self, writes) -> None:
+        """Copy-on-write before this step's appends: every shared page about
+        to be written gets a private copy, made on the device.  ``writes``
+        rows are ``(slot, positions)``; under ring recycling the first
+        divergent write is the wrap into a shared page."""
+        if not self._shared_mask.any():
+            return
+        ops = []
+        for slot, positions in writes:
+            for p in positions:
+                j = (int(p) % self._ring_len) // self._page
+                if not self._shared_mask[slot, j]:
+                    continue
+                old = int(self._tables[slot, j])
+                new = int(self._alloc_pages(1)[0])
+                ops.append((slot, j, old, new))
+                self._tables[slot, j] = new
+                self._shared_mask[slot, j] = False
+                self.page_pool.release([old])
+                self.page_pool.note_cow()
+        if not ops:
+            return
+        slots_t, js_t, old_t, new_t = (
+            self._tensor(np.array(col, np.int64)) for col in zip(*ops))
+        for layer in self.caches:
+            for name, t in layer.items():
+                if name in paging.POOL_KEYS:
+                    t[new_t] = t[old_t]
+                elif name in paging.TABLE_KEYS:
+                    t[slots_t, js_t] = new_t.to(t.dtype)
 
     # -- execution ------------------------------------------------------
     def _prefill_slots(self, assignments: list) -> None:
@@ -333,17 +526,35 @@ class ServeEngine:
                                             max_len=self.max_len, impl=self.impl)
         self.work += toks.size
         if self.caches is None:
+            # a paged pool leaf holds the pool's pages, fewer than slots ×
+            # pages_per_slot when page_pool_pages caps it
+            def rows_of(name):
+                return (self.page_pool.num_pages if self._paged and name in paging.POOL_KEYS
+                        else self.slots)
+
             self.caches = [
-                {name: torch.zeros((self.slots, *t.shape[1:]), dtype=t.dtype,
+                {name: torch.zeros((rows_of(name), *t.shape[1:]), dtype=t.dtype,
                                    device=t.device)
                  for name, t in layer.items()}
                 for layer in cache_b
             ]
         slot_ids = torch.tensor([slot for slot, _, _ in assignments], dtype=torch.long,
                                 device=self.device)
+        if self._paged:
+            # the prefill batch wrote through identity tables, so its pool
+            # rows [i·npp, (i+1)·npp) are batch row i's pages in order: they
+            # land on the pages _execute reserved for slot i
+            new_tables = np.stack([self._tables[slot] for slot, _, _ in assignments])
+            page_ids = self._tensor(new_tables.reshape(-1))
+            table_rows = self._tensor(new_tables.astype(np.int32))
         for full, rows in zip(self.caches, cache_b):
             for name, t in rows.items():
-                full[name][slot_ids] = t
+                if self._paged and name in paging.POOL_KEYS:
+                    full[name][page_ids] = t
+                elif self._paged and name in paging.TABLE_KEYS:
+                    full[name][slot_ids] = table_rows
+                else:
+                    full[name][slot_ids] = t
         last_logits = logits[:, -1].cpu().numpy()
         for i, (slot, req, n) in enumerate(assignments):
             self.active[slot] = req
@@ -351,6 +562,7 @@ class ServeEngine:
             req.prefilled = n
             if n == req.prompt_len:
                 req.state = DECODING
+                self._register_prefix(slot, req)
                 if self.trace_logits:
                     self.logit_trace.append(("prefill", (slot,), last_logits[i]))
                 self._emit(req, last_logits[i])
@@ -388,6 +600,7 @@ class ServeEngine:
             self.pos[slot] = req.prefilled
             if req.prefilled >= req.prompt_len:
                 req.state = DECODING  # the last chunk's logits are the first token's
+                self._register_prefix(slot, req)
                 if self.trace_logits:
                     self.logit_trace.append(("prefill", (slot,), step_logits[slot]))
                 self._emit(req, step_logits[slot])
@@ -406,19 +619,41 @@ class ServeEngine:
     def _execute(self, plan: StepPlan) -> bool:
         """Run one validated :class:`StepPlan`; returns progress."""
         refills = []
-        for slot, req, n in plan.refills:
-            if self.active[slot] is not None:
-                raise ValueError(f"plan refills occupied slot {slot}")
-            if req not in self.queue:
-                raise ValueError(f"plan refills unqueued request {req.uid}")
-            self.queue.remove(req)
-            refills.append((slot, req, min(n, req.prompt_len)))
+        attached = 0
+        starved = False
+        with obs.span("engine.reserve", refills=len(plan.refills)):
+            for slot, req, n in plan.refills:
+                if self.active[slot] is not None:
+                    raise ValueError(f"plan refills occupied slot {slot}")
+                if req not in self.queue:
+                    raise ValueError(f"plan refills unqueued request {req.uid}")
+                self.queue.remove(req)
+                try:
+                    if self._try_attach_prefix(slot, req):
+                        attached += 1  # the prefix is mapped; chunks do the rest
+                        continue
+                    if self._paged:
+                        # reserve the slot's pages up front; while the pool is
+                        # short the request waits (finishing slots free pages,
+                        # and a registered prefix may let it attach)
+                        self._tables[slot] = self._alloc_pages(self._npp)
+                        self._table_valid[slot] = True
+                        self._shared_mask[slot] = False
+                except paging.PoolExhausted:
+                    self.queue.insert(0, req)
+                    if obs.active():
+                        obs.counter("sched.requeue", scheduler=self.scheduler.name)
+                    starved = True
+                    break
+                refills.append((slot, req, min(n, req.prompt_len)))
         if refills:
-            if self._pad_ok:
-                self._prefill_slots(refills)
-            else:  # a Mamba state cannot skip pad tokens: one refill a call
-                for one in refills:
-                    self._prefill_slots([one])
+            with obs.span("engine.prefill", slots=len(refills),
+                          tokens=sum(n for _, _, n in refills)):
+                if self._pad_ok:
+                    self._prefill_slots(refills)
+                else:  # a Mamba state cannot skip pad tokens: one refill a call
+                    for one in refills:
+                        self._prefill_slots([one])
         chunks = [
             (slot, min(n, self.active[slot].prompt_len - self.active[slot].prefilled))
             for slot, n in plan.chunks
@@ -430,15 +665,38 @@ class ServeEngine:
             if self.active[s] is not None and self.active[s].state == DECODING
         )
         if chunks or decode_slots:
-            for req, slot in self._chunk_decode(chunks, decode_slots):
-                self._finish(req, slot, DONE)
-        return bool(refills or chunks or decode_slots)
+            if self._paged:
+                with obs.span("engine.cow"):  # before the decode call writes
+                    self._cow_writes(
+                        [(slot, range(self.active[slot].prefilled,
+                                      self.active[slot].prefilled + n))
+                         for slot, n in chunks]
+                        + [(s, (self.pos[s],)) for s in decode_slots])
+            with obs.span("engine.decode", chunks=len(chunks), decode=len(decode_slots)):
+                finished = self._chunk_decode(chunks, decode_slots)
+            if finished:
+                # finishes grouped out of the decode loop, in the emit order
+                with obs.span("engine.complete", n=len(finished)):
+                    for req, slot in finished:
+                        self._finish(req, slot, DONE)
+        progress = bool(refills or attached or chunks or decode_slots)
+        if starved and not progress:
+            # nothing live will ever free a page: a sizing error
+            raise paging.PoolExhausted(
+                f"page pool ({self.page_pool.num_pages} pages) cannot hold one request "
+                f"({self._npp} pages/slot) and no live slot will free any")
+        return progress
 
     def step(self) -> bool:
         """One scheduler-planned step; False when no progress was possible."""
         t0 = self._clock()
-        self._sweep_terminal()
-        progressed = self._execute(self.scheduler.plan(self._view()))
+        with obs.span("engine.step", step=self.step_index):
+            self._sweep_terminal()
+            with obs.span("engine.plan"):
+                plan = self.scheduler.plan(self._view())
+            progressed = self._execute(plan)
+            if obs.active():
+                self._note_resident_gauges()
         self.step_index += 1
         self.wall_s += self._clock() - t0
         return progressed
@@ -447,11 +705,20 @@ class ServeEngine:
         while self.step():
             pass
 
+    def _note_resident_gauges(self) -> None:
+        """Gauge the resident weight and cache bytes (the accounting of
+        :func:`resident_bytes` and ``kvcache.cache_resident_bytes``)."""
+        if self._weight_bytes is None:
+            self._weight_bytes = resident_bytes(self.params)
+        obs.gauge("bytes.weights", self._weight_bytes)
+        if self.caches is not None:
+            obs.gauge("bytes.cache", kvcache.cache_resident_bytes(self.caches))
+
     # -- SLO surface ----------------------------------------------------
     def stats(self) -> EngineStats:
         return EngineStats(
             scheduler=self.scheduler.describe(),
             requests=tuple(sched_lib.request_stats(r) for r in self.requests),
             total_tokens=self._total_tokens, wall_s=self.wall_s, work=self.work,
-            steps=self.step_index,
+            steps=self.step_index, pages=self._pool_stats(),
         )

@@ -18,11 +18,13 @@ Registered schedulers:
 * ``token_budget`` — chunked prefill: each slot prefills at most
                      ``budget`` prompt tokens a step, and the chunks run
                      through the decode path beside the decode rows.
+* ``prefix_cache`` — ``token_budget`` (budget 32) that asks the engine for
+                     prefix sharing (``wants_prefix_cache``): under a
+                     ``paged_*`` cache a request attaches the pages of a
+                     registered prompt prefix and prefills the rest.
 
 ``make_scheduler`` takes a registered name, a CLI string with int kwargs
-(``"token_budget:budget=16"``), a class or an instance.  The reference's
-``prefix_cache`` scheduler needs the paged cache formats, which the port
-does not have yet, so it is not registered here.
+(``"token_budget:budget=16"``), a class or an instance.
 
 The module also holds the lifecycle states (``QUEUED → PREFILLING →
 DECODING → DONE | CANCELLED``), the :class:`EngineStats` SLO surface and
@@ -91,6 +93,9 @@ class EngineView:
     chunking_ok: bool = True
     max_len: int = 0
     step_index: int = 0
+    #: ``PagePool.stats()`` under a paged cache format, None otherwise
+    #: (schedulers may read it, never change it)
+    pages: Optional[dict] = None
 
     def free_slots(self) -> tuple:
         return tuple(s for s in range(self.slots) if self.active[s] is None)
@@ -230,9 +235,23 @@ class TokenBudgetScheduler(FCFSScheduler):
                         decode=_decode_slots(view, refills))
 
 
+class PrefixCacheScheduler(TokenBudgetScheduler):
+    """Token-budget chunking plus prefix-cache admission.
+
+    ``wants_prefix_cache`` asks the engine to attach a refilled request to
+    the pages of the longest registered page-aligned prefix of its prompt
+    (the attach is the engine's and the page pool's work): the request
+    enters PREFILLING with ``prefilled`` at the matched length, so it must
+    advance by chunks, which this planner gives it."""
+
+    name = "prefix_cache"
+    wants_prefix_cache = True
+
+
 register_scheduler(FCFSScheduler)
 register_scheduler(SJFScheduler)
 register_scheduler(TokenBudgetScheduler)
+register_scheduler(PrefixCacheScheduler)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +279,8 @@ class EngineStats:
     wall_s: float
     work: int
     steps: int
+    #: the final ``PagePool.stats()`` (paged cache formats only)
+    pages: Optional[dict] = None
 
     @property
     def tok_per_s(self) -> float:

@@ -849,3 +849,123 @@ class TestEleventhSliceOnTheCard:
         assert ops.launch_counts()["matmul_int8"] > 0
         assert all(v == 0 for v in ops.plain_cuda_counts().values())
         assert all(torch.equal(a, b) for a, b in zip(card, run("plain")))
+
+
+@pytest.mark.gpu
+class TestTwelfthSliceOnTheCard:
+    """The paged residency on the card: the gather, a copy-on-write, one
+    decode step of path X's stack at full width and a smoke serve on the
+    paged fused cache against the contiguous one."""
+
+    @pytest.mark.parametrize("base", ["bf16", "int8", "int4_bp", "int4_bp_fused"])
+    def test_paged_gather_equals_the_ring(self, cuda, base):
+        """The same writes (pads, a wrap) into a contiguous ring of 24 slots
+        and a paged store of 3 pages a row under a permuted block table, on
+        CUDA tensors: the gather equals the ring bit for bit."""
+        cfg = get_smoke_config("qwen3-1.7b").scaled(dtype=torch.float32)
+        gen = torch.Generator(device=cuda).manual_seed(460)
+        caches = []
+        for fmt_name in (base, f"paged_{base}"):
+            c = dataclasses.replace(cfg, cache_format=fmt_name)
+            cache = attention.init_kv_cache(c, 2, 24, dtype=torch.float32, device=cuda)
+            for key in ("k_pages", "v_pages"):
+                if key in cache:
+                    cache[key].copy_(torch.tensor([[4, 0, 2], [1, 5, 3]], dtype=torch.int32))
+            gen.manual_seed(461)
+            for start in (-2, 8, 20):
+                pos = torch.arange(start, start + 10, dtype=torch.int32, device=cuda)
+                pos = torch.stack([pos, pos + 3])
+                k, v = (torch.randn((2, 10, cfg.n_kv_heads, cfg.d_head), generator=gen,
+                                    device=cuda) for _ in range(2))
+                attention._ring_write(cache, k, v, pos, kvcache.format_for(c))
+            caches.append((kvcache.format_for(c), cache))
+        (ring_fmt, ring), (fmt, paged) = caches
+        assert torch.equal(ring["pos_ids"], paged["pos_ids"])
+        for prefix in ("k", "v"):
+            got = fmt._gather(fmt.channel(paged, prefix))
+            want = ring_fmt.channel(ring, prefix)
+            for sfx in ring_fmt.suffixes:
+                assert got[sfx].is_cuda and torch.equal(got[sfx], want[sfx]), (prefix, sfx)
+
+    def test_copy_on_write_leaves_the_donor_page_intact(self, cuda):
+        """A smoke serve whose third request attaches to an indexed 8-token
+        prefix and wraps the ring of 16 onto it: the copy-on-write fires on
+        the card, and the shared page's bytes in every layer's pool are
+        those it held when the first request registered it."""
+        cfg = get_smoke_config("qwen3-1.7b").scaled(dtype=torch.float32)
+        params = model_lib.materialize(cfg, seed=3, device=cuda)
+        eng = engine.ServeEngine(params, cfg, slots=2, max_len=16, mode="ffn=bsdp_fused,"
+                                 "mixer=w8a16", cache_format="paged_int4_bp_fused",
+                                 scheduler="prefix_cache", page_pool_pages=8, min_dim=16,
+                                 device=cuda)
+        rng = np.random.default_rng(7)
+        prefix = rng.integers(0, cfg.vocab_size, size=8).astype(np.int32)
+        for _ in range(3):
+            eng.submit(np.concatenate([prefix, rng.integers(0, cfg.vocab_size, 2)
+                                       .astype(np.int32)]), 8)
+        snap = None
+        ops.reset_counts()
+        while eng.step():
+            if snap is None and eng.prefix_index.size:
+                page = int(eng._tables[0, 0])  # the first request's prefix page
+                snap = [{k: layer[k][page].clone() for k in ("k", "k_scale", "v", "v_scale")}
+                        for layer in eng.caches]
+        st = eng.stats().pages
+        assert st["cow_copies"] >= 1 and st["prefix_hits"] >= 1
+        for layer, before in zip(eng.caches, snap):
+            for key, t0 in before.items():
+                assert torch.equal(layer[key][page], t0), key
+        assert all(v == 0 for v in ops.plain_cuda_counts().values())
+
+    def test_decode_step_launches_on_path_x(self, cuda):
+        """qwen3-1.7b at full width cut to 2 layers on path A's stack over
+        ``paged_int4_bp_fused``: one decode step at slots=4 launches what
+        path A's does a layer (4 ``dequant_matmul``, 2 ``bsdp_gemm_fused``,
+        one plane attention), no plain version on the card."""
+        from repro_torch.configs import get_config
+
+        cfg = get_config("qwen3-1.7b").scaled(n_layers=2)
+        params = engine.materialize_converted(cfg, "ffn=bsdp_fused,mixer=w8a16", seed=4,
+                                              device=cuda)
+        launches = {}
+        for cache in ("int4_bp_fused", "paged_int4_bp_fused"):
+            eng = engine.ServeEngine(params, cfg, slots=4, max_len=512, cache_format=cache,
+                                     device=cuda)
+            rng = np.random.default_rng(8)
+            for _ in range(4):
+                eng.submit(rng.integers(0, cfg.vocab_size, size=40).astype(np.int32), 4)
+            eng.step()
+            eng.step()
+            torch.cuda.synchronize()
+            ops.reset_counts()
+            eng.step()
+            torch.cuda.synchronize()
+            launches[cache] = {k: v for k, v in ops.launch_counts().items() if v}
+            assert all(v == 0 for v in ops.plain_cuda_counts().values())
+        assert launches["paged_int4_bp_fused"] == launches["int4_bp_fused"] == {
+            "dequant_matmul": 8, "bsdp_gemm_fused": 4, "plane_decode_attention": 2}
+
+    def test_paged_smoke_serve_equals_the_contiguous_serve(self, cuda):
+        """Path A's stack at the smoke size, five requests over two slots,
+        one past the ring's wrap: on the card the paged fused cache gives
+        the contiguous serve's tokens and every logit row bit for bit."""
+        cfg = get_smoke_config("qwen3-1.7b").scaled(dtype=torch.float32)
+        params = model_lib.materialize(cfg, seed=5, device=cuda)
+        runs = []
+        for cache in ("int4_bp_fused", "paged_int4_bp_fused"):
+            eng = engine.ServeEngine(params, cfg, slots=2, max_len=16,
+                                     mode="ffn=bsdp_fused,mixer=w8a16", cache_format=cache,
+                                     min_dim=16, trace_logits=True, device=cuda)
+            rng = np.random.default_rng(9)
+            reqs = [eng.submit(rng.integers(0, cfg.vocab_size, size=n).astype(np.int32), mn)
+                    for n, mn in zip((5, 3, 7, 6, 4), (6, 2, 4, 12, 3))]
+            ops.reset_counts()
+            eng.run()
+            assert ops.launch_counts()["plane_decode_attention"] > 0
+            assert all(v == 0 for v in ops.plain_cuda_counts().values())
+            runs.append((eng, reqs))
+        (a, ra), (b, rb) = runs
+        assert [r.out for r in ra] == [r.out for r in rb]
+        assert [(k, s) for k, s, _ in a.logit_trace] == [(k, s) for k, s, _ in b.logit_trace]
+        assert all(np.array_equal(x, y) for (_, _, x), (_, _, y) in
+                   zip(a.logit_trace, b.logit_trace))

@@ -312,8 +312,8 @@ class TestLifecycle:
 
 class TestRegistry:
     def test_registry_ships_the_three_policies(self):
-        assert sched_lib.schedulers() == ("fcfs", "sjf", "token_budget")
-        assert set(sched_lib.schedulers()) <= set(ref_sched.schedulers())
+        assert sched_lib.schedulers() == ("fcfs", "sjf", "token_budget", "prefix_cache")
+        assert sched_lib.schedulers() == ref_sched.schedulers()
         with pytest.raises(ValueError, match="unknown scheduler"):
             sched_lib.make_scheduler("round_robin_nope")
         with pytest.raises(ValueError, match="bad scheduler arg"):
@@ -403,7 +403,7 @@ def test_simulate_equals_reference_field_for_field(scheduler):
     want_fields = dataclasses.asdict(want)
     for field, value in dataclasses.asdict(got).items():
         assert value == want_fields.pop(field), field
-    assert want_fields == {"pages": None}  # the reference's paged-only field
+    assert want_fields == {}  # ``pages`` too: None off the paged formats
     assert got.summary() == want.summary()
 
 
