@@ -102,6 +102,26 @@ cross branch):
   W  seamless-m4t-medium on path B's stack (``matmul_int8`` at the head's
      unaligned N = 256206)
 
+and then training (``phase_train``), which no kernel of the eight serves:
+
+  Z  (a) qwen3-1.7b at full width and depth drawn from ``SEED`` (bf16
+     layers), trained ``TRAIN_STEPS`` steps of ``make_train_step`` +
+     ``adamw`` (f32 moments, remat) on ``SyntheticLM`` batches of 4 x 1024
+     tokens, each step's loss, device ms (CUDA events), tokens/s, share of
+     the bf16 bound and peak allocation printed, the loss finite and falling,
+     a 2-microbatch step on the first batch held to the reference's
+     tolerance against the 1-microbatch step; (b) a 2-layer cut in float32,
+     one step on the card against the same step on the CPU (loss, grad norm,
+     every gradient leaf and every updated leaf within stated bounds); (c)
+     the 2-layer cut in bf16 with int8 moments: a step repeated from one
+     state compared bit for bit, a state saved through ``AsyncCheckpointer``
+     and restored bit for bit, the trainer's restart after ``FailureSim``
+     (its step history the reference trainer's pattern, its final parameters
+     an uninterrupted run's to the bit); none of (a)-(c) may reach a kernel
+     wrapper; (d) (a)'s trained weights converted to path A's stack and
+     served as path A is, A's exact launches a decode step (these launches
+     stay out of the kernels line)
+
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
 Phase 2 holds each grouped launch against its plain version at
@@ -148,6 +168,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -296,9 +317,12 @@ PAGED_PATHS = {"X": ("fcfs", None), "Y": ("prefix_cache", 176)}
 
 def path_spec(path: str) -> tuple:
     """(weights, cache, kernels that must launch by slots, launches a decode
-    step at slots=4) of any serving path."""
+    step at slots=4) of any serving path (Z serves its trained weights on
+    path A's)."""
     if path in PATHS:
         return PATHS[path]
+    if path == "Z":
+        return PATHS["A"]
     if path in PAGED_PATHS:
         mode, _, must, per_step = PATHS["A"]
         return mode, PAGED_CACHE, must, per_step
@@ -2428,6 +2452,374 @@ def _reference_distances(torch, label: str, run) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# Path Z: training qwen3-1.7b, then serving the trained weights on path A
+# ---------------------------------------------------------------------------
+
+#: path Z (a): steps of the train step at full width and depth, each on
+#: TRAIN_BATCH rows of TRAIN_SEQ tokens (bf16 parameters, f32 moments,
+#: remat on), the learning rate ``cosine_schedule(**TRAIN_LR)`` (the
+#: reference trainer's default peak; at 1e-3 from the first step the loss
+#: read 12.05, 16.57, 12.61, 22.34, 11.74, 9.53 on an NVIDIA H100 80GB HBM3
+#: at 700 W); then one more step under the profiler
+TRAIN_STEPS = 6
+TRAIN_BATCH, TRAIN_SEQ = 4, 1024
+TRAIN_LR = dict(peak_lr=3e-4, warmup=1, total=TRAIN_STEPS + 1)
+#: dense bf16 tensor-core peak of an H100 SXM (NVIDIA data sheet, 700 W)
+BF16_OPS_PER_S = 989e12
+#: the reference's own check of a 2-microbatch step against a 1-microbatch
+#: step (tests/test_serve_train_loop.py), on bf16 parameters
+MICROBATCH_TOL = dict(rtol=5e-2, atol=5e-3)
+#: path Z (b)-(c): the 2-layer cut at full width, CUT_BATCH rows of CUT_SEQ
+CUT_LAYERS, CUT_BATCH, CUT_SEQ = 2, 2, 256
+CUT_LR = 1e-3
+#: (b) card against CPU (float32, TF32 off): the loss and the grad norm
+#: relative, each gradient leaf relative to its largest element (float32
+#: sums over 512 tokens in another order on each device)
+CARD_CPU_LOSS_RTOL, CARD_CPU_GNORM_RTOL, CARD_CPU_GRAD_RTOL = 1e-5, 1e-4, 1e-3
+#: (c) the restart: steps, checkpoint period and the injected failure
+RESTART = dict(steps=4, ckpt_every=2, fail_at=(3,))
+
+
+def restart_pattern(steps: int, ckpt_every: int, fail_at) -> list:
+    """The steps the reference's trainer logs (``log_every=1``) when it fails
+    before each step of ``fail_at`` (once each) and restarts from its latest
+    checkpoint: one is written after every ``ckpt_every``-th step, so a
+    failure at step s resumes at ``s // ckpt_every * ckpt_every``."""
+    out, start, pending = [], 0, sorted(fail_at)
+    while True:
+        for s in range(start, steps):
+            if pending and s == pending[0]:
+                pending.pop(0)
+                start = s // ckpt_every * ckpt_every
+                break
+            out.append(s)
+        else:
+            return out
+
+
+def _timed_ms(torch, device, fn):
+    """fn() → (its result, device ms by CUDA events, host ms to the end of
+    its device work)."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def train_state_bytes(params) -> dict:
+    """The train state's bytes from the shapes: the parameters in their
+    dtypes, float32 gradients, float32 mu and nu."""
+    from repro_torch import tree as tree_lib
+
+    leaves = tree_lib.leaves(params)
+    n = sum(t.numel() for t in leaves)
+    return {"params": sum(t.numel() * t.element_size() for t in leaves), "n": n,
+            "grads": 4 * n, "moments": 8 * n}
+
+
+def phase_train_full(torch, device, card):
+    """Path Z (a): qwen3-1.7b at full width and depth drawn from ``SEED``,
+    trained :data:`TRAIN_STEPS` steps (``make_train_step`` + ``adamw``, f32
+    moments, remat, ``SyntheticLM`` batches of TRAIN_BATCH x TRAIN_SEQ); a
+    2-microbatch step on the first batch, from a copy of the same
+    parameters, held to the reference's tolerance against the 1-microbatch
+    step.  The loss must be finite and fall from the first step to the
+    last; one more step runs under the profiler (busy time, idle share,
+    the kernels taking most device time).  Returns (cfg, the trained
+    parameters)."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainstep
+
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    params = model_lib.draw(cfg, SEED, device)
+    torch.cuda.synchronize()
+    sizes = train_state_bytes(params)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = 8 * sizes["n"] * tokens  # 6 N T, and the remat forward's 2 N T
+    bound_ms = flops / BF16_OPS_PER_S * 1e3
+    print(f"path Z (a): qwen3-1.7b ({describe(cfg)}) drawn in {time.perf_counter() - t0:.2f} "
+          f"s: {sizes['n']} parameters; analytic train state {sizes['params']} B params "
+          f"(bf16 layers, float32 embedding and norms) + {sizes['grads']} B f32 grads + "
+          f"{sizes['moments']} B f32 mu and nu = "
+          f"{(sizes['params'] + sizes['grads'] + sizes['moments']) / 1e9:.3f} GB; a step of "
+          f"{tokens} tokens is {flops:.4e} FLOP (8 N T), {bound_ms:.2f} ms at the dense bf16 "
+          f"peak ({card})")
+    opt = adamw.adamw(adamw.cosine_schedule(**TRAIN_LR), moment_dtype="f32")
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=SEED))
+    first = to_device(src.batch(0), device)
+    twin = tree_lib.map_leaves(torch.clone, params)
+    step2 = trainstep.make_train_step(cfg, opt,
+                                      step_cfg=trainstep.TrainStepConfig(microbatches=2))
+    torch.cuda.reset_peak_memory_stats()
+    (_, _, m2), ms2, _ = _timed_ms(torch, device, lambda: step2(
+        twin, trainstep.init_opt_state(opt, twin, cfg), first))
+    print(f"path Z (a) microbatches=2 on batch 0 on {card}: loss {m2['loss'].item():.6f}, "
+          f"{ms2:.2f} ms (the first step: allocator and library warm-up), peak "
+          f"{torch.cuda.max_memory_allocated()} B")
+    torch.cuda.empty_cache()
+    step = trainstep.make_train_step(cfg, opt)
+    state = trainstep.init_opt_state(opt, params, cfg)
+    losses = []
+    for i in range(TRAIN_STEPS):
+        batch = first if i == 0 else to_device(src.batch(i), device)
+        torch.cuda.reset_peak_memory_stats()
+        (params, state, m), ms, wall = _timed_ms(torch, device,
+                                                lambda: step(params, state, batch))
+        loss = m["loss"].item()
+        losses.append(loss)
+        print(f"path Z (a) step {i} on {card}: loss {loss:.6f} (ce {m['ce'].item():.6f}, z "
+              f"{m['z'].item():.3f}, grad norm {m['grad_norm'].item():.4f}), {ms:.2f} ms "
+              f"(CUDA events; host {wall:.2f} ms), {tokens / ms * 1e3:.1f} tokens/s, "
+              f"{bound_ms / ms:.3f} of the bf16 bound, peak "
+              f"{torch.cuda.max_memory_allocated()} B")
+        check(math.isfinite(loss), f"path Z (a): step {i} loss {loss} not finite")
+        if i == 0:
+            worst = 0.0
+            for a, b in zip(tree_lib.leaves(params), tree_lib.leaves(twin)):
+                a, b = a.float(), b.float()
+                bad = (a - b).abs() > MICROBATCH_TOL["atol"] + MICROBATCH_TOL["rtol"] * b.abs()
+                check(not bool(bad.any()), "path Z (a): the 2-microbatch step is off the "
+                      f"1-microbatch step beyond {MICROBATCH_TOL}")
+                worst = max(worst, (a - b).abs().max().item())
+            print(f"path Z (a) microbatches 2 vs 1 after step 0: loss {m2['loss'].item():.6f} "
+                  f"vs {loss:.6f}, largest parameter difference {worst:.3e} (held to "
+                  f"{MICROBATCH_TOL})")
+            del twin
+    check(losses[-1] < losses[0], f"path Z (a): loss did not fall: {losses}")
+    batch = to_device(src.batch(TRAIN_STEPS), device)
+    profile_steps(torch, lambda: step(params, state, batch), 1,
+                  f"path Z (a) profile train step {TRAIN_STEPS} ({cfg.n_layers} layers, "
+                  f"{tokens} tokens, {card}, under the profiler)")
+    del state
+    torch.cuda.empty_cache()
+    return cfg, params
+
+
+def phase_train_vs_cpu(torch, device, card, cfg) -> None:
+    """Path Z (b): one train step of the 2-layer cut at full width in
+    float32 on the card and on the CPU from the same parameters and batch:
+    the loss, the grad norm and every gradient leaf within their stated
+    tolerances, and every updated leaf within what AdamW's first update
+    lets the measured gradient difference move it.  That update is
+    ``g / (|g| + eps)`` of the clipped gradient (then weight decay, the
+    same on both devices), whose slope is at most 1 / eps, so an element
+    may differ by ``lr · min(2, |dg| / eps)`` (``dg`` the clipped
+    gradients' difference) plus float32 rounding."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainstep
+
+    cut = cfg.scaled(n_layers=CUT_LAYERS, dtype=torch.float32)
+    host = SyntheticLM(DataConfig(vocab_size=cut.vocab_size, seq_len=CUT_SEQ,
+                                  global_batch=CUT_BATCH, seed=SEED)).batch(0)
+    eps = 1e-8
+    opt = adamw.adamw(CUT_LR, eps=eps, moment_dtype="f32")
+    cpu_params = model_lib.draw(cut, SEED, "cpu")
+    runs = {}
+    for dev in ("cpu", device):
+        params = tree_lib.map_leaves(lambda t: t.to(dev, copy=True), cpu_params)
+        t0 = time.perf_counter()
+        loss, _, grads = trainstep.compute_grads(params, to_device(host, dev), cut)
+        state, gnorm = trainstep.apply_grads(opt, params, trainstep.init_opt_state(
+            opt, params, cut), grads, cut)
+        # the gradients as the update saw them: scaled by the clip, as adamw does
+        scale = torch.clamp(1.0 / torch.clamp(gnorm, min=1e-9), max=1.0)
+        grads = tree_lib.map_leaves(lambda g: g * scale, grads)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+        runs[str(dev)] = (loss.item(), gnorm.item(), grads, params, time.perf_counter() - t0)
+        del state
+    (l0, n0, g0, p0, sec0), (l1, n1, g1, p1, sec1) = runs["cpu"], runs[str(device)]
+    print(f"path Z (b) 2-layer float32 step, CPU {sec0:.2f} s / {card} {sec1:.2f} s: loss "
+          f"{l0:.7f} / {l1:.7f}, grad norm {n0:.6f} / {n1:.6f}")
+    check(abs(l1 - l0) <= CARD_CPU_LOSS_RTOL * abs(l0), f"path Z (b): loss {l1} vs CPU {l0}")
+    check(abs(n1 - n0) <= CARD_CPU_GNORM_RTOL * n0, f"path Z (b): grad norm {n1} vs {n0}")
+    worst_g = worst_p = 0.0
+    f32_eps = 2.0 ** -23
+    for (path, gc), gd, pc, pd in zip(tree_lib.flatten(g0), tree_lib.leaves(g1),
+                                      tree_lib.leaves(p0), tree_lib.leaves(p1)):
+        gc, pc = gc.to(device), pc.to(device)
+        err = ((gd - gc).abs().max() / gc.abs().max().clamp_min(1e-30)).item()
+        worst_g = max(worst_g, err)
+        check(err <= CARD_CPU_GRAD_RTOL, f"path Z (b): gradient {'.'.join(path)} off the CPU's "
+              f"by {err:.3e} of its largest element")  # (clipped: one scale per device)
+        dg = (gd - gc).abs()
+        allowed = (CUT_LR * torch.clamp(dg / eps, max=2.0) * (1 + 1e-3) + CUT_LR * 1e-6
+                   + 4 * f32_eps * (pc.abs() + CUT_LR))
+        dp = (pd - pc).abs()
+        check(bool((dp <= allowed).all()), f"path Z (b): updated leaf {'.'.join(path)} off the "
+              f"CPU's beyond what its gradient difference allows")
+        worst_p = max(worst_p, (dp.max() / CUT_LR).item())
+    print(f"path Z (b) {card} vs CPU: gradients within {worst_g:.3e} of each leaf's largest "
+          f"element (limit {CARD_CPU_GRAD_RTOL}); updated leaves within {worst_p:.3e} lr, each "
+          f"element within lr · min(2, |dg| / eps) + float32 rounding")
+    del runs, g0, g1, p0, p1, cpu_params
+    torch.cuda.empty_cache()
+
+
+def directory_bytes(directory: str) -> int:
+    """Bytes of every file under ``directory``."""
+    return sum(os.path.getsize(os.path.join(root, f))
+               for root, _, files in os.walk(directory) for f in files)
+
+
+def _equal_trees(torch, a, b) -> list:
+    """The key paths where two trees of tensors differ (bitwise)."""
+    from repro_torch import tree as tree_lib
+
+    return [".".join(path) for (path, x), y in zip(tree_lib.flatten(a), tree_lib.leaves(b))
+            if not torch.equal(x, y)]
+
+
+def phase_train_restart(torch, device, card, cfg) -> None:
+    """Path Z (c): the 2-layer cut at full width, bf16 parameters, int8
+    moments.  First whether a train step is repeatable on the card (two
+    steps from one state, compared bit for bit).  Then one step's state
+    saved through ``AsyncCheckpointer`` into a temporary directory and
+    restored bit for bit; then the trainer with ``FailureSim`` (its step
+    history the reference trainer's pattern, :func:`restart_pattern`)
+    against an uninterrupted run: final parameters equal to the bit where
+    the step is repeatable.  Prints the bytes written and the seconds;
+    the directory is deleted."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.checkpoint import ckpt as ckpt_lib
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed.resilience import FailureSim
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainer as trainer_lib
+    from repro_torch.train import trainstep
+
+    cut = cfg.scaled(n_layers=CUT_LAYERS)
+    data = DataConfig(vocab_size=cut.vocab_size, seq_len=CUT_SEQ, global_batch=CUT_BATCH,
+                      seed=SEED)
+    opt = adamw.adamw(CUT_LR, moment_dtype="int8")
+    step = trainstep.make_train_step(cut, opt)
+    batch = to_device(SyntheticLM(data).batch(0), device)
+    params = model_lib.draw(cut, SEED, device)
+    state = trainstep.init_opt_state(opt, params, cut)
+    twin = tree_lib.map_leaves(torch.clone, params)
+    twin_state = trainstep.init_opt_state(opt, twin, cut)
+    params, state, _ = step(params, state, batch)
+    twin, twin_state, _ = step(twin, twin_state, batch)
+    differ = _equal_trees(torch, params, twin) + _equal_trees(
+        torch, trainer_lib.state_tree(params, state, cut)["opt_state"],
+        trainer_lib.state_tree(twin, twin_state, cut)["opt_state"])
+    repeatable = not differ
+    print(f"path Z (c) a train step repeated from one state on {card}: "
+          + ("bitwise equal (the step is deterministic on the card)" if repeatable else
+             f"{len(differ)} leaves differ: {differ[:8]}"))
+    del twin, twin_state
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        print(f"path Z (c) checkpoint directory {tmp}: "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB free")
+        tree = trainer_lib.state_tree(params, state, cut)
+        ac = ckpt_lib.AsyncCheckpointer()
+        t0 = time.perf_counter()
+        ac.save(tree, os.path.join(tmp, "one"), 1, extra={"step": 1})
+        snap = time.perf_counter() - t0
+        ac.wait()
+        wrote = time.perf_counter() - t0
+        nbytes = directory_bytes(os.path.join(tmp, "one"))
+        t0 = time.perf_counter()
+        back, extra = ckpt_lib.restore(os.path.join(tmp, "one"))
+        r_params, r_state = trainer_lib.state_from_tree(back, cut, device, "int8")
+        torch.cuda.synchronize()
+        read = time.perf_counter() - t0
+        check(extra == {"step": 1} and not _equal_trees(torch, params, r_params)
+              and not _equal_trees(torch, tree["opt_state"], trainer_lib.state_tree(
+                  r_params, r_state, cut)["opt_state"]),
+              "path Z (c): the restored state is not the saved one")
+        print(f"path Z (c) AsyncCheckpointer on {card}: {nbytes} B in {wrote:.2f} s ({snap:.2f} "
+              f"s of it the snapshot to the host, {nbytes / wrote / 1e9:.2f} GB/s), restored "
+              f"and verified (CRC per leaf) in {read:.2f} s, bit for bit")
+        del params, state, r_params, r_state, back, tree
+        shutil.rmtree(os.path.join(tmp, "one"))
+        torch.cuda.empty_cache()
+
+        steps, every, fail_at = RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"]
+
+        def run(ckpt_dir, failure):
+            tr = trainer_lib.Trainer(
+                cut, data, trainer_lib.TrainerConfig(
+                    steps=steps, ckpt_every=every, ckpt_dir=ckpt_dir, log_every=1,
+                    seed=SEED, peak_lr=CUT_LR, warmup=1, moment_dtype="int8"),
+                failure_sim=failure, device=device)
+            t0 = time.perf_counter()
+            return tr.run(), time.perf_counter() - t0
+
+        failed, sec = run(os.path.join(tmp, "run"), FailureSim(fail_at=fail_at))
+        written = directory_bytes(os.path.join(tmp, "run"))
+        clean, sec_clean = run(None, None)
+        got = [h["step"] for h in failed["history"]]
+        want = restart_pattern(steps, every, fail_at)
+        print(f"path Z (c) trainer on {card} with FailureSim(fail_at={fail_at}): history "
+              f"{got} (the reference's pattern {want}), {sec:.2f} s with {written} B of "
+              f"checkpoints left "
+              f"(steps {every}..{steps}); uninterrupted {sec_clean:.2f} s")
+        check(got == want, f"path Z (c): step history {got}, expected {want}")
+        differ = _equal_trees(torch, failed["params"], clean["params"])
+        worst = max(((a.float() - b.float()).abs().max().item() for a, b in zip(
+            tree_lib.leaves(failed["params"]), tree_lib.leaves(clean["params"]))), default=0.0)
+        print(f"path Z (c) resumed vs uninterrupted final parameters: {len(differ)} leaves "
+              f"differ, largest difference {worst:.3e}")
+        check(repeatable and not differ,
+              f"path Z (c): resumed parameters differ from the uninterrupted run's in "
+              f"{differ[:8]} (the step repeatable on the card: {repeatable})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"path Z (c) checkpoint directory deleted: {not os.path.exists(tmp)}")
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, device, card) -> dict:
+    """Path Z: (a) training at full width and depth, (b) the card against
+    the CPU, (c) checkpoint and restart, none of which launches any of the
+    eight kernels; then (d) the trained weights converted to path A's
+    stack and served as path A is, A's exact launches a decode step.
+    Returns (d)'s launches."""
+    from repro_torch.kernels import ops
+    from repro_torch.serve import engine
+
+    ops.reset_counts()
+    cfg, params = phase_train_full(torch, device, card)
+    phase_train_vs_cpu(torch, device, card, cfg)
+    phase_train_restart(torch, device, card, cfg)
+    launched = {k: v for k, v in ops.launch_counts().items() if v}
+    plain = {k: v for k, v in ops.plain_cuda_counts().items() if v}
+    print(f"path Z (a)-(c) kernel launches {launched}, plain versions on the card {plain}")
+    check(not launched and not plain, "path Z: the training path reached a kernel wrapper")
+    mode = path_spec("Z")[0]
+    qparams = engine.convert_params(params, cfg, mode)
+    del params
+    torch.cuda.empty_cache()
+    got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+    print(f"path Z (d): the trained weights on path A's stack ({mode}): {got} B resident "
+          f"(analytic {want} B)")
+    check(abs(got - want) <= RESIDENT_RTOL * want, f"path Z: resident bytes {got} vs {want}")
+    counts = _serve_path(torch, device, card, engine, qparams, cfg, "Z")
+    phase_profile(torch, device, engine, qparams, cfg, card, "Z")
+    del qparams
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # Path D: the ops-level entry points of the DIM and raw int32 W8A8 kernels
 # ---------------------------------------------------------------------------
 
@@ -2847,6 +3239,8 @@ def main() -> int:
     done("path S")
     counts.update(phase_cross(torch, device, card))
     done("paths T-W")
+    phase_train(torch, device, card)  # its serve's launches stay out of the kernels line
+    done("path Z")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

@@ -18,6 +18,16 @@ the stacked expert weights and the shared experts, the untied
 to residency and compute the same thing.  bfloat16 arrays (numpy's
 ``ml_dtypes.bfloat16``) cross bit for bit.  Like every entry point of the
 port, it puts the tensors on the card unless the caller names a device.
+A leaf may also be a tensor (a checkpoint the port's reader restored).
+
+The other direction: :func:`reference_layout` holds any tree of the port's
+shape (parameters, gradients) in the reference's layout, each stacked leaf
+a :class:`Stacked` of the port's per-layer tensors (no copy), and
+:func:`params_to_numpy` stacks it into numpy arrays, the exact inverse of
+:func:`params_from_numpy`.  The optimizer walks that layout (its int8
+moments are chunked over the reference's stacked leaves) and the
+checkpoint writer stores it, so both see the reference's leaves in the
+reference's order.
 """
 
 from __future__ import annotations
@@ -26,10 +36,13 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import tree as tree_lib
 from repro_torch.models import model as model_lib
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device, copy=True)
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
@@ -75,7 +88,9 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
         def layer(i):
             sb, j = divmod(i - first, period)
             return _map(slots[f"slot{j}"], spec_layers[i],
-                        lambda a: _tensor(np.asarray(a)[sb], device), (where, f"slot{j}"))
+                        lambda a: _tensor(a[sb] if isinstance(a, torch.Tensor)
+                                          else np.asarray(a)[sb], device),
+                        (where, f"slot{j}"))
 
         return [layer(i) for i in range(first, len(spec_layers))]
 
@@ -100,3 +115,69 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
                                ("encoder", "final_norm")),
         }
     return out
+
+
+class Stacked(tuple):
+    """One leaf of the reference's layout, stacked ``[n, ...]`` over the
+    superblocks: the port's per-layer tensors (or specs) it stacks, in
+    layer order."""
+
+    @property
+    def shape(self) -> tuple:
+        return (len(self),) + tuple(self[0].shape)
+
+    @property
+    def dtype(self):
+        return self[0].dtype
+
+
+def _restack(layers: list, period: int) -> dict:
+    """``slot{j}``: layers ``j, j + period, ...`` stacked leaf by leaf."""
+
+    def stack(items):
+        if isinstance(items[0], dict):
+            return {k: stack([it[k] for it in items]) for k in items[0]}
+        return Stacked(items)
+
+    return {f"slot{j}": stack(layers[j::period]) for j in range(period)}
+
+
+def reference_layout(tree: dict, cfg) -> dict:
+    """A tree of the port's shape (``embed``, ``final_norm``, ``layers``,
+    ``encoder``) in the reference's: leading dense layers as
+    ``prefix.layer{i}``, the rest as ``stack.slot{j}`` (each leaf a
+    :class:`Stacked`), the encoder's layers as ``encoder.stack.slot0``."""
+    k0 = cfg.first_k_dense
+    layers = tree["layers"]
+    out = {"embed": tree["embed"], "final_norm": tree["final_norm"],
+           "stack": _restack(layers[k0:], cfg.block_period)}
+    if k0:
+        out["prefix"] = {f"layer{i}": layers[i] for i in range(k0)}
+    if cfg.is_enc_dec:
+        out["encoder"] = {"stack": _restack(tree["encoder"]["layers"], 1),
+                          "final_norm": tree["encoder"]["final_norm"]}
+    return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bfloat16 as numpy's
+    ``ml_dtypes.bfloat16``, bit for bit."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: dict, cfg) -> dict:
+    """Port parameters → the reference's parameter tree with numpy leaves
+    (stacked leaves ``[n_superblocks, ...]``): the inverse of
+    :func:`params_from_numpy`."""
+
+    def one(leaf):
+        if isinstance(leaf, Stacked):
+            return np.stack([_to_numpy(t) for t in leaf])
+        return _to_numpy(leaf)
+
+    return tree_lib.map_leaves(one, reference_layout(params, cfg))

@@ -7,7 +7,11 @@ the reciprocal, see :func:`true_div`), so the integer payloads and scales
 are bit-identical to the reference's on identical inputs.
 
 ``pack_int4`` / ``unpack_int4`` hold int4 values two per byte — the ``w4a8``
-residency's payload.
+residency's payload.  ``quantize_chunked`` / ``dequantize_chunked`` are the
+per-256-chunk form the int8 optimizer moments use (bit-identical to the
+reference's), ``quantize_stochastic`` the unbiased form for gradient paths
+(its noise comes from a ``torch.Generator``, so its codes cannot be the
+reference's), and ``fake_quant`` the straight-through quantizer.
 """
 
 from __future__ import annotations
@@ -110,3 +114,57 @@ def _every_other(ndim: int, axis: int, start: int) -> tuple:
     idx = [slice(None)] * ndim
     idx[axis] = slice(start, None, 2)
     return tuple(idx)
+
+
+# ---------------------------------------------------------------------------
+# Stochastic rounding, chunked quantization (the int8 optimizer moments) and
+# the straight-through fake quantizer.
+# ---------------------------------------------------------------------------
+
+
+def quantize_stochastic(x: torch.Tensor, generator: torch.Generator, *, bits: int = 8,
+                        axis=-1) -> QuantTensor:
+    """Stochastic-rounding quantization: ``round(x / s + u)``, ``u`` uniform
+    on [-0.5, 0.5) from ``generator`` (on ``x``'s device), so the codes are
+    unbiased in expectation.  The reference draws ``u`` from a JAX key; the
+    scale is the same, the codes are not."""
+    scale = compute_scale(x, bits=bits, axis=axis)
+    qmin, qmax = INT_RANGE[bits]
+    noise = torch.rand(x.shape, generator=generator, dtype=torch.float32,
+                       device=x.device) - 0.5
+    q = torch.clamp(torch.round(x / scale + noise), qmin, qmax).to(torch.int8)
+    return QuantTensor(data=q, scale=scale.to(torch.float32), bits=bits, axis=axis)
+
+
+def quantize_chunked(x: torch.Tensor, *, chunk: int = 256, bits: int = 8):
+    """Flatten → zero-pad → chunks of ``chunk`` → per-chunk symmetric
+    quantization.  Returns ``(q [n_chunks, chunk] int8, scales [n_chunks, 1]
+    f32, n)`` with ``n`` the element count (for the exact inverse)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    chunks = torch.nn.functional.pad(flat, (0, (-n) % chunk)).reshape(-1, chunk)
+    qt = quantize(chunks, bits=bits, axis=-1)
+    return qt.data, qt.scale, n
+
+
+def dequantize_chunked(q: torch.Tensor, scale: torch.Tensor, n: int, shape) -> torch.Tensor:
+    """Inverse of :func:`quantize_chunked` → float32 of ``shape``."""
+    return (q.to(torch.float32) * scale).reshape(-1)[:n].reshape(shape)
+
+
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, bits, axis):
+        ctx.dtype = x.dtype
+        qt = quantize(x, bits=bits, axis=axis)
+        return qt.data.to(torch.float32) * qt.scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None, None  # straight-through estimator
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8, axis: int = -1) -> torch.Tensor:
+    """Quantize then dequantize (float32) in the forward pass; the gradient
+    passes straight through, as the reference's ``custom_vjp``."""
+    return _FakeQuant.apply(x, bits, axis)

@@ -14,6 +14,11 @@ and ``--scheduler fcfs``::
         --mode ffn=bsdp_fused,mixer=w8a16 --cache-format int4_bp_fused \\
         --scheduler token_budget:budget=32
 
+``--ckpt-dir DIR`` serves the parameters of the latest checkpoint under
+DIR (one the port's trainer wrote, or the reference's: the parameters are
+read through :mod:`repro_torch.checkpoint.ckpt` and brought across with
+``params_from_numpy``) in place of seed 0's draw, converted to the
+residency policy after the restore.
 ``--cache-format`` and ``--scheduler`` take any registered name, the
 ``paged_*`` cache formats and the ``prefix_cache`` scheduler included.
 ``--trace out.json`` writes the run's observability stream as a
@@ -33,11 +38,13 @@ import time
 
 import numpy as np
 
-from repro_torch import obs
+from repro_torch import convert, obs
+from repro_torch.checkpoint import ckpt as ckpt_lib
 from repro_torch.configs import ARCH_NAMES, get_config, get_smoke_config
 from repro_torch.core import kvcache, residency
 from repro_torch.serve import engine
 from repro_torch.serve import scheduler as sched_lib
+from repro_torch.train.trainer import checkpoint_paths
 
 
 def registry_arg(parse):
@@ -70,6 +77,9 @@ def main(argv=None):
                     help="orchestration policy (one of "
                          f"{', '.join(sched_lib.schedulers())}), with "
                          "optional kwargs like 'token_budget:budget=16'")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest checkpoint's parameters (the port's or the "
+                         "reference's trainer) instead of seed 0's")
     ap.add_argument("--min-dim", type=int, default=64,
                     help="residency-conversion floor (smaller projections stay float)")
     ap.add_argument("--requests", type=int, default=8)
@@ -100,6 +110,14 @@ def main(argv=None):
         print(f"trace: {len(trace_sink)} records -> {args.trace}")
 
 
+def checkpoint_params(ckpt_dir: str, cfg, device) -> dict:
+    """The float parameters of the latest checkpoint under ``ckpt_dir`` (a
+    trainer's ``{"params", "opt_state"}`` tree, the port's or the
+    reference's) on ``device``."""
+    tree, _ = ckpt_lib.restore(ckpt_dir, paths=checkpoint_paths(cfg))
+    return convert.params_from_numpy(tree["params"], cfg, device)
+
+
 def _serve(args) -> None:
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
@@ -110,13 +128,18 @@ def _serve(args) -> None:
             "decode_step take the context)."
         )
     t0 = time.perf_counter()
-    params = engine.materialize_converted(cfg, args.mode, seed=0, device=args.device,
-                                          min_dim=args.min_dim)
+    if args.ckpt_dir:
+        params = engine.convert_params(checkpoint_params(args.ckpt_dir, cfg, args.device), cfg,
+                                       args.mode, min_dim=args.min_dim)
+    else:
+        params = engine.materialize_converted(cfg, args.mode, seed=0, device=args.device,
+                                              min_dim=args.min_dim)
     eng = engine.ServeEngine(params, cfg, slots=args.slots, max_len=args.max_len,
                              mode=args.mode, cache_format=args.cache_format,
                              scheduler=args.scheduler, min_dim=args.min_dim,
                              device=args.device)
-    print(f"draw + residency convert ({eng.mode}): {time.perf_counter() - t0:.2f}s, "
+    source = f"restore {args.ckpt_dir}" if args.ckpt_dir else "draw"
+    print(f"{source} + residency convert ({eng.mode}): {time.perf_counter() - t0:.2f}s, "
           f"{engine.resident_bytes(eng.params) / 1e6:.1f} MB resident")
     print(f"cache format: {eng.cache_format}  scheduler: {eng.scheduler.describe()}  "
           f"device: {eng.device}")

@@ -66,15 +66,32 @@ def _project_qkv(params, x, cfg, positions, impl=None):
     return q, k, v
 
 
-def gqa_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
-    """Prefill: returns (output, cache)."""
+def _gqa(params, x, cfg, positions, impl=None):
+    """Full-sequence causal (windowed with ``cfg.sliding_window``) GQA →
+    (output, k, v)."""
     b, s, _ = x.shape
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
     out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                             window=cfg.sliding_window)
-    out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
+    return dense(params["wo"], out.reshape(b, s, -1), impl=impl), k, v
+
+
+def _arange_positions(x) -> torch.Tensor:
+    b, s = x.shape[:2]
+    return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
+
+
+def gqa_apply(params, x, cfg, *, positions=None, impl=None):
+    """Full-sequence causal attention with no cache (the train path)."""
+    positions = _arange_positions(x) if positions is None else positions
+    return _gqa(params, x, cfg, positions, impl=impl)[0]
+
+
+def gqa_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
+    """Prefill: returns (output, cache)."""
+    b = x.shape[0]
+    positions = _arange_positions(x) if positions is None else positions
+    out, k, v = _gqa(params, x, cfg, positions, impl=impl)
     cache = init_kv_cache(cfg, b, cache_len, dtype=k.dtype, device=x.device)
     _ring_write(cache, k, v, positions, kvcache.format_for(cfg))
     return out, cache
@@ -306,16 +323,13 @@ def _mla_latent(params, x, cfg, positions, impl=None):
     return c_kv, k_rope
 
 
-def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
-    """Prefill MLA (the reference's ``mla_apply`` with a cache): the latent
-    expanded through ``w_uk`` / ``w_uv`` to per-head keys and values, then
-    :func:`chunked_attention` with v padded to the q head width.  Returns
-    (output, cache)."""
+def _mla(params, x, cfg, positions, impl=None):
+    """Full-sequence MLA: the latent expanded through ``w_uk`` / ``w_uv`` to
+    per-head keys and values, then :func:`chunked_attention` with v padded
+    to the q head width → (output, c_kv, k_rope)."""
     b, s, _ = x.shape
     h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    if positions is None:
-        positions = torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
     q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
     c_kv, k_rope = _mla_latent(params, x, cfg, positions, impl=impl)
     k_nope = dense(params["w_uk"], c_kv, impl=impl).reshape(b, s, h, dn)
@@ -324,7 +338,22 @@ def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     out = chunked_attention(q, k, torch.nn.functional.pad(v, (0, dn + dr - dv)),
                             q_pos=positions, kv_pos=positions)[..., :dv]
-    out = dense(params["wo"], out.reshape(b, s, h * dv), impl=impl)
+    return dense(params["wo"], out.reshape(b, s, h * dv), impl=impl), c_kv, k_rope
+
+
+def mla_apply(params, x, cfg, *, positions=None, impl=None):
+    """Full-sequence MLA with no cache (the train path: the reference's
+    ``mla_apply`` without ``cache_len``)."""
+    positions = _arange_positions(x) if positions is None else positions
+    return _mla(params, x, cfg, positions, impl=impl)[0]
+
+
+def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
+    """Prefill MLA (the reference's ``mla_apply`` with a cache).  Returns
+    (output, cache)."""
+    b = x.shape[0]
+    positions = _arange_positions(x) if positions is None else positions
+    out, c_kv, k_rope = _mla(params, x, cfg, positions, impl=impl)
     cache = init_mla_cache(cfg, b, cache_len, dtype=c_kv.dtype, device=x.device)
     _mla_write(cache, c_kv, k_rope, positions, kvcache.format_for(cfg))
     return out, cache

@@ -59,8 +59,10 @@ def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def embed_apply(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    # gather, then cast: the same values as casting the table first
-    return params["embedding"][tokens].to(cfg.dtype)
+    """Gather, then cast: the same values as casting the table first.  The
+    gather is ``F.embedding``, whose backward (a sorted segment sum on the
+    card) adds a repeated token's gradients in a fixed order."""
+    return F.embedding(tokens, params["embedding"]).to(cfg.dtype)
 
 
 def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:

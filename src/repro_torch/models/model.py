@@ -1,7 +1,8 @@
 """The causal LM, the VLM and the encoder-decoder: parameter specs,
-initialisation, encoder, prefill and decode.
+initialisation, encoder, the train path (``forward``, ``loss_fn``), prefill
+and decode.
 
-Counterpart of the serving half of :mod:`repro.models.model` for the dense,
+Counterpart of :mod:`repro.models.model` for the dense,
 MoE, SSM, hybrid, VLM and audio (encoder-decoder) families, with GQA or MLA
 attention, Mamba-1 mixers and cross-attention.  Parameters are a plain
 dict::
@@ -226,7 +227,7 @@ def encode(params, enc_embeds: torch.Tensor, cfg, *, impl=None) -> torch.Tensor:
     ``n_enc_layers`` non-causal layers and the encoder's final norm."""
     x = enc_embeds.to(cfg.dtype)
     for p in params["encoder"]["layers"]:
-        x, _ = stack.layer_apply(p, x, cfg, mode="encode", impl=impl)
+        x, _, _ = stack.layer_apply(p, x, cfg, mode="encode", impl=impl)
     return layers.norm_apply(params["encoder"]["final_norm"], x, cfg)
 
 
@@ -240,6 +241,39 @@ def _context(params, batch: dict, cfg, impl=None):
     return None
 
 
+def forward(params, batch: dict, cfg, *, remat: bool = False, impl=None):
+    """The train path's forward: ``batch["tokens"] [B, S]`` (with the
+    context, ``ctx_embeds`` or ``enc_embeds``) through every layer with no
+    cache → (logits [B, S, V] in ``cfg.dtype``, the summed MoE aux loss).
+    ``remat`` recomputes each layer in the backward pass."""
+    ctx = _context(params, batch, cfg, impl=impl)
+    x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+    x, _, aux = stack.stack_apply(params["layers"], x, cfg, mode="train", ctx=ctx, impl=impl,
+                                  remat=remat)
+    x = layers.norm_apply(params["final_norm"], x, cfg)
+    return layers.logits_apply(params["embed"], x, cfg, impl=impl), aux
+
+
+def loss_fn(params, batch: dict, cfg, *, remat: bool = False, aux_weight: float = 0.01,
+            z_weight: float = 1e-4, impl=None):
+    """Next-token cross entropy over the positions whose ``batch["labels"]``
+    are >= 0, plus ``aux_weight`` · the MoE aux loss and ``z_weight`` · the
+    z-loss (the mean squared log-partition) → (loss, {"ce", "aux", "z",
+    "tokens"}).  With no vocab padding on one device there is no pad logit
+    to mask."""
+    logits, aux = forward(params, batch, cfg, remat=remat, impl=impl)
+    logits = logits.to(torch.float32)
+    labels = batch["labels"]
+    mask = (labels >= 0).to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.clamp_min(0).to(torch.int64)[..., None])[..., 0]
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    ce = ((lse - ll) * mask).sum() / denom
+    z = (torch.square(lse) * mask).sum() / denom
+    total = ce + aux_weight * aux + z_weight * z
+    return total, {"ce": ce, "aux": aux, "z": z, "tokens": mask.sum()}
+
+
 def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     """Run the prompt, build the decode caches → (last logits [B,1,V] f32,
     per-layer caches: an attention layer's ring is ``min(sliding_window,
@@ -251,10 +285,10 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     (encoder-decoder) carries the context."""
     ctx = _context(params, batch, cfg, impl=impl)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
-    x, caches = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
-                                  pos=batch.get("positions"),
-                                  cache_len=attention.cache_len_for(cfg, max_len), ctx=ctx,
-                                  impl=impl)
+    x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
+                                     pos=batch.get("positions"),
+                                     cache_len=attention.cache_len_for(cfg, max_len), ctx=ctx,
+                                     impl=impl)
     x = layers.norm_apply(params["final_norm"], x, cfg)
     logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl)
     return logits.to(torch.float32), caches
@@ -266,8 +300,8 @@ def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
     Cross-attention reads its context from the caches."""
     pos = attention._decode_positions(pos, token.shape[0], token.shape[1], token.device)
     x = layers.embed_apply(params["embed"], token, cfg)
-    x, caches = stack.stack_apply(params["layers"], x, cfg, mode="decode",
-                                  caches=caches, pos=pos, impl=impl)
+    x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="decode",
+                                     caches=caches, pos=pos, impl=impl)
     x = layers.norm_apply(params["final_norm"], x, cfg)
     logits = layers.logits_apply(params["embed"], x, cfg, impl=impl)
     return logits.to(torch.float32), caches

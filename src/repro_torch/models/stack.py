@@ -10,12 +10,14 @@ none).  Mixers: ``attn`` (GQA or MLA by ``cfg.attn_type``), ``mamba``,
 ``cross`` (cross-attention over the context in place of self-attention,
 llama-vision's image layers) and ``attn_cross`` (self-attention, then
 ``ln_x`` and cross-attention under the ``cross`` key, in one layer: an
-encoder-decoder's decoder).  Modes: ``prefill`` (full sequence, builds
-the caches; the cross mixers project the context ``ctx`` there),
-``decode`` (tokens against the caches) and ``encode`` (the encoder's
-non-causal full-sequence layers, no cache).  An attention layer's cache is
-its ring (updated in place); a Mamba layer's is ``{"conv", "ssm"}``, batch
-first, replaced each call; a ``cross`` layer's is the projected context
+encoder-decoder's decoder).  Modes: ``train`` (full sequence, no caches;
+each layer optionally rematerialised in the backward pass), ``prefill``
+(full sequence, builds the caches; the cross mixers project the context
+``ctx`` in both), ``decode`` (tokens against the caches) and ``encode``
+(the encoder's non-causal full-sequence layers, no cache).  Every mode
+returns the sum of the MoE layers' load-balancing losses beside ``x``.
+An attention layer's cache is its ring (updated in place); a Mamba
+layer's is ``{"conv", "ssm"}``, batch first, replaced each call; a ``cross`` layer's is the projected context
 ``{"ck", "cv"}``, an ``attn_cross`` layer's ``{"self": ring, "cross":
 {"ck", "cv"}}``.
 """
@@ -23,6 +25,7 @@ first, replaced each call; a ``cross`` layer's is the projected context
 from __future__ import annotations
 
 import torch
+from torch.utils import checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.layers import dense
@@ -32,23 +35,31 @@ def _bidir_attn(params, h, cfg, impl=None):
     """Non-causal self-attention (encoder stacks): rope at ``arange(S)``,
     every position sees every other."""
     b, s, _ = h.shape
-    positions = torch.arange(s, dtype=torch.int32, device=h.device).expand(b, s)
+    positions = attention._arange_positions(h)
     q, k, v = attention._project_qkv(params, h, cfg, positions, impl=impl)
     out = attention.chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
                                       causal=False)
     return dense(params["wo"], out.reshape(b, s, -1), impl=impl)
 
 
+MODES = ("train", "prefill", "decode", "encode")
+
+
 def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl):
-    if mode not in ("prefill", "decode", "encode"):
+    if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    mla = cfg.attn_type == "mla"
+    if mode == "train":  # full sequence, no cache
+        if kind == "mamba":
+            return mamba.mamba_apply(params, h, cfg, impl=impl), None
+        fn = attention.mla_apply if mla else attention.gqa_apply
+        return fn(params, h, cfg, impl=impl), None
     if kind == "mamba":
         if mode == "prefill":
             return mamba.mamba_apply(params, h, cfg, return_state=True, impl=impl)
         return mamba.mamba_decode(params, h, cache, cfg, impl=impl)
     if mode == "encode":  # the encoder's GQA layers: non-causal, no cache
         return _bidir_attn(params, h, cfg, impl=impl), None
-    mla = cfg.attn_type == "mla"
     if mode == "prefill":
         fn = attention.mla_prefill if mla else attention.gqa_prefill
         return fn(params, h, cfg, cache_len=cache_len, positions=pos, impl=impl)
@@ -67,7 +78,7 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
                 cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None):
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
-    Returns (x, cache)."""
+    Returns (x, cache, the MoE layer's load-balancing loss or 0)."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
         a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl)
@@ -86,25 +97,41 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
             x = x + cx.to(x.dtype)
             own = {"self": own, "cross": kv}
         cache = own
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if ffn == "none":
-        return x, cache
+        return x, cache, aux
     h2 = layers.norm_apply(params["ln2"], x, cfg)
     if ffn == "moe":
         moe_fn = moe.moe_apply_einsum if cfg.moe_impl == "einsum" else moe.moe_apply
-        y, _ = moe_fn(params["ffn"], h2, cfg, impl=impl)
+        y, aux = moe_fn(params["ffn"], h2, cfg, impl=impl)
     else:
         y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl)
-    return x + y.to(x.dtype), cache
+    return x + y.to(x.dtype), cache, aux
 
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
-                cache_len: int = 0, ctx=None, impl=None):
+                cache_len: int = 0, ctx=None, impl=None, remat: bool = False):
     """Run every layer in order (``ctx``: the context the cross mixers
-    project at prefill).  Returns (x, per-layer caches)."""
+    project).  Returns (x, per-layer caches, the summed MoE aux loss).
+    ``remat`` (train mode) keeps no activation of a layer for the backward
+    pass but its input, recomputing the layer there
+    (``torch.utils.checkpoint``; the reference remats a superblock)."""
     new_caches = []
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layer_params):
-        x, c = layer_apply(p, x, cfg, mode=mode, mixer=cfg.mixer_kind(i), ffn=cfg.ffn_kind(i),
-                           cache=None if caches is None else caches[i],
-                           pos=pos, cache_len=cache_len, ctx=ctx, impl=impl)
+        kind = dict(mixer=cfg.mixer_kind(i), ffn=cfg.ffn_kind(i))
+        if remat and mode == "train":
+            def run(x, p=p, kind=kind):
+                y, _, aux = layer_apply(p, x, cfg, mode=mode, ctx=ctx, impl=impl, **kind)
+                return y, aux
+
+            x, aux = checkpoint.checkpoint(run, x, use_reentrant=False,
+                                           preserve_rng_state=False)
+            c = None
+        else:
+            x, c, aux = layer_apply(p, x, cfg, mode=mode, cache=None if caches is None
+                                    else caches[i], pos=pos, cache_len=cache_len, ctx=ctx,
+                                    impl=impl, **kind)
         new_caches.append(c)
-    return x, new_caches
+        aux_total = aux_total + aux
+    return x, None if mode == "train" else new_caches, aux_total

@@ -969,3 +969,49 @@ class TestTwelfthSliceOnTheCard:
         assert [(k, s) for k, s, _ in a.logit_trace] == [(k, s) for k, s, _ in b.logit_trace]
         assert all(np.array_equal(x, y) for (_, _, x), (_, _, y) in
                    zip(a.logit_trace, b.logit_trace))
+
+
+@pytest.mark.gpu
+class TestThirteenthSliceOnTheCard:
+    """The training path on the card: no kernel of the eight is reached."""
+
+    def test_train_step_on_the_card_matches_the_cpu(self, cuda):
+        """One train step (remat, f32 moments) of qwen3-1.7b's smoke config in
+        float32 on the card and on the CPU from the same parameters: loss
+        and grad norm within float32 rounding, and no kernel launched."""
+        from repro_torch import tree as tree_lib
+        from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+        from repro_torch.optim import adamw
+        from repro_torch.train import trainstep
+
+        cfg = get_smoke_config("qwen3-1.7b").scaled(dtype=torch.float32)
+        batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=32,
+                                       global_batch=4)).batch(0)
+        opt = adamw.adamw(1e-3)
+        host = model_lib.draw(cfg, 3, "cpu")
+        out = {}
+        for dev in ("cpu", cuda):
+            params = tree_lib.map_leaves(lambda t: t.to(dev, copy=True), host)
+            step = trainstep.make_train_step(cfg, opt)
+            ops.reset_counts()
+            params, state, metrics = step(params, trainstep.init_opt_state(opt, params, cfg),
+                                          to_device(batch, dev))
+            assert not any(ops.launch_counts().values())
+            assert int(state.step) == 1
+            out[str(dev)] = metrics
+        for k in ("loss", "grad_norm"):
+            assert out[str(cuda)][k].item() == pytest.approx(out["cpu"][k].item(), rel=1e-5)
+
+    def test_prefetch_copies_the_stream_to_the_card(self, cuda):
+        """The side-stream feed: batches on the card, equal to the host's,
+        in order; closing the generator stops its thread."""
+        from repro_torch.data.pipeline import DataConfig, SyntheticLM, prefetch
+
+        src = SyntheticLM(DataConfig(vocab_size=1000, seq_len=64, global_batch=4))
+        gen = prefetch(iter(src), cuda, depth=2)
+        for step in range(5):
+            b = next(gen)
+            assert b["tokens"].device.type == "cuda"
+            for k, v in src.batch(step).items():
+                np.testing.assert_array_equal(b[k].cpu().numpy(), v)
+        gen.close()

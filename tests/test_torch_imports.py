@@ -31,5 +31,7 @@ def test_port_imports_neither_jax_nor_repro():
     assert int(n_modules) >= 24
     assert bad == "", f"repro_torch loaded {bad}"
     for module in ("core.dim", "kernels.gemv_int8", "kernels.gemv_int4",
-                   "kernels.dim_kernel"):
+                   "kernels.dim_kernel", "optim.adamw", "train.trainstep", "train.trainer",
+                   "data.pipeline", "checkpoint.ckpt", "distributed.resilience",
+                   "launch.train", "tree"):
         assert f"repro_torch.{module}" in names.split(",")
