@@ -59,20 +59,20 @@ the same two stacks:
      grouped ``matmul_int8`` per projection
 
 and the sliding-window MoE and Mamba configs, at full published width and
-depth, on the same two stacks:
+8 layers, on the same two stacks:
 
-  O  mixtral-8x7b (32 layers, 8 experts top 2, window 4096, untied head) on
+  O  mixtral-8x7b (8 of its 32 layers, 8 experts top 2, window 4096, untied head) on
      path A's stack: the experts through one grouped ``bsdp_gemm_fused``
      per projection at E = 8, K 4096 / N 28672
   P  mixtral-8x7b on path B's stack: grouped ``matmul_int8``, the head too
-  Q  falcon-mamba-7b (64 Mamba-1 layers, d_inner 8192, no attention, tied
-     head) on path A's stack: ``dequant_matmul`` on in_proj, x_proj (N =
+  Q  falcon-mamba-7b (8 of its 64 Mamba-1 layers, d_inner 8192, no attention,
+     tied head) on path A's stack: ``dequant_matmul`` on in_proj, x_proj (N =
      288) and out_proj
   R  falcon-mamba-7b on path B's stack: ``matmul_int8`` on the same
 
 and one windowed serve:
 
-  S  mixtral-8x7b at full width, depth cut to 2 layers, path A's stack,
+  S  mixtral-8x7b at full width, depth cut to 1 layer, path A's stack,
      slots=4, max_len 4352 (a 4096-position ring): one 4,160-token prompt
      and three of 64 tokens, 64 new tokens each, under ``fcfs`` and
      ``token_budget:budget=256``; each row's ring must hold exactly its last
@@ -136,8 +136,18 @@ converted form.  The script then drives the ops-level
 entry points ``ops.dim_matmul`` and ``ops.matmul_int8_raw`` (path D).  Each
 path runs with the launch counts set to 0 just before it and read just
 after, and fails unless its kernels launched (exactly, a decode step), no
-plain version ran on the card and its resident bytes match the analytic
-count.  Phase 4 compares the kernel path with the plain path on a 2-layer
+plain version ran on the card and its resident bytes equal the dry run's
+twins to the byte (``ServeEngine.resident_bytes()`` against
+``dryrun.analytic_weight_bytes`` and ``dryrun.analytic_cache_bytes``;
+where the latter raises, for the Mamba and VLM configs Q, R, T and U, or
+leaves the context K/V out, for V and W, against the bytes of
+``model.init_cache`` on the meta device; T-W hold the caches their
+``model.prefill`` built).  Then the dry-run phase (after Z): each profiled
+path's decode step against its analytic traffic and H100 step bound
+(``dryrun.analytic_traffic``, ``hlo_stats.roofline_terms``, a
+``ShapeCell`` of the path's slots and max_len), busy ms over the bound;
+``dryrun.analyze_cell`` for all 33 arch × shape cells under path A's
+stack, one line each; ``hlo_stats.HW``'s HBM bytes against the card's.  Phase 4 compares the kernel path with the plain path on a 2-layer
 cut for each weight format, the ``int8`` cache, a chunked serve and each
 further config on its two stacks (with the share of MoE routing choices
 that agree; O-R's configs too, B's stack held to a zero difference),
@@ -152,11 +162,13 @@ needs a CUDA device and the repository's ``src``; without either it fails
 before printing a result.
 
 Every serving path runs at full width, and at full depth but for cuts
-made to keep the run well inside the 1200 s it may take: paths G-N serve
-their configs at 8 layers (``CONFIG_DEPTH``; at full depth, PR 18-19,
-they took ~380 s of a 1,063 s run with O-S), and S serves mixtral-8x7b at
-2 of its 32 layers (its 4,160-token prefill and its plain-path
-comparisons at full depth would take many minutes).  A cut layer
+made to keep the run well inside the 1200 s it may take: paths G-R serve
+their configs at 8 layers (``CONFIG_DEPTH``; on one H100, G-N at full
+depth took ~380 s of a 1,063 s run with O-S, and O-R at full depth
+~100-157 s of runs up to 897 s), and S serves mixtral-8x7b at 1 of its
+32 layers (its 4,160-token prefill and its plain-path comparisons at
+full depth would take many minutes; at 2 layers S took ~175 s of runs
+up to 1,001 s).  A cut layer
 launches what a full-depth layer does, at the same shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
@@ -230,13 +242,14 @@ MLA_PATHS = {
     "N": ("deepseek-v2-lite-16b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
           {"matmul_int8": 55}),
 }
-#: paths G-N serve their configs at 8 layers (deepseek-v2-lite-16b's dense
-#: layer 0 and 7 MoE layers), so that the run with paths O-S stays well
-#: inside its time limit: at full depth (PR 18-19) G-N took ~380 s of a
-#: 1,063 s run.  A layer's shapes, and so each kernel launch, are those of
-#: the full depth; O-R serve their configs whole.
+#: paths G-R serve their configs at 8 layers (deepseek-v2-lite-16b's dense
+#: layer 0 and 7 MoE layers), so that the run stays well inside its time
+#: limit: at full depth G-N took ~380 s of a 1,063 s run on one H100, O-R
+#: ~100-157 s of runs up to 897 s.  A layer's shapes, and so each kernel
+#: launch, are those of the full depth.
 CONFIG_DEPTH = {arch: 8 for arch in ("starcoder2-3b", "qwen1.5-32b", "minicpm3-4b",
-                                     "deepseek-v2-lite-16b")}
+                                     "deepseek-v2-lite-16b", "mixtral-8x7b",
+                                     "falcon-mamba-7b")}
 
 
 def config_for(arch: str):
@@ -248,25 +261,25 @@ def config_for(arch: str):
     return cfg.scaled(n_layers=CONFIG_DEPTH[arch]) if arch in CONFIG_DEPTH else cfg
 
 
-#: the sliding-window MoE and Mamba configs at full width and depth: path →
-#: (arch, the stack's path, kernels that must launch by slots, launches per
-#: decode step at slots=4).  On A's stack: mixtral-8x7b's 4 W8A16 attention
-#: projections, 2 grouped BSDP GEMMs (w_in, w_out over 8 experts) and one
-#: plane attention a layer, the head left in bf16; falcon-mamba-7b's 3
-#: W8A16 projections a layer (in_proj, x_proj, out_proj; its head tied).
-#: On B's stack the same projections through ``matmul_int8``, mixtral's
-#: head too.
+#: the sliding-window MoE and Mamba configs at full width, depth cut by
+#: CONFIG_DEPTH: path → (arch, the stack's path, kernels that must launch by
+#: slots, launches per decode step at slots=4 on 8 layers).  On A's stack:
+#: mixtral-8x7b's 4 W8A16 attention projections, 2 grouped BSDP GEMMs (w_in,
+#: w_out over 8 experts) and one plane attention a layer, the head left in
+#: bf16; falcon-mamba-7b's 3 W8A16 projections a layer (in_proj, x_proj,
+#: out_proj; its head tied).  On B's stack the same projections through
+#: ``matmul_int8``, mixtral's head too.
 WINDOW_SSM_PATHS = {
     "O": ("mixtral-8x7b", "A",
           {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
            1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
-          {"dequant_matmul": 128, "bsdp_gemm_fused": 64, "plane_decode_attention": 32}),
+          {"dequant_matmul": 32, "bsdp_gemm_fused": 16, "plane_decode_attention": 8}),
     "P": ("mixtral-8x7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 193}),
+          {"matmul_int8": 49}),
     "Q": ("falcon-mamba-7b", "A", {4: ("dequant_matmul",), 1: ("dequant_matmul",)},
-          {"dequant_matmul": 192}),
+          {"dequant_matmul": 24}),
     "R": ("falcon-mamba-7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 192}),
+          {"matmul_int8": 24}),
 }
 #: paths G-R draw and convert leaf by leaf (``engine.materialize_converted``),
 #: and the peak allocation may exceed the resident bytes by two float32
@@ -341,7 +354,6 @@ def path_spec(path: str) -> tuple:
 PATH_MODES = [(mode, cache, "fcfs") for mode, cache, _, _ in PATHS.values()] + [
     ("w4a4_bsdp", "int4_bp_fused", "fcfs"), ("w8a8", "int8", "fcfs"),
     (PATHS["A"][0], PATHS["A"][1], "token_budget:budget=4")]
-RESIDENT_RTOL = 0.005  # resident bytes against the analytic count
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 INT8_OPS_PER_S = 1979e12  # dense int8 tensor cores
 F32_OPS_PER_S = 67e12  # float32 outside the tensor cores
@@ -1211,10 +1223,8 @@ def window_ssm_step_rows(path: str, slots: int = 4) -> list:
     """STEP_ROWS for a path of :data:`WINDOW_SSM_PATHS`: (kernel, row,
     launches a decode step) at slots=4, or the grouped ``bsdp_gemv``'s at
     slots=1 (path O)."""
-    from repro_torch.configs import get_config
-
     arch, stack, _, _ = WINDOW_SSM_PATHS[path]
-    layers = get_config(arch).n_layers
+    layers = config_for(arch).n_layers
     a_stack = stack == "A"
     kernel, suffix = ("dequant_matmul", " x=bf16") if a_stack else ("matmul_int8", "")
     if arch == "falcon-mamba-7b":
@@ -1354,36 +1364,53 @@ def cross_step_rows(path: str, slots: int = 4) -> list:
 # ---------------------------------------------------------------------------
 
 
-def analytic_resident_bytes(cfg, mode: str, min_dim: int = 64) -> int:
-    """Resident bytes of a converted model from its shapes alone: each
-    weight of ``model.specs`` under a quantizable key whose last two axes
-    are at least ``min_dim`` (the engine's conversion floor) and that the
-    policy converts holds its payload plus a float32 per-channel scale, a
-    stacked expert weight ``[E, K, N]`` E of them; every other leaf (the
-    float32 embedding, norms, biases and router, the weights the policy
-    keeps float) its own dtype's bytes."""
-    from repro_torch.core.residency import ResidencySpec
+def cache_twin(cfg, slots: int, max_len: int, num_pages=None) -> tuple[int, str]:
+    """The dry run's count of the cache a ``slots``-slot engine at
+    ``max_len`` holds, and how it was made: ``dryrun.analytic_cache_bytes``
+    over the ring the engine allocates (``min(window, max_len)`` for a
+    windowed config), less the pages a capped pool (``num_pages``) leaves
+    out, each page its inner format's slot bytes × ``page_size``; where
+    that count raises (a Mamba or cross-attention layer), the bytes of
+    ``model.init_cache`` on the meta device."""
+    from repro_torch.core import kvcache
+    from repro_torch.launch import dryrun
+    from repro_torch.models import attention
     from repro_torch.models import model as model_lib
-    from repro_torch.serve.engine import QUANTIZABLE_KEYS
 
-    spec = ResidencySpec.parse(mode)
-    payload = {"w8a16": lambda k, n: k * n, "w8a8": lambda k, n: k * n,
-               "w4a8": lambda k, n: -(-k // 2) * n,
-               **{f: (lambda k, n: n * 4 * -(-k // 32) * 4)
-                  for f in ("w4a4_bsdp", "bsdp", "bsdp_fused")}}
+    ring = attention.cache_len_for(cfg, max_len)
+    try:
+        want = dryrun.analytic_cache_bytes(cfg, slots, ring)
+    except NotImplementedError:
+        caches = model_lib.init_cache(cfg, slots, max_len, device="meta")
+        return kvcache.cache_resident_bytes(caches), "init_cache on the meta device"
+    if num_pages is None:
+        return want, "analytic_cache_bytes"
+    fmt = kvcache.format_for(cfg)
+    check(cfg.attn_type != "mla", "a capped page pool is counted for K and V channels only")
+    page = fmt.inner.slot_bytes((cfg.n_kv_heads,), cfg.d_head, cfg.dtype) * fmt.page_size
+    unused = slots * fmt.pages_per_slot(ring) - num_pages
+    return (want - 2 * cfg.n_layers * unused * page,
+            f"analytic_cache_bytes less {unused} pages of {page} B a channel and layer")
 
-    def walk(tree, path):
-        if isinstance(tree, dict):
-            return sum(walk(v, path + (k,)) for k, v in tree.items())
-        if isinstance(tree, list):
-            return sum(walk(v, path + (str(i),)) for i, v in enumerate(tree))
-        shape, fmt = tree.shape, spec.mode_for(".".join(path))
-        if path[-1] in QUANTIZABLE_KEYS and fmt in payload and min(shape[-2:]) >= min_dim:
-            k, n = shape[-2:]
-            return math.prod(shape[:-2]) * (payload[fmt](k, n) + 4 * n)
-        return math.prod(shape) * tree.dtype.itemsize
 
-    return walk(model_lib.specs(cfg), ())
+def hold_resident(eng, label: str) -> dict:
+    """Hold a live engine's ``resident_bytes()`` to the dry run's twins, to
+    the byte: the weights to ``dryrun.analytic_weight_bytes(cfg, mode)``,
+    the cache to :func:`cache_twin`.  Returns the engine's count."""
+    from repro_torch.launch import dryrun
+
+    got = eng.resident_bytes()
+    want_w = dryrun.analytic_weight_bytes(eng.cfg, eng.mode)
+    pool = eng.page_pool
+    capped = pool is not None and pool.num_pages != eng.slots * eng._npp
+    want_c, how = cache_twin(eng.cfg, eng.slots, eng.max_len,
+                             pool.num_pages if capped else None)
+    print(f"{label}: resident weights {got['weights']} B (analytic_weight_bytes "
+          f"{want_w} B), cache {got['cache']} B ({how} {want_c} B)")
+    check(got["weights"] == want_w,
+          f"{label}: resident weights {got['weights']} B != the dry run's {want_w} B")
+    check(got["cache"] == want_c, f"{label}: cache {got['cache']} B != the dry run's {want_c} B")
+    return got
 
 
 def _serve(engine_mod, params, cfg, mode, cache, slots, n_requests, rng, device):
@@ -1400,6 +1427,7 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
     """Paths A, B and C at full width and depth; returns path → kernel →
     launches of that path's serving runs."""
     from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
 
@@ -1414,11 +1442,10 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
         t0 = time.perf_counter()
         qparams[path] = engine.convert_params(params, cfg, mode)
         torch.cuda.synchronize()
-        got, want = engine.resident_bytes(qparams[path]), analytic_resident_bytes(cfg, mode)
+        got, want = engine.resident_bytes(qparams[path]), dryrun.analytic_weight_bytes(cfg, mode)
         print(f"path {path}: residency convert ({mode}): {time.perf_counter() - t0:.2f} s, "
-              f"{got} B resident (analytic {want} B, {got / want - 1:+.2e})")
-        check(abs(got - want) <= RESIDENT_RTOL * want,
-              f"path {path}: resident bytes {got} vs analytic {want}")
+              f"{got} B resident (analytic_weight_bytes {want} B)")
+        check(got == want, f"path {path}: resident bytes {got} != the dry run's {want}")
     del params
     torch.cuda.empty_cache()
     counts = {}
@@ -1441,9 +1468,10 @@ def phase_serve(torch, device, card) -> dict[str, dict]:
 def draw_converted(torch, device, cfg, path, header, largest, what, prepare=None):
     """``path``'s weights for ``cfg``, drawn from ``SEED`` and converted leaf
     by leaf (``engine.materialize_converted``), then ``prepare(params)`` if
-    given; resident bytes held to :func:`analytic_resident_bytes` and the
-    peak allocation to resident + 2 x ``largest`` (``what``: the largest
-    float32 leaf drawn whole) + :data:`STREAM_SLACK_BYTES`."""
+    given; resident bytes held to ``dryrun.analytic_weight_bytes`` to the
+    byte and the peak allocation to resident + 2 x ``largest`` (``what``:
+    the largest float32 leaf drawn whole) + :data:`STREAM_SLACK_BYTES`."""
+    from repro_torch.launch import dryrun
     from repro_torch.serve import engine
 
     mode = path_spec(path)[0]
@@ -1455,15 +1483,14 @@ def draw_converted(torch, device, cfg, path, header, largest, what, prepare=None
     if prepare is not None:
         prepare(qparams)
     torch.cuda.synchronize()
-    got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+    got, want = engine.resident_bytes(qparams), dryrun.analytic_weight_bytes(cfg, mode)
     peak = torch.cuda.max_memory_allocated() - base
     limit = got + 2 * largest + STREAM_SLACK_BYTES
     print(f"path {path}: {header} drawn and converted leaf by leaf ({mode}): "
-          f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic {want} B, "
-          f"{got / want - 1:+.2e}), peak allocated {peak} B (bound {limit} B = resident + "
+          f"{time.perf_counter() - t0:.2f} s, {got} B resident (analytic_weight_bytes {want} "
+          f"B), peak allocated {peak} B (bound {limit} B = resident + "
           f"2 x {largest} B, {what}, + {STREAM_SLACK_BYTES} B)")
-    check(abs(got - want) <= RESIDENT_RTOL * want,
-          f"path {path}: resident bytes {got} vs analytic {want}")
+    check(got == want, f"path {path}: resident bytes {got} != the dry run's {want}")
     check(peak <= limit, f"path {path}: the conversion peaked at {peak} B > {limit} B")
     return qparams
 
@@ -1590,6 +1617,7 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path, keep=None) -> d
             counts[name] = counts.get(name, 0) + v
         if keep is not None:
             keep.append((eng, ran))
+        hold_resident(eng, f"path {path} slots={slots}")
         for req in eng.requests:
             check(req.state == "done" and len(req.out) == 32,
                   f"path {path}: request {req.uid} unfinished")
@@ -1603,6 +1631,12 @@ def _serve_path(torch, device, card, engine, qparams, cfg, path, keep=None) -> d
               f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}, "
               f"peak mem {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     return counts
+
+
+#: path → (config, weights, slots, max_len, wall ms, device-busy ms) of its
+#: profiled decode step (:func:`phase_profile`, the cross paths), which the
+#: dry-run phase sets beside the step's analytic bound
+DECODE_PROFILES: dict = {}
 
 
 def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 3):
@@ -1630,16 +1664,18 @@ def phase_profile(torch, device, engine, qparams, cfg, card, path, steps: int = 
     print(f"path {path} launches per decode step (slots=4): {step_launches}")
     check(step_launches == per_step,
           f"path {path}: decode step launched {step_launches}, expected {per_step}")
-    profile_steps(torch, eng.step, steps, f"path {path} profile decode step (slots=4, "
-                  f"{cfg.n_layers} layers, {card}, under the profiler)")
+    DECODE_PROFILES[path] = (eng.cfg, mode, 4, 512) + profile_steps(
+        torch, eng.step, steps, f"path {path} profile decode step (slots=4, "
+        f"{cfg.n_layers} layers, {card}, under the profiler)")
     return eng
 
 
-def profile_steps(torch, step, steps: int, label: str) -> None:
+def profile_steps(torch, step, steps: int, label: str) -> tuple:
     """``torch.profiler`` over ``steps`` calls of ``step`` (an engine step,
     or a decode step of the cross paths): wall time, device-busy
     time (the sum of the device-side kernel and copy durations), idle share,
-    device operations per step and the kernels taking most device time."""
+    device operations per step and the kernels taking most device time.
+    Returns (wall ms, busy ms) a step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1659,6 +1695,7 @@ def profile_steps(torch, step, steps: int, label: str) -> None:
           f"{1 - busy_ms / wall_ms:.3f}, device ops {len(dev_events) / steps:.0f}/step")
     for name, ms in top:
         print(f"  {ms:8.3f} ms/step  {name[:90]}")
+    return wall_ms, busy_ms
 
 
 # ---------------------------------------------------------------------------
@@ -1755,6 +1792,7 @@ def phase_chunked(torch, device, card, engine, qparams, cfg) -> dict:
         for kind, _, logits in eng.logit_trace:
             check(bool(np.isfinite(logits).all()) and logits.shape[-1] == cfg.vocab_size,
                   f"path E {sched}: {kind} logits not finite / wrong width")
+        hold_resident(eng, f"path E {sched}")
         st = eng.stats()
         ttft_work[sched] = [st.requests[r.uid].ttft_work for r in refilled]
         print(f"path E serve {sched} on {card}: {st.total_tokens} tokens, {st.tok_per_s:.2f} "
@@ -1787,18 +1825,6 @@ def phase_chunked(torch, device, card, engine, qparams, cfg) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def analytic_paged_cache_bytes(cfg, slots: int, max_len: int, num_pages: int,
-                               page: int = 8) -> int:
-    """``paged_int4_bp_fused``'s bytes from its shapes: per layer, K's and
-    V's pool (a page: ``page`` positions × kv heads × 4 plane words of
-    ceil(d_head / 32) int32 words and a float32 scale), their int32 block
-    tables (``slots × pages a slot``) and the int32 ``pos_ids`` (``slots ×
-    the page-rounded ring``)."""
-    npp, fw = -(-max_len // page), -(-cfg.d_head // 32)
-    pool = 2 * num_pages * page * cfg.n_kv_heads * (4 * fw * 4 + 4)
-    return cfg.n_layers * (pool + 2 * slots * npp * 4 + slots * npp * page * 4)
-
-
 def profile_gather(torch, eng, steps: int, card) -> None:
     """The block-table gathers of one decode step alone (K and V of every
     layer, as the fused read takes them) on the engine's live caches, under
@@ -1819,13 +1845,12 @@ def phase_paged(torch, device, card, engine, qparams, cfg, served_a) -> dict:
     ``fcfs``, the default pool (slots × 64 pages), phase 3's mix from the
     same seed.  Each serve must equal path A's serve of the same requests
     (``served_a``) bit for bit, every token and every logit row, with the
-    same launches and no plain version on the card; the cache's bytes must
-    equal the analytic pool + tables + pos_ids count.  Then the decode-step
+    same launches and no plain version on the card; the cache's bytes (the
+    default pool, its block tables and pos_ids) are held to the dry run's
+    in :func:`_serve_path`.  Then the decode-step
     profile, launches per step equal to A's, and the gathers' share of it
     alone.  Returns the kernel launches."""
     import numpy as np
-
-    from repro_torch.core import kvcache
 
     served: list = []
     counts = _serve_path(torch, device, card, engine, qparams, cfg, "X", keep=served)
@@ -1837,13 +1862,10 @@ def phase_paged(torch, device, card, engine, qparams, cfg, served_a) -> dict:
               and all(np.array_equal(a, b) for (_, _, a), (_, _, b)
                       in zip(eng.logit_trace, ref.logit_trace)),
               f"path X slots={slots}: logits differ from path A's")
-        got = kvcache.cache_resident_bytes(eng.caches)
-        want = analytic_paged_cache_bytes(cfg, slots, 512, eng.page_pool.num_pages)
         print(f"path X slots={slots}: {len(eng.logit_trace)} logit rows and "
               f"{sum(len(r.out) for r in eng.requests)} tokens bit-identical to path A's; "
-              f"cache {got} B (analytic {want} B; path A's {kvcache.cache_resident_bytes(ref.caches)}"
-              f" B), pages {eng.stats().pages}")
-        check(got == want, f"path X: cache bytes {got} != analytic {want}")
+              f"cache {eng.resident_bytes()['cache']} B (path A's "
+              f"{ref.resident_bytes()['cache']} B), pages {eng.stats().pages}")
     del served
     eng = phase_profile(torch, device, engine, qparams, cfg, card, "X")
     profile_gather(torch, eng, 3, card)
@@ -1934,7 +1956,6 @@ def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
     import numpy as np
 
     from repro_torch import obs
-    from repro_torch.core import kvcache
     from repro_torch.kernels import ops
 
     shared, prompts, max_news = _prefix_mix(cfg)
@@ -2017,7 +2038,7 @@ def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
             "pages.prefix_hit": pages["prefix_hits"],
             "pages.prefix_tokens_saved": pages["prefix_tokens_saved"]}
     check(counters == want, f"path Y: pages counters {counters} != stats {want}")
-    cache_bytes = kvcache.cache_resident_bytes(eng.caches)
+    cache_bytes = hold_resident(eng, "path Y")["cache"]
     check(bytes_gauge == cache_bytes, f"path Y: bytes.cache {bytes_gauge} != {cache_bytes}")
     summary = obs.summarize_spans(timeline)
     print("path Y spans (host ms, p50 / p95 / count): " + ", ".join(
@@ -2051,22 +2072,13 @@ def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
     return ran
 
 
-def analytic_int8_cache_bytes(cfg, slots: int, max_len: int) -> int:
-    """The ``int8`` cache's bytes from its shapes: per layer, K and V as
-    one int8 byte a feature plus a float32 scale a (slot, position, kv head),
-    and the int32 ``pos_ids``."""
-    return (2 * cfg.n_layers * slots * max_len * cfg.n_kv_heads * (cfg.d_head + 4)
-            + cfg.n_layers * slots * max_len * 4)
-
-
 def phase_int8_cache(torch, device, card, engine, qparams, cfg) -> dict:
     """Path F: ``w8a8`` weights with the ``int8`` cache under ``sjf`` at
     slots=4, the phase-3 mix.  ``matmul_int8`` must launch with no plain
     version on the card, every request finish, and the weights' and the live
-    cache's bytes equal their analytic counts."""
+    cache's bytes equal the dry run's (:func:`hold_resident`)."""
     import numpy as np
 
-    from repro_torch.core import kvcache
     from repro_torch.kernels import ops
 
     mode, max_len = PATHS["B"][0], 512
@@ -2089,17 +2101,12 @@ def phase_int8_cache(torch, device, card, engine, qparams, cfg) -> dict:
         check(all(0 <= t < cfg.vocab_size for t in req.out), "token out of vocab")
     for kind, _, logits in eng.logit_trace:
         check(bool(np.isfinite(logits).all()), f"path F: {kind} logits not finite")
-    weights, want_w = engine.resident_bytes(eng.params), analytic_resident_bytes(cfg, mode)
-    cache, want_c = (kvcache.cache_resident_bytes(eng.caches),
-                     analytic_int8_cache_bytes(cfg, 4, max_len))
     st = eng.stats()
     print(f"path F serve (w8a8, int8 cache, sjf, slots=4) on {card}: {st.total_tokens} tokens, "
           f"{st.tok_per_s:.2f} tok/s, TTFT p50 {st.percentile('ttft_s', 50) * 1e3:.2f} ms, "
-          f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}; resident "
-          f"weights {weights} B (analytic {want_w}), cache {cache} B (analytic {want_c}); "
+          f"TPOT p50 {st.percentile('tpot_s', 50) * 1e3:.2f} ms, steps {st.steps}; "
           f"launches {ran}")
-    check(weights == want_w, f"path F: resident weight bytes {weights} != analytic {want_w}")
-    check(cache == want_c, f"path F: int8 cache bytes {cache} != analytic {want_c}")
+    hold_resident(eng, "path F")
     return ran
 
 
@@ -2112,7 +2119,7 @@ def phase_int8_cache(torch, device, card, engine, qparams, cfg) -> dict:
 #: longer than the window and three short ones, S_NEW new tokens each, under
 #: each of S_SCHEDULERS (token_budget's chunk rows run past position 4096,
 #: plane attention at G up to 4 query heads a kv head · 256)
-S_LAYERS = 2
+S_LAYERS = 1
 S_MAX_LEN = 4352
 S_PROMPTS = (4160, 64, 64, 64)
 S_NEW = 64
@@ -2219,6 +2226,7 @@ def phase_window(torch, device, card) -> dict:
                       f"<= {ring} positions (up to {top})")
                 got_tops.append(top)
             check(sorted(got_tops) == tops, f"path S {sched}: the rings end at {got_tops}")
+        hold_resident(eng, f"path S {sched}")
         st = eng.stats()
         print(f"path S serve {sched} (mixtral-8x7b, {S_LAYERS} layers, ring {ring}, prompts "
               f"{list(S_PROMPTS)}) on {card}: {st.total_tokens} tokens in {wall:.2f} s, "
@@ -2324,12 +2332,41 @@ class CrossDrive:
         self._take("decode", logits)
 
 
+def hold_cross_cache(cfg, caches, slots: int, label: str) -> None:
+    """Hold the caches ``model.prefill`` built for a cross-attention config
+    to the bytes of ``model.init_cache`` on the meta device, to the byte.
+    ``dryrun.analytic_cache_bytes`` raises on a VLM's cross layers; for an
+    encoder-decoder it counts the self-attention rings and leaves each
+    layer's context K/V out, so there it must equal the cache less the
+    contexts."""
+    from repro_torch.core import kvcache
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+
+    got = kvcache.cache_resident_bytes(caches)
+    abstract = model_lib.init_cache(cfg, slots, CROSS_MAX_LEN, device="meta")
+    want = kvcache.cache_resident_bytes(abstract)
+    context = sum(kvcache.cache_resident_bytes(layer.get("cross", layer))
+                  for i, layer in enumerate(abstract) if cfg.mixer_kind(i) != "attn")
+    try:
+        analytic = dryrun.analytic_cache_bytes(cfg, slots, CROSS_MAX_LEN)
+    except NotImplementedError:
+        analytic = None
+    print(f"{label}: cache {got} B (init_cache on the meta device {want} B, of which context "
+          f"K/V {context} B; analytic_cache_bytes "
+          f"{'raises on the cross layers' if analytic is None else f'{analytic} B'})")
+    check(got == want, f"{label}: cache {got} B != init_cache's {want} B")
+    check(analytic is None or analytic + context == want,
+          f"{label}: analytic_cache_bytes {analytic} B + context {context} B != {want} B")
+
+
 def phase_cross(torch, device, card) -> dict[str, dict]:
     """Paths T-W: llama-3.2-vision-11b and seamless-m4t-medium at full width
     and depth on A's and B's stacks, drawn from ``SEED`` and converted leaf
     by leaf, every cross gate set to :data:`CROSS_GATE`, resident bytes held
-    to the analytic count (the cross and encoder leaves included) and the
-    peak allocation to its bound.  Each serves, through ``model.prefill``
+    to the dry run's to the byte (the cross and encoder leaves included),
+    each serve's caches to :func:`hold_cross_cache`, and the peak allocation
+    to its bound.  Each serves, through ``model.prefill``
     and greedy ``model.decode_step``, four prompts of 16-128 tokens
     (left-padded) with their contexts (llama-vision's [4, 1601, 4096] patch
     embeddings, seamless's [4, 1536, 1024] frames through its encoder) for
@@ -2382,6 +2419,7 @@ def phase_cross(torch, device, card) -> dict[str, dict]:
                       f"expected {want_gemv}")
             for name, v in ran.items():
                 counts[path][name] = counts[path].get(name, 0) + v
+            hold_cross_cache(cfg, drive.caches, slots, f"path {path} slots={slots}")
             toks = np.stack(drive.out)
             check(toks.shape == (CROSS_NEW, slots) and bool(((toks >= 0)
                                                              & (toks < cfg.vocab_size)).all()),
@@ -2402,8 +2440,9 @@ def phase_cross(torch, device, card) -> dict[str, dict]:
         print(f"path {path} launches per decode step (slots=4): {step_launches}")
         check(step_launches == per_step,
               f"path {path}: decode step launched {step_launches}, expected {per_step}")
-        profile_steps(torch, drive.step, 3, f"path {path} profile decode step (slots=4, "
-                      f"{cfg.n_layers} layers, {card}, under the profiler)")
+        DECODE_PROFILES[path] = (cfg, path_spec(path)[0], 4, CROSS_MAX_LEN) + profile_steps(
+            torch, drive.step, 3, f"path {path} profile decode step (slots=4, "
+            f"{cfg.n_layers} layers, {card}, under the profiler)")
         del qparams, drive
         torch.cuda.empty_cache()
     return counts
@@ -2794,6 +2833,7 @@ def phase_train(torch, device, card) -> dict:
     stack and served as path A is, A's exact launches a decode step.
     Returns (d)'s launches."""
     from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
     from repro_torch.serve import engine
 
     ops.reset_counts()
@@ -2808,15 +2848,66 @@ def phase_train(torch, device, card) -> dict:
     qparams = engine.convert_params(params, cfg, mode)
     del params
     torch.cuda.empty_cache()
-    got, want = engine.resident_bytes(qparams), analytic_resident_bytes(cfg, mode)
+    got, want = engine.resident_bytes(qparams), dryrun.analytic_weight_bytes(cfg, mode)
     print(f"path Z (d): the trained weights on path A's stack ({mode}): {got} B resident "
-          f"(analytic {want} B)")
-    check(abs(got - want) <= RESIDENT_RTOL * want, f"path Z: resident bytes {got} vs {want}")
+          f"(analytic_weight_bytes {want} B)")
+    check(got == want, f"path Z: resident bytes {got} != the dry run's {want}")
     counts = _serve_path(torch, device, card, engine, qparams, cfg, "Z")
     phase_profile(torch, device, engine, qparams, cfg, card, "Z")
     del qparams
     torch.cuda.empty_cache()
     return counts
+
+
+# ---------------------------------------------------------------------------
+# The dry run: each profiled decode step against its bound, and every cell
+# ---------------------------------------------------------------------------
+
+
+def phase_dryrun(torch, card) -> None:
+    """(a) ``hlo_stats.HW``'s HBM bytes against the card's total memory;
+    (b) each profiled decode step (:data:`DECODE_PROFILES`) beside its
+    analytic bound: the step's HBM traffic (``dryrun.analytic_traffic`` of
+    a ``ShapeCell`` of the path's slots and max_len, on the config and
+    depth it served), ``roofline_terms``' ``step_lower_bound`` and busy ms
+    over it; (c) ``dryrun.analyze_cell`` for every arch × applicable shape
+    under path A's stack, one line each (fits one card, dominant term,
+    bound).  Host arithmetic over meta tensors: no kernel runs."""
+    from repro_torch.configs import ARCH_NAMES, applicable_shapes, get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun, hlo_stats
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    hbm = hlo_stats.HW["hbm_bytes"]
+    print(f"dry run: HW hbm_bytes {hbm:.0f} B (the data sheet's 80 GB), the card's "
+          f"total_memory {total} B = {total / hbm:.4f} x ({card})")
+    check(hbm <= total <= 1.1 * hbm,
+          f"HW hbm_bytes {hbm:.0f} B does not describe the card's {total} B")
+    check(set(DECODE_PROFILES) >= {"A", "B", "C", "X", "Z", *CONFIG_PATHS, *MLA_PATHS,
+                                   *WINDOW_SSM_PATHS, *CROSS_PATHS},
+          f"profiled decode steps {sorted(DECODE_PROFILES)}")
+    for path, (cfg, mode, slots, max_len, wall_ms, busy_ms) in DECODE_PROFILES.items():
+        cell = ShapeCell(f"path {path}", max_len, slots, "decode")
+        traffic = dryrun.analytic_traffic(cfg, cell, mode)
+        terms = hlo_stats.roofline_terms(dryrun.model_flops(cfg, cell), traffic["total"], 0.0)
+        bound_ms = terms["step_lower_bound"] * 1e3
+        check(bound_ms > 0 and busy_ms > 0, f"path {path}: bound {bound_ms} ms, busy {busy_ms}")
+        print(f"path {path} dry run: decode step of {cfg.name} ({cfg.n_layers} layers, {mode}, "
+              f"cache {cfg.cache_format}, slots={slots}, max_len {max_len}): analytic traffic "
+              f"{traffic['total']:.0f} B (weights {traffic['weight_traffic']:.0f}, cache "
+              f"{traffic['cache_traffic']:.0f}, activations {traffic['act_traffic']:.0f}), "
+              f"step_lower_bound {bound_ms:.4f} ms ({terms['dominant']}); busy "
+              f"{busy_ms:.3f} ms = {busy_ms / bound_ms:.2f} x the bound, wall {wall_ms:.3f} ms "
+              f"({card})")
+    qmode, cache = PATHS["A"][:2]
+    cells = [(a, s) for a in ARCH_NAMES for s in applicable_shapes(get_config(a))]
+    check(len(cells) == 33, f"{len(cells)} arch x shape cells")
+    for arch, shape in cells:
+        rec = dryrun.analyze_cell(arch, shape, qmode=qmode, cache_format=cache)
+        one, roof = rec["one_card"], rec["roofline"]
+        print(f"dry run {arch} {shape} ({qmode}, cache {cache}): fits one card {one['fits']} "
+              f"({one['total_bytes']} B), dominant {roof['dominant']}, step_lower_bound "
+              f"{roof['step_lower_bound'] * 1e3:.4f} ms")
 
 
 # ---------------------------------------------------------------------------
@@ -3241,6 +3332,8 @@ def main() -> int:
     done("paths T-W")
     phase_train(torch, device, card)  # its serve's launches stay out of the kernels line
     done("path Z")
+    phase_dryrun(torch, card)
+    done("dry run")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

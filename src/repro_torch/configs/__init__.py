@@ -11,7 +11,7 @@ the encoder-decoder seamless-m4t-medium, which ``model.prefill`` and
 
 from importlib import import_module
 
-from repro_torch.configs.base import ModelConfig  # noqa: F401
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeCell, applicable_shapes  # noqa: F401
 
 _MODULES = {
     "qwen3-1.7b": "qwen3_1_7b",

@@ -9,7 +9,8 @@ and no FFN), the hybrid family (Mamba and attention interleaved in a
 periodic superblock), the VLM family (cross-attention layers over a
 context of patch embeddings in place of self-attention) and the audio
 family (an encoder-decoder whose every decoder layer cross-attends to the
-encoder's output).
+encoder's output).  ``ShapeCell``, ``SHAPES`` and ``applicable_shapes``
+are the reference's dry-run cells, field for field.
 """
 
 from __future__ import annotations
@@ -126,6 +127,39 @@ class ModelConfig:
                 return "moe"
         return "dense"
 
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic decode: SSM/hybrid (and window-bounded SWA)."""
+        return self.family in ("ssm", "hybrid") or self.sliding_window is not None
+
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests (same family/topology, tiny dims)."""
         return dataclasses.replace(self, **overrides)
+
+
+# ---------------------------------------------------------------------------
+# Input shapes: every arch × these four cells (the dry-run's cells).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def applicable_shapes(cfg: ModelConfig) -> list[str]:
+    """``long_500k`` only for sub-quadratic archs."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.supports_long_context():
+        names.append("long_500k")
+    return names

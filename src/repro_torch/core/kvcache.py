@@ -15,6 +15,10 @@ names them ``k``/``k_scale``/``v``/``v_scale`` (``c_kv``/``c_scale``) beside
             (PyTorch has no dropping scatter)
 ``qk/av``   the score and value reads, scales folded after the contraction
 ``decode_attention``  the fused qk → softmax → av read (``int4_bp_fused``)
+``abstract_state``    ``init``'s storage on the ``meta`` device: the dry
+            run's cache, shapes and dtypes with no storage, which
+            ``resident_bytes`` / ``slot_bytes`` / :func:`cache_resident_bytes`
+            count as they count real stores
 
 Formats: ``bf16``; ``int8`` — an int8 payload ``[B, L, Hkv, F]`` with a
 float32 scale a slot ``[B, L, Hkv]``, both folded after the contraction
@@ -40,6 +44,7 @@ from repro_torch.core import bitplane, bsdp, quant
 
 #: scale floor — matches the reference's per-slot cache scales
 _EPS = 1e-6
+_META = torch.device("meta")
 
 #: channel prefix → (payload key, scale key) in the flat cache dict
 CHANNEL_KEYS = {
@@ -120,6 +125,19 @@ class CacheFormat:
         pages, so the gathered storage and ``pos_ids`` stay congruent."""
         return cache_len
 
+    def abstract_state(self, batch, cache_len, lead, feat, dtype=torch.bfloat16) -> dict:
+        """:meth:`init`'s store on the meta device (the same code, so the
+        two cannot drift)."""
+        return self.init(batch, cache_len, lead, feat, dtype=dtype, device=_META)
+
+    def resident_bytes(self, store: dict) -> int:
+        """Device bytes of one channel's store, real or abstract."""
+        return cache_resident_bytes(store)
+
+    def slot_bytes(self, lead: tuple, feat: int, dtype=torch.bfloat16) -> int:
+        """Resident bytes of one cache slot, from :meth:`abstract_state`."""
+        return self.resident_bytes(self.abstract_state(1, 1, lead, feat, dtype))
+
     def channel(self, cache: dict, prefix: str) -> dict:
         data_key, scale_key = CHANNEL_KEYS[prefix]
         keys = {"": data_key, "_scale": scale_key}
@@ -160,7 +178,8 @@ def format_for(cfg) -> CacheFormat:
 
 
 def cache_resident_bytes(caches) -> int:
-    """Device bytes of a cache tree (payloads, scales and pos_ids)."""
+    """Device bytes of a cache tree (payloads, scales and pos_ids), of real
+    tensors or meta ones alike."""
     if isinstance(caches, torch.Tensor):
         return caches.numel() * caches.element_size()
     items = caches.values() if isinstance(caches, dict) else caches

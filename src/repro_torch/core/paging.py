@@ -30,10 +30,12 @@ a page that is being written: a write into a shared page would change
 another slot's keys with nothing to catch it.  Keeping that true is the
 engine's copy-on-write (``ServeEngine._cow_writes``).
 
-Registered names are ``paged_<inner>`` (``page_size`` 8).  The reference's
-``abstract_state`` and sharding methods (``data_axes``,
-``flat_cache_axes``) serve its dry run and its mesh, which the port does
-not have yet: they are left out here.
+Registered names are ``paged_<inner>`` (``page_size`` 8).  ``abstract_state``
+(inherited: :meth:`init` on the meta device) is the page-rounded pool with
+its per-page scales and the int32 block table, the dry run's count of what
+a default pool allocates.  The reference's sharding methods (``data_axes``,
+``flat_cache_axes``) serve its mesh, which the port does not have yet:
+they are left out here.
 """
 
 from __future__ import annotations

@@ -16,6 +16,10 @@ A format owns one resident layout:
 ``to_float(state)``      dequantized ``[K, N]`` float32 (the absorbed MLA
                           decode's ``w_uk`` / ``w_uv``)
 ``resident_bytes(state)`` device bytes of payload + scales
+``abstract_state(k, n)``  ``encode``'s output for a ``[k, n]`` weight as
+                          ``meta`` tensors (the dry run's weights: shapes
+                          and dtypes, no storage); ``resident_bytes`` and
+                          ``qbytes`` read them as they read real states
 
 A *stacked* state carries a leading expert axis on its payload and scales
 (``data [E, ...]``, ``scale [E, 1, N]``): the expert weights of a MoE
@@ -84,8 +88,21 @@ class KernelPolicy:
 COLUMN_BLOCK = 1 << 22
 
 
+#: the reference shape of :meth:`ResidencyFormat.qbytes` (no padding slack)
+_REF_K = _REF_N = 512
+_META = torch.device("meta")
+
+
 def _nbytes(t: torch.Tensor) -> int:
+    """Bytes of a tensor: a real one's storage, a meta one's would-be storage."""
     return t.numel() * t.element_size()
+
+
+def _meta_state(name: str, data_shape: tuple, data_dtype: torch.dtype, k: int,
+                n: int) -> "QuantLinearState":
+    return QuantLinearState(data=torch.empty(data_shape, dtype=data_dtype, device=_META),
+                            scale=torch.empty((1, n), dtype=torch.float32, device=_META),
+                            mode=name, k=k, n=n)
 
 
 class ResidencyFormat:
@@ -150,8 +167,19 @@ class ResidencyFormat:
         """Dequantized ``[K, N]`` float32 weight."""
         raise NotImplementedError
 
+    def abstract_state(self, k: int, n: int) -> QuantLinearState:
+        """:meth:`encode`'s output for a ``[k, n]`` weight as meta tensors."""
+        raise NotImplementedError
+
     def resident_bytes(self, state: QuantLinearState) -> int:
+        """Payload + scale bytes, of a real state or an abstract one alike."""
         return _nbytes(state.data) + _nbytes(state.scale)
+
+    def qbytes(self, k: int = _REF_K, n: int = _REF_N) -> float:
+        """Resident payload bytes a logical weight element (scales left
+        out), from :meth:`abstract_state`; a concrete ``(k, n)`` counts one
+        layer's padding exactly."""
+        return _nbytes(self.abstract_state(k, n).data) / float(k * n)
 
     def __repr__(self) -> str:  # pragma: no cover - debug aid
         return f"<ResidencyFormat {self.name!r}>"
@@ -195,6 +223,9 @@ class BF16Format(ResidencyFormat):
 
     def to_float(self, state):
         return state.data.to(torch.float32)
+
+    def abstract_state(self, k, n):
+        return _meta_state(self.name, (k, n), torch.bfloat16, k, n)
 
 
 class Int8Format(ResidencyFormat):
@@ -249,6 +280,9 @@ class Int8Format(ResidencyFormat):
     def to_float(self, state):
         return state.data.to(torch.float32) * state.scale
 
+    def abstract_state(self, k, n):
+        return _meta_state(self.name, (k, n), torch.int8, k, n)
+
 
 class PackedInt4Format(ResidencyFormat):
     """``w4a8``: int4 weights packed two per byte along K (half the bytes of
@@ -280,6 +314,9 @@ class PackedInt4Format(ResidencyFormat):
     def to_float(self, state):
         w = quant.unpack_int4(state.data, axis=0)[:state.k]
         return w.to(torch.float32) * state.scale
+
+    def abstract_state(self, k, n):
+        return _meta_state(self.name, (-(-k // 2), n), torch.int8, k, n)
 
 
 class BitPlaneFormat(ResidencyFormat):
@@ -339,6 +376,9 @@ class BitPlaneFormat(ResidencyFormat):
     def to_float(self, state):
         w = bitplane.decode(state.data, signed=True).T[:state.k]  # [K, N]
         return w.to(torch.float32) * state.scale
+
+    def abstract_state(self, k, n):
+        return _meta_state(self.name, (n, 4, -(-k // bitplane.WORD)), torch.int32, k, n)
 
 
 register_format(BF16Format())

@@ -266,6 +266,15 @@ def cross_specs(cfg) -> dict:
     }
 
 
+def init_cross_cache(cfg, batch: int, *, device=None) -> dict:
+    """Zero context K/V ``{"ck", "cv"}`` ``[B, encoder_tokens, Hkv, dh]`` in
+    the config's dtype on ``device`` (default ``"cuda"``): what
+    :func:`cross_kv` leaves in a cross layer's cache at prefill."""
+    device = resolve_device(device)
+    shape = (batch, cfg.encoder_tokens, cfg.n_kv_heads, cfg.d_head)
+    return {name: torch.zeros(shape, dtype=cfg.dtype, device=device) for name in ("ck", "cv")}
+
+
 def cross_kv(params, ctx, cfg, impl=None) -> dict:
     """Project the context ``[B, ctx, D]`` once → ``{"ck", "cv"}`` ``[B,
     ctx, Hkv, dh]``, reused by every decode step."""

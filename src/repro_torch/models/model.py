@@ -294,6 +294,18 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     return logits.to(torch.float32), caches
 
 
+def init_cache(cfg, batch: int, max_len: int, *, device=None) -> list:
+    """The decode caches of ``batch`` slots, one per layer in the layout
+    :func:`prefill` returns (a ring of ``attention.cache_len_for(cfg,
+    max_len)`` positions, rounded to whole pages by a paged format; a
+    Mamba state; a cross layer's context K/V), zero, on ``device`` (default
+    ``"cuda"``).  ``device="meta"`` gives the abstract cache the dry run
+    counts; its bytes equal the reference's stacked ``init_cache``."""
+    cache_len = attention.cache_len_for(cfg, max_len)
+    return [stack.init_layer_cache(cfg, cfg.mixer_kind(i), batch, cache_len, device=device)
+            for i in range(cfg.n_layers)]
+
+
 def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
     """One decode step: ``token [B,S]`` against the caches (updated in
     place) at scalar, per-slot ``[B]`` or per-token ``[B,S]`` positions.

@@ -109,6 +109,23 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
     return x + y.to(x.dtype), cache, aux
 
 
+def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None):
+    """One layer's zero decode cache, as prefill leaves it, on ``device``
+    (default ``"cuda"``): the ring of an ``attn`` layer (GQA or MLA,
+    ``cache_len`` positions before the format's page rounding), a Mamba
+    layer's state, a ``cross`` layer's context K/V, an ``attn_cross``
+    layer's ``{"self": ring, "cross": K/V}``."""
+    if mixer == "mamba":
+        return mamba.init_mamba_state(cfg, batch, device=device)
+    if mixer == "cross":
+        return attention.init_cross_cache(cfg, batch, device=device)
+    init = attention.init_mla_cache if cfg.attn_type == "mla" else attention.init_kv_cache
+    ring = init(cfg, batch, cache_len, device=device)
+    if mixer == "attn_cross":
+        return {"self": ring, "cross": attention.init_cross_cache(cfg, batch, device=device)}
+    return ring
+
+
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
                 cache_len: int = 0, ctx=None, impl=None, remat: bool = False):
     """Run every layer in order (``ctx``: the context the cross mixers

@@ -706,13 +706,24 @@ class ServeEngine:
             pass
 
     def _note_resident_gauges(self) -> None:
-        """Gauge the resident weight and cache bytes (the accounting of
-        :func:`resident_bytes` and ``kvcache.cache_resident_bytes``)."""
+        """Gauge the resident weight and cache bytes, as
+        :meth:`resident_bytes` counts them."""
+        counted = self.resident_bytes()
+        obs.gauge("bytes.weights", counted["weights"])
+        if self.caches is not None:
+            obs.gauge("bytes.cache", counted["cache"])
+
+    def resident_bytes(self) -> dict:
+        """``{"weights", "cache", "total"}`` device bytes: the weights through
+        each leaf's residency format (counted once: they do not change),
+        the live caches through ``kvcache.cache_resident_bytes`` (0 before
+        the first refill).  The dry run's ``analytic_weight_bytes`` and
+        ``analytic_cache_bytes`` are their twins, to the byte."""
         if self._weight_bytes is None:
             self._weight_bytes = resident_bytes(self.params)
-        obs.gauge("bytes.weights", self._weight_bytes)
-        if self.caches is not None:
-            obs.gauge("bytes.cache", kvcache.cache_resident_bytes(self.caches))
+        cache = 0 if self.caches is None else kvcache.cache_resident_bytes(self.caches)
+        return {"weights": self._weight_bytes, "cache": cache,
+                "total": self._weight_bytes + cache}
 
     # -- SLO surface ----------------------------------------------------
     def stats(self) -> EngineStats:

@@ -9,7 +9,8 @@ from pathlib import Path
 SRC = Path(__file__).resolve().parents[1] / "src"
 
 _PROBE = """
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
+flags = os.environ.get("XLA_FLAGS")
 import repro_torch
 names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
@@ -20,6 +21,7 @@ bad = sorted(m for m in sys.modules
 print(len(names))
 print(",".join(bad))
 print(",".join(names))
+print(os.environ.get("XLA_FLAGS") == flags)
 """
 
 
@@ -27,11 +29,12 @@ def test_port_imports_neither_jax_nor_repro():
     env = dict(os.environ, PYTHONPATH=str(SRC))
     out = subprocess.run([sys.executable, "-c", _PROBE], capture_output=True, text=True,
                          env=env, timeout=120, check=True)
-    n_modules, bad, names = (out.stdout.splitlines() + ["", ""])[:3]
+    n_modules, bad, names, flags_kept = (out.stdout.splitlines() + ["", "", ""])[:4]
     assert int(n_modules) >= 24
     assert bad == "", f"repro_torch loaded {bad}"
     for module in ("core.dim", "kernels.gemv_int8", "kernels.gemv_int4",
                    "kernels.dim_kernel", "optim.adamw", "train.trainstep", "train.trainer",
                    "data.pipeline", "checkpoint.ckpt", "distributed.resilience",
-                   "launch.train", "tree"):
+                   "launch.train", "launch.dryrun", "launch.hlo_stats", "tree"):
         assert f"repro_torch.{module}" in names.split(",")
+    assert flags_kept == "True", "a repro_torch module set XLA_FLAGS"
