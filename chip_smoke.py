@@ -39,7 +39,7 @@ pages (8 tokens a page, 64 a slot at max_len 512):
      agreement printed
 
 then the two further dense configs at their full published width, depth
-cut to 8 layers (below), each on path A's and path B's stack (the same
+cut to 4 layers (below), each on path A's and path B's stack (the same
 request mix, ``fcfs``):
 
   G  starcoder2-3b (LayerNorm, GELU, 2 KV heads, untied head) on path A's stack
@@ -122,6 +122,32 @@ and then training (``phase_train``), which no kernel of the eight serves:
      served as path A is, A's exact launches a decode step (these launches
      stay out of the kernels line)
 
+and then tensor-parallel serving (``phase_tp``, after the dry run), each
+part in processes of its own spawned with ``torch.multiprocessing``:
+
+  (a) NCCL at one rank on cuda:0: all-reduce SUM (int32, float32), MAX
+      and all-gather on CUDA tensors, each checked, the group destroyed
+  (b) two gloo ranks on the one card (NCCL refuses two ranks on one
+      device), a ``(data=1, model=2)`` ``DeviceMesh``, both ranks on
+      cuda:0: qwen3-1.7b at full width and depth on path B's and path A's
+      stacks at tp = 2, 4 requests of 16-128 tokens, 16 new tokens each,
+      slots=4, ``fcfs``, each rank's shards placed from a host copy of the
+      converted weights (``transfer.place_shard``), and the same mix served
+      at tp = 1 in the rank's process on the same weights, tp = 2
+      teacher-forced to tp = 1's tokens: B bit for bit or, where a float op
+      outside the kernels parts the two, that first op named (``OpLog``) and
+      the rows within ``PATH_LIMITS``; A's bf16 drift printed with its first
+      differing op, and A in float32 with the int4 boundary codes forced to
+      tp = 1's (a rank holds its share of the heads' codes:
+      ``ShardCodeLog``) within ``PATH_LIMITS``; every rank's tokens equal;
+      each rank's resident bytes equal to the shards ``spec_for`` cuts over
+      the formats' ``data_axes`` on meta tensors; each kernel's launches a
+      decode step equal to tp = 1's; a decode step profiled on each rank,
+      the collectives' host time printed.  Phase 2 times the kernels at
+      the shard shapes (``TP_PROJ``; the row-parallel wo and w_out through
+      ``matmul_int8``'s raw int32 route).  The tp = 2 runs are no speed
+      result: two processes time-share one card
+
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
 Phase 2 holds each grouped launch against its plain version at
@@ -162,10 +188,11 @@ needs a CUDA device and the repository's ``src``; without either it fails
 before printing a result.
 
 Every serving path runs at full width, and at full depth but for cuts
-made to keep the run well inside the 1200 s it may take: paths G-R serve
-their configs at 8 layers (``CONFIG_DEPTH``; on one H100, G-N at full
-depth took ~380 s of a 1,063 s run with O-S, and O-R at full depth
-~100-157 s of runs up to 897 s), and S serves mixtral-8x7b at 1 of its
+made to keep the run well inside the 1200 s it may take: paths G-J serve
+their configs at 4 layers and K-R at 8 (``CONFIG_DEPTH``; on one H100, G-N
+at full depth took ~380 s of a 1,063 s run with O-S, G-J at 8 layers 30 s,
+and O-R at full depth ~100-157 s of runs up to 897 s), and S serves
+mixtral-8x7b at 1 of its
 32 layers (its 4,160-token prefill and its plain-path comparisons at
 full depth would take many minutes; at 2 layers S took ~175 s of runs
 up to 1,001 s).  A cut layer
@@ -208,16 +235,16 @@ PATHS = {
 }
 #: the further dense configs, each at full width, depth cut by CONFIG_DEPTH,
 #: on path A's and path B's stack: path → (arch, the stack's path, launches
-#: per decode step at slots=4 on 8 layers: on A's stack 2 BSDP GEMMs, 4
+#: per decode step at slots=4 on 4 layers: on A's stack 2 BSDP GEMMs, 4
 #: W8A16 projections and one plane attention a layer, the head left in bf16;
 #: on B's 6 W8A8 projections a layer and the head)
 CONFIG_PATHS = {
     "G": ("starcoder2-3b", "A",
-          {"bsdp_gemm_fused": 16, "dequant_matmul": 32, "plane_decode_attention": 8}),
-    "H": ("starcoder2-3b", "B", {"matmul_int8": 49}),
+          {"bsdp_gemm_fused": 8, "dequant_matmul": 16, "plane_decode_attention": 4}),
+    "H": ("starcoder2-3b", "B", {"matmul_int8": 25}),
     "I": ("qwen1.5-32b", "A",
-          {"bsdp_gemm_fused": 16, "dequant_matmul": 32, "plane_decode_attention": 8}),
-    "J": ("qwen1.5-32b", "B", {"matmul_int8": 49}),
+          {"bsdp_gemm_fused": 8, "dequant_matmul": 16, "plane_decode_attention": 4}),
+    "J": ("qwen1.5-32b", "B", {"matmul_int8": 25}),
 }
 #: the MLA and MoE configs at full width, depth cut by CONFIG_DEPTH: path →
 #: (arch, the stack's path, kernels that must launch by slots, launches per
@@ -242,14 +269,17 @@ MLA_PATHS = {
     "N": ("deepseek-v2-lite-16b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
           {"matmul_int8": 55}),
 }
-#: paths G-R serve their configs at 8 layers (deepseek-v2-lite-16b's dense
-#: layer 0 and 7 MoE layers), so that the run stays well inside its time
-#: limit: at full depth G-N took ~380 s of a 1,063 s run on one H100, O-R
-#: ~100-157 s of runs up to 897 s.  A layer's shapes, and so each kernel
-#: launch, are those of the full depth.
-CONFIG_DEPTH = {arch: 8 for arch in ("starcoder2-3b", "qwen1.5-32b", "minicpm3-4b",
-                                     "deepseek-v2-lite-16b", "mixtral-8x7b",
-                                     "falcon-mamba-7b")}
+#: paths G-J serve their configs at 4 layers (8 before the tp phase took its
+#: time) and K-R at 8 (deepseek-v2-lite-16b's dense layer 0 and 7 MoE
+#: layers), so that the run stays well inside its time limit: at full depth
+#: G-N took ~380 s of a 1,063 s run on one H100, O-R ~100-157 s of runs up
+#: to 897 s; at 8 layers G-J 30 s.  K and L stay at 8: minicpm3-4b's
+#: conversion peaks while its 752 MB float32 embedding is drawn, whatever
+#: the depth, and at 4 layers that peak (1.88 GB) exceeds draw_converted's
+#: bound (resident + 2 x the largest layer leaf + slack: 1.81 GB).  A layer's
+#: shapes, and so each kernel launch, are those of the full depth.
+CONFIG_DEPTH = {"starcoder2-3b": 4, "qwen1.5-32b": 4, "minicpm3-4b": 8,
+                "deepseek-v2-lite-16b": 8, "mixtral-8x7b": 8, "falcon-mamba-7b": 8}
 
 
 def config_for(arch: str):
@@ -600,6 +630,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_grouped(torch, device, gen, timer, rows)
     _rows_window_ssm(torch, device, gen, timer, rows, min_m)
     _rows_cross(torch, device, gen, timer, rows, min_m)
+    _rows_tp(torch, device, gen, timer, rows, min_m)
     dequant_accuracy(torch, device, gen)
     for row in rows:
         print("kernel " + json.dumps(row))
@@ -608,6 +639,48 @@ def phase_kernels(torch, device, timer) -> list[dict]:
           f"zero_() under the same timer, {card_line()})")
     step_gaps(rows)
     return rows
+
+
+#: qwen3-1.7b's projections as one rank of tp = 2 holds them: (K, N) of the
+#: column-parallel wq, wk / wv and w_in (N halved) and of the row-parallel wo
+#: and w_out (K halved; int8 formats only: the bit-plane w_out stays whole)
+TP_PROJ = {"wq": (2048, 1024), "wk": (2048, 512), "w_in": (2048, 6144), "wo": (1024, 2048),
+           "w_out": (3072, 2048)}
+
+
+def _rows_tp(torch, device, gen, timer, rows, min_m):
+    """The tp phase's shard shapes at slots=4: ``matmul_int8`` at the
+    column-parallel projections and through its raw int32 route (the
+    row-parallel ones, whose partial sums are all-reduced before the
+    epilogue), ``dequant_matmul`` (bf16 x) at wq, wk and wo, the BSDP
+    kernels at w_in's half, plane attention over 8 of the 16 heads."""
+    from repro_torch.kernels import gemv_int8
+
+    for layer in ("wq", "wk", "w_in"):
+        _int8_rows_at(torch, device, gen, timer, rows, min_m, f"tp2 {layer}", *TP_PROJ[layer],
+                      (4,))
+    for layer in ("wo", "w_out"):
+        k, n = TP_PROJ[layer]
+        w, x = _int8(torch, gen, device, k, n), _int8(torch, gen, device, 4, k)
+        ones_m = torch.ones((4, 1), device=device)
+        ones_n = torch.ones((1, n), device=device)
+        got = gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True)
+        err = _int_err(got, gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n, out_int32=True))
+        check(err == 0, f"matmul_int8 tp2 {layer} out_int32: not bit-exact (max err {err})")
+        lib, note = _int_mm(torch, x, w, min_m)
+        check(torch.equal(got, lib()[:4]), f"matmul_int8 tp2 {layer}: != torch._int_mm")
+        _row(rows, "matmul_int8", gemv_int8.KERNEL, f"tp2 {layer} M=4 N={n} K={k} out_int32",
+             err, timer, lambda: gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True),
+             timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n,
+                                                          out_int32=True)),
+             bound(4 * k + k * n + 4 * 4 * n, 2 * 4 * n * k / INT8_OPS_PER_S), timer.ms(lib),
+             note or "torch._int_mm")
+    for layer in ("wq", "wk", "wo"):
+        _dequant_rows_at(torch, device, gen, timer, rows, f"tp2 {layer} ", *TP_PROJ[layer],
+                         (torch.bfloat16,), (4,))
+    _bsdp_rows_at(torch, device, gen, timer, rows, min_m, "tp2 w_in", *TP_PROJ["w_in"],
+                  {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4,)})
+    _attention_decode_row(torch, device, gen, timer, rows, 4, 4, 2)
 
 
 def step_gaps(rows) -> None:
@@ -3292,6 +3365,452 @@ def _cross_run(torch, qparams, cfg, impl, device):
     return drive.logits, [t.tolist() for t in drive.out], []
 
 
+# ---------------------------------------------------------------------------
+# The tp phase: tensor-parallel serving over a (data=1, model=2) mesh
+# ---------------------------------------------------------------------------
+
+#: the two-rank phase's ranks, both on cuda:0 under gloo (NCCL refuses two
+#: ranks on one device)
+TP_WORLD = 2
+#: the mix: prompts of 16-128 tokens, new tokens each, slots, ring length
+TP_REQUESTS, TP_NEW, TP_SLOTS, TP_MAX_LEN = 4, 16, 4, 256
+#: seconds the parent waits for the NCCL child and for the two ranks
+NCCL_JOIN_S, TP_JOIN_S = 120, 480
+#: seconds a rank's collective waits for the other before it raises
+TP_COLLECTIVE_TIMEOUT_S = 300
+#: the device both ranks serve on
+TP_DEVICE = "cuda:0"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_one_rank(port: int, outdir: str) -> None:
+    """(a) NCCL at one rank on cuda:0: the four collectives on CUDA tensors,
+    each checked, then the group destroyed."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import mesh as mesh_lib
+
+    device = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    mesh_lib.init(rank=0, world_size=1, init_method=f"tcp://localhost:{port}", device=device,
+                  backend="nccl", timeout_s=60)
+    check(dist.get_backend() == "nccl", f"backend {dist.get_backend()}")
+    tp = mesh_lib.TensorParallel(size=1, rank=0, group=dist.group.WORLD)
+    out = {"sum_int32": tp.all_reduce_sum(torch.arange(4, dtype=torch.int32, device=device)),
+           "sum_float32": tp.all_reduce_sum(torch.linspace(0, 1, 4, device=device)),
+           "max": tp.all_reduce_max(torch.linspace(-1, 1, 4, device=device)),
+           "gather": tp.all_gather(torch.arange(4, dtype=torch.bfloat16, device=device))}
+    torch.cuda.synchronize()
+    want = {"sum_int32": torch.arange(4, dtype=torch.int32, device=device),
+            "sum_float32": torch.linspace(0, 1, 4, device=device),
+            "max": torch.linspace(-1, 1, 4, device=device),
+            "gather": torch.arange(4, dtype=torch.bfloat16, device=device)}
+    for name, t in out.items():
+        check(t.is_cuda and torch.equal(t, want[name]), f"NCCL {name}: {t} != {want[name]}")
+    dist.destroy_process_group()
+    with open(f"{outdir}/nccl.json", "w") as f:
+        json.dump({"collectives": sorted(out), "s": time.perf_counter() - t0}, f)
+
+
+def tp_cache_twin(cfg, slots: int, max_len: int, tp: int, rules) -> int:
+    """A rank's cache bytes from the formats' axes: the global cache of
+    ``model.init_cache(..., local=False)`` on the meta device, each leaf cut
+    by its ``cache_pspecs`` entries."""
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.sharding import partitioning as P
+
+    caches = model_lib.init_cache(cfg, slots, max_len, device="meta", tp=tp, local=False)
+    entries = P.cache_pspecs(caches, rules, attention.attn_dims(cfg, tp)[2], cfg)
+    sizes = {"data": 1, "model": tp}
+    total = 0
+    for layer, layer_entries in zip(caches, entries):
+        for name, t in layer.items():
+            spec = layer_entries[name] or (None,) * t.ndim
+            total += math.prod(P.local_shape(t.shape, spec, sizes)) * t.element_size()
+    return total
+
+
+def _rank_share(full, local, rank: int, tp: int):
+    """The rank's share of a one-device tensor ``full`` that ``local``
+    holds: ``full`` itself when the shapes agree, else its slice along the
+    one dim that is ``tp`` times as long; None when there is no such dim."""
+    if full.shape == local.shape:
+        return full
+    dims = [d for d in range(local.ndim) if full.ndim == local.ndim
+            and full.shape[d] == tp * local.shape[d]]
+    if len(dims) != 1 or any(full.shape[d] != local.shape[d]
+                             for d in range(local.ndim) if d != dims[0]):
+        return None
+    n = local.shape[dims[0]]
+    return full.narrow(dims[0], rank * n, n)
+
+
+class ShardCodeLog(CodeLog):
+    """:class:`CodeLog` against a one-device run's log, read by one rank of
+    ``tp``: a rounding whose tensor holds the rank's share of the heads
+    (the cache's K / V and the plane queries) is compared with its share of
+    the one-device tensor (:func:`_rank_share`)."""
+
+    def __init__(self, plain, rank: int, tp: int, force=False):
+        super().__init__(plain, force)
+        self.rank, self.tp = rank, tp
+
+    def codes(self, v, q):
+        i = len(self.calls)
+        if self.plain is not None and i < len(self.plain.calls):
+            vp, qp = self.plain.calls[i]
+            share = _rank_share(qp, q, self.rank, self.tp)
+            check(share is not None,
+                  f"rounding {i}: {tuple(q.shape)} is no rank's share of {tuple(qp.shape)}")
+            self.plain.calls[i] = (_rank_share(vp, v, self.rank, self.tp), share)
+        return super().codes(v, q)
+
+
+class OpLog:
+    """The outputs of the model's float ops outside the kernels, in call
+    order: the norms, the embedding, the q / k / v projections (after rope),
+    the prefill and decode attention, the activation, every row-parallel
+    projection's (whole) output and the logits.  Without ``plain`` it keeps
+    each output; with ``plain`` (a one-device run's log) it compares each
+    with its rank's share of that run's (:func:`_rank_share`) and keeps the
+    first that differs: ``first`` = (call, op, model call, max |Δ|, shape),
+    ``differ`` the count.  A context manager around one drive."""
+
+    SITES = (("layers", "norm_apply"), ("layers", "embed_apply"), ("layers", "logits_apply"),
+             ("layers", "activation"), ("layers", "row_parallel"),
+             ("attention", "row_parallel"), ("attention", "_project_qkv"),
+             ("attention", "chunked_attention"), ("attention", "_decode_attention"))
+
+    def __init__(self, plain=None, rank: int = 0, tp: int = 1):
+        self.plain, self.rank, self.tp = plain, rank, tp
+        self.records: list = []
+        self.model_calls = self.differ = 0
+        self.first = None
+
+    def _note(self, name: str, out) -> None:
+        import torch
+
+        for j, t in enumerate(out if isinstance(out, tuple) else (out,)):
+            i = len(self.records)
+            if self.plain is None:
+                self.records.append((name, t.detach().clone()))
+                continue
+            self.records.append(None)
+            check(i < len(self.plain.records) and self.plain.records[i][0] == name,
+                  f"op {i} ({name}) is not the one-device run's")
+            want = _rank_share(self.plain.records[i][1], t, self.rank, self.tp)
+            check(want is not None, f"op {i} ({name}): {tuple(t.shape)} is no rank's share")
+            if not torch.equal(want, t):
+                self.differ += 1
+                if self.first is None:
+                    diff = (want.double() - t.double()).abs().max().item()
+                    self.first = (i, f"{name}[{j}]" if isinstance(out, tuple) else name,
+                                  self.model_calls, diff, list(t.shape))
+        if name == "logits_apply":
+            self.model_calls += 1
+
+    def __enter__(self):
+        from repro_torch.models import attention, layers
+
+        mods = {"layers": layers, "attention": attention}
+        self._undo = []
+        for mod_name, fn_name in self.SITES:
+            mod = mods[mod_name]
+            fn = getattr(mod, fn_name)
+
+            def wrapped(*args, _fn=fn, _name=fn_name, **kwargs):
+                out = _fn(*args, **kwargs)
+                self._note(_name, out)
+                return out
+
+            setattr(mod, fn_name, wrapped)
+            self._undo.append((mod, fn_name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn_name, fn in self._undo:
+            setattr(mod, fn_name, fn)
+
+
+def _tp_mix(cfg):
+    """The tp phase's prompts: :data:`TP_REQUESTS` of 16-128 tokens (seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 25)
+    return [rng.integers(0, cfg.vocab_size, size=(int(n),)).astype(np.int32)
+            for n in rng.integers(16, 129, size=TP_REQUESTS)]
+
+
+def _tp_serve(engine, params, cfg, mode, cache, device, *, tp=1, mesh=None, force=None):
+    """One serve of the tp mix (greedy, or teacher-forced to ``force``) →
+    (engine, logit trace, tokens, wall s)."""
+    import torch
+
+    eng = engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, mode=mode, cache_format=cache,
+                             scheduler="fcfs", slots=TP_SLOTS, max_len=TP_MAX_LEN,
+                             trace_logits=True, device=device)
+    for i, prompt in enumerate(_tp_mix(cfg)):
+        eng.submit(prompt, TP_NEW, force=None if force is None else force[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, eng.logit_trace, [r.out for r in eng.requests], time.perf_counter() - t0
+
+
+def _first_difference(a, b):
+    """(call index, kind, max |Δ|) of the first logit row that differs."""
+    import numpy as np
+
+    for i, ((kind, _, x), (_, _, y)) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            return i, kind, float(np.abs(np.asarray(x, np.float64) - y).max())
+    return None
+
+
+def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
+    """One rank of (b): qwen3-1.7b at full width and depth on path B's and
+    path A's stacks, served at tp = ``world`` on the (1, world) mesh and,
+    in this process, at tp = 1 on the same weights; writes what it held
+    and measured to ``outdir/rank<r>.json``."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import engine
+    from repro_torch.sharding import partitioning as P
+
+    device = torch.device(TP_DEVICE)
+    mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{port}",
+                  device=device, backend="gloo", timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    mesh = mesh_lib.device_mesh(device, (1, world), ("data", "model"))
+    check(torch.cuda.current_device() == 0, f"rank {rank} on cuda:{torch.cuda.current_device()}")
+    cfg = get_config("qwen3-1.7b")
+    rules = P.base_rules(data_axes=("data",))
+    out: dict = {"rank": rank, "device": torch.cuda.get_device_name(torch.cuda.current_device()),
+                 "current_device": torch.cuda.current_device(), "mesh": str(mesh)}
+    for path in ("B", "A"):
+        mode, cache, _, per_step = PATHS[path]
+        t0 = time.perf_counter()
+        host = engine.materialize_converted(cfg, mode, seed=SEED, device=device, tp=world,
+                                            keep=lambda leaf: engine.tree_to(leaf, "cpu"))
+        res = {"draw_s": time.perf_counter() - t0}
+        one_log = CodeLog() if path == "A" else None
+        one_ops = OpLog()
+        with one_log or _Null(), one_ops:
+            eng1, trace1, toks1, _ = _tp_serve(engine, engine.tree_to(host, device), cfg, mode,
+                                               cache, device)
+        res["tp1_weights"] = eng1.resident_bytes()["weights"]
+        del eng1
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
+        op_log = OpLog(one_ops, rank, world)
+        with codes or _Null(), op_log:
+            eng, trace, toks, wall = _tp_serve(engine, host, cfg, mode, cache, device, tp=world,
+                                               mesh=mesh, force=toks1)
+        plain = ops.plain_cuda_counts()
+        check(all(v == 0 for v in plain.values()), f"tp {path}: a plain version ran on CUDA")
+        got = eng.resident_bytes()
+        res.update(
+            wall_s=wall, tokens=toks, tp1_tokens=toks1,
+            collective_s=eng._tp.collective_s, collective_calls=dict(eng._tp.calls),
+            weights=got["weights"], cache=got["cache"],
+            weights_twin=P.local_bytes(dryrun.serve_params_meta(cfg, mode, tp=world),
+                                       model_lib.specs(cfg, world), mesh, rules),
+            cache_twin=tp_cache_twin(eng.cfg, TP_SLOTS, TP_MAX_LEN, world, rules),
+            kinds_equal=[(k, s) for k, s, _ in trace] == [(k, s) for k, s, _ in trace1],
+            launches={k: v for k, v in ops.launch_counts().items() if v},
+            bitwise=_first_difference(trace, trace1) is None,
+            first_difference=_first_difference(trace, trace1), drift=_drift((trace, trace1)),
+            first_op=op_log.first, ops_differ=op_log.differ, ops=len(op_log.records))
+        del one_ops, op_log
+        if codes is not None:
+            res["codes"] = dict(differ=codes.differ, far=codes.far, calls=len(codes.calls),
+                                first=codes.first)
+            del one_log, codes
+            torch.cuda.empty_cache()
+            # the float32 drive: the same weights, every activation in float32,
+            # the int4 boundary codes forced to the one-device run's
+            f32 = dataclasses.replace(cfg, dtype=torch.float32)
+            log32 = CodeLog()
+            with log32:
+                _, trace32_1, toks32, _ = _tp_serve(engine, engine.tree_to(host, device), f32,
+                                                    mode, cache, device)
+            torch.cuda.empty_cache()
+            forced = ShardCodeLog(log32, rank, world, force=True)
+            with forced:
+                _, trace32, _, _ = _tp_serve(engine, host, f32, mode, cache, device, tp=world,
+                                             mesh=mesh, force=toks32)
+            res["f32"] = dict(forced=_drift((trace32, trace32_1)), differ=forced.differ,
+                              forced_codes=forced.forced, far=forced.far, edge=forced.edge,
+                              calls=len(log32.calls), first=forced.first)
+            del log32, forced
+        del eng
+        torch.cuda.empty_cache()
+        # launches of one decode step, then a profiled decode step, at slots=4
+        prof = engine.ServeEngine(host, cfg, tp=world, mesh=mesh, mode=mode, cache_format=cache,
+                                  slots=4, max_len=512, device=device)
+        rng = np.random.default_rng(SEED + 1)
+        for _ in range(4):
+            prof.submit(rng.integers(0, cfg.vocab_size, size=64).astype(np.int32), 9)
+        prof.step()
+        prof.step()
+        torch.cuda.synchronize()
+        ops.reset_counts()
+        prof.step()
+        torch.cuda.synchronize()
+        res["step_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+        res["tp1_step_launches"] = per_step
+        prof._tp.collective_s, prof._tp.calls = 0.0, {}
+        res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
+            torch, prof.step, 3, f"tp phase rank {rank} path {path} profile decode step "
+            f"(slots=4, tp={world}, {cfg.n_layers} layers, {card}, under the profiler)")
+        res["profile_collective_ms"] = prof._tp.collective_s * 1e3 / 3
+        res["profile_collective_calls"] = {k: v / 3 for k, v in prof._tp.calls.items()}
+        del prof, host
+        torch.cuda.empty_cache()
+        out[path] = res
+    torch.distributed.destroy_process_group()
+    with open(f"{outdir}/rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+class _Null:
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+def _run_children(targets, join_s: float, label: str) -> None:
+    """Start ``targets`` ((function, args) pairs) as spawned processes and
+    wait for all within ``join_s``; any that is still running then is
+    killed, and any that failed fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=fn, args=args) for fn, args in targets]
+    for p in procs:
+        p.start()
+    deadline = time.perf_counter() + join_s
+    for p in procs:
+        p.join(max(1.0, deadline - time.perf_counter()))
+    alive = [p for p in procs if p.is_alive()]
+    for p in alive:
+        p.kill()
+        p.join()
+    check(not alive, f"{label}: {len(alive)} process(es) still running after {join_s} s: killed")
+    check(all(p.exitcode == 0 for p in procs),
+          f"{label}: exit codes {[p.exitcode for p in procs]}")
+
+
+def phase_tp(torch, card) -> None:
+    """(a) NCCL's four collectives at one rank; (b) two gloo ranks on the one
+    card serving qwen3-1.7b at full width and depth on path B's and path A's
+    stacks at tp = 2, each held against tp = 1 on the same weights: B bit
+    for bit or its first differing op named and its rows within
+    PATH_LIMITS, A within PATH_LIMITS in float32 with the int4 boundary codes
+    forced (its bf16 serve's drift and first differing op printed), every
+    rank's tokens equal, each rank's resident
+    bytes equal to its shard twin, each kernel's launches a decode step
+    equal to tp = 1's; each rank's profiled decode step and collective host
+    time printed."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        _run_children([(_nccl_one_rank, (_free_port(), outdir))], NCCL_JOIN_S, "tp (a) NCCL")
+        with open(f"{outdir}/nccl.json") as f:
+            nccl = json.load(f)
+        print(f"tp (a): NCCL at one rank on cuda:0: {', '.join(nccl['collectives'])} on CUDA "
+              f"tensors held, group destroyed; {nccl['s']:.2f} s in the child "
+              f"({time.perf_counter() - t0:.2f} s with its start) on {card}")
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_children([(_tp_rank, (r, TP_WORLD, port, outdir, card)) for r in range(TP_WORLD)],
+                      TP_JOIN_S, "tp (b) ranks")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(TP_WORLD):
+            with open(f"{outdir}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+    print(f"tp (b): {TP_WORLD} gloo ranks on one card, collectives staged through the host: "
+          f"none (gloo takes CUDA tensors for SUM on int32 and float32, MAX and all-gather); ranks on cuda:{[r['current_device'] for r in ranks]} ({ranks[0]['mesh']}); "
+          f"{wall:.1f} s for the ranks' whole run, start to exit, on {card}")
+    for path in ("B", "A"):
+        for r in ranks:
+            res = r[path]
+            check(res["tokens"] == ranks[0][path]["tokens"],
+                  f"tp path {path}: rank {r['rank']}'s tokens differ from rank 0's")
+            check(res["tokens"] == res["tp1_tokens"],
+                  f"tp path {path}: rank {r['rank']} did not emit the forced tokens")
+            check(res["kinds_equal"], f"tp path {path}: tp=2 scheduled other steps than tp=1")
+            check(res["weights"] == res["weights_twin"],
+                  f"tp path {path} rank {r['rank']}: weights {res['weights']} B != twin "
+                  f"{res['weights_twin']} B")
+            check(res["cache"] == res["cache_twin"],
+                  f"tp path {path} rank {r['rank']}: cache {res['cache']} B != twin "
+                  f"{res['cache_twin']} B")
+            check(res["step_launches"] == res["tp1_step_launches"],
+                  f"tp path {path} rank {r['rank']}: {res['step_launches']} a decode step, "
+                  f"tp=1 launches {res['tp1_step_launches']}")
+            rel, cos, agree = res["drift"]
+            print(f"tp path {path} rank {r['rank']} ({r['device']}): resident weights "
+                  f"{res['weights']} B of tp=1's {res['tp1_weights']} B (twin "
+                  f"{res['weights_twin']} B), cache {res['cache']} B (twin {res['cache_twin']} B); "
+                  f"launches a decode step {res['step_launches']} (tp=1's); serve of "
+                  f"{TP_REQUESTS} x {TP_NEW} tokens {res['wall_s'] * 1e3:.1f} ms wall, collectives "
+                  f"{res['collective_s'] * 1e3:.1f} ms host {res['collective_calls']}; draw + "
+                  f"convert {res['draw_s']:.1f} s; profiled decode step wall "
+                  f"{res['profile_wall_ms']:.2f} ms, device busy {res['profile_busy_ms']:.2f} ms, "
+                  f"collectives {res['profile_collective_ms']:.2f} ms host "
+                  f"{res['profile_collective_calls']}; on {card}")
+            print(f"tp path {path} rank {r['rank']} vs tp=1 (bf16): bit for bit "
+                  f"{res['bitwise']}, first differing logit row {res['first_difference']}, max "
+                  f"rel err {rel:.3e}, min cosine {cos:.6f}, argmax agree {agree}; first "
+                  f"differing op (call, op, model call, max |d|, shape) {res['first_op']}, "
+                  f"{res['ops_differ']} of {res['ops']} op outputs differ")
+            if path == "B":
+                check(res["bitwise"] or rel <= PATH_LIMITS["bfloat16"][0]
+                      and cos >= PATH_LIMITS["bfloat16"][1],
+                      f"tp path B rank {r['rank']}: drift {rel}, {cos} past PATH_LIMITS")
+                continue
+            c, f = res["codes"], res["f32"]
+            print(f"tp path A rank {r['rank']} codes (bf16): {c['differ']} of the codes rounded "
+                  f"in {c['calls']} calls differ from tp=1's, {c['far']} farther than "
+                  f"{FLIP_TOL} of a step from their boundary, the first at {c['first']}: after "
+                  f"a first flip the runs part, and over the full depth in bf16 (a cast moves a value "
+                  f"by up to 2^-8) they part by more than PATH_LIMITS; printed, not held")
+            print(f"tp path A rank {r['rank']} vs tp=1 in float32, with {f['forced_codes']} of "
+                  f"{f['differ']} differing codes forced ({f['far']} farther than {FLIP_TOL} of "
+                  f"a step, farthest {f['edge']:.3e}, of {f['calls']} rounding calls; the first "
+                  f"at {f['first']}): max rel err {f['forced'][0]:.3e} (limit "
+                  f"{PATH_LIMITS['float32'][0]}), min cosine {f['forced'][1]:.6f} (limit "
+                  f"{PATH_LIMITS['float32'][1]}), argmax agree {f['forced'][2]}")
+            check(f["far"] == 0, f"tp path A rank {r['rank']}: {f['far']} codes differ away "
+                  "from a boundary in float32")
+            check(f["forced"][0] <= PATH_LIMITS["float32"][0]
+                  and f["forced"][1] >= PATH_LIMITS["float32"][1],
+                  f"tp path A rank {r['rank']}: float32 drift past PATH_LIMITS")
+
+
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
 PICK = {"bsdp_gemv": "w_in M=1", "bsdp_gemm_fused": "w_in M=4", "bsdp_gemm": "w_in M=4",
         "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32 G=2 ",
@@ -3334,6 +3853,9 @@ def main() -> int:
     done("path Z")
     phase_dryrun(torch, card)
     done("dry run")
+    torch.cuda.empty_cache()
+    phase_tp(torch, card)
+    done("tp phase")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

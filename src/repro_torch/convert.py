@@ -63,9 +63,11 @@ def _map(tree, spec, fn, path):
     return {k: _map(v, spec[k], fn, path + (k,)) for k, v in tree.items()}
 
 
-def params_from_numpy(tree: dict, cfg, device=None) -> dict:
+def params_from_numpy(tree: dict, cfg, device=None, tp: int = 1) -> dict:
     """Reference parameter tree (numpy leaves) → port parameters on
-    ``device`` (default: the card; raises when there is none)."""
+    ``device`` (default: the card; raises when there is none).  ``tp`` names
+    the tensor-parallel width the tree was made for (``specs(cfg, tp)``:
+    padded heads and vocab)."""
     device = resolve_device(device)
     k0 = cfg.first_k_dense
     allowed = {"embed", "final_norm", "stack"} | ({"prefix"} if k0 else set()) | (
@@ -73,7 +75,7 @@ def params_from_numpy(tree: dict, cfg, device=None) -> dict:
     unknown = set(tree) - allowed
     if unknown:
         raise ValueError(f"params_from_numpy: unsupported subtrees {sorted(unknown)}")
-    spec = model_lib.specs(cfg)
+    spec = model_lib.specs(cfg, tp)
 
     def one(a):
         return _tensor(a, device)

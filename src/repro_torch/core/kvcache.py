@@ -19,6 +19,10 @@ names them ``k``/``k_scale``/``v``/``v_scale`` (``c_kv``/``c_scale``) beside
             run's cache, shapes and dtypes with no storage, which
             ``resident_bytes`` / ``slot_bytes`` / :func:`cache_resident_bytes`
             count as they count real stores
+``data_axes(lead_axes)``  logical sharding axes of each store entry after its
+            ``(batch, kv_seq)`` dims; ``flat_cache_axes`` the full axes under
+            the flat cache's key names (what :func:`repro_torch.sharding.
+            partitioning.cache_axes_table` reads)
 
 Formats: ``bf16``; ``int8`` — an int8 payload ``[B, L, Hkv, F]`` with a
 float32 scale a slot ``[B, L, Hkv]``, both folded after the contraction
@@ -119,6 +123,19 @@ class CacheFormat:
                          impl=None) -> torch.Tensor:
         raise NotImplementedError(f"cache format {self.name!r} has no fused decode path")
 
+    def data_axes(self, lead_axes: tuple) -> dict:
+        """Suffix → logical axes of the dims after ``(batch, kv_seq)``."""
+        raise NotImplementedError
+
+    def flat_cache_axes(self, prefix: str, lead_axes: tuple) -> dict:
+        """Flat-cache key → the full logical axes of one channel: the
+        contiguous formats put ``(batch, kv_seq)`` first; the paged pool
+        overrides."""
+        data_key, scale_key = CHANNEL_KEYS[prefix]
+        keys = {"": data_key, "_scale": scale_key}
+        return {keys[sfx]: ("batch", "kv_seq") + tuple(ax)
+                for sfx, ax in self.data_axes(lead_axes).items()}
+
     def slot_capacity(self, cache_len: int) -> int:
         """Ring length allocated for a requested ``cache_len``: itself for
         the contiguous formats; the paged formats round it up to whole
@@ -198,6 +215,9 @@ class BF16CacheFormat(CacheFormat):
     def _encode(self, x):
         return {"": x}
 
+    def data_axes(self, lead_axes):
+        return {"": tuple(lead_axes) + (None,)}
+
     def qk(self, q, store):
         t = _to_l_minor(store[""], 1).to(torch.float32)  # [B, *lead, L, F]
         return torch.einsum("...gf,...lf->...gl", q.to(torch.float32), t)
@@ -228,6 +248,9 @@ class Int8CacheFormat(CacheFormat):
     def _encode(self, x):
         q, scale = _quant_slots(x, 127, -127)
         return {"": q, "_scale": scale}
+
+    def data_axes(self, lead_axes):
+        return {"": tuple(lead_axes) + (None,), "_scale": tuple(lead_axes)}
 
     def qk(self, q, store):
         t = _to_l_minor(store[""], 1).to(torch.float32)  # [B, *lead, L, F]
@@ -266,6 +289,10 @@ class BitPlaneCacheFormat(CacheFormat):
     def _encode(self, x):
         q, scale = _quant_int4(x)
         return {"": bitplane.encode(bitplane.pad_to_word(q)), "_scale": scale}
+
+    def data_axes(self, lead_axes):
+        # the 4 planes and the packed feature words are never sharded
+        return {"": tuple(lead_axes) + (None, None), "_scale": tuple(lead_axes)}
 
     @staticmethod
     def _query_planes(q):

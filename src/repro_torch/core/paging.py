@@ -33,9 +33,9 @@ engine's copy-on-write (``ServeEngine._cow_writes``).
 Registered names are ``paged_<inner>`` (``page_size`` 8).  ``abstract_state``
 (inherited: :meth:`init` on the meta device) is the page-rounded pool with
 its per-page scales and the int32 block table, the dry run's count of what
-a default pool allocates.  The reference's sharding methods (``data_axes``,
-``flat_cache_axes``) serve its mesh, which the port does not have yet:
-they are left out here.
+a default pool allocates.  ``data_axes`` / ``flat_cache_axes`` give the
+pool's leading page axis the ``kv_seq`` rule and the block table the
+``batch`` rule, as the reference's do.
 """
 
 from __future__ import annotations
@@ -139,6 +139,23 @@ class PagedCacheFormat(kvcache.CacheFormat):
     def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat, impl=None):
         return self.inner.decode_attention(q, self._gather(k_store), self._gather(v_store),
                                            bias, sm_scale=sm_scale, feat=feat, impl=impl)
+
+    # -- sharding --------------------------------------------------------
+    def data_axes(self, lead_axes):
+        axes = dict(self.inner.data_axes(lead_axes))
+        axes["_pages"] = ()
+        return axes
+
+    def flat_cache_axes(self, prefix, lead_axes):
+        """Pool leaves are ``(pages → the kv_seq rule, in-page offset
+        unsharded)`` + the inner format's axes (the lead axes shard as
+        unpaged); the block table follows the batch axis."""
+        data_key, _ = kvcache.CHANNEL_KEYS[prefix]
+        keys = self._keys(prefix)
+        out = {keys[sfx]: ("kv_seq", None) + tuple(ax)
+               for sfx, ax in self.inner.data_axes(lead_axes).items()}
+        out[data_key + "_pages"] = ("batch", None)
+        return out
 
     # -- flat-cache plumbing ---------------------------------------------
     def _keys(self, prefix):

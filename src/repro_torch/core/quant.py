@@ -57,10 +57,14 @@ class QuantTensor:
     axis: int = -1
 
 
-def compute_scale(x: torch.Tensor, *, bits: int, axis=-1) -> torch.Tensor:
-    """Symmetric scale: max-abs over ``axis`` divided by the int max."""
+def compute_scale(x: torch.Tensor, *, bits: int, axis=-1, reduce=None) -> torch.Tensor:
+    """Symmetric scale: max-abs over ``axis`` divided by the int max.
+    ``reduce`` maps the max-abs first: a MAX all-reduce when ``axis`` is
+    split over ranks, so every rank takes the whole row's."""
     qmax = INT_RANGE[bits][1]
     amax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
+    if reduce is not None:
+        amax = reduce(amax)
     return true_div(torch.clamp_min(amax, _EPS), qmax)
 
 

@@ -20,6 +20,11 @@ A format owns one resident layout:
                           ``meta`` tensors (the dry run's weights: shapes
                           and dtypes, no storage); ``resident_bytes`` and
                           ``qbytes`` read them as they read real states
+``data_axes(k_ax, n_ax)`` the payload's logical sharding axes, aligned to
+                          its shape (``scale_axes(n_ax)`` the scale's): a
+                          tensor-parallel rank holds the slice of the
+                          payload that :mod:`repro_torch.sharding.
+                          partitioning` gives these axes
 
 A *stacked* state carries a leading expert axis on its payload and scales
 (``data [E, ...]``, ``scale [E, 1, N]``): the expert weights of a MoE
@@ -93,6 +98,24 @@ _REF_K = _REF_N = 512
 _META = torch.device("meta")
 
 
+def row_parallel_acts(x: torch.Tensor, tp, bits: int) -> quant.QuantTensor:
+    """Per-token quantization of ``x [M, K/tp]``, whose features are split
+    over the model axis: each row's max-abs is MAX-all-reduced first, so
+    every rank quantizes with the whole row's scale, as the reference's
+    ``jnp.max`` over the sharded axis does (a local max gives other codes)."""
+    scale = quant.compute_scale(x, bits=bits, axis=-1, reduce=tp.all_reduce_max)
+    return quant.quantize(x, bits=bits, axis=-1, scale=scale)
+
+
+def _int_row_parallel(acc_local: torch.Tensor, xq: quant.QuantTensor, state, tp) -> torch.Tensor:
+    """The W8A8 / W4A8 row-parallel end: the ranks' exact int32 partial sums
+    all-reduced, then the fused route's float32 epilogue, so the result is
+    the one-device result bit for bit."""
+    from repro_torch.kernels import gemv_int8
+
+    return gemv_int8.scale_epilogue(tp.all_reduce_sum(acc_local), xq.scale, state.scale)
+
+
 def _nbytes(t: torch.Tensor) -> int:
     """Bytes of a tensor: a real one's storage, a meta one's would-be storage."""
     return t.numel() * t.element_size()
@@ -151,6 +174,13 @@ class ResidencyFormat:
         """Plain path ``[..., K] → [..., N]`` in ``x.dtype``."""
         raise NotImplementedError
 
+    def apply_row_parallel(self, state: QuantLinearState, x: torch.Tensor, tp,
+                           impl: Optional[str] = None) -> torch.Tensor:
+        """``x [..., K/tp]`` against the rank's K rows → the whole product
+        ``[..., N]`` float32 on every rank (``tp`` a
+        :class:`~repro_torch.distributed.mesh.TensorParallel`)."""
+        raise NotImplementedError(f"residency format {self.name!r} has no row-parallel path")
+
     def apply_stacked(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
         """Kernel path of a stacked state: ``x [E, M, K] → f32 [E, M, N]``.
         Here :meth:`apply` once an expert; a format with a grouped launch
@@ -170,6 +200,13 @@ class ResidencyFormat:
     def abstract_state(self, k: int, n: int) -> QuantLinearState:
         """:meth:`encode`'s output for a ``[k, n]`` weight as meta tensors."""
         raise NotImplementedError
+
+    def data_axes(self, k_ax, n_ax) -> tuple:
+        """Logical sharding axes of the payload, aligned to its shape."""
+        return (k_ax, n_ax)
+
+    def scale_axes(self, n_ax) -> tuple:
+        return (None, n_ax)
 
     def resident_bytes(self, state: QuantLinearState) -> int:
         """Payload + scale bytes, of a real state or an abstract one alike."""
@@ -266,6 +303,29 @@ class Int8Format(ResidencyFormat):
             out = gemv_int8.matmul_int8_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
 
+    def apply_row_parallel(self, state, x, tp, impl=None):
+        """``w8a16``: the rank's float32 partial (``dequant_matmul``), summed
+        over the ranks in float32.  ``w8a8``: the row's amax MAX-reduced
+        (:func:`row_parallel_acts`), the rank's exact int32 sums
+        (``matmul_int8``'s raw route), summed over the ranks, then the
+        epilogue (:func:`_int_row_parallel`)."""
+        from repro_torch.kernels import dequant_gemv, gemv_int8, ops
+
+        lead, x2 = x.shape[:-1], x.reshape(-1, x.shape[-1])
+        if self.act_bits is None:
+            fn = dequant_gemv.dequant_matmul_plain if impl == "plain" else ops.weight_only_matmul
+            out = tp.all_reduce_sum(fn(x2, state.data, state.scale))
+        else:
+            xq = row_parallel_acts(x2.to(torch.float32), tp, self.act_bits)
+            if impl == "plain":
+                ones_m = torch.ones((x2.shape[0], 1), dtype=torch.float32, device=x.device)
+                acc = gemv_int8.matmul_int8_plain(xq.data, state.data, ones_m,
+                                                  torch.ones_like(state.scale), out_int32=True)
+            else:
+                acc = ops.matmul_int8_raw(xq.data, state.data)
+            out = _int_row_parallel(acc, xq, state, tp)
+        return out.reshape(*lead, state.n)
+
     def apply_stacked(self, state, x):
         """``w8a8``: one grouped ``matmul_int8`` launch for every expert;
         ``w8a16``: ``dequant_matmul`` once an expert."""
@@ -310,6 +370,26 @@ class PackedInt4Format(ResidencyFormat):
         xq = quant.quantize_acts(x.reshape(-1, x.shape[-1]).to(torch.float32), bits=8)
         out = gemv_int4.matmul_int4_packed_plain(xq.data, state.data, xq.scale, state.scale)
         return out.reshape(*x.shape[:-1], state.n).to(x.dtype)
+
+    def apply_row_parallel(self, state, x, tp, impl=None):
+        """The row's amax MAX-reduced, the rank's integer sums from
+        ``matmul_int4_packed`` with unit scales (its float32 ``acc · 1 · 1``
+        is the exact sum while ``K/tp · 127 · 8 < 2**24``, checked), summed
+        over the ranks as int32, then the epilogue."""
+        from repro_torch.kernels import gemv_int4, ops
+
+        if state.k * 127 * 8 >= 1 << 24:
+            raise ValueError(f"w4a8 row-parallel: K/tp = {state.k} is too long for exact "
+                             "float32 partial sums")
+        lead, x2 = x.shape[:-1], x.reshape(-1, x.shape[-1])
+        xq = row_parallel_acts(x2.to(torch.float32), tp, 8)
+        ones_m = torch.ones((x2.shape[0], 1), dtype=torch.float32, device=x.device)
+        ones_n = torch.ones_like(state.scale)
+        if impl == "plain":
+            acc = gemv_int4.matmul_int4_packed_plain(xq.data, state.data, ones_m, ones_n)
+        else:
+            acc = ops.quant_matmul_int4(quant.QuantTensor(xq.data, ones_m), state.data, ones_n)
+        return _int_row_parallel(acc.to(torch.int32), xq, state, tp).reshape(*lead, state.n)
 
     def to_float(self, state):
         w = quant.unpack_int4(state.data, axis=0)[:state.k]
@@ -379,6 +459,10 @@ class BitPlaneFormat(ResidencyFormat):
 
     def abstract_state(self, k, n):
         return _meta_state(self.name, (n, 4, -(-k // bitplane.WORD)), torch.int32, k, n)
+
+    def data_axes(self, k_ax, n_ax):
+        del k_ax  # K lives inside the packed plane words: never sharded
+        return (n_ax, None, None)
 
 
 register_format(BF16Format())

@@ -157,19 +157,19 @@ def _serve_params(spec_tree, qmode, *, min_dim: int = 64):
 # ---------------------------------------------------------------------------
 
 
-def _routed_expert(cfg: ModelConfig, path: tuple) -> bool:
-    """A leaf the reference's specs give the ``"expert"`` axis: a MoE
-    layer's ``router``, ``w_in`` and ``w_out`` (not its shared expert).
-    The port's ParamSpec has no axes, so the tree path says it."""
-    return (len(path) == 4 and path[0] == "layers" and path[2] == "ffn"
-            and path[3] in ("router", "w_in", "w_out")
-            and cfg.ffn_kind(int(path[1])) == "moe")
+def serve_params_meta(cfg: ModelConfig, spec, *, min_dim: int = 64, tp: int = 1):
+    """The converted parameter tree of residency policy ``spec`` at
+    ``specs(cfg, tp)``'s global shapes, every leaf a meta tensor or a meta
+    residency state: what :mod:`repro_torch.sharding.partitioning` cuts
+    into each rank's shards (``local_bytes``)."""
+    return _serve_params(model_lib.specs(cfg, tp), spec, min_dim=min_dim)
 
 
 def param_counts(cfg: ModelConfig) -> dict:
     """(total, active, embedding) parameter counts from the spec tree; a
-    routed expert's leaves count ``experts_per_tok / n_experts`` of their
-    elements active (:func:`_routed_expert`)."""
+    leaf on the ``"expert"`` axis (a MoE layer's ``router``, ``w_in`` and
+    ``w_out``, not its shared expert) counts ``experts_per_tok /
+    n_experts`` of its elements active."""
     total = active = embed = 0
     k_over_e = cfg.experts_per_tok / cfg.n_experts if cfg.n_experts else 1.0
     for path, s in tree_lib.flatten(model_lib.specs(cfg)):
@@ -179,7 +179,7 @@ def param_counts(cfg: ModelConfig) -> dict:
         total += n
         if "embedding" in path:
             embed += n
-        elif _routed_expert(cfg, path):
+        elif "expert" in s.axes:
             active += n * k_over_e
         else:
             active += n

@@ -37,12 +37,71 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kvcache, residency
+from repro_torch.distributed.mesh import tp_size
 from repro_torch.models import layers
-from repro_torch.models.layers import dense
+from repro_torch.models.layers import dense, row_parallel
 
 NEG_INF = -1e30
 #: prefill query / key chunk lengths of the flash recurrence (as the reference)
 CHUNK_Q, CHUNK_KV = 512, 1024
+
+
+def attn_dims(cfg, tp: int = 1) -> tuple[int, int, bool]:
+    """(padded_heads, padded_kv_heads, shard_kv) for a model axis of ``tp``
+    ways, the reference's: heads pad to a multiple of ``tp``; KV heads shard
+    only if padding keeps the GQA group structure (Hp/Hkvp == H/Hkv),
+    otherwise they stay whole on every rank."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    hp = -(-h // tp) * tp
+    if kv % tp == 0:
+        return hp, kv, True
+    kvp = -(-kv // tp) * tp
+    if kv and hp % kvp == 0 and hp // kvp == h // kv:
+        return hp, kvp, True
+    return hp, kv, False
+
+
+def mla_dims(cfg, tp: int = 1) -> int:
+    """MLA's heads padded to a multiple of ``tp``."""
+    return -(-cfg.n_heads // tp) * tp
+
+
+def kv_heads_held(cfg, tp: int = 1) -> int:
+    """The KV heads one rank's cache holds: its ``1/tp`` of the padded KV
+    heads when :func:`attn_dims` shards them, all of them otherwise."""
+    _, kvp, shard_kv = attn_dims(cfg, tp)
+    return kvp // tp if shard_kv else kvp
+
+
+#: cache leaves with a KV-head axis (dim 2, contiguous ring or page pool)
+_HEAD_KEYS = frozenset({"k", "v", "k_scale", "v_scale"})
+
+
+def _kv_window(cfg, tp):
+    """Under ``tp`` with the KV heads whole on every rank (``shard_kv``
+    False): the KV heads ``[k0, k1)`` the rank's query heads read, the
+    group size, and the rank's first query head's place in the query block
+    of those KV heads.  None when the KV heads are sharded (the rank's
+    query heads then read exactly its own KV heads) or without ``tp``."""
+    if tp is None or tp.size == 1 or tp.shard_kv:
+        return None
+    hp, kvp, _ = attn_dims(cfg, tp.size)
+    g, per = hp // kvp, hp // tp.size
+    h0 = tp.rank * per
+    k0, k1 = h0 // g, -(-(h0 + per) // g)
+    return k0, k1, g, h0 - k0 * g
+
+
+def _over_window(q, window, attend):
+    """``attend(q_block)`` for the rank's query heads ``q [B, S, Hq, D]``
+    placed, zero-padded, in the query block of the KV window, then the
+    rank's heads taken back out (heads are independent: the pad queries
+    change nothing else)."""
+    k0, k1, g, off = window
+    b, s, hq, dh = q.shape
+    block = q.new_zeros((b, s, (k1 - k0) * g, dh))
+    block[:, :, off:off + hq] = q
+    return attend(block)[:, :, off:off + hq]
 
 
 def _project_qkv(params, x, cfg, positions, impl=None):
@@ -55,9 +114,9 @@ def _project_qkv(params, x, cfg, positions, impl=None):
         q = q + params["bq"].to(q.dtype)
         k = k + params["bk"].to(k.dtype)
         v = v + params["bv"].to(v.dtype)
-    q = q.reshape(b, s, cfg.n_heads, dh)
-    k = k.reshape(b, s, cfg.n_kv_heads, dh)
-    v = v.reshape(b, s, cfg.n_kv_heads, dh)
+    q = q.reshape(b, s, -1, dh)  # the heads this rank holds (all of them on one device)
+    k = k.reshape(b, s, -1, dh)
+    v = v.reshape(b, s, -1, dh)
     if cfg.qk_norm:
         q = layers.rms_norm(q, params["q_norm"])
         k = layers.rms_norm(k, params["k_norm"])
@@ -66,14 +125,20 @@ def _project_qkv(params, x, cfg, positions, impl=None):
     return q, k, v
 
 
-def _gqa(params, x, cfg, positions, impl=None):
+def _gqa(params, x, cfg, positions, impl=None, tp=None):
     """Full-sequence causal (windowed with ``cfg.sliding_window``) GQA →
-    (output, k, v)."""
+    (output, k, v).  Under ``tp`` on the rank's heads, ``wo`` row-parallel."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
-    out = chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
-                            window=cfg.sliding_window)
-    return dense(params["wo"], out.reshape(b, s, -1), impl=impl), k, v
+    window = _kv_window(cfg, tp)
+
+    def attend(qq, k0=0, k1=k.shape[2]):
+        return chunked_attention(qq, k[:, :, k0:k1], v[:, :, k0:k1], q_pos=positions,
+                                 kv_pos=positions, window=cfg.sliding_window)
+
+    out = attend(q) if window is None else _over_window(q, window,
+                                                        lambda qq: attend(qq, *window[:2]))
+    return row_parallel(params["wo"], out.reshape(b, s, -1), tp, impl=impl), k, v
 
 
 def _arange_positions(x) -> torch.Tensor:
@@ -81,18 +146,18 @@ def _arange_positions(x) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=x.device).expand(b, s)
 
 
-def gqa_apply(params, x, cfg, *, positions=None, impl=None):
+def gqa_apply(params, x, cfg, *, positions=None, impl=None, tp=None):
     """Full-sequence causal attention with no cache (the train path)."""
     positions = _arange_positions(x) if positions is None else positions
-    return _gqa(params, x, cfg, positions, impl=impl)[0]
+    return _gqa(params, x, cfg, positions, impl=impl, tp=tp)[0]
 
 
-def gqa_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
-    """Prefill: returns (output, cache)."""
+def gqa_prefill(params, x, cfg, *, cache_len, positions=None, impl=None, tp=None):
+    """Prefill: returns (output, cache); under ``tp`` the rank's cache."""
     b = x.shape[0]
     positions = _arange_positions(x) if positions is None else positions
-    out, k, v = _gqa(params, x, cfg, positions, impl=impl)
-    cache = init_kv_cache(cfg, b, cache_len, dtype=k.dtype, device=x.device)
+    out, k, v = _gqa(params, x, cfg, positions, impl=impl, tp=tp)
+    cache = init_kv_cache(cfg, b, cache_len, tp=tp_size(tp), dtype=k.dtype, device=x.device)
     _ring_write(cache, k, v, positions, kvcache.format_for(cfg))
     return out, cache
 
@@ -108,17 +173,28 @@ def _decode_positions(pos, b: int, s: int, device) -> torch.Tensor:
     return pos.expand(b, s)
 
 
-def gqa_decode(params, x, cache, cfg, *, pos, impl=None):
+def gqa_decode(params, x, cache, cfg, *, pos, impl=None, tp=None):
     """Decode ``x [B, S, D]`` against the ring cache (S > 1 appends a chunk
-    and attends causally).  Updates ``cache`` in place and returns it."""
+    and attends causally).  Updates ``cache`` in place and returns it.
+    Under ``tp`` the rank's heads against its cache, ``wo`` row-parallel."""
     b, s, _ = x.shape
     positions = _decode_positions(pos, b, s, x.device)
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
     _ring_write(cache, k, v, positions, fmt)
-    out = _decode_attention(q, cache, cur=positions, window=cfg.sliding_window, fmt=fmt,
-                            impl=impl)
-    out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
+    window = _kv_window(cfg, tp)
+
+    def attend(qq, sub):
+        return _decode_attention(qq, sub, cur=positions, window=cfg.sliding_window, fmt=fmt,
+                                 impl=impl)
+
+    if window is None:
+        out = attend(q, cache)
+    else:
+        k0, k1 = window[:2]
+        sub = {n: t[:, :, k0:k1] if n in _HEAD_KEYS else t for n, t in cache.items()}
+        out = _over_window(q, window, lambda qq: attend(qq, sub))
+    out = row_parallel(params["wo"], out.reshape(b, s, -1), tp, impl=impl)
     return out, cache
 
 
@@ -130,19 +206,23 @@ def cache_len_for(cfg, max_len: int) -> int:
     return max_len
 
 
-def init_kv_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) -> dict:
+def init_kv_cache(cfg, batch: int, cache_len: int, *, tp: int = 1, local: bool = True,
+                  dtype=None, device=None) -> dict:
     """Allocate the GQA ring cache through ``cfg``'s cache format on
     ``device`` (default ``"cuda"``; raises without a GPU unless the caller
     asks for ``"cpu"``).  The ring is ``fmt.slot_capacity(cache_len)``
     long: ``cache_len`` for a contiguous format, rounded up to whole pages
     for a paged one, so the gathered pages and ``pos_ids`` cover the same
-    slots."""
+    slots.  At ``tp`` ways it holds one rank's KV heads
+    (:func:`kv_heads_held`), or with ``local=False`` all the padded KV
+    heads (the global cache the sharding rules cut)."""
     device = resolve_device(device)
     fmt = kvcache.format_for(cfg)
     cache_len = fmt.slot_capacity(cache_len)
+    heads = kv_heads_held(cfg, tp) if local else attn_dims(cfg, tp)[1]
     cache = {}
     for prefix in ("k", "v"):
-        store = fmt.init(batch, cache_len, (cfg.n_kv_heads,), cfg.d_head,
+        store = fmt.init(batch, cache_len, (heads,), cfg.d_head,
                          dtype=dtype or cfg.dtype, device=device)
         cache.update(fmt.channel_entries(prefix, store))
     cache["pos_ids"] = torch.full((batch, cache_len), -1, dtype=torch.int32,
@@ -251,18 +331,21 @@ def chunked_attention(q, k, v, *, q_pos, kv_pos, causal=True, window=None) -> to
 # ---------------------------------------------------------------------------
 
 
-def cross_specs(cfg) -> dict:
-    """The cross-attention projections, and llama-vision's tanh ``gate``
-    (a float32 scalar, zero at init: the branch starts closed)."""
+def cross_specs(cfg, tp: int = 1) -> dict:
+    """The cross-attention projections (heads padded by :func:`attn_dims`),
+    and llama-vision's tanh ``gate`` (a float32 scalar, zero at init: the
+    branch starts closed)."""
     from repro_torch.models.model import ParamSpec
 
     d, dh = cfg.d_model, cfg.d_head
+    hp, kvp, _ = attn_dims(cfg, tp)
     return {
-        "wq": ParamSpec((d, cfg.n_heads * dh), cfg.dtype),
-        "wk": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
-        "wv": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
-        "wo": ParamSpec((cfg.n_heads * dh, d), cfg.dtype),
-        "gate": ParamSpec((), torch.float32, "zeros"),
+        "wq": ParamSpec((d, hp * dh), cfg.dtype, axes=("embed", "heads")),
+        "wk": ParamSpec((d, kvp * dh), cfg.dtype, axes=("embed", "kv_heads")),
+        "wv": ParamSpec((d, kvp * dh), cfg.dtype, axes=("embed", "kv_heads")),
+        "wo": ParamSpec((hp * dh, d), cfg.dtype, axes=("heads", "embed"),
+                        valid_dim0=cfg.n_heads * dh if hp > cfg.n_heads else None),
+        "gate": ParamSpec((), torch.float32, "zeros", ()),
     }
 
 

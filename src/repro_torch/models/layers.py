@@ -7,6 +7,19 @@ layer's stacked expert weights): a weight converted to a
 :class:`~repro_torch.core.residency.QuantLinearState` goes through its
 residency format — the kernel path by default, the plain PyTorch path with
 ``impl="plain"`` — and a float weight is a plain matmul.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
+TensorParallel`; None on one device) is written out here where the
+reference leaves it to GSPMD.  A column-parallel projection (N on the
+model axis: ``wq``, ``wk``, ``wv``, ``w_in``, the head) is ``dense`` on the
+rank's columns and needs no collective.  A row-parallel one (K on the
+model axis: ``wo``, ``w_out``) is :func:`row_parallel`: each rank's partial
+product, then an all-reduce sum (see the formats'
+``apply_row_parallel``), except a bit-plane weight, whose payload keeps
+every K on every rank: its input is all-gathered first.  The embedding's
+vocab rows are sharded: each rank looks up its own id range, writes zeros
+elsewhere and the ranks' rows are summed; the logits come out
+vocab-sharded and are all-gathered, so every rank sees every logit.
 """
 
 from __future__ import annotations
@@ -38,6 +51,25 @@ def dense_stacked(w, x: torch.Tensor, impl=None) -> torch.Tensor:
     return torch.einsum("emk,ekn->emn", x, w.to(x.dtype))
 
 
+def row_parallel(w, x: torch.Tensor, tp=None, impl=None, bias=None) -> torch.Tensor:
+    """``x [..., K/tp] @ w [K, N]`` (+ ``bias``) with K split over the model
+    axis (the rank holds its K rows of ``w`` and of ``x``'s features) → the
+    whole product on every rank, in ``x.dtype``.  A bias is added once,
+    after the all-reduce.  Without ``tp``, :func:`dense`."""
+    if tp is None or tp.size == 1:
+        out = dense(w, x, impl=impl)
+    elif isinstance(w, residency.QuantLinearState):
+        if w.k != x.shape[-1]:  # the payload holds every K: gather the features
+            out = dense(w, tp.all_gather(x), impl=impl)
+        else:
+            fmt = residency.get_format(w.mode)
+            out = fmt.apply_row_parallel(w, x, tp, impl=impl).to(x.dtype)
+    else:
+        partial = x.to(torch.float32) @ w.to(torch.float32)
+        out = tp.all_reduce_sum(partial).to(x.dtype)
+    return out if bias is None else out + bias.to(out.dtype)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     dtype = x.dtype
     x = x.to(torch.float32)
@@ -58,19 +90,35 @@ def norm_apply(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     return (y * params["scale"] + params["bias"]).to(dtype)
 
 
-def embed_apply(params: dict, tokens: torch.Tensor, cfg) -> torch.Tensor:
+def embed_apply(params: dict, tokens: torch.Tensor, cfg, tp=None) -> torch.Tensor:
     """Gather, then cast: the same values as casting the table first.  The
     gather is ``F.embedding``, whose backward (a sorted segment sum on the
-    card) adds a repeated token's gradients in a fixed order."""
-    return F.embedding(tokens, params["embedding"]).to(cfg.dtype)
+    card) adds a repeated token's gradients in a fixed order.  Under ``tp``
+    the table holds the rank's vocab rows: ids outside them give zero rows,
+    and the float32 sum over the ranks leaves each id its one real row."""
+    table = params["embedding"]
+    if tp is None or tp.size == 1:
+        return F.embedding(tokens, table).to(cfg.dtype)
+    rows = table.shape[0]
+    local = tokens - tp.rank * rows
+    mine = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(mine, local, 0), table).to(torch.float32)
+    x = torch.where(mine[..., None], x, 0.0)
+    return tp.all_reduce_sum(x).to(cfg.dtype)
 
 
-def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:
+def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None, tp=None) -> torch.Tensor:
     """Tied logits, where 1/sqrt(d) keeps them in the regime of a
-    fan-in-scaled head; an untied model's ``head`` goes through ``dense``."""
+    fan-in-scaled head; an untied model's ``head`` goes through ``dense``.
+    Under ``tp`` each rank computes its vocab columns and the ranks'
+    columns are gathered in order."""
     if cfg.tie_embeddings and "head" not in params:
-        return (x @ params["embedding"].to(x.dtype).T) * (cfg.d_model ** -0.5)
-    return dense(params["head"], x, impl=impl)
+        logits = (x @ params["embedding"].to(x.dtype).T) * (cfg.d_model ** -0.5)
+    else:
+        logits = dense(params["head"], x, impl=impl)
+    if tp is None or tp.size == 1:
+        return logits
+    return tp.all_gather(logits)
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -103,8 +151,10 @@ def activation(h: torch.Tensor, cfg) -> torch.Tensor:
     return F.silu(gate) * up
 
 
-def mlp_apply(params: dict, x: torch.Tensor, cfg, impl=None) -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, cfg, impl=None, tp=None) -> torch.Tensor:
     """GELU over ``w_in [d, d_ff]``, or SwiGLU with the fused ``[gate; up]``
-    input projection ``[d, 2·d_ff]``."""
+    input projection ``[d, 2·d_ff]``.  Under ``tp`` the rank holds its share
+    of the gate and of the up columns (column-parallel) and ``w_out``'s
+    matching rows (row-parallel)."""
     h = activation(dense(params["w_in"], x, impl=impl), cfg)
-    return dense(params["w_out"], h, impl=impl)
+    return row_parallel(params["w_out"], h, tp, impl=impl)

@@ -36,15 +36,16 @@ def mamba_specs(cfg) -> dict:
 
     di, n, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank_actual
     return {
-        "in_proj": ParamSpec((cfg.d_model, 2 * di), cfg.dtype),
-        "conv_w": ParamSpec((cfg.d_conv, di), torch.float32),
-        "conv_b": ParamSpec((di,), torch.float32, "zeros"),
-        "x_proj": ParamSpec((di, dtr + 2 * n), cfg.dtype),
-        "dt_w": ParamSpec((dtr, di), torch.float32),
-        "dt_b": ParamSpec((di,), torch.float32, "ssm_dt"),
-        "A_log": ParamSpec((di, n), torch.float32, "ssm_a"),
-        "D": ParamSpec((di,), torch.float32, "ones"),
-        "out_proj": ParamSpec((di, cfg.d_model), cfg.dtype),
+        "in_proj": ParamSpec((cfg.d_model, 2 * di), cfg.dtype, axes=("embed", "mlp"),
+                             fused=2),
+        "conv_w": ParamSpec((cfg.d_conv, di), torch.float32, axes=("conv", "mlp")),
+        "conv_b": ParamSpec((di,), torch.float32, "zeros", ("mlp",)),
+        "x_proj": ParamSpec((di, dtr + 2 * n), cfg.dtype, axes=("mlp", "dt_rank")),
+        "dt_w": ParamSpec((dtr, di), torch.float32, axes=("dt_rank", "mlp")),
+        "dt_b": ParamSpec((di,), torch.float32, "ssm_dt", ("mlp",)),
+        "A_log": ParamSpec((di, n), torch.float32, "ssm_a", ("mlp", "ssm_state")),
+        "D": ParamSpec((di,), torch.float32, "ones", ("mlp",)),
+        "out_proj": ParamSpec((di, cfg.d_model), cfg.dtype, axes=("mlp", "embed")),
     }
 
 

@@ -36,9 +36,17 @@ ParamSpec init rules (``repro/sharding/partitioning.py``) with a
 expert weights is the expert axis, as in the reference, whose scan stacking
 puts the expert axis where it reads the fan-in.  The numbers differ from
 ``jax.random``'s, so parity tests bring the reference's own parameters
-across with :mod:`repro_torch.convert`.  On one device the vocab is not padded (the
-reference pads it to a multiple of its tensor-parallel width and masks the
-pad logits), so there is nothing to mask.
+across with :mod:`repro_torch.convert`.
+
+Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
+TensorParallel` on :func:`prefill` / :func:`decode_step`; an int on the
+shape functions :func:`specs` / :func:`init_cache`) covers dense GQA
+models: ``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
+vocab (:func:`padded_vocab`) as the reference does, zero rows drawn for the
+pad heads' ``wo`` rows and the pad vocab rows (``valid_dim0``), and every
+rank runs its shards (:mod:`repro_torch.models.layers` writes the
+collectives).  The pad logits are masked to ``NEG_INF``.  MLA, MoE, Mamba
+and cross layers raise at ``tp > 1`` (ROADMAP Queue 1, item 8).
 
 The context the cross layers attend to comes with the prompt: a VLM's
 ``batch["ctx_embeds"]`` (patch embeddings, cast to ``cfg.dtype``), or an
@@ -57,10 +65,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, layers, mamba, stack
+from repro_torch.sharding.partitioning import pad_dim
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Shape, dtype and initializer of one parameter."""
+    """Shape, dtype, initializer and logical axes of one parameter."""
 
     shape: tuple
     dtype: Any = torch.bfloat16
@@ -68,49 +77,75 @@ class ParamSpec:
     #: (Mamba's A_log: log(1..d_state) over channels) | ssm_dt (Mamba's dt
     #: bias: the softplus-inverse of U[1e-3, 1e-1])
     init: str = "normal"
+    #: one logical axis name (or None) a dim, the reference's; the rules of
+    #: :mod:`repro_torch.sharding.partitioning` map them to mesh axes
+    axes: Optional[tuple] = None
+    #: rows (dim 0) at or past this index are drawn as zeros: the pad heads
+    #: of ``wo`` and the pad vocab rows of the embedding
+    valid_dim0: Optional[int] = None
+    #: the last axis holds this many equal fused blocks (SwiGLU's [gate;
+    #: up], Mamba's [x; z]): a tensor-parallel shard takes its share of each
+    fused: int = 1
+
+    def __post_init__(self):
+        if self.axes is not None and len(self.axes) != len(self.shape):
+            raise ValueError(f"axes {self.axes} do not match shape {self.shape}")
+
+
+def padded_vocab(cfg, tp: int = 1) -> int:
+    """The vocab padded to a multiple of ``tp`` (when it does not divide)."""
+    return pad_dim(cfg.vocab_size, tp) if cfg.vocab_size % tp else cfg.vocab_size
 
 
 def _norm_specs(cfg) -> dict:
-    specs = {"scale": ParamSpec((cfg.d_model,), torch.float32, "ones")}
+    specs = {"scale": ParamSpec((cfg.d_model,), torch.float32, "ones", ("norm",))}
     if cfg.norm == "layernorm":
-        specs["bias"] = ParamSpec((cfg.d_model,), torch.float32, "zeros")
+        specs["bias"] = ParamSpec((cfg.d_model,), torch.float32, "zeros", ("norm",))
     return specs
 
 
-def _gqa_specs(cfg) -> dict:
+def _pad_rows(padded: int, real: int) -> Optional[int]:
+    return real if padded > real else None
+
+
+def _gqa_specs(cfg, tp: int = 1) -> dict:
     d, dh = cfg.d_model, cfg.d_head
+    hp, kvp, _ = attention.attn_dims(cfg, tp)
     mixer = {
-        "wq": ParamSpec((d, cfg.n_heads * dh), cfg.dtype),
-        "wk": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
-        "wv": ParamSpec((d, cfg.n_kv_heads * dh), cfg.dtype),
-        "wo": ParamSpec((cfg.n_heads * dh, d), cfg.dtype),
+        "wq": ParamSpec((d, hp * dh), cfg.dtype, axes=("embed", "heads")),
+        "wk": ParamSpec((d, kvp * dh), cfg.dtype, axes=("embed", "kv_heads")),
+        "wv": ParamSpec((d, kvp * dh), cfg.dtype, axes=("embed", "kv_heads")),
+        "wo": ParamSpec((hp * dh, d), cfg.dtype, axes=("heads", "embed"),
+                        valid_dim0=_pad_rows(hp * dh, cfg.n_heads * dh)),
     }
     if cfg.qkv_bias:
-        mixer["bq"] = ParamSpec((cfg.n_heads * dh,), torch.float32, "zeros")
-        mixer["bk"] = ParamSpec((cfg.n_kv_heads * dh,), torch.float32, "zeros")
-        mixer["bv"] = ParamSpec((cfg.n_kv_heads * dh,), torch.float32, "zeros")
+        mixer["bq"] = ParamSpec((hp * dh,), torch.float32, "zeros", ("heads",))
+        mixer["bk"] = ParamSpec((kvp * dh,), torch.float32, "zeros", ("kv_heads",))
+        mixer["bv"] = ParamSpec((kvp * dh,), torch.float32, "zeros", ("kv_heads",))
     if cfg.qk_norm:
-        mixer["q_norm"] = ParamSpec((dh,), torch.float32, "ones")
-        mixer["k_norm"] = ParamSpec((dh,), torch.float32, "ones")
+        mixer["q_norm"] = ParamSpec((dh,), torch.float32, "ones", ("head_dim",))
+        mixer["k_norm"] = ParamSpec((dh,), torch.float32, "ones", ("head_dim",))
     return mixer
 
 
-def _mla_specs(cfg) -> dict:
-    h, d = cfg.n_heads, cfg.d_model
+def _mla_specs(cfg, tp: int = 1) -> dict:
+    h, d = attention.mla_dims(cfg, tp), cfg.d_model
     dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     mixer = {
-        "w_dkv": ParamSpec((d, r + dr), cfg.dtype),
-        "kv_norm": ParamSpec((r,), torch.float32, "ones"),
-        "w_uk": ParamSpec((r, h * dn), cfg.dtype),
-        "w_uv": ParamSpec((r, h * dv), cfg.dtype),
-        "wo": ParamSpec((h * dv, d), cfg.dtype),
+        "w_dkv": ParamSpec((d, r + dr), cfg.dtype, axes=("embed", "kv_lora")),
+        "kv_norm": ParamSpec((r,), torch.float32, "ones", ("norm",)),
+        "w_uk": ParamSpec((r, h * dn), cfg.dtype, axes=("kv_lora", "heads")),
+        "w_uv": ParamSpec((r, h * dv), cfg.dtype, axes=("kv_lora", "heads")),
+        "wo": ParamSpec((h * dv, d), cfg.dtype, axes=("heads", "embed"),
+                        valid_dim0=_pad_rows(h * dv, cfg.n_heads * dv)),
     }
     if cfg.q_lora_rank:
-        mixer["w_dq"] = ParamSpec((d, cfg.q_lora_rank), cfg.dtype)
-        mixer["q_norm"] = ParamSpec((cfg.q_lora_rank,), torch.float32, "ones")
-        mixer["w_uq"] = ParamSpec((cfg.q_lora_rank, h * (dn + dr)), cfg.dtype)
+        mixer["w_dq"] = ParamSpec((d, cfg.q_lora_rank), cfg.dtype, axes=("embed", "kv_lora"))
+        mixer["q_norm"] = ParamSpec((cfg.q_lora_rank,), torch.float32, "ones", ("norm",))
+        mixer["w_uq"] = ParamSpec((cfg.q_lora_rank, h * (dn + dr)), cfg.dtype,
+                                  axes=("kv_lora", "heads"))
     else:
-        mixer["wq"] = ParamSpec((d, h * (dn + dr)), cfg.dtype)
+        mixer["wq"] = ParamSpec((d, h * (dn + dr)), cfg.dtype, axes=("embed", "heads"))
     return mixer
 
 
@@ -118,61 +153,75 @@ def _d_in(cfg, d_ff: int) -> int:
     return d_ff if cfg.act == "gelu" else 2 * d_ff  # SwiGLU: fused [gate; up]
 
 
+def _n_fused(cfg) -> int:
+    return 1 if cfg.act == "gelu" else 2
+
+
 def _moe_specs(cfg) -> dict:
     e, d, f = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
     ffn = {
-        "router": ParamSpec((d, e), torch.float32),
-        "w_in": ParamSpec((e, d, _d_in(cfg, f)), cfg.dtype),
-        "w_out": ParamSpec((e, f, d), cfg.dtype),
+        "router": ParamSpec((d, e), torch.float32, axes=("embed", "expert")),
+        "w_in": ParamSpec((e, d, _d_in(cfg, f)), cfg.dtype,
+                          axes=("expert", "embed", "moe_mlp"), fused=_n_fused(cfg)),
+        "w_out": ParamSpec((e, f, d), cfg.dtype, axes=("expert", "moe_mlp", "embed")),
     }
     if cfg.n_shared_experts:
         fs = f * cfg.n_shared_experts
-        ffn["shared_w_in"] = ParamSpec((d, _d_in(cfg, fs)), cfg.dtype)
-        ffn["shared_w_out"] = ParamSpec((fs, d), cfg.dtype)
+        ffn["shared_w_in"] = ParamSpec((d, _d_in(cfg, fs)), cfg.dtype, axes=("embed", "mlp"),
+                                       fused=_n_fused(cfg))
+        ffn["shared_w_out"] = ParamSpec((fs, d), cfg.dtype, axes=("mlp", "embed"))
     return ffn
 
 
-def _layer_specs(cfg, mixer_kind: str, ffn_kind: str) -> dict:
+def _layer_specs(cfg, mixer_kind: str, ffn_kind: str, tp: int = 1) -> dict:
     d = cfg.d_model
     if mixer_kind == "mamba":
         mixer = mamba.mamba_specs(cfg)
     elif mixer_kind == "cross":
-        mixer = attention.cross_specs(cfg)
+        mixer = attention.cross_specs(cfg, tp)
     else:
-        mixer = _mla_specs(cfg) if cfg.attn_type == "mla" else _gqa_specs(cfg)
+        mixer = _mla_specs(cfg, tp) if cfg.attn_type == "mla" else _gqa_specs(cfg, tp)
     layer = {"ln1": _norm_specs(cfg), "mixer": mixer}
     if mixer_kind == "attn_cross":
-        layer.update(ln_x=_norm_specs(cfg), cross=attention.cross_specs(cfg))
+        layer.update(ln_x=_norm_specs(cfg), cross=attention.cross_specs(cfg, tp))
     if ffn_kind == "none":
         return layer
     if ffn_kind == "moe":
         ffn = _moe_specs(cfg)
     else:
-        ffn = {"w_in": ParamSpec((d, _d_in(cfg, cfg.d_ff)), cfg.dtype),
-               "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype)}
+        ffn = {"w_in": ParamSpec((d, _d_in(cfg, cfg.d_ff)), cfg.dtype, axes=("embed", "mlp"),
+                                 fused=_n_fused(cfg)),
+               "w_out": ParamSpec((cfg.d_ff, d), cfg.dtype, axes=("mlp", "embed"))}
     return {**layer, "ln2": _norm_specs(cfg), "ffn": ffn}
 
 
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
-def specs(cfg) -> dict:
+def specs(cfg, tp: int = 1) -> dict:
+    """The parameter tree of ``cfg`` at tensor-parallel width ``tp``: heads
+    padded as :func:`~repro_torch.models.attention.attn_dims` says and the
+    vocab as :func:`padded_vocab`, global shapes (each rank holds the shard
+    :mod:`repro_torch.sharding.partitioning` cuts by the leaves' axes)."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(f"{cfg.name}: the port serves the families {FAMILIES}, "
                                   f"not {cfg.family!r}")
-    embed = {"embedding": ParamSpec((cfg.vocab_size, cfg.d_model), torch.float32,
-                                    "embedding")}
+    pv = padded_vocab(cfg, tp)
+    embed = {"embedding": ParamSpec((pv, cfg.d_model), torch.float32, "embedding",
+                                    ("vocab", "embed"),
+                                    valid_dim0=_pad_rows(pv, cfg.vocab_size))}
     if not cfg.tie_embeddings:
-        embed["head"] = ParamSpec((cfg.d_model, cfg.vocab_size), cfg.dtype)
+        embed["head"] = ParamSpec((cfg.d_model, pv), cfg.dtype, axes=("embed", "vocab"))
     tree = {
         "embed": embed,
         "final_norm": _norm_specs(cfg),
-        "layers": [_layer_specs(cfg, cfg.mixer_kind(i), cfg.ffn_kind(i))
+        "layers": [_layer_specs(cfg, cfg.mixer_kind(i), cfg.ffn_kind(i), tp)
                    for i in range(cfg.n_layers)],
     }
     if cfg.is_enc_dec:
         tree["encoder"] = {
-            "layers": [_layer_specs(cfg, "attn", "dense") for _ in range(cfg.n_enc_layers)],
+            "layers": [_layer_specs(cfg, "attn", "dense", tp)
+                       for _ in range(cfg.n_enc_layers)],
             "final_norm": _norm_specs(cfg),
         }
     return tree
@@ -192,11 +241,13 @@ def _init(spec: ParamSpec, gen: torch.Generator, device) -> torch.Tensor:
     w = torch.randn(spec.shape, generator=gen, dtype=torch.float32, device=device)
     if spec.init == "normal":
         w.div_(math.sqrt(spec.shape[0]))  # fan-in: the first axis (see the module doc)
+    if spec.valid_dim0 is not None:
+        w[spec.valid_dim0:] = 0.0
     return w.to(spec.dtype)
 
 
 def draw(cfg, seed: int = 0, device=None,
-         leaf: Optional[Callable[[tuple, torch.Tensor], Any]] = None) -> dict:
+         leaf: Optional[Callable[[tuple, torch.Tensor], Any]] = None, tp: int = 1) -> dict:
     """Random parameters from ``seed`` on ``device`` (default ``"cuda"``),
     drawn leaf by leaf from one generator in the order of :func:`specs`;
     each leaf goes through ``leaf(path, tensor)`` (``path`` the tuple of
@@ -213,12 +264,13 @@ def draw(cfg, seed: int = 0, device=None,
             return {k: walk(v, path + (k,)) for k, v in tree.items()}
         return [walk(v, path + (str(i),)) for i, v in enumerate(tree)]
 
-    return walk(specs(cfg), ())
+    return walk(specs(cfg, tp), ())
 
 
-def materialize(cfg, seed: int = 0, device=None) -> dict:
-    """Random parameters from ``seed`` on ``device`` (default ``"cuda"``)."""
-    return draw(cfg, seed, device)
+def materialize(cfg, seed: int = 0, device=None, tp: int = 1) -> dict:
+    """Random parameters of ``specs(cfg, tp)`` from ``seed`` on ``device``
+    (default ``"cuda"``)."""
+    return draw(cfg, seed, device, tp=tp)
 
 
 def encode(params, enc_embeds: torch.Tensor, cfg, *, impl=None) -> torch.Tensor:
@@ -274,7 +326,32 @@ def loss_fn(params, batch: dict, cfg, *, remat: bool = False, aux_weight: float 
     return total, {"ce": ce, "aux": aux, "z": z, "tokens": mask.sum()}
 
 
-def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
+NEG_INF = attention.NEG_INF
+
+
+def mask_pad_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
+    """``NEG_INF`` at the pad logits past ``cfg.vocab_size``, so padding is
+    numerically invisible to a softmax or an argmax."""
+    if logits.shape[-1] == cfg.vocab_size:
+        return logits
+    iota = torch.arange(logits.shape[-1], device=logits.device)
+    return torch.where(iota < cfg.vocab_size, logits, NEG_INF)
+
+
+def check_tp(cfg, tp) -> None:
+    """Raise unless ``cfg`` runs at ``tp``'s width: every layer GQA
+    self-attention with a dense FFN, or one device."""
+    if tp is None or tp.size == 1:
+        return
+    layers_ok = all(cfg.mixer_kind(i) == "attn" and cfg.ffn_kind(i) == "dense"
+                    for i in range(cfg.n_layers))
+    if cfg.attn_type == "mla" or cfg.is_enc_dec or not layers_ok:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor parallelism covers dense GQA models; MLA, MoE, Mamba and "
+            "cross layers at tp > 1 wait for ROADMAP Queue 1, item 8")
+
+
+def prefill(params, batch: dict, cfg, *, max_len: int, impl=None, tp=None):
     """Run the prompt, build the decode caches → (last logits [B,1,V] f32,
     per-layer caches: an attention layer's ring is ``min(sliding_window,
     max_len)`` long, a Mamba layer's state O(1), a cross layer's the
@@ -282,38 +359,46 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None):
     left-pad tokens with negative positions, which attention ignores and a
     Mamba layer cannot (the engine never pads an SSM config's prompts);
     ``batch["ctx_embeds"]`` (VLM) or ``batch["enc_embeds"]``
-    (encoder-decoder) carries the context."""
+    (encoder-decoder) carries the context.  Under ``tp`` (dense GQA) each
+    rank runs its shards and every rank gets the whole logits."""
+    check_tp(cfg, tp)
     ctx = _context(params, batch, cfg, impl=impl)
-    x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+    x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)
     x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
                                      pos=batch.get("positions"),
                                      cache_len=attention.cache_len_for(cfg, max_len), ctx=ctx,
-                                     impl=impl)
+                                     impl=impl, tp=tp)
     x = layers.norm_apply(params["final_norm"], x, cfg)
-    logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl)
-    return logits.to(torch.float32), caches
+    logits = layers.logits_apply(params["embed"], x[:, -1:], cfg, impl=impl, tp=tp)
+    return mask_pad_vocab(logits.to(torch.float32), cfg), caches
 
 
-def init_cache(cfg, batch: int, max_len: int, *, device=None) -> list:
+def init_cache(cfg, batch: int, max_len: int, *, device=None, tp: int = 1,
+               local: bool = True) -> list:
     """The decode caches of ``batch`` slots, one per layer in the layout
     :func:`prefill` returns (a ring of ``attention.cache_len_for(cfg,
     max_len)`` positions, rounded to whole pages by a paged format; a
     Mamba state; a cross layer's context K/V), zero, on ``device`` (default
     ``"cuda"``).  ``device="meta"`` gives the abstract cache the dry run
-    counts; its bytes equal the reference's stacked ``init_cache``."""
+    counts; its bytes equal the reference's stacked ``init_cache``.  At
+    ``tp`` ways an attention ring holds one rank's KV heads, or with
+    ``local=False`` all the padded ones (the global cache)."""
     cache_len = attention.cache_len_for(cfg, max_len)
-    return [stack.init_layer_cache(cfg, cfg.mixer_kind(i), batch, cache_len, device=device)
+    return [stack.init_layer_cache(cfg, cfg.mixer_kind(i), batch, cache_len, device=device,
+                                   tp=tp, local=local)
             for i in range(cfg.n_layers)]
 
 
-def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None):
+def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None, tp=None):
     """One decode step: ``token [B,S]`` against the caches (updated in
     place) at scalar, per-slot ``[B]`` or per-token ``[B,S]`` positions.
-    Cross-attention reads its context from the caches."""
+    Cross-attention reads its context from the caches.  ``tp`` as for
+    :func:`prefill`."""
+    check_tp(cfg, tp)
     pos = attention._decode_positions(pos, token.shape[0], token.shape[1], token.device)
-    x = layers.embed_apply(params["embed"], token, cfg)
+    x = layers.embed_apply(params["embed"], token, cfg, tp=tp)
     x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="decode",
-                                     caches=caches, pos=pos, impl=impl)
+                                     caches=caches, pos=pos, impl=impl, tp=tp)
     x = layers.norm_apply(params["final_norm"], x, cfg)
-    logits = layers.logits_apply(params["embed"], x, cfg, impl=impl)
-    return logits.to(torch.float32), caches
+    logits = layers.logits_apply(params["embed"], x, cfg, impl=impl, tp=tp)
+    return mask_pad_vocab(logits.to(torch.float32), cfg), caches

@@ -45,15 +45,16 @@ def _bidir_attn(params, h, cfg, impl=None):
 MODES = ("train", "prefill", "decode", "encode")
 
 
-def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl):
+def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     mla = cfg.attn_type == "mla"
     if mode == "train":  # full sequence, no cache
         if kind == "mamba":
             return mamba.mamba_apply(params, h, cfg, impl=impl), None
-        fn = attention.mla_apply if mla else attention.gqa_apply
-        return fn(params, h, cfg, impl=impl), None
+        if mla:
+            return attention.mla_apply(params, h, cfg, impl=impl), None
+        return attention.gqa_apply(params, h, cfg, impl=impl, tp=tp), None
     if kind == "mamba":
         if mode == "prefill":
             return mamba.mamba_apply(params, h, cfg, return_state=True, impl=impl)
@@ -61,10 +62,14 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl):
     if mode == "encode":  # the encoder's GQA layers: non-causal, no cache
         return _bidir_attn(params, h, cfg, impl=impl), None
     if mode == "prefill":
-        fn = attention.mla_prefill if mla else attention.gqa_prefill
-        return fn(params, h, cfg, cache_len=cache_len, positions=pos, impl=impl)
-    fn = attention.mla_decode if mla else attention.gqa_decode
-    return fn(params, h, cache, cfg, pos=pos, impl=impl)
+        if mla:
+            return attention.mla_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
+                                         impl=impl)
+        return attention.gqa_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
+                                     impl=impl, tp=tp)
+    if mla:
+        return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl)
+    return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
 
 
 def _cross(params, h, cfg, *, mode, cache, ctx, impl):
@@ -75,10 +80,11 @@ def _cross(params, h, cfg, *, mode, cache, ctx, impl):
 
 
 def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: str = "dense",
-                cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None):
+                cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None, tp=None):
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
-    Returns (x, cache, the MoE layer's load-balancing loss or 0)."""
+    Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
+    (GQA and the dense FFN only; the model checks) runs the rank's shards."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
         a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl)
@@ -87,7 +93,7 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
         both = mixer == "attn_cross"
         own = cache["self"] if both and mode == "decode" else cache
         a, own = _mixer(params["mixer"], h, cfg, kind="attn" if both else mixer, mode=mode,
-                        cache=own, pos=pos, cache_len=cache_len, impl=impl)
+                        cache=own, pos=pos, cache_len=cache_len, impl=impl, tp=tp)
         x = x + a.to(x.dtype)
         if both:
             hx = layers.norm_apply(params["ln_x"], x, cfg)
@@ -105,11 +111,12 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
         moe_fn = moe.moe_apply_einsum if cfg.moe_impl == "einsum" else moe.moe_apply
         y, aux = moe_fn(params["ffn"], h2, cfg, impl=impl)
     else:
-        y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl)
+        y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl, tp=tp)
     return x + y.to(x.dtype), cache, aux
 
 
-def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None):
+def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None,
+                     tp: int = 1, local: bool = True):
     """One layer's zero decode cache, as prefill leaves it, on ``device``
     (default ``"cuda"``): the ring of an ``attn`` layer (GQA or MLA,
     ``cache_len`` positions before the format's page rounding), a Mamba
@@ -119,15 +126,18 @@ def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None
         return mamba.init_mamba_state(cfg, batch, device=device)
     if mixer == "cross":
         return attention.init_cross_cache(cfg, batch, device=device)
-    init = attention.init_mla_cache if cfg.attn_type == "mla" else attention.init_kv_cache
-    ring = init(cfg, batch, cache_len, device=device)
+    if cfg.attn_type == "mla":
+        ring = attention.init_mla_cache(cfg, batch, cache_len, device=device)
+    else:
+        ring = attention.init_kv_cache(cfg, batch, cache_len, tp=tp, local=local,
+                                       device=device)
     if mixer == "attn_cross":
         return {"self": ring, "cross": attention.init_cross_cache(cfg, batch, device=device)}
     return ring
 
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
-                cache_len: int = 0, ctx=None, impl=None, remat: bool = False):
+                cache_len: int = 0, ctx=None, impl=None, remat: bool = False, tp=None):
     """Run every layer in order (``ctx``: the context the cross mixers
     project).  Returns (x, per-layer caches, the summed MoE aux loss).
     ``remat`` (train mode) keeps no activation of a layer for the backward
@@ -148,7 +158,7 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
         else:
             x, c, aux = layer_apply(p, x, cfg, mode=mode, cache=None if caches is None
                                     else caches[i], pos=pos, cache_len=cache_len, ctx=ctx,
-                                    impl=impl, **kind)
+                                    impl=impl, tp=tp, **kind)
         new_caches.append(c)
         aux_total = aux_total + aux
     return x, None if mode == "train" else new_caches, aux_total

@@ -56,8 +56,11 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import kvcache, paging, residency
+from repro_torch.core import kvcache, paging, residency, transfer
+from repro_torch.distributed.mesh import TensorParallel
+from repro_torch.models import attention
 from repro_torch.models import model as model_lib
+from repro_torch.sharding import partitioning as P
 from repro_torch.obs import trace as obs
 from repro_torch.serve import scheduler as sched_lib
 from repro_torch.serve.scheduler import (
@@ -104,13 +107,20 @@ def convert_params(params, cfg, spec, *, min_dim: int = 64):
     return walk(params, ())
 
 
-def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int = 64):
-    """``convert_params(materialize(cfg, seed, device), cfg, spec)``, equal
-    to it bit for bit, with each leaf converted as soon as it is drawn: the
-    float tree is never held whole, so a model whose float weights do not
-    fit the card beside their converted form (qwen1.5-32b) fits."""
+def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int = 64,
+                          tp: int = 1, keep=None):
+    """``convert_params(materialize(cfg, seed, device, tp), cfg, spec)``,
+    equal to it bit for bit, with each leaf converted as soon as it is
+    drawn: the float tree is never held whole, so a model whose float
+    weights do not fit the card beside their converted form (qwen1.5-32b)
+    fits.  ``keep(leaf)`` maps each converted leaf before the next is drawn
+    (``lambda leaf: tree_to(leaf, "cpu")`` keeps the tree on the host, where
+    a tensor-parallel engine cuts each rank's shards from it)."""
     convert = leaf_converter(residency.ResidencySpec.parse(spec), min_dim)
-    return model_lib.draw(cfg, seed, device, leaf=convert)
+    if keep is not None:
+        return model_lib.draw(cfg, seed, device, tp=tp,
+                              leaf=lambda path, w: keep(convert(path, w)))
+    return model_lib.draw(cfg, seed, device, leaf=convert, tp=tp)
 
 
 def leaf_converter(spec, min_dim: int):
@@ -139,11 +149,12 @@ def leaf_converter(spec, min_dim: int):
     return convert
 
 
-def _tree_to(tree, device):
+def tree_to(tree, device):
+    """Every tensor and residency state of ``tree`` on ``device``."""
     if isinstance(tree, dict):
-        return {k: _tree_to(v, device) for k, v in tree.items()}
+        return {k: tree_to(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_tree_to(v, device) for v in tree]
+        return [tree_to(v, device) for v in tree]
     if isinstance(tree, (torch.Tensor, residency.QuantLinearState)):
         return tree.to(device)
     return tree
@@ -158,6 +169,30 @@ def resident_bytes(params) -> int:
     if isinstance(params, residency.QuantLinearState):
         return residency.resident_bytes(params)
     return params.numel() * params.element_size()
+
+
+def _tensor_parallel(cfg, tp: int, rules, mesh):
+    """The rank's :class:`TensorParallel` and the rule table of a ``tp``-way
+    engine on ``mesh``; raises for what the engine cannot serve."""
+    model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0))
+    if mesh is None:
+        raise ValueError("tp > 1 needs a mesh (a DeviceMesh with a 'model' axis)")
+    sizes = P.mesh_sizes(mesh)
+    if sizes.get("model") != tp:
+        raise ValueError(f"tp={tp} but the mesh's model axis is {sizes.get('model')}")
+    if sizes.get("data", 1) * sizes.get("pod", 1) > 1:
+        raise NotImplementedError(
+            "a mesh with a data axis above 1: the slots' batch sharding waits for "
+            "ROADMAP Queue 1, item 8")
+    shard_kv = attention.attn_dims(cfg, tp)[2]
+    if rules is None:
+        rules = P.base_rules(data_axes=("data",), shard_kv_heads=shard_kv)
+    want = {"heads": "model", "mlp": "model", "vocab": "model", "embed": None,
+            "kv_heads": "model" if shard_kv else None}
+    if any(rules.get(k) != v for k, v in want.items()):
+        raise ValueError(f"the tensor-parallel layers need the rules {want}, got "
+                         f"{ {k: rules.get(k) for k in want} }")
+    return TensorParallel.from_mesh(mesh, shard_kv=shard_kv), rules
 
 
 @dataclasses.dataclass(eq=False)  # identity equality: queue membership
@@ -216,9 +251,24 @@ class ServeEngine:
     (or a sink) records the observability stream for :meth:`timeline`;
     ``clock`` stamps the wall-time clock; ``device`` defaults to
     ``"cuda"`` and raises when there is none.
+
+    Tensor parallelism: ``tp > 1`` serves over the ``model`` axis of
+    ``mesh`` (a ``DeviceMesh`` whose ``model`` axis is ``tp`` long; the
+    PyTorch form of the reference's ambient mesh) under ``rules`` (default
+    :func:`~repro_torch.sharding.partitioning.base_rules` with the KV-head
+    rule ``attn_dims`` gives).  ``params`` is then the global tree of
+    ``model.specs(cfg, tp)`` (float or already converted), best on the
+    host: it is converted as a whole, and each rank copies only its own
+    shard of every leaf to ``device`` (:func:`repro_torch.core.transfer.
+    place_shard`).  Every rank runs the same scheduler on the same
+    all-gathered logits, and :meth:`run` ends by checking that every rank
+    emitted the same tokens.  A mesh with a ``data`` (or ``pod``) axis above 1
+    raises: the reference shards the slots over it, which waits for the
+    batch sharding of ROADMAP Queue 1, item 8.
     """
 
-    def __init__(self, params, cfg, *, slots: int = 4, max_len: int = 256,
+    def __init__(self, params, cfg, *, tp: int = 1, rules=None, mesh=None,
+                 slots: int = 4, max_len: int = 256,
                  impl: Optional[str] = None, mode: residency.SpecLike = "bf16",
                  cache_format: Optional[str] = None,
                  scheduler: sched_lib.SchedulerLike = "fcfs", min_dim: int = 64,
@@ -227,9 +277,19 @@ class ServeEngine:
                  clock: Callable[[], float] = time.perf_counter, device=None):
         self.device = resolve_device(device)
         spec = residency.ResidencySpec.parse(mode)
-        params = _tree_to(params, self.device)
-        if not spec.is_trivial:
-            params = convert_params(params, cfg, spec, min_dim=min_dim)
+        self.tp, self.rules, self.mesh = tp, rules, mesh
+        self._tp = None
+        if tp > 1:
+            self._tp, self.rules = _tensor_parallel(cfg, tp, rules, mesh)
+            if not spec.is_trivial:
+                params = convert_params(params, cfg, spec, min_dim=min_dim)
+            params = P.shard_tree(
+                params, model_lib.specs(cfg, tp), mesh, self.rules,
+                place=lambda t, index: transfer.place_shard(t, index, self.device))
+        else:
+            params = tree_to(params, self.device)
+            if not spec.is_trivial:
+                params = convert_params(params, cfg, spec, min_dim=min_dim)
         if cache_format is not None:
             cfg = dataclasses.replace(cfg, cache_format=cache_format)
         self.params, self.cfg = params, cfg
@@ -523,7 +583,7 @@ class ServeEngine:
         if s_max != min(lens):
             batch["positions"] = self._tensor(pos)
         logits, cache_b = model_lib.prefill(self.params, batch, self.cfg,
-                                            max_len=self.max_len, impl=self.impl)
+                                            max_len=self.max_len, impl=self.impl, tp=self._tp)
         self.work += toks.size
         if self.caches is None:
             # a paged pool leaf holds the pool's pages, fewer than slots ×
@@ -591,7 +651,7 @@ class ServeEngine:
             pos[slot, -1] = self.pos[slot]
         logits, self.caches = model_lib.decode_step(
             self.params, self._tensor(toks).long(), self.caches, self._tensor(pos),
-            self.cfg, impl=self.impl)
+            self.cfg, impl=self.impl, tp=self._tp)
         self.work += toks.size
         step_logits = logits[:, -1].cpu().numpy()
         for slot, n in chunks:
@@ -704,6 +764,18 @@ class ServeEngine:
     def run(self):
         while self.step():
             pass
+        if self._tp is not None:
+            self.check_ranks_agree()
+
+    def check_ranks_agree(self) -> None:
+        """Raise unless every rank of the model axis emitted the same token
+        ids for every request (all-gathered and compared here)."""
+        toks = [t for req in self.requests for t in [req.uid, len(req.out), *req.out]]
+        mine = torch.tensor(toks, dtype=torch.int32, device=self.device)
+        every = self._tp.all_gather(mine[None], dim=0)
+        if not bool((every == mine[None]).all()):
+            raise RuntimeError(f"tensor-parallel ranks disagree on their tokens: "
+                               f"{every.cpu().numpy().tolist()}")
 
     def _note_resident_gauges(self) -> None:
         """Gauge the resident weight and cache bytes, as

@@ -35,6 +35,25 @@ def test_port_imports_neither_jax_nor_repro():
     for module in ("core.dim", "kernels.gemv_int8", "kernels.gemv_int4",
                    "kernels.dim_kernel", "optim.adamw", "train.trainstep", "train.trainer",
                    "data.pipeline", "checkpoint.ckpt", "distributed.resilience",
-                   "launch.train", "launch.dryrun", "launch.hlo_stats", "tree"):
+                   "launch.train", "launch.dryrun", "launch.hlo_stats", "tree",
+                   "sharding.partitioning", "launch.mesh", "core.transfer",
+                   "distributed.mesh"):
         assert f"repro_torch.{module}" in names.split(",")
     assert flags_kept == "True", "a repro_torch module set XLA_FLAGS"
+
+
+def test_tensor_parallel_rank_imports_neither_jax_nor_repro():
+    """A spawned rank of tests/test_torch_tp.py (its module and everything it
+    loads when it runs) stays clear of JAX and the reference."""
+    probe = ("import sys; sys.path.insert(0, %r); import _torch_tp_rank\n"
+             "from repro_torch import configs, convert\n"
+             "from repro_torch.core import transfer\n"
+             "from repro_torch.distributed import mesh\n"
+             "from repro_torch.serve import engine\n"
+             "print(','.join(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))"
+             % str(Path(__file__).resolve().parent))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
