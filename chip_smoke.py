@@ -148,6 +148,28 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       ``matmul_int8``'s raw int32 route).  The tp = 2 runs are no speed
       result: two processes time-share one card
 
+and then training over a mesh (``phase_train_mesh``, after the tp phase),
+two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
+
+  (a) qwen3-1.7b at full width, depth cut to ``MESH_DEPTH``, over a
+      ``(data=2, model=1)`` mesh with FSDP at path Z's settings, 3 steps:
+      each step's ms (CUDA events), tokens/s, each rank's peak allocation
+      against its shard of the analytic train state, the collectives'
+      counts and host ms; every replicated leaf bitwise equal on both
+      ranks after each step; the first loss the one-rank loss on the same
+      weights and batch within path Z's bf16 limit
+  (b) the 2-layer float32 cut over FSDP (data=2), TP (model=2) and the
+      int8 pod hop (pod=2) against (data=1, model=1) on the same weights
+      and batches: loss and gradients within 1e-5 of each leaf's largest,
+      the parameters after 2 steps likewise but for Adam's sign moves
+      (counted), the hop's output the quantized global gradient exactly
+  (c) the cut's trainer at data=2 failing before step 3 and restarting
+      from its step-2 checkpoint, bitwise equal to an uninterrupted run,
+      and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
+      device within (b)'s limits of an uninterrupted run there
+  (d) ``pipeline_apply`` at pipe=2 over the cut's two layers against the
+      sequential stack
+
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
 Phase 2 holds each grouped launch against its plain version at
@@ -195,7 +217,9 @@ and O-R at full depth ~100-157 s of runs up to 897 s), and S serves
 mixtral-8x7b at 1 of its
 32 layers (its 4,160-token prefill and its plain-path comparisons at
 full depth would take many minutes; at 2 layers S took ~175 s of runs
-up to 1,001 s).  A cut layer
+up to 1,001 s); the mesh phase trains qwen3-1.7b at 4 of its 28 layers
+(``MESH_DEPTH``: gloo's collectives through the host set its step time,
+12.4-30.4 s a step at 28 layers, the phase 240.8 s).  A cut layer
 launches what a full-depth layer does, at the same shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
@@ -280,6 +304,12 @@ MLA_PATHS = {
 #: shapes, and so each kernel launch, are those of the full depth.
 CONFIG_DEPTH = {"starcoder2-3b": 4, "qwen1.5-32b": 4, "minicpm3-4b": 8,
                 "deepseek-v2-lite-16b": 8, "mixtral-8x7b": 8, "falcon-mamba-7b": 8}
+#: the mesh phase's (a) trains qwen3-1.7b at full width and this many of its 28
+#: layers (None: all), its ranks' gloo collectives through the host setting
+#: the time: at 28 layers a step took 12.4-30.4 s by CUDA events (11.6-17.0 s
+#: of collective host time) and the phase 240.8 s of its 150 s budget, at 8
+#: layers 4.3-23.1 s and 201.7 s (NVIDIA H100 80GB HBM3, 700.00 W)
+MESH_DEPTH = 4
 
 
 def config_for(arch: str):
@@ -3811,6 +3841,481 @@ def phase_tp(torch, card) -> None:
                   f"tp path A rank {r['rank']}: float32 drift past PATH_LIMITS")
 
 
+# ---------------------------------------------------------------------------
+# Training over a mesh: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: the mesh phase's ranks, both on cuda:0 under gloo, and its device
+MESH_WORLD = 2
+MESH_DEVICE = "cuda:0"
+#: (a): full-width qwen3-1.7b at (data=2, model=1), FSDP, path Z's settings:
+#: bf16 layers, f32 moments, remat, TRAIN_BATCH x TRAIN_SEQ tokens a step
+#: (2 rows a rank), MESH_STEPS steps, the depth cut to MESH_DEPTH (beside
+#: CONFIG_DEPTH), width full
+MESH_STEPS = 3
+#: (b)-(d): the 2-layer float32 cut (CUT_LAYERS, CUT_SEQ, CUT_BATCH), each
+#: mesh against (data=1, model=1) on the same weights and batches: the loss,
+#: every gradient leaf and the parameters after MESH_CUT_STEPS steps within
+#: MESH_RTOL of each leaf's largest |value|, an element past it allowed only
+#: Adam's sign(g) move (at most 2 · lr a step), counted and printed
+MESH_CUT_STEPS = 2
+MESH_RTOL = 1e-5
+#: (c): the trainer's moments (bf16: its checkpoints, the global state
+#: gathered through gloo at ~0.4 GB/s, are 3.3 GB, not f32's 5.0 GB)
+MESH_MOMENTS = "bf16"
+#: (d): the pipeline's microbatches and their rows
+MESH_PIPE_M, MESH_PIPE_ROWS = 4, 1
+#: seconds a rank's collective waits for the other, and the ranks' wall limit
+MESH_COLLECTIVE_TIMEOUT_S = 300
+MESH_JOIN_S = 600
+
+
+def _step_ms(torch, device, fn):
+    """fn() → (its result, ms: CUDA events on the card, the host clock on the
+    CPU)."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        return fn(), (time.perf_counter() - t0) * 1e3
+    out, ms, _ = _timed_ms(torch, device, fn)
+    return out, ms
+
+
+def _peak(torch, device) -> int:
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
+
+
+def _reset_peak(torch, device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def _replicated_digest(params, tm) -> str:
+    """sha256 of the rank's leaves no mesh axis shards, in leaf order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.sharding import partitioning as P
+
+    h = hashlib.sha256()
+    for (path, leaf), (_, spec) in zip(tree_lib.flatten(params), tree_lib.flatten(tm.spec)):
+        if not P.sharded_dims(spec, tm.rules, tm.view.sizes):
+            h.update(".".join(path).encode())
+            h.update(leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
+                     .numpy().tobytes())
+    return h.hexdigest()
+
+
+def _state_bytes_of_specs(spec_tree) -> int:
+    """:func:`train_state_bytes`'s total over a ParamSpec tree (meta tensors)."""
+    import torch
+
+    from repro_torch import tree as tree_lib
+
+    meta = tree_lib.map_leaves(lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"),
+                               spec_tree)
+    sizes = train_state_bytes(meta)
+    return sizes["params"] + sizes["grads"] + sizes["moments"]
+
+
+def _mesh_full(torch, device, rank: int) -> dict:
+    """(a): qwen3-1.7b at full width (depth MESH_DEPTH) over (data=2, model=1)
+    with FSDP; rank 0 first takes the one-rank loss of the first batch on
+    the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch, to_device
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainstep
+
+    cfg = get_config("qwen3-1.7b")
+    if MESH_DEPTH is not None:
+        cfg = cfg.scaled(n_layers=MESH_DEPTH)
+    mesh = mesh_lib.device_mesh(device, (MESH_WORLD, 1), ("data", "model"))
+    opt = adamw.adamw(adamw.cosine_schedule(**TRAIN_LR), moment_dtype="f32")
+    step = trainstep.make_train_step(cfg, opt, mesh=mesh)
+    tm = step.mesh
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                                 global_batch=TRAIN_BATCH, seed=SEED))
+    out: dict = {"layers": cfg.n_layers, "steps": []}
+    if rank == 0:
+        t0 = time.perf_counter()
+        full = model_lib.draw(cfg, SEED, device)
+        with torch.no_grad():
+            loss, _ = model_lib.loss_fn(full, to_device(src.batch(0), device), cfg)
+        out["one_rank_loss"], out["one_rank_s"] = loss.item(), time.perf_counter() - t0
+        del full, loss
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = model_lib.draw(cfg, SEED, device, leaf=tm.shard_leaf)
+    state = trainstep.init_opt_state(opt, params, cfg, tm)
+    out["draw_s"] = time.perf_counter() - t0
+    sizes = train_state_bytes(params)
+    out["analytic"] = sizes["params"] + sizes["grads"] + sizes["moments"]
+    out["analytic_full"] = _state_bytes_of_specs(model_lib.specs(cfg))
+    for i in range(MESH_STEPS):
+        batch = to_device(shard_batch(src.batch(i), tm.view, tm.rules), device)
+        _reset_peak(torch, device)
+        tm.view.reset_counts()
+        (params, state, m), ms = _step_ms(torch, device, lambda: step(params, state, batch))
+        out["steps"].append({
+            "loss": m["loss"].item(), "ce": m["ce"].item(), "grad_norm": m["grad_norm"].item(),
+            "tokens": m["tokens"].item(), "ms": ms, "peak": _peak(torch, device),
+            "calls": tm.view.calls, "collective_ms": tm.view.collective_s * 1e3,
+            "replicated": _replicated_digest(params, tm)})
+    del params, state
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _one_device_steps(torch, cut, opt, params, batches, quantize: bool):
+    """The (data=1, model=1) reference of (b): the first batch's loss and
+    float32 gradients, then len(batches) steps (the gradients replaced by
+    their chunked int8 round trip with ``quantize``, the compressed hop at one
+    rank) → (loss, grads of step 0, params after the steps)."""
+    from repro_torch import convert
+    from repro_torch import tree as tree_lib
+    from repro_torch.core import quant
+    from repro_torch.train import trainstep
+
+    state = trainstep.init_opt_state(opt, params, cut)
+    first = None
+    for batch in batches:
+        loss, _, grads = trainstep.compute_grads(params, batch, cut)
+        if first is None:
+            first = (loss.item(), tree_lib.map_leaves(torch.clone, grads))
+        if quantize:
+            layout = convert.reference_layout(grads, cut)
+            for leaf in tree_lib.leaves(layout):
+                pieces = tuple(leaf) if isinstance(leaf, convert.Stacked) else (leaf,)
+                whole = torch.stack(pieces)
+                q, s, n = quant.quantize_chunked(whole)
+                back = quant.dequantize_chunked(q, s, n, whole.shape)
+                for piece, b in zip(pieces, back.unbind(0)):
+                    piece.copy_(b)
+        state, _ = trainstep.apply_grads(opt, params, state, grads, cut)
+    return first[0], first[1], params
+
+
+def _held(torch, got: dict, want: dict, steps=None) -> dict:
+    """Leaf by leaf (port layout trees): the largest difference over the
+    leaf's largest |value|; with ``steps``, the elements past MESH_RTOL of it
+    (each must be within Adam's 2 · lr a step)."""
+    from repro_torch import tree as tree_lib
+
+    worst, signs, n, bad = 0.0, 0, 0, []
+    for (path, g), w in zip(tree_lib.flatten(got), tree_lib.leaves(want)):
+        d = (g.double() - w.double()).abs()
+        scale = w.double().abs().max().clamp_min(1e-30)
+        worst = max(worst, (d.max() / scale).item())
+        n += d.numel()
+        if steps is not None:
+            loose = d > MESH_RTOL * scale
+            signs += int(loose.sum())
+            if bool((d[loose] > 2 * CUT_LR * steps * (1 + 1e-3)).any()):
+                bad.append(".".join(path))
+    return {"worst": worst, "signs": signs, "n": n, "bad": bad}
+
+
+def _mesh_cut(torch, device, rank: int) -> dict:
+    """(b): the 2-layer float32 cut at full width over FSDP (data=2), TP
+    (model=2) and the compressed pod hop (pod=2, data=1, model=1), each
+    against (data=1, model=1) on the same weights and batches."""
+    from repro_torch import convert
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.core import quant
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch, to_device
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainstep
+
+    cut = get_config("qwen3-1.7b").scaled(n_layers=CUT_LAYERS, dtype=torch.float32)
+    src = SyntheticLM(DataConfig(vocab_size=cut.vocab_size, seq_len=CUT_SEQ,
+                                 global_batch=CUT_BATCH, seed=SEED))
+    hosts = [src.batch(i) for i in range(MESH_CUT_STEPS)]
+    opt = adamw.adamw(CUT_LR, moment_dtype="f32")
+    initial = model_lib.draw(cut, SEED, device)
+    one = {}  # (data=1, model=1), unquantized and through the hop's round trip
+    for compress in (False, True):
+        t0 = time.perf_counter()
+        one[compress] = _one_device_steps(
+            torch, cut, opt, tree_lib.map_leaves(torch.clone, initial),
+            [to_device(h, device) for h in hosts], quantize=compress) + (
+            time.perf_counter() - t0,)
+    out = {}
+    for name, shape, names, tp, compress in (
+            ("fsdp", (2, 1), ("data", "model"), 1, False),
+            ("tp", (1, 2), ("data", "model"), 2, False),
+            ("pod", (2, 1, 1), ("pod", "data", "model"), 1, True)):
+        loss1, grads1, params1, one_s = one[compress]
+        t0 = time.perf_counter()
+        mesh = mesh_lib.device_mesh(device, shape, names)
+        step_cfg = trainstep.TrainStepConfig(compress_pod_grads=compress)
+        step = trainstep.make_train_step(cut, opt, tp=tp, mesh=mesh, step_cfg=step_cfg)
+        tm = step.mesh
+        params = tm.shard(initial)
+        state = trainstep.init_opt_state(opt, params, cut, tm)
+        batches = [to_device(shard_batch(h, tm.view, tm.rules), device) for h in hosts]
+        tm.view.reset_counts()
+        # step 0 by the train step's pieces, to hold the gradients it applies
+        share, _, grads = trainstep.compute_grads(params, batches[0], cut, step_cfg, tm)
+        grads = trainstep.sync_grads(grads, tm)
+        res = {"grads": _held(torch, tm.gather(grads), grads1),
+               "losses": [tm.view.all_reduce_sum(share, tm.batch_axes).item()]}
+        if compress:  # the hop, code for code: dequantize(quantize(g)) of each global leaf
+            before = convert.reference_layout(tm.gather(grads), cut)
+            grads = trainstep.compress_pod(grads, cut, tm)
+            after = convert.reference_layout(tm.gather(grads), cut)
+            differ = 0
+            for b, a in zip(tree_lib.leaves(before), tree_lib.leaves(after)):
+                b = torch.stack(tuple(b)) if isinstance(b, convert.Stacked) else b
+                a = torch.stack(tuple(a)) if isinstance(a, convert.Stacked) else a
+                q, s, n = quant.quantize_chunked(b)
+                differ += int((quant.dequantize_chunked(q, s, n, b.shape) != a).sum())
+            res["hop_differ"] = differ
+        state, _ = trainstep.apply_grads(opt, params, state, grads, cut, tm)
+        del grads
+        for b in batches[1:]:
+            params, state, m = step(params, state, b)
+            res["losses"].append(m["loss"].item())
+        res["params"] = _held(torch, tm.gather(params), params1, MESH_CUT_STEPS)
+        res.update(step_loss=res["losses"][0], one_loss=loss1, calls=tm.view.calls,
+                   s=time.perf_counter() - t0, one_s=one_s)
+        out[name] = res
+        del params, state
+    del one, initial
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _mesh_elastic(torch, device, rank: int, ckpt_dir: str) -> dict:
+    """(c): the float32 cut's trainer at (data=2, model=1), a checkpoint every
+    2 steps and a failure before step 3, against an uninterrupted run at
+    data=2 (bitwise) and, restored from the step-2 checkpoint on the mesh
+    ``plan_elastic_mesh(1, model_parallel=1)`` gives (one device), against an
+    uninterrupted run there."""
+    import shutil
+
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.distributed.resilience import FailureSim, plan_elastic_mesh
+    from repro_torch.train import trainer as trainer_lib
+
+    cut = get_config("qwen3-1.7b").scaled(n_layers=CUT_LAYERS, dtype=torch.float32)
+    data = DataConfig(vocab_size=cut.vocab_size, seq_len=CUT_SEQ, global_batch=CUT_BATCH,
+                      seed=SEED)
+    steps, every, fail_at = RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"]
+
+    def run(mesh, ckpt, failure, every=every):
+        tr = trainer_lib.Trainer(
+            cut, data, trainer_lib.TrainerConfig(steps=steps, ckpt_every=every, ckpt_dir=ckpt,
+                                                 log_every=1, seed=SEED, peak_lr=CUT_LR,
+                                                 warmup=1, moment_dtype=MESH_MOMENTS),
+            mesh=mesh, failure_sim=failure, device=device)
+        t0 = time.perf_counter()
+        return tr.run(), time.perf_counter() - t0
+
+    mesh = mesh_lib.device_mesh(device, (MESH_WORLD, 1), ("data", "model"))
+    failed, sec = run(mesh, ckpt_dir, FailureSim(fail_at=fail_at))
+    clean, clean_s = run(mesh, None, None)
+    out = {"history": [h["step"] for h in failed["history"]], "s": sec,
+           "bitwise": all(torch.equal(a, b) for a, b in zip(
+               tree_lib.leaves(failed["params"]), tree_lib.leaves(clean["params"])))}
+    plan = plan_elastic_mesh(1, model_parallel=1)
+    out["plan"] = list(plan)
+    out["clean_s"] = clean_s
+    if rank == 0:  # the shrunk job on one device, from the step-2 checkpoint
+        check(plan == (1, 1), f"plan_elastic_mesh(1, model_parallel=1) gave {plan}")
+        shutil.rmtree(os.path.join(ckpt_dir, f"step_{steps:09d}"))
+        resumed, out["shrunk_s"] = run(None, ckpt_dir, None, every=steps + 1)
+        one, out["one_s"] = run(None, None, None)
+        out["shrunk_history"] = [h["step"] for h in resumed["history"]]
+        out["shrunk"] = _held(torch, resumed["params"], one["params"], steps - every)
+    return out
+
+
+def _mesh_pipe(torch, device) -> dict:
+    """(d): ``pipeline_apply`` at pipe=2 over the float32 cut's two layers (one
+    a stage) against the sequential stack."""
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.distributed import pipeline
+    from repro_torch.distributed.mesh import MeshView
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import stack
+    from repro_torch.tree import map_leaves
+
+    cut = get_config("qwen3-1.7b").scaled(n_layers=CUT_LAYERS, dtype=torch.float32)
+    params = model_lib.draw(cut, SEED, device)
+    view = MeshView.from_mesh(mesh_lib.device_mesh(device, (MESH_WORLD,), ("pipe",)))
+    layers = convert.reference_layout(params, cut)["stack"]["slot0"]
+    stages = pipeline.split_stages(map_leaves(lambda t: torch.stack(tuple(t)), layers),
+                                   MESH_WORLD)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    h = torch.randn((MESH_PIPE_M, MESH_PIPE_ROWS, CUT_SEQ, cut.d_model), generator=gen,
+                    device=device)
+
+    def stage_fn(p, x):
+        for j in range(p["ln1"]["scale"].shape[0]):
+            x, _, _ = stack.layer_apply(map_leaves(lambda a: a[j], p), x, cut, mode="train")
+        return x
+
+    got, ms = _step_ms(torch, device, lambda: pipeline.pipeline_apply(stage_fn, stages, h, view))
+    with torch.no_grad():
+        want = torch.stack([stack.stack_apply(params["layers"], x, cut, mode="train")[0]
+                            for x in h])
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    return {"err": err, "ms": ms, "calls": view.calls, "ticks": MESH_PIPE_M + MESH_WORLD - 1}
+
+
+def _mesh_rank(rank: int, world: int, port: int, outdir: str) -> None:
+    """One rank of the mesh phase: (a)-(d) in turn, then what it measured to
+    ``outdir/mesh<r>.json``."""
+    import torch
+
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.kernels import ops
+
+    device = torch.device(MESH_DEVICE)
+    mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{port}",
+                  device=device, backend="gloo", timeout_s=MESH_COLLECTIVE_TIMEOUT_S)
+    ops.reset_counts()
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    out["a"] = _mesh_full(torch, device, rank)
+    out["a_s"] = time.perf_counter() - t0
+    out["b"] = _mesh_cut(torch, device, rank)
+    out["c"] = _mesh_elastic(torch, device, rank, os.path.join(outdir, "ckpt"))
+    out["d"] = _mesh_pipe(torch, device)
+    out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
+    out["plain"] = {k: v for k, v in ops.plain_cuda_counts().items() if v}
+    torch.distributed.destroy_process_group()
+    with open(f"{outdir}/mesh{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_train_mesh(torch, card) -> None:
+    """Training over a mesh: two gloo ranks on the one card.  (a) qwen3-1.7b
+    at full width over (data=2, model=1) with FSDP at path Z's settings,
+    MESH_STEPS steps: each step's ms (CUDA events), tokens/s, each rank's
+    peak allocation against its shard of the analytic train state, the
+    collectives' counts and host ms and the losses printed; every replicated
+    leaf bitwise equal on the two ranks after each step; the first step's
+    loss equal to the one-rank loss on the same weights and batch within
+    path Z's bf16 limit (``MICROBATCH_TOL``).  (b) the 2-layer float32 cut
+    over FSDP, TP and the compressed pod hop against (data=1, model=1): the
+    first step's loss and gradients, the parameters after MESH_CUT_STEPS
+    steps (Adam's sign elements counted), the hop's output code for code.
+    (c) the trainer's restart at data=2 bitwise equal to an uninterrupted
+    run, and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
+    device within (b)'s limits of an uninterrupted run there.  (d)
+    ``pipeline_apply`` at pipe=2 against the sequential stack.  No kernel of
+    the eight may launch."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_children([(_mesh_rank, (r, MESH_WORLD, port, outdir)) for r in range(MESH_WORLD)],
+                      MESH_JOIN_S, "mesh training ranks")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(MESH_WORLD):
+            with open(f"{outdir}/mesh{r}.json") as f:
+                ranks.append(json.load(f))
+    a0 = ranks[0]["a"]
+    depth = "full depth" if MESH_DEPTH is None else f"depth cut to {MESH_DEPTH} (MESH_DEPTH)"
+    print(f"mesh (a): qwen3-1.7b at full width, {a0['layers']} layers ({depth}), (data=2, "
+          f"model=1) FSDP, {MESH_WORLD} gloo ranks on {MESH_DEVICE}, {TRAIN_BATCH} x {TRAIN_SEQ} tokens "
+          f"a step ({TRAIN_BATCH // MESH_WORLD} rows a rank), bf16 layers, f32 moments, remat; "
+          f"one-rank loss of batch 0 {a0['one_rank_loss']:.6f} ({a0['one_rank_s']:.1f} s); on "
+          f"{card}")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    for i in range(MESH_STEPS):
+        for r in ranks:
+            st = r["a"]["steps"][i]
+            print(f"mesh (a) step {i} rank {r['rank']}: loss {st['loss']:.6f} (ce "
+                  f"{st['ce']:.6f}, grad norm {st['grad_norm']:.4f}, {st['tokens']:.0f} tokens), "
+                  f"{st['ms']:.2f} ms (CUDA events), {tokens / st['ms'] * 1e3:.1f} tokens/s, peak "
+                  f"{st['peak']} B against its shard of the analytic state {r['a']['analytic']} B "
+                  f"({st['peak'] / r['a']['analytic']:.2f}x; the whole state "
+                  f"{r['a']['analytic_full']} B), collectives {st['calls']} "
+                  f"{st['collective_ms']:.1f} ms host; on {card}")
+            check(math.isfinite(st["loss"]), f"mesh (a): step {i} loss {st['loss']}")
+            check(st["loss"] == ranks[0]["a"]["steps"][i]["loss"],
+                  f"mesh (a) step {i}: the ranks' losses differ")
+            check(st["replicated"] == ranks[0]["a"]["steps"][i]["replicated"],
+                  f"mesh (a) step {i}: a replicated leaf differs between the ranks")
+    first, one = a0["steps"][0]["loss"], a0["one_rank_loss"]
+    tol = MICROBATCH_TOL["atol"] + MICROBATCH_TOL["rtol"] * abs(one)
+    print(f"mesh (a): every replicated leaf bitwise equal on both ranks after each step; step "
+          f"0's loss {first:.6f} vs the one-rank loss {one:.6f} (|d| {abs(first - one):.3e}, "
+          f"limit {tol:.3e}, path Z's bf16 MICROBATCH_TOL)")
+    check(abs(first - one) <= tol, f"mesh (a): step 0's loss {first} vs one rank's {one}")
+    for name, res in ranks[0]["b"].items():
+        for r in ranks:
+            other = r["b"][name]
+            g, p = other["grads"], other["params"]
+            print(f"mesh (b) {name} rank {r['rank']} (2-layer float32 cut, {CUT_BATCH} x "
+                  f"{CUT_SEQ} tokens): loss {other['step_loss']:.7f} vs one device "
+                  f"{other['one_loss']:.7f}; gradients within {g['worst']:.3e} of each leaf's "
+                  f"largest; parameters after {MESH_CUT_STEPS} steps within {p['worst']:.3e}, "
+                  f"{p['signs']} of {p['n']} elements past {MESH_RTOL} (Adam's sign(g), each "
+                  f"within 2 lr a step)"
+                  + (f"; the hop's output off dequantize(quantize(g)) in "
+                     f"{other['hop_differ']} elements" if "hop_differ" in other else "")
+                  + f"; collectives {other['calls']}; {other['s']:.1f} s (one device "
+                  f"{other['one_s']:.1f} s); on {card}")
+            check(abs(other["step_loss"] - other["one_loss"]) <= MESH_RTOL * abs(
+                other["one_loss"]), f"mesh (b) {name}: loss off the one-device loss")
+            check(g["worst"] <= MESH_RTOL, f"mesh (b) {name}: gradients {g['worst']} off")
+            check(not p["bad"] and p["signs"] <= 1e-3 * p["n"],
+                  f"mesh (b) {name}: parameters off beyond Adam's sign moves: {p['bad'][:4]}, "
+                  f"{p['signs']} elements")
+            check(other.get("hop_differ", 0) == 0, f"mesh (b) {name}: the hop is not the "
+                  "dequantized quantization of the global gradient")
+    c0 = ranks[0]["c"]
+    want = restart_pattern(RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"])
+    print(f"mesh (c) trainer at (data=2, model=1), FailureSim(fail_at={RESTART['fail_at']}): "
+          f"history {c0['history']} (the reference's pattern {want}), {c0['s']:.1f} s (the "
+          f"uninterrupted run {c0['clean_s']:.1f} s, the one-device runs {c0['shrunk_s']:.1f} "
+          f"and {c0['one_s']:.1f} s, checkpoints of the global state, {MESH_MOMENTS} moments, "
+          f"included); resumed "
+          f"vs uninterrupted bitwise on rank 0 {c0['bitwise']}, rank 1 {ranks[1]['c']['bitwise']}; "
+          f"plan_elastic_mesh(1, model_parallel=1) = {c0['plan']}: restored from step "
+          f"{RESTART['ckpt_every']} there, history {c0['shrunk_history']}, within "
+          f"{c0['shrunk']['worst']:.3e} of an uninterrupted one-device run, "
+          f"{c0['shrunk']['signs']} of {c0['shrunk']['n']} elements past {MESH_RTOL}; on {card}")
+    for r in ranks:
+        check(r["c"]["history"] == want and r["c"]["bitwise"],
+              f"mesh (c) rank {r['rank']}: history {r['c']['history']}, bitwise "
+              f"{r['c']['bitwise']}")
+    check(c0["shrunk_history"] == list(range(RESTART["ckpt_every"], RESTART["steps"]))
+          and not c0["shrunk"]["bad"] and c0["shrunk"]["signs"] <= 1e-3 * c0["shrunk"]["n"],
+          f"mesh (c): the run restored at one device is off: {c0['shrunk']}")
+    for r in ranks:
+        d = r["d"]
+        print(f"mesh (d) pipeline_apply rank {r['rank']}: pipe=2, {MESH_PIPE_M} microbatches "
+              f"of {MESH_PIPE_ROWS} x {CUT_SEQ} tokens, {d['ticks']} ticks, {d['ms']:.1f} ms, "
+              f"within {d['err']:.3e} of the sequential stack's largest; collectives "
+              f"{d['calls']}; on {card}")
+        check(d["err"] <= MESH_RTOL, f"mesh (d) rank {r['rank']}: {d['err']} off")
+        check(not r["launches"] and not r["plain"],
+              f"mesh rank {r['rank']}: a kernel wrapper ran: {r['launches']} {r['plain']}")
+    print(f"mesh phase: training over a mesh launched none of the eight kernels; "
+          f"{wall:.1f} s for the ranks, start to exit, on {card}")
+
+
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
 PICK = {"bsdp_gemv": "w_in M=1", "bsdp_gemm_fused": "w_in M=4", "bsdp_gemm": "w_in M=4",
         "dequant_matmul": "M=4 N=2048", "plane_decode_attention": "R=32 G=2 ",
@@ -3856,6 +4361,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_tp(torch, card)
     done("tp phase")
+    phase_train_mesh(torch, card)
+    done("mesh training phase")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

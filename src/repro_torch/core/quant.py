@@ -61,11 +61,15 @@ def compute_scale(x: torch.Tensor, *, bits: int, axis=-1, reduce=None) -> torch.
     """Symmetric scale: max-abs over ``axis`` divided by the int max.
     ``reduce`` maps the max-abs first: a MAX all-reduce when ``axis`` is
     split over ranks, so every rank takes the whole row's."""
-    qmax = INT_RANGE[bits][1]
     amax = torch.amax(torch.abs(x), dim=axis, keepdim=True)
     if reduce is not None:
         amax = reduce(amax)
-    return true_div(torch.clamp_min(amax, _EPS), qmax)
+    return scale_from_amax(amax, bits=bits)
+
+
+def scale_from_amax(amax: torch.Tensor, *, bits: int) -> torch.Tensor:
+    """The symmetric scale of values whose max-abs is ``amax``."""
+    return true_div(torch.clamp_min(amax, _EPS), INT_RANGE[bits][1])
 
 
 def quantize(x: torch.Tensor, *, bits: int = 8, axis=-1, scale=None) -> QuantTensor:

@@ -4,11 +4,13 @@ Counterpart of :mod:`repro.data.pipeline`.  :class:`SyntheticLM` is pure
 numpy, so its batches are bit-identical to the reference's: Zipfian token
 soup with a prefix span re-emitted later in each sequence (induction
 structure), so that cross entropy has learnable headroom below the
-unigram entropy.  :func:`prefetch` is the single-device form of the
-reference's double-buffered feed: a background thread pins host batches
-and copies them to the card on a side stream, ``depth`` batches ahead of
-the train step.  (The reference's sharded feed waits for the sharding
-modules.)
+unigram entropy.  :func:`shard_batch` gives a rank its rows of a host
+batch by the ``batch`` rule (the reference places the global batch with a
+``NamedSharding``; here each rank keeps the block of rows its coordinates
+on the batch axes name, pod-major).  :func:`prefetch` is the reference's
+double-buffered feed: a background thread (sharding each batch first,
+over a mesh) pins host batches and copies them to the card on a side
+stream, ``depth`` batches ahead of the train step.
 """
 
 from __future__ import annotations
@@ -62,6 +64,24 @@ class SyntheticLM:
             step += 1
 
 
+def shard_batch(batch: dict, mesh, rules) -> dict:
+    """The rank's rows of a host (or device) batch: every leaf's dim 0 cut
+    by ``spec_for(("batch", None, ...), rules)`` over ``mesh`` (a
+    :class:`~repro_torch.distributed.mesh.MeshView` or a ``DeviceMesh``)."""
+    from repro_torch.sharding import partitioning as P
+
+    if hasattr(mesh, "mesh_dim_names"):
+        sizes, coords = P.mesh_sizes(mesh), P.mesh_coords(mesh)
+    else:
+        sizes, coords = mesh.sizes, mesh.coords
+
+    def rows(x):
+        spec = P.spec_for(("batch",) + (None,) * (x.ndim - 1), rules)
+        return x[P.shard_index(x.shape, spec, sizes, coords)]
+
+    return {k: rows(v) for k, v in batch.items()}
+
+
 def to_device(batch: dict, device) -> dict:
     """A host batch (numpy) as tensors on ``device``."""
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
@@ -70,13 +90,17 @@ def to_device(batch: dict, device) -> dict:
 _DONE = object()
 
 
-def prefetch(it: Iterator[dict], device, depth: int = 2) -> Iterator[dict]:
-    """Batches of ``it`` on ``device``, ``depth`` ahead of the consumer.  On a
-    CUDA device a background thread pins each host batch and copies it on a
-    side stream; the consumer's stream waits for the copy before it may
+def prefetch(it: Iterator[dict], device, depth: int = 2, *, mesh=None,
+             rules=None) -> Iterator[dict]:
+    """Batches of ``it`` on ``device``, ``depth`` ahead of the consumer; over
+    ``mesh`` with ``rules``, each the rank's rows (:func:`shard_batch`).  On
+    a CUDA device a background thread pins each host batch and copies it on
+    a side stream; the consumer's stream waits for the copy before it may
     read the batch.  On the CPU the batches are only converted.  Closing
     the generator stops the thread."""
     device = torch.device(device)
+    if mesh is not None:
+        it = (shard_batch(b, mesh, rules) for b in it)
     if device.type != "cuda":
         for b in it:
             yield to_device(b, device)

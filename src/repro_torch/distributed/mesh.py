@@ -1,4 +1,5 @@
-"""Process groups, device meshes and the model axis's collectives.
+"""Process groups, device meshes, one rank's view of each mesh axis, and the
+autograd-aware collectives of tensor-parallel and FSDP training.
 
 Nothing here picks a backend or a device on its own: :func:`init` takes
 both as arguments (``"nccl"`` is the default for a CUDA device, ``"gloo"``
@@ -8,12 +9,33 @@ may share one device (two ranks on one card under gloo): :func:`init`
 sets the device it is given before any mesh is built, so a ``DeviceMesh``
 never maps rank ``r`` to ``cuda:r``.
 
-:class:`TensorParallel` is one rank's view of the mesh's model axis: its
-index, the axis size, the process group, and the collectives the
-tensor-parallel layer code issues (all-reduce SUM and MAX, all-gather),
-on the tensors where they lie (gloo takes CUDA tensors for all four).
-``collective_s`` sums the host time spent in them and ``calls`` counts
-them by kind.
+:class:`Axis` is one rank's view of one mesh axis (``pod``, ``data``,
+``model`` or ``pipe``): its index, the axis size, the process group, and
+the collectives issued over it (all-reduce SUM and MAX, all-gather,
+reduce-scatter, and the pipeline's ring shift), on the tensors where they
+lie.  ``collective_s`` sums the host time spent in them
+and ``calls`` counts them by kind.  :class:`TensorParallel` is the model
+axis's view, with ``shard_kv`` (the KV heads split over the axis).
+:class:`MeshView` holds every axis of a mesh, and reduces over several in
+turn.
+
+The autograd-aware forms (each a ``torch.autograd.Function``; the identity
+without an axis or at one rank):
+
+* :func:`copy_to` — identity forward, all-reduce backward: the input of a
+  column-parallel projection (each rank's columns give a partial gradient
+  of the replicated input), and a parameter that each rank applies to its
+  own heads (``q_norm``);
+* :func:`reduce_from` — all-reduce forward, identity backward: the output
+  of a row-parallel projection and the vocab-sharded embedding lookup;
+* :func:`gather_from` — all-gather forward, reduce-scatter backward: FSDP's
+  gather-on-use of a parameter shard, whose gathered copy each data rank
+  uses on its own rows (the gradient summed in its own dtype, as GSPMD's
+  reduce-scatter of the reference's gradient);
+* :func:`gather_replicated` — all-gather forward, the rank's slice
+  backward: the vocab-sharded logits, which feed a loss that every model
+  rank computes whole (a reduce-scatter would count each rank's identical
+  gradient ``size`` times).
 """
 
 from __future__ import annotations
@@ -21,10 +43,12 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import time
+import warnings
 from typing import Optional
 
 import torch
 import torch.distributed as dist
+
 
 def default_backend(device) -> str:
     """``"nccl"`` for a CUDA device, ``"gloo"`` for the CPU."""
@@ -62,23 +86,20 @@ def device_mesh(device, shape: tuple, names: tuple):
 
 
 @dataclasses.dataclass
-class TensorParallel:
-    """One rank of the model axis: ``rank`` of ``size`` in ``group``, with
-    ``shard_kv`` (the KV heads split over the axis, from ``attn_dims``)."""
+class Axis:
+    """One rank of one mesh axis: ``rank`` of ``size`` in ``group``."""
 
     size: int
     rank: int
     group: Optional[object] = None
-    shard_kv: bool = True
+    name: str = ""
     collective_s: float = 0.0
     calls: dict = dataclasses.field(default_factory=dict)
 
     @classmethod
-    def from_mesh(cls, mesh, *, shard_kv: bool = True, axis: str = "model"
-                  ) -> "TensorParallel":
+    def from_mesh(cls, mesh, axis: str, **kw):
         return cls(size=mesh.size(mesh.mesh_dim_names.index(axis)),
-                   rank=mesh.get_local_rank(axis), group=mesh.get_group(axis),
-                   shard_kv=shard_kv)
+                   rank=mesh.get_local_rank(axis), group=mesh.get_group(axis), name=axis, **kw)
 
     def _run(self, name: str, t: torch.Tensor, fn) -> torch.Tensor:
         t0 = time.perf_counter()
@@ -88,17 +109,15 @@ class TensorParallel:
         return out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over the axis of ``t`` (int32 or float32), on every rank."""
-        if t.dtype not in (torch.int32, torch.float32):
-            raise TypeError(f"all_reduce_sum: int32 or float32, not {t.dtype}")
-        name = "sum_int32" if t.dtype == torch.int32 else "sum_float32"
+        """The sum over the axis of ``t``, on every rank (``t`` itself is
+        reduced in place when it is contiguous)."""
 
         def fn(x):
             x = x.contiguous()
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
             return x
 
-        return self._run(name, t, fn)
+        return self._run("sum_" + str(t.dtype).removeprefix("torch."), t, fn)
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over the axis, on every rank."""
@@ -112,16 +131,203 @@ class TensorParallel:
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
+        return torch.cat(self.all_gather_list(t), dim=dim)
+
+    def all_gather_list(self, t: torch.Tensor) -> list:
+        """Every rank's ``t`` (all of one shape), in rank order."""
 
         def fn(x):
             x = x.contiguous()
             parts = [torch.empty_like(x) for _ in range(self.size)]
             dist.all_gather(parts, x, group=self.group)
-            return torch.cat(parts, dim=dim)
+            return parts
 
         return self._run("gather", t, fn)
 
+    def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The sum over the axis of ``t``, cut in ``size`` equal parts along
+        ``dim``: this rank's part."""
 
-def tp_size(tp: Optional[TensorParallel]) -> int:
-    """The model axis's size: 1 without a :class:`TensorParallel`."""
+        def fn(x):
+            x = x.movedim(dim, 0).contiguous()
+            out = x.new_empty((x.shape[0] // self.size,) + tuple(x.shape[1:]))
+            with warnings.catch_warnings():  # renamed in later torch releases
+                warnings.simplefilter("ignore", FutureWarning)
+                dist.reduce_scatter_tensor(out, x, group=self.group)
+            return out.movedim(0, dim)
+
+        return self._run("reduce_scatter", t, fn)
+
+    def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
+        """The ring shift: the tensor of the rank ``offset`` upstream, on every
+        rank.  Written as an all-gather and a take, not as send / recv: gloo's
+        send / recv fails on CUDA tensors (torch 2.11), where its all-gather
+        takes them."""
+        return self.all_gather_list(t)[(self.rank - offset) % self.size]
+
+
+@dataclasses.dataclass
+class TensorParallel(Axis):
+    """One rank of the model axis, with ``shard_kv`` (the KV heads split over
+    the axis, from ``attn_dims``)."""
+
+    shard_kv: bool = True
+
+    @classmethod
+    def from_mesh(cls, mesh, *, shard_kv: bool = True, axis: str = "model"
+                  ) -> "TensorParallel":
+        return super().from_mesh(mesh, axis, shard_kv=shard_kv)
+
+
+def tp_size(tp: Optional[Axis]) -> int:
+    """An axis's size: 1 without one."""
     return 1 if tp is None else tp.size
+
+
+@dataclasses.dataclass
+class MeshView:
+    """One rank's view of every axis of a mesh: ``axes`` by name, in the
+    mesh's order; an absent axis is of size 1."""
+
+    axes: dict
+
+    @classmethod
+    def from_mesh(cls, mesh, *, shard_kv: bool = True) -> "MeshView":
+        """The views of a ``DeviceMesh``'s axes; its ``model`` axis is a
+        :class:`TensorParallel` with ``shard_kv``."""
+        axes = {}
+        for name in mesh.mesh_dim_names:
+            if name == "model":
+                axes[name] = TensorParallel.from_mesh(mesh, shard_kv=shard_kv)
+            else:
+                axes[name] = Axis.from_mesh(mesh, name)
+        return cls(axes)
+
+    def size(self, name: str) -> int:
+        return self.axes[name].size if name in self.axes else 1
+
+    def coord(self, name: str) -> int:
+        return self.axes[name].rank if name in self.axes else 0
+
+    @property
+    def sizes(self) -> dict:
+        """Axis name → size; the canonical ``pod`` / ``data`` / ``model`` axes
+        the mesh does not have are of size 1."""
+        return {"pod": 1, "data": 1, "model": 1} | {k: a.size for k, a in self.axes.items()}
+
+    @property
+    def coords(self) -> dict:
+        return {"pod": 0, "data": 0, "model": 0} | {k: a.rank for k, a in self.axes.items()}
+
+    def axis(self, name: str) -> Optional[Axis]:
+        """The view of ``name``, or None when the mesh has no such axis or it
+        is of size 1."""
+        a = self.axes.get(name)
+        return a if a is not None and a.size > 1 else None
+
+    def all_reduce_sum(self, t: torch.Tensor, names=None) -> torch.Tensor:
+        """The sum over the axes ``names`` (default every axis), one axis after
+        another."""
+        for name in self.axes if names is None else names:
+            if self.axis(name) is not None:
+                t = self.axes[name].all_reduce_sum(t)
+        return t
+
+    def all_reduce_max(self, t: torch.Tensor, names=None) -> torch.Tensor:
+        for name in self.axes if names is None else names:
+            if self.axis(name) is not None:
+                t = self.axes[name].all_reduce_max(t)
+        return t
+
+    @property
+    def collective_s(self) -> float:
+        return sum(a.collective_s for a in self.axes.values())
+
+    @property
+    def calls(self) -> dict:
+        """Calls by kind over every axis."""
+        out: dict = {}
+        for a in self.axes.values():
+            for k, v in a.calls.items():
+                out[k] = out.get(k, 0) + v
+        return out
+
+    def reset_counts(self) -> None:
+        for a in self.axes.values():
+            a.collective_s, a.calls = 0.0, {}
+
+
+# ---------------------------------------------------------------------------
+# Autograd-aware collectives
+# ---------------------------------------------------------------------------
+
+
+def _active(axis: Optional[Axis]) -> bool:
+    return axis is not None and axis.size > 1
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.axis.all_reduce_sum(g.clone(memory_format=torch.contiguous_format)), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return axis.all_reduce_sum(x.clone(memory_format=torch.contiguous_format))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, dim, scatter):
+        ctx.axis, ctx.dim, ctx.scatter = axis, dim, scatter
+        return axis.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.scatter:
+            return ctx.axis.reduce_scatter(g, ctx.dim), None, None, None
+        n = g.shape[ctx.dim] // ctx.axis.size
+        return g.narrow(ctx.dim, ctx.axis.rank * n, n), None, None, None
+
+
+def copy_to(axis: Optional[Axis], x: torch.Tensor) -> torch.Tensor:
+    """Identity forward, all-reduce (sum) of the gradient over ``axis``
+    backward; ``x`` itself when no gradient flows to it (serving)."""
+    if not (_active(axis) and isinstance(x, torch.Tensor) and x.requires_grad
+            and torch.is_grad_enabled()):
+        return x
+    return _CopyTo.apply(x, axis)
+
+
+def reduce_from(axis: Optional[Axis], x: torch.Tensor) -> torch.Tensor:
+    """All-reduce (sum) over ``axis`` forward, identity backward."""
+    if not _active(axis):
+        return x
+    return _ReduceFrom.apply(x, axis)
+
+
+def gather_from(axis: Optional[Axis], x: torch.Tensor, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axis`` forward, reduce-scatter of the
+    gradient backward."""
+    if not _active(axis):
+        return x
+    return _GatherFrom.apply(x, axis, dim % x.ndim, True)
+
+
+def gather_replicated(axis: Optional[Axis], x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """All-gather along ``dim`` over ``axis`` forward, the rank's slice of the
+    (replicated) gradient backward."""
+    if not _active(axis):
+        return x
+    return _GatherFrom.apply(x, axis, dim % x.ndim, False)

@@ -1,11 +1,12 @@
 """Fault tolerance and straggler telemetry for long training jobs.
 
-Counterpart of the single-device part of
-:mod:`repro.distributed.resilience`, which is pure Python:
+Counterpart of :mod:`repro.distributed.resilience`, which is pure Python:
 :class:`StepWatchdog` (per-step time against an EWMA baseline; stragglers
-and hangs) and :class:`FailureSim` (raises :class:`SimulatedFailure` at
+and hangs), :class:`FailureSim` (raises :class:`SimulatedFailure` at
 configured steps, once each, to drive the trainer's restart from its
-latest checkpoint).  ``plan_elastic_mesh`` waits for the sharding modules.
+latest checkpoint) and :func:`plan_elastic_mesh` (the largest ``(data,
+model)`` grid the surviving devices hold; a checkpoint holds the global
+tree, so the trainer restores it onto that mesh as onto any other).
 """
 
 from __future__ import annotations
@@ -64,3 +65,14 @@ class FailureSim:
         if step in self.fail_at:
             self.fail_at.discard(step)
             raise SimulatedFailure(f"injected failure at step {step}")
+
+
+def plan_elastic_mesh(n_devices: int, *, model_parallel: int, min_data: int = 1
+                      ) -> Optional[tuple[int, int]]:
+    """Largest ``(data, model)`` grid for the surviving device count:
+    ``model_parallel`` is fixed by the weights' shardability, ``data`` the
+    largest with ``data · model <= n_devices``; None if even ``min_data``
+    does not fit (the job cannot continue)."""
+    if n_devices < model_parallel * min_data:
+        return None
+    return (n_devices // model_parallel, model_parallel)

@@ -37,7 +37,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kvcache, residency
-from repro_torch.distributed.mesh import tp_size
+from repro_torch.distributed.mesh import copy_to, tp_size
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, row_parallel
 
@@ -104,9 +104,17 @@ def _over_window(q, window, attend):
     return attend(block)[:, :, off:off + hq]
 
 
-def _project_qkv(params, x, cfg, positions, impl=None):
+def _project_qkv(params, x, cfg, positions, impl=None, tp=None):
+    """q, k, v ``[B, S, heads, dh]`` of this rank's heads.  Under ``tp`` in
+    training, the leaves every rank holds whole but applies to its own
+    heads (the q / k norms; the KV projections where the KV heads are not
+    sharded) sum their gradients over the model axis (``copy_to``)."""
     dh = cfg.d_head
     b, s, _ = x.shape
+    x = copy_to(tp, x)
+    whole_kv = tp is not None and not tp.shard_kv
+    params = {k: copy_to(tp, w) if k in ("q_norm", "k_norm") or (
+        whole_kv and k in ("wk", "wv", "bk", "bv")) else w for k, w in params.items()}
     q = dense(params["wq"], x, impl=impl)
     k = dense(params["wk"], x, impl=impl)
     v = dense(params["wv"], x, impl=impl)
@@ -129,7 +137,7 @@ def _gqa(params, x, cfg, positions, impl=None, tp=None):
     """Full-sequence causal (windowed with ``cfg.sliding_window``) GQA →
     (output, k, v).  Under ``tp`` on the rank's heads, ``wo`` row-parallel."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
+    q, k, v = _project_qkv(params, x, cfg, positions, impl=impl, tp=tp)
     window = _kv_window(cfg, tp)
 
     def attend(qq, k0=0, k1=k.shape[2]):

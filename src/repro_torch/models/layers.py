@@ -20,6 +20,12 @@ every K on every rank: its input is all-gathered first.  The embedding's
 vocab rows are sharded: each rank looks up its own id range, writes zeros
 elsewhere and the ranks' rows are summed; the logits come out
 vocab-sharded and are all-gathered, so every rank sees every logit.
+
+The float collectives are the autograd-aware forms of
+:mod:`repro_torch.distributed.mesh`, so the same code trains: a
+column-parallel projection's input goes through ``copy_to`` (its gradient
+summed over the model axis), a row-parallel output and the embedding
+through ``reduce_from``, the logits through ``gather_replicated``.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import residency
+from repro_torch.distributed.mesh import copy_to, gather_replicated, reduce_from
 
 
 def dense(w, x: torch.Tensor, impl=None) -> torch.Tensor:
@@ -66,7 +73,7 @@ def row_parallel(w, x: torch.Tensor, tp=None, impl=None, bias=None) -> torch.Ten
             out = fmt.apply_row_parallel(w, x, tp, impl=impl).to(x.dtype)
     else:
         partial = x.to(torch.float32) @ w.to(torch.float32)
-        out = tp.all_reduce_sum(partial).to(x.dtype)
+        out = reduce_from(tp, partial).to(x.dtype)
     return out if bias is None else out + bias.to(out.dtype)
 
 
@@ -104,7 +111,7 @@ def embed_apply(params: dict, tokens: torch.Tensor, cfg, tp=None) -> torch.Tenso
     mine = (local >= 0) & (local < rows)
     x = F.embedding(torch.where(mine, local, 0), table).to(torch.float32)
     x = torch.where(mine[..., None], x, 0.0)
-    return tp.all_reduce_sum(x).to(cfg.dtype)
+    return reduce_from(tp, x).to(cfg.dtype)
 
 
 def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None, tp=None) -> torch.Tensor:
@@ -112,13 +119,12 @@ def logits_apply(params: dict, x: torch.Tensor, cfg, impl=None, tp=None) -> torc
     fan-in-scaled head; an untied model's ``head`` goes through ``dense``.
     Under ``tp`` each rank computes its vocab columns and the ranks'
     columns are gathered in order."""
+    x = copy_to(tp, x)
     if cfg.tie_embeddings and "head" not in params:
         logits = (x @ params["embedding"].to(x.dtype).T) * (cfg.d_model ** -0.5)
     else:
         logits = dense(params["head"], x, impl=impl)
-    if tp is None or tp.size == 1:
-        return logits
-    return tp.all_gather(logits)
+    return gather_replicated(tp, logits)
 
 
 def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
@@ -156,5 +162,5 @@ def mlp_apply(params: dict, x: torch.Tensor, cfg, impl=None, tp=None) -> torch.T
     input projection ``[d, 2·d_ff]``.  Under ``tp`` the rank holds its share
     of the gate and of the up columns (column-parallel) and ``w_out``'s
     matching rows (row-parallel)."""
-    h = activation(dense(params["w_in"], x, impl=impl), cfg)
+    h = activation(dense(params["w_in"], copy_to(tp, x), impl=impl), cfg)
     return row_parallel(params["w_out"], h, tp, impl=impl)

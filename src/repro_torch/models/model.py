@@ -39,14 +39,17 @@ puts the expert axis where it reads the fan-in.  The numbers differ from
 across with :mod:`repro_torch.convert`.
 
 Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
-TensorParallel` on :func:`prefill` / :func:`decode_step`; an int on the
-shape functions :func:`specs` / :func:`init_cache`) covers dense GQA
-models: ``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
+TensorParallel` on :func:`prefill` / :func:`decode_step` / :func:`forward`
+/ :func:`loss_fn`; an int on the shape functions :func:`specs` /
+:func:`init_cache`) covers dense GQA models, in serving and in training:
+``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
 vocab (:func:`padded_vocab`) as the reference does, zero rows drawn for the
 pad heads' ``wo`` rows and the pad vocab rows (``valid_dim0``), and every
 rank runs its shards (:mod:`repro_torch.models.layers` writes the
 collectives).  The pad logits are masked to ``NEG_INF``.  MLA, MoE, Mamba
-and cross layers raise at ``tp > 1`` (ROADMAP Queue 1, item 8).
+and cross layers raise at ``tp > 1`` (ROADMAP Queue 1, item 8).  The train
+path takes a mesh too (:func:`forward`, :func:`loss_fn`): FSDP shards
+gathered on use, and the loss's means over the global batch.
 
 The context the cross layers attend to comes with the prompt: a VLM's
 ``batch["ctx_embeds"]`` (patch embeddings, cast to ``cfg.dtype``), or an
@@ -65,6 +68,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models import attention, layers, mamba, stack
+from repro_torch.sharding import partitioning as P
 from repro_torch.sharding.partitioning import pad_dim
 
 @dataclasses.dataclass(frozen=True)
@@ -293,37 +297,88 @@ def _context(params, batch: dict, cfg, impl=None):
     return None
 
 
-def forward(params, batch: dict, cfg, *, remat: bool = False, impl=None):
+def batch_axes(rules) -> tuple:
+    """The mesh axes a batch's rows are split over, by ``rules["batch"]``."""
+    entry = rules["batch"] if rules is not None else None
+    return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def check_mesh(cfg, mesh, rules) -> None:
+    """Raise unless ``cfg`` trains with its rows split over ``mesh``'s batch
+    axes: a MoE layer's load-balancing loss and its capacity are the
+    batch's, which a split batch does not see whole."""
+    if mesh is None:
+        return
+    ways = math.prod(mesh.size(a) for a in batch_axes(rules))
+    if ways > 1 and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)):
+        raise NotImplementedError(
+            f"{cfg.name}: a MoE layer over a batch split {ways} ways (its aux loss over the "
+            "global batch) waits for ROADMAP Queue 1, item 8(c)")
+
+
+def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = False, impl=None,
+            mesh=None):
     """The train path's forward: ``batch["tokens"] [B, S]`` (with the
     context, ``ctx_embeds`` or ``enc_embeds``) through every layer with no
     cache → (logits [B, S, V] in ``cfg.dtype``, the summed MoE aux loss).
-    ``remat`` recomputes each layer in the backward pass."""
+    ``remat`` recomputes each layer in the backward pass.  Under ``mesh``
+    (a :class:`~repro_torch.distributed.mesh.MeshView`) with ``rules``,
+    ``params`` are the rank's shards: each layer's are gathered over every
+    axis but the model axis when the layer runs (FSDP's gather on use, again
+    in remat's recompute), the rest once; under ``tp`` (dense GQA) each rank
+    runs its model shards and every rank gets the whole logits."""
+    check_tp(cfg, tp)
+    gather = None
+    if mesh is not None and rules is not None:
+        spec = specs(cfg, 1 if tp is None else tp.size)
+        top = [k for k in params if k != "layers"]
+        params = dict(params, **P.gather_on_use({k: params[k] for k in top},
+                                                {k: spec[k] for k in top}, mesh, rules))
+
+        def gather(i, p):
+            return P.gather_on_use(p, spec["layers"][i], mesh, rules)
+
     ctx = _context(params, batch, cfg, impl=impl)
-    x = layers.embed_apply(params["embed"], batch["tokens"], cfg)
+    x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)
     x, _, aux = stack.stack_apply(params["layers"], x, cfg, mode="train", ctx=ctx, impl=impl,
-                                  remat=remat)
+                                  remat=remat, tp=tp, gather=gather)
     x = layers.norm_apply(params["final_norm"], x, cfg)
-    return layers.logits_apply(params["embed"], x, cfg, impl=impl), aux
+    return layers.logits_apply(params["embed"], x, cfg, impl=impl, tp=tp), aux
 
 
-def loss_fn(params, batch: dict, cfg, *, remat: bool = False, aux_weight: float = 0.01,
-            z_weight: float = 1e-4, impl=None):
+def loss_fn(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = False,
+            aux_weight: float = 0.01, z_weight: float = 1e-4, impl=None, mesh=None,
+            denom=None):
     """Next-token cross entropy over the positions whose ``batch["labels"]``
     are >= 0, plus ``aux_weight`` · the MoE aux loss and ``z_weight`` · the
     z-loss (the mean squared log-partition) → (loss, {"ce", "aux", "z",
-    "tokens"}).  With no vocab padding on one device there is no pad logit
-    to mask."""
-    logits, aux = forward(params, batch, cfg, remat=remat, impl=impl)
-    logits = logits.to(torch.float32)
+    "tokens"}).  The pad logits (vocab padding at ``tp``) are masked.
+
+    The means are the global batch's, ``sum(nll · mask) / max(sum(mask),
+    1)``: under ``mesh`` with ``rules`` the rank holds its rows, divides its
+    sums by the token count all-reduced over the batch axes (or by
+    ``denom``, a microbatch's global count), and returns its share of ``ce``,
+    ``z`` and the loss, whose sum over the batch axes is the global value
+    (so the gradients are summed over them, not averaged); ``tokens`` is the
+    global count."""
+    check_mesh(cfg, mesh, rules)
+    logits, aux = forward(params, batch, cfg, tp=tp, rules=rules, remat=remat, impl=impl,
+                          mesh=mesh)
+    logits = mask_pad_vocab(logits.to(torch.float32), cfg)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels.clamp_min(0).to(torch.int64)[..., None])[..., 0]
-    denom = torch.clamp_min(mask.sum(), 1.0)
+    tokens = mask.sum()
+    if denom is None:
+        denom = tokens if mesh is None else mesh.all_reduce_sum(tokens.detach().clone(),
+                                                                batch_axes(rules))
+    tokens = denom
+    denom = torch.clamp_min(denom, 1.0)
     ce = ((lse - ll) * mask).sum() / denom
     z = (torch.square(lse) * mask).sum() / denom
     total = ce + aux_weight * aux + z_weight * z
-    return total, {"ce": ce, "aux": aux, "z": z, "tokens": mask.sum()}
+    return total, {"ce": ce, "aux": aux, "z": z, "tokens": tokens}
 
 
 NEG_INF = attention.NEG_INF

@@ -137,23 +137,33 @@ def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None
 
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
-                cache_len: int = 0, ctx=None, impl=None, remat: bool = False, tp=None):
+                cache_len: int = 0, ctx=None, impl=None, remat: bool = False, tp=None,
+                gather=None):
     """Run every layer in order (``ctx``: the context the cross mixers
     project).  Returns (x, per-layer caches, the summed MoE aux loss).
     ``remat`` (train mode) keeps no activation of a layer for the backward
     pass but its input, recomputing the layer there
-    (``torch.utils.checkpoint``; the reference remats a superblock)."""
+    (``torch.utils.checkpoint``; the reference remats a superblock).
+    ``gather(i, p)`` (train mode) gives layer ``i``'s parameters from the
+    rank's shards ``p`` (FSDP's gather on use); it runs inside the
+    recomputed function, so remat gathers again in the backward pass, in the
+    same order on every rank."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layer_params):
         kind = dict(mixer=cfg.mixer_kind(i), ffn=cfg.ffn_kind(i))
-        if remat and mode == "train":
-            def run(x, p=p, kind=kind):
-                y, _, aux = layer_apply(p, x, cfg, mode=mode, ctx=ctx, impl=impl, **kind)
+        if mode == "train":
+            def run(x, p=p, i=i, kind=kind):
+                if gather is not None:
+                    p = gather(i, p)
+                y, _, aux = layer_apply(p, x, cfg, mode=mode, ctx=ctx, impl=impl, tp=tp, **kind)
                 return y, aux
 
-            x, aux = checkpoint.checkpoint(run, x, use_reentrant=False,
-                                           preserve_rng_state=False)
+            if remat:
+                x, aux = checkpoint.checkpoint(run, x, use_reentrant=False,
+                                               preserve_rng_state=False)
+            else:
+                x, aux = run(x)
             c = None
         else:
             x, c, aux = layer_apply(p, x, cfg, mode=mode, cache=None if caches is None

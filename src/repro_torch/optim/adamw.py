@@ -23,6 +23,19 @@ leaf (a norm scale) spans layers exactly as in the reference.
 The reference's train step is jitted with its parameters and optimizer
 state donated; here the state is updated in place (the moments' buffers
 are reused) and :func:`apply_updates` adds into the parameters in place.
+
+Over a mesh each rank updates its own shards: ``init`` / ``update`` take
+``shards``, a tree of :class:`LeafShard` (one a leaf of the reference's
+layout: where the rank's pieces lie in the global leaf, and whether the
+rank counts the leaf in the global norm), and ``mesh``, the rank's
+:class:`~repro_torch.distributed.mesh.MeshView`.  :func:`global_norm`
+sums the squares of each leaf on the ranks that count it, then all-reduces
+the sum over the mesh.  The int8 moments keep the reference's chunk grid
+over the global stacked leaf: a rank holds the codes of its own elements
+(shaped as its pieces) and the scales of every chunk of the leaf; a
+chunk's new scale is the max-abs of its elements on every rank holding
+some of them (one MAX all-reduce a leaf), so a chunk that straddles two
+shards gets the scale a single device gives it.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch
 from repro_torch import tree as tree_lib
 from repro_torch.convert import Stacked
 from repro_torch.core import quant
+from repro_torch.sharding.partitioning import flat_index
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -46,6 +60,26 @@ MOMENT_DTYPES = ("f32", "bf16", "int8")
 class Moment(NamedTuple):
     payload: Any  # f32/bf16: a tensor, or a Stacked for a stacked leaf; int8: [chunks, 256]
     scale: torch.Tensor  # [chunks, 1] f32 for int8; a dummy 0-dim zero otherwise
+
+
+class LeafShard(NamedTuple):
+    """A rank's part of one leaf of the reference's layout: ``numel`` elements
+    in the global (stacked) leaf; piece ``i`` of the rank's leaf (a layer's
+    shard) at ``offsets[i]`` + its shard ``indices[i]`` of a global
+    per-layer tensor of ``shapes[i]``; ``counted``: the rank counts the
+    leaf in the global norm (it is the first of the ranks holding the same
+    elements)."""
+
+    numel: int
+    shapes: tuple
+    indices: tuple
+    offsets: tuple
+    counted: bool
+
+    def flat(self, i: int, device=None) -> torch.Tensor:
+        """Piece ``i``'s elements' positions in the global leaf's row-major
+        flattening (int64, in the piece's own order)."""
+        return self.offsets[i] + flat_index(self.shapes[i], self.indices[i], device)
 
 
 class AdamState(NamedTuple):
@@ -70,9 +104,14 @@ def _flat(pieces) -> torch.Tensor:
     return torch.cat([p.reshape(-1).to(torch.float32) for p in pieces])
 
 
-def _zeros_moment(leaf, dtype: str) -> Moment:
+def _zeros_moment(leaf, dtype: str, shard: Optional[LeafShard] = None) -> Moment:
     pieces = _pieces(leaf)
     device = pieces[0].device
+    if dtype == "int8" and shard is not None:  # the rank's codes, every chunk's scale
+        codes = tuple(torch.zeros(p.shape, dtype=torch.int8, device=device) for p in pieces)
+        chunks = -(-shard.numel // _CHUNK)
+        scale = quant.scale_from_amax(torch.zeros((chunks, 1), device=device), bits=8)
+        return Moment(Stacked(codes) if isinstance(leaf, Stacked) else codes[0], scale)
     if dtype == "int8":
         q, s, _ = quant.quantize_chunked(
             torch.zeros(math.prod(leaf.shape), dtype=torch.float32, device=device), chunk=_CHUNK)
@@ -109,13 +148,21 @@ def cosine_schedule(peak_lr: float, warmup: int = 1000, total: int = 100_000,
     return fn
 
 
-def global_norm(tree) -> torch.Tensor:
+def global_norm(tree, shards=None, mesh=None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in float32; a stacked leaf's
-    sum is its pieces' sums added in layer order."""
-    total = 0
-    for leaf in tree_lib.leaves(tree):
-        total = total + sum(torch.sum(torch.square(p.to(torch.float32)))
-                            for p in _pieces(leaf))
+    sum is its pieces' sums added in layer order.  Over a mesh (``shards``,
+    ``mesh``), each rank sums the leaves it counts and the sums are
+    all-reduced over every axis."""
+    leaves = tree_lib.leaves(tree)
+    counted = ([True] * len(leaves) if shards is None
+               else [sh.counted for sh in tree_lib.leaves(shards)])
+    total = torch.zeros((), dtype=torch.float32, device=_pieces(leaves[0])[0].device)
+    for leaf, mine in zip(leaves, counted):
+        if mine:
+            total = total + sum(torch.sum(torch.square(p.to(torch.float32)))
+                                for p in _pieces(leaf))
+    if mesh is not None:
+        total = mesh.all_reduce_sum(total)
     return torch.sqrt(total)
 
 
@@ -130,11 +177,14 @@ def adamw(lr: Union[float, Schedule], *, b1: float = 0.9, b2: float = 0.95,
             return lr(step)
         return torch.tensor(lr, dtype=torch.float32, device=step.device)
 
-    def init(params):
+    def init(params, shards=None):
         device = _pieces(tree_lib.leaves(params)[0])[0].device
 
         def zeros():  # distinct buffers for mu and nu
-            return tree_lib.map_leaves(lambda p: _zeros_moment(p, moment_dtype), params)
+            if shards is None:
+                return tree_lib.map_leaves(lambda p: _zeros_moment(p, moment_dtype), params)
+            return tree_lib.map_leaves(lambda p, sh: _zeros_moment(p, moment_dtype, sh),
+                                       params, shards)
 
         return AdamState(torch.zeros((), dtype=torch.int32, device=device), zeros(), zeros())
 
@@ -144,16 +194,17 @@ def adamw(lr: Union[float, Schedule], *, b1: float = 0.9, b2: float = 0.95,
         mom = tree_lib.map_leaves(lambda p: _abstract_moment(p.shape, moment_dtype), params)
         return AdamState(torch.empty((), dtype=torch.int32, device="meta"), mom, mom)
 
-    def update(grads, state: AdamState, params):
+    def update(grads, state: AdamState, params, shards=None, mesh=None):
         """→ (updates in each parameter's dtype, the state: its moments
-        updated in place, its step advanced)."""
+        updated in place, its step advanced).  Over a mesh, ``shards`` and
+        ``mesh`` as for :func:`global_norm`."""
         step = state.step + 1
         lr_t = lr_fn(step)
         stepf = step.to(torch.float32)
         b1c = 1 - b1 ** stepf
         b2c = 1 - b2 ** stepf
         if clip_norm is not None:
-            gn = global_norm(grads)
+            gn = global_norm(grads, shards, mesh)
             gscale = torch.clamp(clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
         else:
             gscale = 1.0
@@ -166,8 +217,11 @@ def adamw(lr: Union[float, Schedule], *, b1: float = 0.9, b2: float = 0.95,
             upd = upd + wd * p.to(torch.float32)
             return (-lr_t * upd).to(p.dtype)
 
-        def one(g, p, m: Moment, v: Moment):
+        def one(g, p, m: Moment, v: Moment, sh: Optional[LeafShard] = None):
             gs, ps = _pieces(g), _pieces(p)
+            if moment_dtype == "int8" and sh is not None:
+                outs = _int8_sharded(gs, ps, m, v, sh)
+                return Stacked(outs) if isinstance(p, Stacked) else outs[0]
             if moment_dtype == "int8":
                 n = math.prod(p.shape)
                 m32 = quant.dequantize_chunked(m.payload, m.scale, n, (n,))
@@ -196,7 +250,39 @@ def adamw(lr: Union[float, Schedule], *, b1: float = 0.9, b2: float = 0.95,
                     vi.copy_(v32)
             return Stacked(outs) if isinstance(p, Stacked) else outs[0]
 
-        updates = tree_lib.map_leaves(one, grads, params, state.mu, state.nu)
+        def _int8_sharded(gs, ps, m: Moment, v: Moment, sh: LeafShard) -> list:
+            """The rank's pieces against the global chunk grid: dequantize by
+            each element's chunk scale, update, then every chunk's max-abs
+            over the mesh and the codes against it → the pieces' updates."""
+            chunks = m.scale.shape[0]
+            amax = torch.zeros((2, chunks), dtype=torch.float32, device=m.scale.device)
+            ids, moments, outs = [], [], []
+            for i, (gi, pi, mi, vi) in enumerate(zip(gs, ps, _pieces(m.payload),
+                                                     _pieces(v.payload))):
+                c = sh.flat(i, pi.device) // _CHUNK
+                m32 = mi.reshape(-1).to(torch.float32) * m.scale[c, 0]
+                v32 = vi.reshape(-1).to(torch.float32) * v.scale[c, 0]
+                outs.append(adam(gi.reshape(-1).to(torch.float32) * gscale, m32, v32,
+                                 pi.reshape(-1)).reshape(pi.shape))
+                for row, x in enumerate((m32, v32)):
+                    amax[row].scatter_reduce_(0, c, x.abs(), "amax")
+                ids.append(c)
+                moments.append((m32, v32))
+            if mesh is not None:
+                amax = mesh.all_reduce_max(amax)
+            for mom, row in ((m, 0), (v, 1)):
+                mom.scale.copy_(quant.scale_from_amax(amax[row][:, None], bits=8))
+            for c, (m32, v32), mi, vi in zip(ids, moments, _pieces(m.payload),
+                                             _pieces(v.payload)):
+                for mom, x, q in ((m, m32, mi), (v, v32, vi)):
+                    code = torch.round(x / mom.scale[c, 0])
+                    q.copy_(torch.clamp(code, -128, 127).to(torch.int8).reshape(q.shape))
+            return outs
+
+        if shards is None:
+            updates = tree_lib.map_leaves(one, grads, params, state.mu, state.nu)
+        else:
+            updates = tree_lib.map_leaves(one, grads, params, state.mu, state.nu, shards)
         return updates, AdamState(step, state.mu, state.nu)
 
     return Optimizer(init=init, update=update, init_abstract=init_abstract)

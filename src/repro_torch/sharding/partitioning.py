@@ -18,7 +18,12 @@ another), and the model code (:mod:`repro_torch.models`) issues the
 collectives that the reference's global semantics imply.
 :func:`placements` gives the same layout as DTensor placements.
 :func:`constrain` is therefore the identity: the explicit layer code fixes
-every activation's layout.
+every activation's layout.  The inverse, :func:`gather_tree`, puts every
+rank's shards back into the global tree (checkpoints, tests), and
+:func:`gather_on_use` gathers a tree's FSDP shards for the compute that
+uses them, differentiably (the gradient reduce-scattered back to the
+shards); :func:`flat_index` places a shard's elements in its global
+leaf's row-major order (the int8 optimizer moments' chunk grid).
 
 A leaf whose last axis fuses equal blocks (SwiGLU's ``[gate; up]``,
 Mamba's ``[x; z]``; ``ParamSpec.fused``) is cut block by block, so each
@@ -274,7 +279,7 @@ def shard_tree(tree, spec_tree, mesh, rules: Mapping[str, MeshAxes], *, place=No
     ``model.specs(cfg, tp)``), the rank's place on the ``DeviceMesh``
     ``mesh`` its coordinates; ``place`` as for :func:`shard_leaf`."""
     sizes, coords = mesh_sizes(mesh), mesh_coords(mesh)
-    return _walk2(tree, spec_tree,
+    return map_specs(tree, spec_tree,
                   lambda leaf, spec: shard_leaf(leaf, spec, sizes, coords, rules, place))
 
 
@@ -301,15 +306,106 @@ def local_bytes(tree, spec_tree, mesh, rules: Mapping[str, MeshAxes]) -> int:
         return total
 
     leaves: list = []
-    _walk2(tree, spec_tree, lambda leaf, spec: leaves.append(one(leaf, spec)))
+    map_specs(tree, spec_tree, lambda leaf, spec: leaves.append(one(leaf, spec)))
     return sum(leaves)
 
 
-def _walk2(tree, spec_tree, fn):
+def sharded_dims(spec, rules: Mapping[str, MeshAxes],
+                 sizes: Mapping[str, int]) -> list[tuple[int, str]]:
+    """(dim, mesh axis) of every mesh axis above size 1 that shards a dim of
+    a parameter of ParamSpec ``spec``, the outermost of a tuple entry
+    first; empty for a leaf every rank holds whole."""
+    out = []
+    for d, entry in enumerate(spec_for(spec.axes, rules)):
+        for name in () if entry is None else ((entry,) if isinstance(entry, str) else entry):
+            if sizes.get(name, 1) > 1:
+                out.append((d, name))
+    return out
+
+
+def gather_leaf(t: torch.Tensor, spec, view, rules: Mapping[str, MeshAxes]) -> torch.Tensor:
+    """The global tensor of a float parameter of ``spec`` from every rank's
+    shard ``t`` (the inverse of :func:`shard_leaf`; a collective over each
+    axis that shards it, on every rank of ``view``, a
+    :class:`~repro_torch.distributed.mesh.MeshView`).  Not differentiable."""
+    entries = spec_for(spec.axes, rules)
+    sizes = view.sizes
+    axes = [name for _, name in sharded_dims(spec, rules, sizes)]
+    if not axes:
+        return t
+    # every rank's shard, keyed by its coordinates on the sharding axes
+    parts = t[None]
+    for name in axes:
+        parts = torch.stack(view.axes[name].all_gather_list(parts), dim=0)
+    parts = parts.reshape((-1,) + tuple(t.shape))
+    out = t.new_empty(tuple(spec.shape))
+    combos = [()]
+    for name in axes:  # row-major over the axes: the order of the gathers, reversed
+        combos = [c + (r,) for r in range(sizes[name]) for c in combos]
+    for part, combo in zip(parts, combos):
+        coords = dict(view.coords, **dict(zip(axes, combo)))
+        index = shard_index(spec.shape, entries, sizes, coords, fused=spec.fused)
+        block = out[tuple(slice(None) if isinstance(i, torch.Tensor) else i for i in index)]
+        fancy = [(d, i) for d, i in enumerate(index) if isinstance(i, torch.Tensor)]
+        if fancy:  # a fused axis: the rank's share of each block
+            block.index_copy_(fancy[0][0], fancy[0][1].to(out.device), part)
+        else:
+            block.copy_(part)
+    return out
+
+
+def gather_tree(tree, spec_tree, view, rules: Mapping[str, MeshAxes]):
+    """The global tree of float parameters (or gradients, or moments shaped
+    like them) from every rank's shards: :func:`gather_leaf` leaf by leaf,
+    on every rank."""
+    return map_specs(tree, spec_tree, lambda leaf, spec: gather_leaf(leaf, spec, view, rules))
+
+
+def gather_on_use(tree, spec_tree, view, rules: Mapping[str, MeshAxes]):
+    """A tree of the rank's shards gathered over every axis that shards it
+    but ``model`` (FSDP's ``data``: the model axis's shards stay with the
+    tensor-parallel code), through ``gather_from``: all-gather forward, the
+    gradient reduce-scattered back to the shard."""
+    from repro_torch.distributed.mesh import gather_from
+
+    sizes = view.sizes
+
+    def one(leaf, spec):
+        for d, name in sharded_dims(spec, rules, sizes):
+            if name != "model":
+                if spec.fused > 1 and d == len(spec.shape) - 1:
+                    raise NotImplementedError(f"{spec.axes}: a fused last axis sharded over "
+                                              f"{name!r} is not gathered block by block")
+                leaf = gather_from(view.axes[name], leaf, d)
+        return leaf
+
+    return map_specs(tree, spec_tree, one)
+
+
+def flat_index(shape: Sequence[int], index: tuple, device=None) -> torch.Tensor:
+    """The positions, in the row-major flattening of a ``shape`` tensor, of
+    the elements of its shard at ``index`` (:func:`shard_index`), in the
+    shard's own row-major order (int64)."""
+    out = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in range(len(shape) - 1, -1, -1):
+        i = index[d]
+        ids = (torch.arange(i.start, i.stop, device=device) if isinstance(i, slice)
+               else i.to(device=device, dtype=torch.int64))
+        view = [1] * len(shape)
+        view[d] = -1
+        out = out + ids.reshape(view) * stride
+        stride *= shape[d]
+    return out.reshape(-1)
+
+
+def map_specs(tree, spec_tree, fn):
+    """``fn(leaf, its ParamSpec)`` over a parameter tree and its spec tree,
+    keeping the dicts and lists."""
     if isinstance(tree, dict):
-        return {k: _walk2(v, spec_tree[k], fn) for k, v in tree.items()}
+        return {k: map_specs(v, spec_tree[k], fn) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_walk2(v, s, fn) for v, s in zip(tree, spec_tree)]
+        return [map_specs(v, s, fn) for v, s in zip(tree, spec_tree)]
     return fn(tree, spec_tree)
 
 

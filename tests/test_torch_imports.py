@@ -37,7 +37,8 @@ def test_port_imports_neither_jax_nor_repro():
                    "data.pipeline", "checkpoint.ckpt", "distributed.resilience",
                    "launch.train", "launch.dryrun", "launch.hlo_stats", "tree",
                    "sharding.partitioning", "launch.mesh", "core.transfer",
-                   "distributed.mesh"):
+                   "distributed.mesh", "distributed.collectives", "distributed.pipeline",
+                   "examples.train_resilient"):
         assert f"repro_torch.{module}" in names.split(",")
     assert flags_kept == "True", "a repro_torch module set XLA_FLAGS"
 
@@ -50,6 +51,21 @@ def test_tensor_parallel_rank_imports_neither_jax_nor_repro():
              "from repro_torch.core import transfer\n"
              "from repro_torch.distributed import mesh\n"
              "from repro_torch.serve import engine\n"
+             "print(','.join(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))"
+             % str(Path(__file__).resolve().parent))
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
+
+
+def test_mesh_training_rank_imports_neither_jax_nor_repro():
+    """A spawned rank of tests/test_torch_distributed.py, with the modules it
+    runs, stays clear of JAX and the reference."""
+    probe = ("import sys; sys.path.insert(0, %r); import _torch_train_rank\n"
+             "from repro_torch.distributed import collectives, mesh, pipeline\n"
+             "from repro_torch.train import trainer, trainstep\n"
              "print(','.join(sorted(m for m in sys.modules if m == 'jax' or "
              "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))"
              % str(Path(__file__).resolve().parent))

@@ -167,11 +167,22 @@ def test_microbatched_gradients_float32():
 
 
 def test_step_config_options_that_wait_raise():
-    _, pc, _ = _small()
+    """``probe`` waits for the dry run's lowering half (ROADMAP item 8(b));
+    ``compress_pod_grads`` with no mesh has no pod to sync over and leaves the
+    step as it is, as the reference's does."""
+    _, pc, dkw = _small()
     opt = adamw.adamw(1e-3)
-    for kw in (dict(compress_pod_grads=True), dict(probe=True)):
-        with pytest.raises(NotImplementedError):
-            trainstep.make_train_step(pc, opt, step_cfg=trainstep.TrainStepConfig(**kw))
+    with pytest.raises(NotImplementedError, match=r"8\(b\)"):
+        trainstep.make_train_step(pc, opt, step_cfg=trainstep.TrainStepConfig(probe=True))
+    batch = to_device(SyntheticLM(DataConfig(**dkw)).batch(0), "cpu")
+    out = []
+    for compress in (False, True):
+        params = model_lib.materialize(pc, 0, "cpu")
+        step = trainstep.make_train_step(
+            pc, opt, step_cfg=trainstep.TrainStepConfig(compress_pod_grads=compress))
+        out.append(step(params, trainstep.init_opt_state(opt, params, pc), batch)[0])
+    for a, b in zip(tree_lib.leaves(out[0]), tree_lib.leaves(out[1])):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("arch,moment_dtype,m", [("qwen3-1.7b", "f32", 1),
@@ -382,10 +393,40 @@ def test_serve_launcher_reads_a_reference_checkpoint(tmp_path):
 
 
 def test_train_launcher_refuses_parallelism_and_defaults_to_the_card():
-    with pytest.raises(SystemExit, match="item 8"):
-        train_launch.main(["--arch", ARCH, "--smoke", "--data", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="item 8"):
-        train_launch.main(["--arch", ARCH, "--smoke", "--model", "2", "--device", "cpu"])
+    """Over a mesh, NCCL needs a card a rank and is refused by name when the
+    ranks outnumber the cards (here there is none); the one-device launcher
+    defaults to the card."""
+    cards = torch.cuda.device_count()
+    for flags in (["--data", str(cards + 2)], ["--model", str(cards + 2)]):
+        with pytest.raises(SystemExit, match="--backend nccl needs a card a rank"):
+            train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--backend",
+                               "nccl"] + flags)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train_launch.main(["--arch", ARCH, "--smoke", "--steps", "1"])
+
+
+def test_train_resilient_example_recovers(capsys):
+    """The twin of ``examples/train_resilient.py``, shortened: the reduced
+    jamba fails before step 3 and resumes from its step-2 checkpoint."""
+    from repro_torch.examples import train_resilient
+
+    out = train_resilient.main(["--device", "cpu", "--steps", "4", "--ckpt-every", "2",
+                                "--fail-at", "3", "--log-every", "1"])
+    assert [h["step"] for h in out["history"]] == [0, 1, 2, 2, 3]
+    assert "recovered from the step-2 checkpoint" in capsys.readouterr().out
+
+
+def test_train_launcher_spawns_gloo_ranks_on_the_cpu(tmp_path, capfd):
+    """``--data 2`` on the CPU: two gloo ranks, FSDP, a checkpoint of the
+    global tree that the one-device trainer restores."""
+    train_launch.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--backend", "gloo",
+                       "--data", "2", "--steps", "2", "--seq-len", "8", "--global-batch", "4",
+                       "--ckpt-dir", str(tmp_path)])
+    out = capfd.readouterr().out
+    assert "2 ranks" in out and "step     1" in out
+    cfg = get_smoke_config(ARCH)
+    tree, extra = ckpt.restore(str(tmp_path))
+    assert extra == {"step": 2}
+    params, _ = trainer_lib.state_from_tree(tree, cfg, "cpu", "f32")
+    assert tree_lib.leaves(params)[0].shape[-1] == cfg.d_model
