@@ -129,8 +129,14 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       and all-gather on CUDA tensors, each checked, the group destroyed
   (b) two gloo ranks on the one card (NCCL refuses two ranks on one
       device), a ``(data=1, model=2)`` ``DeviceMesh``, both ranks on
-      cuda:0: qwen3-1.7b at full width and depth on path B's and path A's
-      stacks at tp = 2, 4 requests of 16-128 tokens, 16 new tokens each,
+      cuda:0: qwen3-1.7b at full width and ``TP_DEPTH`` (8) of its 28
+      layers on path B's and path A's stacks at tp = 2, then (``TP_SERVES``)
+      deepseek-v2-lite-16b at full width and 4 layers (its dense layer 0 and
+      3 MoE layers: MLA on a rank's 8 of 16 heads over the whole latent, 32
+      of 64 experts a rank, the shared experts column- then row-parallel) on
+      B's and A's stacks, and mixtral-8x7b at full width and 1 layer (4 of 8
+      experts a rank, the 4096 window) on B's, 4 requests of 16-128 tokens,
+      16 new tokens each,
       slots=4, ``fcfs``, each rank's shards placed from a host copy of the
       converted weights (``transfer.place_shard``), and the same mix served
       at tp = 1 in the rank's process on the same weights, tp = 2
@@ -138,14 +144,17 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       outside the kernels parts the two, that first op named (``OpLog``) and
       the rows within ``PATH_LIMITS``; A's bf16 drift printed with its first
       differing op, and A in float32 with the int4 boundary codes forced to
-      tp = 1's (a rank holds its share of the heads' codes:
-      ``ShardCodeLog``) within ``PATH_LIMITS``; every rank's tokens equal;
+      tp = 1's (a rank holds its share of the heads' and the experts' codes:
+      ``ShardCodeLog``) within ``PATH_LIMITS``; a MoE router choice that
+      differs from tp = 1's counted, and that run then held with tp = 1's
+      choices forced (``_record_routes``); every rank's tokens equal;
       each rank's resident bytes equal to the shards ``spec_for`` cuts over
       the formats' ``data_axes`` on meta tensors; each kernel's launches a
       decode step equal to tp = 1's; a decode step profiled on each rank,
       the collectives' host time printed.  Phase 2 times the kernels at
       the shard shapes (``TP_PROJ``; the row-parallel wo and w_out through
-      ``matmul_int8``'s raw int32 route).  The tp = 2 runs are no speed
+      ``matmul_int8``'s raw int32 route; ``_rows_tp_moe``: the grouped
+      launches over a rank's 32 and 4 experts, MLA's wq on 8 heads).  The tp = 2 runs are no speed
       result: two processes time-share one card
 
 and then training over a mesh (``phase_train_mesh``, after the tp phase),
@@ -661,6 +670,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_window_ssm(torch, device, gen, timer, rows, min_m)
     _rows_cross(torch, device, gen, timer, rows, min_m)
     _rows_tp(torch, device, gen, timer, rows, min_m)
+    _rows_tp_moe(torch, device, gen, timer, rows, min_m)
     dequant_accuracy(torch, device, gen)
     for row in rows:
         print("kernel " + json.dumps(row))
@@ -711,6 +721,29 @@ def _rows_tp(torch, device, gen, timer, rows, min_m):
     _bsdp_rows_at(torch, device, gen, timer, rows, min_m, "tp2 w_in", *TP_PROJ["w_in"],
                   {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4,)})
     _attention_decode_row(torch, device, gen, timer, rows, 4, 4, 2)
+
+
+#: deepseek-v2-lite-16b's MLA query projection as one rank of tp = 2 holds it:
+#: 8 of 16 heads of 128 + 64 columns
+TP_MLA_WQ = (2048, 1536)
+
+
+def _rows_tp_moe(torch, device, gen, timer, rows, min_m):
+    """The MLA and MoE layers' shard shapes at tp = 2, decode at slots=4
+    (capacity 1 a row, so 4 rows an expert): deepseek-v2-lite-16b's 32
+    experts a rank (w_in, w_out; ``bsdp_gemv`` at M = 1, ``bsdp_gemm_fused``
+    and ``matmul_int8`` at M = 4), mixtral-8x7b's 4 (w_in on
+    ``matmul_int8``), and deepseek's wq on 8 heads (``matmul_int8``,
+    ``dequant_matmul`` with bf16 x)."""
+    _rows_grouped(torch, device, gen, timer, rows, e=EXPERTS // TP_WORLD, proj=EXPERT_PROJ,
+                  grouped_m={"bsdp_gemv": (1,), "bsdp_gemm_fused": (4,), "matmul_int8": (4,)},
+                  prefix="tp2 ")
+    _rows_grouped(torch, device, gen, timer, rows, e=MIXTRAL_EXPERTS // TP_WORLD,
+                  proj={"w_in": MIXTRAL_EXPERT_PROJ["w_in"]}, grouped_m={"matmul_int8": (4,)},
+                  prefix="tp2 mixtral ")
+    _int8_rows_at(torch, device, gen, timer, rows, min_m, "tp2 mla wq", *TP_MLA_WQ, (4,))
+    _dequant_rows_at(torch, device, gen, timer, rows, "tp2 mla wq ", *TP_MLA_WQ,
+                     (torch.bfloat16,), (4,))
 
 
 def step_gaps(rows) -> None:
@@ -3143,10 +3176,9 @@ def _record_routes(forced=None):
 
     log, route = [], moe._route
 
-    def recording(params, x, cfg):
-        idx, gate, aux = route(params, x, cfg)
-        probs = torch.softmax(torch.einsum("bsd,de->bse", x.to(torch.float32),
-                                           params["router"]), dim=-1)
+    def recording(params, x, cfg, tp=None):
+        idx, gate, aux = route(params, x, cfg, tp)
+        probs = torch.softmax(moe._router_logits(params, x, cfg, tp), dim=-1)
         top = torch.topk(probs, cfg.experts_per_tok + 1, dim=-1).values
         log.append((idx, torch.sort(idx, dim=-1).values.cpu(),
                     (top[..., -2] - top[..., -1]).min()))
@@ -3405,7 +3437,7 @@ TP_WORLD = 2
 #: the mix: prompts of 16-128 tokens, new tokens each, slots, ring length
 TP_REQUESTS, TP_NEW, TP_SLOTS, TP_MAX_LEN = 4, 16, 4, 256
 #: seconds the parent waits for the NCCL child and for the two ranks
-NCCL_JOIN_S, TP_JOIN_S = 120, 480
+NCCL_JOIN_S, TP_JOIN_S = 120, 720
 #: seconds a rank's collective waits for the other before it raises
 TP_COLLECTIVE_TIMEOUT_S = 300
 #: the device both ranks serve on
@@ -3607,14 +3639,56 @@ def _first_difference(a, b):
     return None
 
 
+#: qwen3-1.7b's layers in the tp phase (28 in PR 25: cut to make room for the
+#: MLA and MoE serves; a cut layer launches what a full one does)
+TP_DEPTH = 8
+#: the tp phase's serves: label → (arch, the path whose stack it serves, layers):
+#: deepseek-v2-lite-16b's dense layer 0 and 3 MoE layers, mixtral-8x7b's one
+#: layer (as path S)
+TP_SERVES = {
+    "qwen3-1.7b B": ("qwen3-1.7b", "B", TP_DEPTH),
+    "qwen3-1.7b A": ("qwen3-1.7b", "A", TP_DEPTH),
+    "deepseek-v2-lite-16b B": ("deepseek-v2-lite-16b", "B", 4),
+    "deepseek-v2-lite-16b A": ("deepseek-v2-lite-16b", "A", 4),
+    "mixtral-8x7b B": ("mixtral-8x7b", "B", 1),
+}
+
+
+def _step_launches(torch, eng, cfg) -> dict:
+    """Each kernel's launches in one decode step of ``eng`` at slots=4: four
+    64-token prompts (9 new tokens each) refilled, one decode step run, the
+    next counted."""
+    import numpy as np
+
+    from repro_torch.kernels import ops
+
+    rng = np.random.default_rng(SEED + 1)
+    for _ in range(4):
+        eng.submit(rng.integers(0, cfg.vocab_size, size=64).astype(np.int32), 9)
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}
+
+
+def _route_differences(log, want) -> tuple:
+    """(differing, total) (token, k) expert choices of a serve's routing log
+    against another's (the same calls in the same order)."""
+    check(len(log) == len(want), "the two serves routed a different number of times")
+    differ = sum(int((a[1] != b[1]).sum()) for a, b in zip(log, want))
+    return differ, sum(b[1].numel() for b in want)
+
+
 def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
-    """One rank of (b): qwen3-1.7b at full width and depth on path B's and
-    path A's stacks, served at tp = ``world`` on the (1, world) mesh and,
-    in this process, at tp = 1 on the same weights; writes what it held
-    and measured to ``outdir/rank<r>.json``."""
+    """One rank of (b): every serve of :data:`TP_SERVES` at full width, at
+    tp = ``world`` on the (1, world) mesh and, in this process, at tp = 1
+    on the same weights; writes what it held and measured to
+    ``outdir/rank<r>.json``."""
     import dataclasses
 
-    import numpy as np
     import torch
 
     from repro_torch.configs import get_config
@@ -3630,42 +3704,69 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
                   device=device, backend="gloo", timeout_s=TP_COLLECTIVE_TIMEOUT_S)
     mesh = mesh_lib.device_mesh(device, (1, world), ("data", "model"))
     check(torch.cuda.current_device() == 0, f"rank {rank} on cuda:{torch.cuda.current_device()}")
-    cfg = get_config("qwen3-1.7b")
-    rules = P.base_rules(data_axes=("data",))
     out: dict = {"rank": rank, "device": torch.cuda.get_device_name(torch.cuda.current_device()),
                  "current_device": torch.cuda.current_device(), "mesh": str(mesh)}
-    for path in ("B", "A"):
-        mode, cache, _, per_step = PATHS[path]
+    for label, (arch, path, depth) in TP_SERVES.items():
+        cfg = get_config(arch).scaled(n_layers=depth)
+        mode, cache = PATHS[path][:2]
+        moe = bool(cfg.n_experts)
         t0 = time.perf_counter()
         host = engine.materialize_converted(cfg, mode, seed=SEED, device=device, tp=world,
                                             keep=lambda leaf: engine.tree_to(leaf, "cpu"))
-        res = {"draw_s": time.perf_counter() - t0}
+        res = {"draw_s": time.perf_counter() - t0, "layers": depth}
+
+        def routed(run, forced=None):
+            """``run()`` with the MoE routing recorded (and forced to
+            ``forced``'s choices) → (its result, the routing log)."""
+            if not moe:
+                return run(), []
+            log, undo = _record_routes(forced)
+            try:
+                return run(), log
+            finally:
+                undo()
+
         one_log = CodeLog() if path == "A" else None
         one_ops = OpLog()
         with one_log or _Null(), one_ops:
-            eng1, trace1, toks1, _ = _tp_serve(engine, engine.tree_to(host, device), cfg, mode,
-                                               cache, device)
+            (eng1, trace1, toks1, _), routes1 = routed(
+                lambda: _tp_serve(engine, engine.tree_to(host, device), cfg, mode, cache,
+                                  device))
         res["tp1_weights"] = eng1.resident_bytes()["weights"]
+        trace1 = list(trace1)  # the launch count below steps eng1 on
+        res["tp1_step_launches"] = _step_launches(torch, eng1, cfg)
         del eng1
         torch.cuda.empty_cache()
+
+        def serve_tp(codes, op_log, forced=None, c=cfg, force=toks1):
+            with codes or _Null(), op_log or _Null():
+                return routed(lambda: _tp_serve(engine, host, c, mode, cache, device, tp=world,
+                                                mesh=mesh, force=force), forced)
+
         ops.reset_counts()
         codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
         op_log = OpLog(one_ops, rank, world)
-        with codes or _Null(), op_log:
-            eng, trace, toks, wall = _tp_serve(engine, host, cfg, mode, cache, device, tp=world,
-                                               mesh=mesh, force=toks1)
+        (eng, trace, toks, wall), routes = serve_tp(codes, op_log)
         plain = ops.plain_cuda_counts()
-        check(all(v == 0 for v in plain.values()), f"tp {path}: a plain version ran on CUDA")
+        check(all(v == 0 for v in plain.values()), f"tp {label}: a plain version ran on CUDA")
+        res["routes"] = _route_differences(routes, routes1) if moe else None
         got = eng.resident_bytes()
+        res.update(wall_s=wall, collective_s=eng._tp.collective_s,
+                   collective_calls=dict(eng._tp.calls), weights=got["weights"],
+                   cache=got["cache"],
+                   launches={k: v for k, v in ops.launch_counts().items() if v})
         res.update(
-            wall_s=wall, tokens=toks, tp1_tokens=toks1,
-            collective_s=eng._tp.collective_s, collective_calls=dict(eng._tp.calls),
-            weights=got["weights"], cache=got["cache"],
             weights_twin=P.local_bytes(dryrun.serve_params_meta(cfg, mode, tp=world),
-                                       model_lib.specs(cfg, world), mesh, rules),
-            cache_twin=tp_cache_twin(eng.cfg, TP_SLOTS, TP_MAX_LEN, world, rules),
+                                       model_lib.specs(cfg, world), mesh, eng.rules),
+            cache_twin=tp_cache_twin(eng.cfg, TP_SLOTS, TP_MAX_LEN, world, eng.rules))
+        del eng
+        if moe and res["routes"][0]:  # held with tp = 1's expert choices forced
+            codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
+            op_log = OpLog(one_ops, rank, world)
+            (_, trace, toks, _), _ = serve_tp(codes, op_log, forced=routes1)
+        res.update(
+            tokens=toks, tp1_tokens=toks1,
             kinds_equal=[(k, s) for k, s, _ in trace] == [(k, s) for k, s, _ in trace1],
-            launches={k: v for k, v in ops.launch_counts().items() if v},
             bitwise=_first_difference(trace, trace1) is None,
             first_difference=_first_difference(trace, trace1), drift=_drift((trace, trace1)),
             first_op=op_log.first, ops_differ=op_log.differ, ops=len(op_log.records))
@@ -3680,42 +3781,34 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
             f32 = dataclasses.replace(cfg, dtype=torch.float32)
             log32 = CodeLog()
             with log32:
-                _, trace32_1, toks32, _ = _tp_serve(engine, engine.tree_to(host, device), f32,
-                                                    mode, cache, device)
+                (_, trace32_1, toks32, _), routes32_1 = routed(lambda: _tp_serve(
+                    engine, engine.tree_to(host, device), f32, mode, cache, device))
             torch.cuda.empty_cache()
             forced = ShardCodeLog(log32, rank, world, force=True)
-            with forced:
-                _, trace32, _, _ = _tp_serve(engine, host, f32, mode, cache, device, tp=world,
-                                             mesh=mesh, force=toks32)
+            (_, trace32, _, _), routes32 = serve_tp(forced, None, c=f32, force=toks32)
+            routes_f32 = _route_differences(routes32, routes32_1) if moe else None
+            if moe and routes_f32[0]:
+                forced = ShardCodeLog(log32, rank, world, force=True)
+                (_, trace32, _, _), _ = serve_tp(forced, None, forced=routes32_1, c=f32,
+                                                 force=toks32)
             res["f32"] = dict(forced=_drift((trace32, trace32_1)), differ=forced.differ,
                               forced_codes=forced.forced, far=forced.far, edge=forced.edge,
-                              calls=len(log32.calls), first=forced.first)
+                              calls=len(log32.calls), first=forced.first, routes=routes_f32)
             del log32, forced
-        del eng
         torch.cuda.empty_cache()
         # launches of one decode step, then a profiled decode step, at slots=4
         prof = engine.ServeEngine(host, cfg, tp=world, mesh=mesh, mode=mode, cache_format=cache,
                                   slots=4, max_len=512, device=device)
-        rng = np.random.default_rng(SEED + 1)
-        for _ in range(4):
-            prof.submit(rng.integers(0, cfg.vocab_size, size=64).astype(np.int32), 9)
-        prof.step()
-        prof.step()
-        torch.cuda.synchronize()
-        ops.reset_counts()
-        prof.step()
-        torch.cuda.synchronize()
-        res["step_launches"] = {k: v for k, v in ops.launch_counts().items() if v}
-        res["tp1_step_launches"] = per_step
+        res["step_launches"] = _step_launches(torch, prof, cfg)
         prof._tp.collective_s, prof._tp.calls = 0.0, {}
         res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
-            torch, prof.step, 3, f"tp phase rank {rank} path {path} profile decode step "
+            torch, prof.step, 3, f"tp phase rank {rank} {label} profile decode step "
             f"(slots=4, tp={world}, {cfg.n_layers} layers, {card}, under the profiler)")
         res["profile_collective_ms"] = prof._tp.collective_s * 1e3 / 3
         res["profile_collective_calls"] = {k: v / 3 for k, v in prof._tp.calls.items()}
         del prof, host
         torch.cuda.empty_cache()
-        out[path] = res
+        out[label] = res
     torch.distributed.destroy_process_group()
     with open(f"{outdir}/rank{rank}.json", "w") as f:
         json.dump(out, f)
@@ -3753,15 +3846,16 @@ def _run_children(targets, join_s: float, label: str) -> None:
 
 def phase_tp(torch, card) -> None:
     """(a) NCCL's four collectives at one rank; (b) two gloo ranks on the one
-    card serving qwen3-1.7b at full width and depth on path B's and path A's
-    stacks at tp = 2, each held against tp = 1 on the same weights: B bit
-    for bit or its first differing op named and its rows within
-    PATH_LIMITS, A within PATH_LIMITS in float32 with the int4 boundary codes
-    forced (its bf16 serve's drift and first differing op printed), every
-    rank's tokens equal, each rank's resident
-    bytes equal to its shard twin, each kernel's launches a decode step
-    equal to tp = 1's; each rank's profiled decode step and collective host
-    time printed."""
+    card serving :data:`TP_SERVES` (qwen3-1.7b, deepseek-v2-lite-16b and
+    mixtral-8x7b at full width, cut in depth) at tp = 2, each held against
+    tp = 1 on the same weights: B bit for bit or its first differing op
+    named and its rows within PATH_LIMITS, A within PATH_LIMITS in float32
+    with the int4 boundary codes forced (its bf16 serve's drift and first
+    differing op printed), a MoE serve whose expert choices differ from
+    tp = 1's held with tp = 1's forced, every rank's tokens equal, each
+    rank's resident bytes equal to its shard twin, each kernel's launches a
+    decode step equal to tp = 1's; each rank's profiled decode step and
+    collective host time printed."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as outdir:
@@ -3784,26 +3878,24 @@ def phase_tp(torch, card) -> None:
     print(f"tp (b): {TP_WORLD} gloo ranks on one card, collectives staged through the host: "
           f"none (gloo takes CUDA tensors for SUM on int32 and float32, MAX and all-gather); ranks on cuda:{[r['current_device'] for r in ranks]} ({ranks[0]['mesh']}); "
           f"{wall:.1f} s for the ranks' whole run, start to exit, on {card}")
-    for path in ("B", "A"):
+    for label, (arch, path, depth) in TP_SERVES.items():
         for r in ranks:
-            res = r[path]
-            check(res["tokens"] == ranks[0][path]["tokens"],
-                  f"tp path {path}: rank {r['rank']}'s tokens differ from rank 0's")
-            check(res["tokens"] == res["tp1_tokens"],
-                  f"tp path {path}: rank {r['rank']} did not emit the forced tokens")
-            check(res["kinds_equal"], f"tp path {path}: tp=2 scheduled other steps than tp=1")
+            res = r[label]
+            tag = f"tp {label} rank {r['rank']}"
+            check(res["tokens"] == ranks[0][label]["tokens"],
+                  f"tp {label}: rank {r['rank']}'s tokens differ from rank 0's")
+            check(res["tokens"] == res["tp1_tokens"], f"{tag} did not emit the forced tokens")
+            check(res["kinds_equal"], f"tp {label}: tp=2 scheduled other steps than tp=1")
             check(res["weights"] == res["weights_twin"],
-                  f"tp path {path} rank {r['rank']}: weights {res['weights']} B != twin "
-                  f"{res['weights_twin']} B")
+                  f"{tag}: weights {res['weights']} B != twin {res['weights_twin']} B")
             check(res["cache"] == res["cache_twin"],
-                  f"tp path {path} rank {r['rank']}: cache {res['cache']} B != twin "
-                  f"{res['cache_twin']} B")
+                  f"{tag}: cache {res['cache']} B != twin {res['cache_twin']} B")
             check(res["step_launches"] == res["tp1_step_launches"],
-                  f"tp path {path} rank {r['rank']}: {res['step_launches']} a decode step, "
-                  f"tp=1 launches {res['tp1_step_launches']}")
+                  f"{tag}: {res['step_launches']} a decode step, tp=1 launches "
+                  f"{res['tp1_step_launches']}")
             rel, cos, agree = res["drift"]
-            print(f"tp path {path} rank {r['rank']} ({r['device']}): resident weights "
-                  f"{res['weights']} B of tp=1's {res['tp1_weights']} B (twin "
+            print(f"tp {label} rank {r['rank']} ({r['device']}, {depth} layers): resident "
+                  f"weights {res['weights']} B of tp=1's {res['tp1_weights']} B (twin "
                   f"{res['weights_twin']} B), cache {res['cache']} B (twin {res['cache_twin']} B); "
                   f"launches a decode step {res['step_launches']} (tp=1's); serve of "
                   f"{TP_REQUESTS} x {TP_NEW} tokens {res['wall_s'] * 1e3:.1f} ms wall, collectives "
@@ -3812,33 +3904,42 @@ def phase_tp(torch, card) -> None:
                   f"{res['profile_wall_ms']:.2f} ms, device busy {res['profile_busy_ms']:.2f} ms, "
                   f"collectives {res['profile_collective_ms']:.2f} ms host "
                   f"{res['profile_collective_calls']}; on {card}")
-            print(f"tp path {path} rank {r['rank']} vs tp=1 (bf16): bit for bit "
+            routes = ""
+            if res["routes"] is not None:
+                differ, total = res["routes"]
+                routes = (f"; {differ} of {total} (token, k) expert choices differ from tp=1's"
+                          + (", held with tp=1's choices forced" if differ else ""))
+            print(f"tp {label} rank {r['rank']} vs tp=1 (bf16): bit for bit "
                   f"{res['bitwise']}, first differing logit row {res['first_difference']}, max "
                   f"rel err {rel:.3e}, min cosine {cos:.6f}, argmax agree {agree}; first "
                   f"differing op (call, op, model call, max |d|, shape) {res['first_op']}, "
-                  f"{res['ops_differ']} of {res['ops']} op outputs differ")
+                  f"{res['ops_differ']} of {res['ops']} op outputs differ{routes}")
             if path == "B":
                 check(res["bitwise"] or rel <= PATH_LIMITS["bfloat16"][0]
                       and cos >= PATH_LIMITS["bfloat16"][1],
-                      f"tp path B rank {r['rank']}: drift {rel}, {cos} past PATH_LIMITS")
+                      f"{tag}: drift {rel}, {cos} past PATH_LIMITS")
                 continue
             c, f = res["codes"], res["f32"]
-            print(f"tp path A rank {r['rank']} codes (bf16): {c['differ']} of the codes rounded "
-                  f"in {c['calls']} calls differ from tp=1's, {c['far']} farther than "
+            print(f"tp {label} rank {r['rank']} codes (bf16): {c['differ']} of the codes "
+                  f"rounded in {c['calls']} calls differ from tp=1's, {c['far']} farther than "
                   f"{FLIP_TOL} of a step from their boundary, the first at {c['first']}: after "
-                  f"a first flip the runs part, and over the full depth in bf16 (a cast moves a value "
-                  f"by up to 2^-8) they part by more than PATH_LIMITS; printed, not held")
-            print(f"tp path A rank {r['rank']} vs tp=1 in float32, with {f['forced_codes']} of "
+                  f"a first flip the runs part, and over the depth in bf16 (a cast moves a "
+                  f"value by up to 2^-8) they may part by more than PATH_LIMITS; printed, not "
+                  f"held")
+            routes32 = "" if f["routes"] is None else (
+                f"; {f['routes'][0]} of {f['routes'][1]} expert choices differed from tp=1's"
+                + (", held with tp=1's forced" if f["routes"][0] else ""))
+            print(f"tp {label} rank {r['rank']} vs tp=1 in float32, with {f['forced_codes']} of "
                   f"{f['differ']} differing codes forced ({f['far']} farther than {FLIP_TOL} of "
                   f"a step, farthest {f['edge']:.3e}, of {f['calls']} rounding calls; the first "
                   f"at {f['first']}): max rel err {f['forced'][0]:.3e} (limit "
                   f"{PATH_LIMITS['float32'][0]}), min cosine {f['forced'][1]:.6f} (limit "
-                  f"{PATH_LIMITS['float32'][1]}), argmax agree {f['forced'][2]}")
-            check(f["far"] == 0, f"tp path A rank {r['rank']}: {f['far']} codes differ away "
-                  "from a boundary in float32")
+                  f"{PATH_LIMITS['float32'][1]}), argmax agree {f['forced'][2]}{routes32}")
+            check(f["far"] == 0, f"{tag}: {f['far']} codes differ away from a boundary in "
+                  "float32")
             check(f["forced"][0] <= PATH_LIMITS["float32"][0]
                   and f["forced"][1] >= PATH_LIMITS["float32"][1],
-                  f"tp path A rank {r['rank']}: float32 drift past PATH_LIMITS")
+                  f"{tag}: float32 drift past PATH_LIMITS")
 
 
 # ---------------------------------------------------------------------------

@@ -181,6 +181,14 @@ class ResidencyFormat:
         :class:`~repro_torch.distributed.mesh.TensorParallel`)."""
         raise NotImplementedError(f"residency format {self.name!r} has no row-parallel path")
 
+    def apply_stacked_row_parallel(self, state: QuantLinearState, x: torch.Tensor, tp,
+                                   impl: Optional[str] = None) -> torch.Tensor:
+        """:meth:`apply_row_parallel` of a stacked state: ``x [E, M, K/tp]``
+        against each expert's K rows → ``[E, M, N]`` float32 on every rank,
+        with one all-reduce for all the experts."""
+        raise NotImplementedError(f"residency format {self.name!r} has no stacked "
+                                  "row-parallel path")
+
     def apply_stacked(self, state: QuantLinearState, x: torch.Tensor) -> torch.Tensor:
         """Kernel path of a stacked state: ``x [E, M, K] → f32 [E, M, N]``.
         Here :meth:`apply` once an expert; a format with a grouped launch
@@ -326,6 +334,32 @@ class Int8Format(ResidencyFormat):
             out = _int_row_parallel(acc, xq, state, tp)
         return out.reshape(*lead, state.n)
 
+    def apply_stacked_row_parallel(self, state, x, tp, impl=None):
+        """``w8a16``: each expert's float32 partial (``dequant_matmul`` once an
+        expert), summed over the ranks.  ``w8a8``: each row's amax
+        MAX-reduced, the rank's exact int32 sums of every expert (one
+        grouped ``matmul_int8`` launch, raw), summed over the ranks, then
+        the epilogue ``(acc · x_scale) · w_scale`` of every expert."""
+        from repro_torch.kernels import dequant_gemv, gemv_int8, ops
+
+        e, m, _ = x.shape
+        if self.act_bits is None:
+            fn = dequant_gemv.dequant_matmul_plain if impl == "plain" else ops.weight_only_matmul
+            return tp.all_reduce_sum(torch.stack([fn(x[i], state.data[i], state.scale[i])
+                                                  for i in range(e)]))
+        xq = row_parallel_acts(x.to(torch.float32), tp, self.act_bits)
+        ones_m = torch.ones((e, m, 1), dtype=torch.float32, device=x.device)
+        ones_n = torch.ones_like(state.scale)
+        if impl == "plain":
+            acc = torch.stack([gemv_int8.matmul_int8_plain(xq.data[i], state.data[i], ones_m[i],
+                                                           ones_n[i], out_int32=True)
+                               for i in range(e)])
+        else:
+            acc = gemv_int8.matmul_int8_grouped(xq.data, state.data, ones_m, ones_n,
+                                                out_int32=True)
+        acc = tp.all_reduce_sum(acc)
+        return acc.to(torch.float32) * xq.scale * state.scale
+
     def apply_stacked(self, state, x):
         """``w8a8``: one grouped ``matmul_int8`` launch for every expert;
         ``w8a16``: ``dequant_matmul`` once an expert."""
@@ -390,6 +424,25 @@ class PackedInt4Format(ResidencyFormat):
         else:
             acc = ops.quant_matmul_int4(quant.QuantTensor(xq.data, ones_m), state.data, ones_n)
         return _int_row_parallel(acc.to(torch.int32), xq, state, tp).reshape(*lead, state.n)
+
+    def apply_stacked_row_parallel(self, state, x, tp, impl=None):
+        """:meth:`apply_row_parallel`'s integer sums once an expert, all
+        experts' summed over the ranks in one all-reduce, then each expert's
+        epilogue."""
+        from repro_torch.kernels import gemv_int4, ops
+
+        if state.k * 127 * 8 >= 1 << 24:
+            raise ValueError(f"w4a8 row-parallel: K/tp = {state.k} is too long for exact "
+                             "float32 partial sums")
+        e, m, _ = x.shape
+        xq = row_parallel_acts(x.to(torch.float32), tp, 8)
+        ones_m = torch.ones((m, 1), dtype=torch.float32, device=x.device)
+        fn = gemv_int4.matmul_int4_packed_plain if impl == "plain" else (
+            lambda xd, w, xs, ws: ops.quant_matmul_int4(quant.QuantTensor(xd, xs), w, ws))
+        acc = torch.stack([fn(xq.data[i], state.data[i], ones_m, torch.ones_like(state.scale[i]))
+                           for i in range(e)]).to(torch.int32)
+        acc = tp.all_reduce_sum(acc)
+        return acc.to(torch.float32) * xq.scale * state.scale
 
     def to_float(self, state):
         w = quant.unpack_int4(state.data, axis=0)[:state.k]

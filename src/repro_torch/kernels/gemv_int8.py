@@ -98,27 +98,31 @@ def _check_grouped(x, w, x_scale, w_scale):
     return (x.shape[0], *check_scaled("matmul_int8", x[0], w[0], x_scale[0], w_scale[0]))
 
 
-def matmul_int8_grouped_plain(x, w, x_scale, w_scale) -> torch.Tensor:
+def matmul_int8_grouped_plain(x, w, x_scale, w_scale, *, out_int32: bool = False
+                              ) -> torch.Tensor:
     """Plain version of the grouped call: :func:`matmul_int8_plain` once per
     group."""
     _check_grouped(x, w, x_scale, w_scale)
-    return torch.stack([matmul_int8_plain(*args) for args in zip(x, w, x_scale, w_scale)])
+    return torch.stack([matmul_int8_plain(*args, out_int32=out_int32)
+                        for args in zip(x, w, x_scale, w_scale)])
 
 
 def matmul_int8_grouped(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
-                        w_scale: torch.Tensor) -> torch.Tensor:
+                        w_scale: torch.Tensor, *, out_int32: bool = False) -> torch.Tensor:
     """``G`` stacked products ``x [G,M,K] int8 @ w [G,K,N] int8`` → f32
     ``[G,M,N]``, each with its per-token and per-channel scales (``x_scale``
     ``[G, M, ...]``, ``w_scale`` ``[G, ..., N]``), in one launch, the groups on
-    the grid's third axis (the experts of a MoE layer)."""
+    the grid's third axis (the experts of a MoE layer); or the raw int32
+    sums with ``out_int32``."""
     g, m, n, k = _check_grouped(x, w, x_scale, w_scale)
     if x.device.type == "cpu":
-        return matmul_int8_grouped_plain(x, w, x_scale, w_scale)
+        return matmul_int8_grouped_plain(x, w, x_scale, w_scale, out_int32=out_int32)
     _build.require_cuda("matmul_int8", x, w, x_scale, w_scale)
     x, w = x.contiguous(), w.contiguous()
     xs = x_scale.reshape(g, m).to(torch.float32).contiguous()
     ws = w_scale.reshape(g, n).to(torch.float32).contiguous()
-    out = torch.empty((g, m, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((g, m, n), dtype=torch.int32 if out_int32 else torch.float32,
+                      device=x.device)
     KERNEL.launch(_build.ptr(x), _build.ptr(w), _build.ptr(xs), _build.ptr(ws),
-                  _build.ptr(out), g, m, n, k, 0, _build.stream())
+                  _build.ptr(out), g, m, n, k, int(out_int32), _build.stream())
     return out

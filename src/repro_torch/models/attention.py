@@ -18,7 +18,12 @@ earlier tokens would still see.
 MLA (DeepSeek-V2 / MiniCPM3) caches only the latent — ``c_kv`` through the
 cache format, the small rope key ``k_rope`` in float — and decodes in the
 absorbed form: the query is absorbed through ``w_uk`` and the context read
-back through ``w_uv``, both dequantized to float on every step.
+back through ``w_uv``, both dequantized to float on every step.  Under
+``tp`` a rank holds its heads (padded to a multiple of ``tp``,
+:func:`mla_dims`) of the query projection, ``w_uk`` and ``w_uv``, and
+``wo``'s matching rows (row-parallel); the down-projections ``w_dq`` /
+``w_dkv`` are not sharded (``kv_lora``), so every rank computes the whole
+latent and holds the whole latent ring.
 
 Cross-attention (llama-3.2-vision's image layers, seamless-m4t's decoder)
 attends over a context the decoder did not write: :func:`cross_kv`
@@ -396,9 +401,9 @@ def cross_apply(params, x, kv, cfg, *, gated=True, impl=None) -> torch.Tensor:
 
 
 def _mla_q(params, x, cfg, positions, impl=None):
-    """Queries, split into the no-rope part and the roped part ``[B, S, H, *]``:
-    through the low-rank ``w_dq`` → RMSNorm → ``w_uq`` (q_lora_rank) or the
-    full-rank ``wq``."""
+    """Queries, split into the no-rope part and the roped part ``[B, S, H, *]``
+    (H: the heads the rank holds): through the low-rank ``w_dq`` → RMSNorm →
+    ``w_uq`` (q_lora_rank) or the full-rank ``wq``."""
     b, s, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
@@ -406,7 +411,7 @@ def _mla_q(params, x, cfg, positions, impl=None):
         q = dense(params["w_uq"], cq, impl=impl)
     else:
         q = dense(params["wq"], x, impl=impl)
-    q = q.reshape(b, s, cfg.n_heads, dn + dr)
+    q = q.reshape(b, s, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -423,14 +428,15 @@ def _mla_latent(params, x, cfg, positions, impl=None):
     return c_kv, k_rope
 
 
-def _mla(params, x, cfg, positions, impl=None):
+def _mla(params, x, cfg, positions, impl=None, tp=None):
     """Full-sequence MLA: the latent expanded through ``w_uk`` / ``w_uv`` to
     per-head keys and values, then :func:`chunked_attention` with v padded
-    to the q head width → (output, c_kv, k_rope)."""
+    to the q head width → (output, c_kv, k_rope).  Under ``tp`` on the
+    rank's heads, ``wo`` row-parallel."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
+    h = q_nope.shape[2]
     c_kv, k_rope = _mla_latent(params, x, cfg, positions, impl=impl)
     k_nope = dense(params["w_uk"], c_kv, impl=impl).reshape(b, s, h, dn)
     v = dense(params["w_uv"], c_kv, impl=impl).reshape(b, s, h, dv)
@@ -438,7 +444,7 @@ def _mla(params, x, cfg, positions, impl=None):
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, h, dr)], dim=-1)
     out = chunked_attention(q, k, torch.nn.functional.pad(v, (0, dn + dr - dv)),
                             q_pos=positions, kv_pos=positions)[..., :dv]
-    return dense(params["wo"], out.reshape(b, s, h * dv), impl=impl), c_kv, k_rope
+    return row_parallel(params["wo"], out.reshape(b, s, h * dv), tp, impl=impl), c_kv, k_rope
 
 
 def mla_apply(params, x, cfg, *, positions=None, impl=None):
@@ -448,12 +454,13 @@ def mla_apply(params, x, cfg, *, positions=None, impl=None):
     return _mla(params, x, cfg, positions, impl=impl)[0]
 
 
-def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None):
+def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None, tp=None):
     """Prefill MLA (the reference's ``mla_apply`` with a cache).  Returns
-    (output, cache)."""
+    (output, cache); under ``tp`` the rank's heads, and the whole latent
+    cache."""
     b = x.shape[0]
     positions = _arange_positions(x) if positions is None else positions
-    out, c_kv, k_rope = _mla(params, x, cfg, positions, impl=impl)
+    out, c_kv, k_rope = _mla(params, x, cfg, positions, impl=impl, tp=tp)
     cache = init_mla_cache(cfg, b, cache_len, dtype=c_kv.dtype, device=x.device)
     _mla_write(cache, c_kv, k_rope, positions, kvcache.format_for(cfg))
     return out, cache
@@ -485,18 +492,19 @@ def _mla_write(cache, c_kv, k_rope, positions, fmt) -> None:
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
 
 
-def mla_decode(params, x, cache, cfg, *, pos, impl=None):
+def mla_decode(params, x, cache, cfg, *, pos, impl=None, tp=None):
     """Absorbed-form MLA decode of ``x [B, S, D]`` against the latent ring
     (S > 1 appends a chunk and attends causally).  The latent reads go
     through the cache format's ``qk`` / ``av`` with lead ``()``, the (S,
     heads) axes folded into the group axis, so the int8 and bit-plane reads
     apply to the latent as to K/V.  Updates ``cache`` in place and returns
-    it."""
+    it.  Under ``tp`` the rank's heads read the whole latent ring and
+    ``wo`` is row-parallel."""
     b, s, _ = x.shape
-    h = cfg.n_heads
     dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     positions = _decode_positions(pos, b, s, x.device)
     q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
+    h = q_nope.shape[2]
     c_kv_new, k_rope_new = _mla_latent(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
     _mla_write(cache, c_kv_new, k_rope_new, positions, fmt)
@@ -517,7 +525,7 @@ def mla_decode(params, x, cache, cfg, *, pos, impl=None):
     w = torch.softmax(scores, dim=-1)
     ctx = fmt.av(w.reshape(b, s * h, ln), store, r).reshape(b, s, h, r)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
-    out = dense(params["wo"], out.reshape(b, s, h * dv).to(x.dtype), impl=impl)
+    out = row_parallel(params["wo"], out.reshape(b, s, h * dv).to(x.dtype), tp, impl=impl)
     return out, cache
 
 

@@ -15,8 +15,9 @@ model axis: ``wq``, ``wk``, ``wv``, ``w_in``, the head) is ``dense`` on the
 rank's columns and needs no collective.  A row-parallel one (K on the
 model axis: ``wo``, ``w_out``) is :func:`row_parallel`: each rank's partial
 product, then an all-reduce sum (see the formats'
-``apply_row_parallel``), except a bit-plane weight, whose payload keeps
-every K on every rank: its input is all-gathered first.  The embedding's
+``apply_row_parallel``; :func:`row_parallel_stacked` for a MoE layer's
+stacked ``w_out``), except a bit-plane weight, whose payload keeps every
+K on every rank: its input is all-gathered first.  The embedding's
 vocab rows are sharded: each rank looks up its own id range, writes zeros
 elsewhere and the ranks' rows are summed; the logits come out
 vocab-sharded and are all-gathered, so every rank sees every logit.
@@ -75,6 +76,22 @@ def row_parallel(w, x: torch.Tensor, tp=None, impl=None, bias=None) -> torch.Ten
         partial = x.to(torch.float32) @ w.to(torch.float32)
         out = reduce_from(tp, partial).to(x.dtype)
     return out if bias is None else out + bias.to(out.dtype)
+
+
+def row_parallel_stacked(w, x: torch.Tensor, tp, impl=None) -> torch.Tensor:
+    """``x [E, M, F/tp] @ w [E, F, N]`` per expert with F split over the
+    model axis (a MoE layer's ``w_out`` with its hidden width sharded) →
+    the whole products ``[E, M, N]`` on every rank, in ``x.dtype``: the
+    ranks' partials all-reduced (the formats' ``apply_stacked_row_parallel``),
+    except a bit-plane weight, whose payload keeps every F on every rank:
+    its input is all-gathered first."""
+    if isinstance(w, residency.QuantLinearState):
+        if w.k != x.shape[-1]:
+            return dense_stacked(w, tp.all_gather(x), impl=impl)
+        fmt = residency.get_format(w.mode)
+        return fmt.apply_stacked_row_parallel(w, x, tp, impl=impl).to(x.dtype)
+    partial = torch.einsum("emk,ekn->emn", x.to(torch.float32), w.to(torch.float32))
+    return tp.all_reduce_sum(partial).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -41,15 +41,17 @@ across with :mod:`repro_torch.convert`.
 Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
 TensorParallel` on :func:`prefill` / :func:`decode_step` / :func:`forward`
 / :func:`loss_fn`; an int on the shape functions :func:`specs` /
-:func:`init_cache`) covers dense GQA models, in serving and in training:
+:func:`init_cache`) covers dense GQA models in serving and in training, and
+MLA and MoE layers in serving:
 ``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
 vocab (:func:`padded_vocab`) as the reference does, zero rows drawn for the
 pad heads' ``wo`` rows and the pad vocab rows (``valid_dim0``), and every
 rank runs its shards (:mod:`repro_torch.models.layers` writes the
-collectives).  The pad logits are masked to ``NEG_INF``.  MLA, MoE, Mamba
-and cross layers raise at ``tp > 1`` (ROADMAP Queue 1, item 8).  The train
-path takes a mesh too (:func:`forward`, :func:`loss_fn`): FSDP shards
-gathered on use, and the loss's means over the global batch.
+collectives).  The pad logits are masked to ``NEG_INF``.  Mamba and cross
+layers raise at ``tp > 1``, and so do MLA and MoE layers on the train path
+(ROADMAP Queue 1, item 8(c)).  The train path takes a mesh too
+(:func:`forward`, :func:`loss_fn`): FSDP shards gathered on use, and the
+loss's means over the global batch.
 
 The context the cross layers attend to comes with the prompt: a VLM's
 ``batch["ctx_embeds"]`` (patch embeddings, cast to ``cfg.dtype``), or an
@@ -327,7 +329,7 @@ def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = Fals
     axis but the model axis when the layer runs (FSDP's gather on use, again
     in remat's recompute), the rest once; under ``tp`` (dense GQA) each rank
     runs its model shards and every rank gets the whole logits."""
-    check_tp(cfg, tp)
+    check_tp(cfg, tp, train=True)
     gather = None
     if mesh is not None and rules is not None:
         spec = specs(cfg, 1 if tp is None else tp.size)
@@ -393,17 +395,24 @@ def mask_pad_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     return torch.where(iota < cfg.vocab_size, logits, NEG_INF)
 
 
-def check_tp(cfg, tp) -> None:
-    """Raise unless ``cfg`` runs at ``tp``'s width: every layer GQA
-    self-attention with a dense FFN, or one device."""
+def check_tp(cfg, tp, *, train: bool = False) -> None:
+    """Raise unless ``cfg`` runs at ``tp``'s width: every layer
+    self-attention (GQA, or MLA when serving) with a dense FFN (or a
+    sort-dispatch MoE one when serving), or one device."""
     if tp is None or tp.size == 1:
         return
-    layers_ok = all(cfg.mixer_kind(i) == "attn" and cfg.ffn_kind(i) == "dense"
-                    for i in range(cfg.n_layers))
-    if cfg.attn_type == "mla" or cfg.is_enc_dec or not layers_ok:
+    if cfg.is_enc_dec or any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism covers dense GQA models; MLA, MoE, Mamba and "
-            "cross layers at tp > 1 wait for ROADMAP Queue 1, item 8")
+            f"{cfg.name}: Mamba and cross layers at tp > 1 wait for ROADMAP Queue 1, "
+            "item 8(c)")
+    moe_layers = any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
+    if train and (cfg.attn_type == "mla" or moe_layers):
+        raise NotImplementedError(
+            f"{cfg.name}: training MLA and MoE layers at tp > 1 waits for ROADMAP Queue 1, "
+            "item 8(c); tensor-parallel training covers dense GQA models")
+    if moe_layers and cfg.moe_impl == "einsum":
+        raise NotImplementedError(f"{cfg.name}: the einsum MoE dispatch has no tensor-parallel "
+                                  "form; serve it with moe_impl='sort'")
 
 
 def prefill(params, batch: dict, cfg, *, max_len: int, impl=None, tp=None):
@@ -414,8 +423,9 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None, tp=None):
     left-pad tokens with negative positions, which attention ignores and a
     Mamba layer cannot (the engine never pads an SSM config's prompts);
     ``batch["ctx_embeds"]`` (VLM) or ``batch["enc_embeds"]``
-    (encoder-decoder) carries the context.  Under ``tp`` (dense GQA) each
-    rank runs its shards and every rank gets the whole logits."""
+    (encoder-decoder) carries the context.  Under ``tp`` (GQA or MLA, dense
+    or MoE FFN) each rank runs its shards and every rank gets the whole
+    logits."""
     check_tp(cfg, tp)
     ctx = _context(params, batch, cfg, impl=impl)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)

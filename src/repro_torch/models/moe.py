@@ -17,9 +17,26 @@ expert-id order, in ``x.dtype`` — the order of the reference's scatter-add
 over the sorted slots — with no scatter-add: a CUDA ``index_add_`` on
 floats names no order and is not repeatable, this sum is.
 
+Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
+TensorParallel`) follows the reference's rule table: where the experts
+divide the model axis (``shard_experts``) a rank holds ``E/tp`` of them and
+its ``E/tp`` router columns; otherwise every rank holds every expert and
+its share of their hidden width (``moe_mlp``).  Either way the routing is
+the whole layer's on every rank: the ranks' router logits are gathered
+(:func:`_router_logits`) before the softmax over all ``E`` experts, so
+capacity and drops come out the same on every rank.  With the experts
+sharded, a rank runs its own experts' slice of the ``[E, B·cap, D]``
+buffer and writes the per-slot outputs of its experts, zero elsewhere;
+these are all-reduced (each slot is non-zero on exactly one rank, so the
+sum is exact) and then combined in expert-id order as on one device, so
+``w8a8`` serves bit for bit as one device does.  With the hidden width sharded, ``w_in`` is column-parallel
+and ``w_out`` row-parallel (:func:`repro_torch.models.layers.
+row_parallel_stacked`).  The shared experts are a dense FFN, column- then
+row-parallel (:func:`repro_torch.models.layers.mlp_apply`), added once.
+
 :func:`moe_apply_einsum` is the GShard one-hot dispatch, and :func:`moe_ref`
 the dense reference (every expert on every token, gate-masked) that the
-tests hold the dispatch to.
+tests hold the dispatch to; neither takes ``tp``.
 """
 
 from __future__ import annotations
@@ -28,6 +45,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import residency
+from repro_torch.models import layers
 from repro_torch.models.layers import activation, dense, dense_stacked
 
 
@@ -37,11 +56,26 @@ def capacity(cfg, s: int, capacity_factor: Optional[float] = None) -> int:
     return max(1, int(s * cfg.experts_per_tok * cf / cfg.n_experts + 0.999))
 
 
-def _route(params, x, cfg):
+def _router_logits(params, x, cfg, tp=None):
+    """The router's float32 logits over all ``E`` experts ``[B, S, E]`` on
+    every rank.  A rank that holds ``E/tp`` router columns computes its
+    logits in place among ``E`` (the other ranks' columns zero) and the
+    ranks' logits are summed, which gathers them exactly: each logit is
+    non-zero on one rank only.  At the whole width each logit is the
+    one-device product bit for bit, where a product ``E/tp`` wide may sum
+    in another order (the CPU and cuBLAS pick their kernels by shape)."""
+    w = params["router"]
+    held, e = w.shape[-1], cfg.n_experts
+    if held != e:
+        w = torch.nn.functional.pad(w, (tp.rank * held, e - (tp.rank + 1) * held))
+    logits = torch.einsum("bsd,de->bse", x.to(torch.float32), w)
+    return logits if held == e else tp.all_reduce_sum(logits)
+
+
+def _route(params, x, cfg, tp=None):
     """Top-k routing.  x: [B, S, D] → (idx [B,S,k] int64, gate [B,S,k] in
-    x.dtype, aux loss)."""
-    logits = torch.einsum("bsd,de->bse", x.to(torch.float32), params["router"])
-    probs = torch.softmax(logits, dim=-1)
+    x.dtype, aux loss), the same on every rank."""
+    probs = torch.softmax(_router_logits(params, x, cfg, tp), dim=-1)
     gate, idx = torch.topk(probs, cfg.experts_per_tok, dim=-1)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     e = cfg.n_experts
@@ -51,64 +85,103 @@ def _route(params, x, cfg):
     return idx, gate.to(x.dtype), aux
 
 
-def _expert_ffn(params, h, cfg, impl=None):
-    """h: [E, C, D] → [E, C, D] through each expert's SwiGLU/GELU."""
+def _n_experts_held(w) -> int:
+    """The experts a stacked weight (float or residency state) holds."""
+    return (w.data if isinstance(w, residency.QuantLinearState) else w).shape[0]
+
+
+def _expert_ffn(params, h, cfg, impl=None, tp=None):
+    """h: [E, C, D] → [E, C, D] through each expert's SwiGLU/GELU.  Under
+    ``tp`` with the hidden width sharded, ``w_out`` is row-parallel."""
     z = activation(dense_stacked(params["w_in"], h, impl=impl), cfg)
+    if tp is not None and tp.size > 1 and _n_experts_held(params["w_in"]) == cfg.n_experts:
+        return layers.row_parallel_stacked(params["w_out"], z, tp, impl=impl)
     return dense_stacked(params["w_out"], z, impl=impl)
 
 
-def _shared(params, x, cfg, impl=None):
-    z = activation(dense(params["shared_w_in"], x, impl=impl), cfg)
-    return dense(params["shared_w_out"], z, impl=impl)
+def _shared(params, x, cfg, impl=None, tp=None):
+    """The shared experts: one dense FFN (column- then row-parallel under
+    ``tp``), its whole output on every rank."""
+    return layers.mlp_apply({"w_in": params["shared_w_in"], "w_out": params["shared_w_out"]},
+                            x, cfg, impl=impl, tp=tp)
 
 
-def moe_apply(params: dict, x: torch.Tensor, cfg, *,
-              capacity_factor: Optional[float] = None, impl=None):
-    """x: [B, S, D] → ([B, S, D], aux_loss).  Sort-based capacity dispatch."""
-    b, s, d = x.shape
-    e, k = cfg.n_experts, cfg.experts_per_tok
-    cap = capacity(cfg, s, capacity_factor)
-    idx, gate, aux = _route(params, x, cfg)  # [B, S, k]
-
-    # each token appears k times; sort the slots by expert id (stable: FIFO)
+def _dispatch(idx, gate, s: int, cap: int, e: int):
+    """Sort each row's ``S·k`` slots by expert id (stable: FIFO) → (order,
+    expert, token and gate of each sorted slot, keep, destination row of
+    the ``[B, E·cap]`` buffer; ``E·cap`` for a dropped slot)."""
+    b, _, k = idx.shape
     eid = idx.reshape(b, s * k)
     order = torch.argsort(eid, dim=1, stable=True)  # [B, S*k]
     eid_s = torch.gather(eid, 1, order)
     tok_s = torch.div(order, k, rounding_mode="floor")  # token of each sorted slot
     gts_s = torch.gather(gate.reshape(b, s * k), 1, order)
-
     # position within its expert = rank − the expert's first rank
-    counts = torch.zeros((b, e), dtype=torch.int64, device=x.device)
+    counts = torch.zeros((b, e), dtype=torch.int64, device=idx.device)
     counts.scatter_add_(1, eid_s, torch.ones_like(eid_s))  # integer: exact in any order
     starts = torch.cumsum(counts, dim=1) - counts
-    rank = torch.arange(s * k, device=x.device)[None, :]
+    rank = torch.arange(s * k, device=idx.device)[None, :]
     pos = rank - torch.gather(starts, 1, eid_s)
     keep = pos < cap
     dest = torch.where(keep, eid_s * cap + pos, e * cap)  # e·cap: the dropped slot
+    return order, eid_s, tok_s, gts_s, keep, dest
 
-    # pack the kept slots into [B, E·cap, D] (each destination written once)
-    buf = torch.zeros((b, e * cap, d), dtype=x.dtype, device=x.device)
-    kb, ks = keep.nonzero(as_tuple=True)
-    buf[kb, dest[kb, ks]] = x[kb, tok_s[kb, ks]]
-    h = buf.reshape(b, e, cap, d).transpose(0, 1).reshape(e, b * cap, d)
-    h = _expert_ffn(params, h, cfg, impl=impl)
-    h = h.reshape(e, b, cap, d).transpose(0, 1).reshape(b, e * cap, d)
 
-    # back to the slots, gated; dropped slots read zeros
+def _slot_outputs(params, x, cfg, routed, cap: int, *, first: int = 0, impl=None, tp=None):
+    """The gated outputs ``[B, S·k, D]`` (sorted slots) of the experts this
+    rank holds, ``first ..`` (all of them on one device); a slot of another
+    rank's expert, or a dropped slot, is zero."""
+    b, _, d = x.shape
+    _, eid_s, tok_s, gts_s, keep, dest = routed
+    held = _n_experts_held(params["w_in"])
+    mine = keep & (eid_s >= first) & (eid_s < first + held)
+    local = torch.where(mine, dest - first * cap, held * cap)
+    # pack the rank's kept slots into [B, held·cap, D] (each destination once)
+    buf = torch.zeros((b, held * cap, d), dtype=x.dtype, device=x.device)
+    kb, ks = mine.nonzero(as_tuple=True)
+    buf[kb, local[kb, ks]] = x[kb, tok_s[kb, ks]]
+    h = buf.reshape(b, held, cap, d).transpose(0, 1).reshape(held, b * cap, d)
+    h = _expert_ffn(params, h, cfg, impl=impl, tp=tp)
+    h = h.reshape(held, b, cap, d).transpose(0, 1).reshape(b, held * cap, d)
+    # back to the slots, gated; the rank's other slots read zeros
     h = torch.nn.functional.pad(h, (0, 0, 0, 1))
-    out_s = torch.gather(h, 1, dest[..., None].expand(b, s * k, d))
-    out_s = out_s * (gts_s * keep)[..., None].to(out_s.dtype)
-    # combine: each token's k slots in sorted order (= expert-id order),
-    # summed left to right in x.dtype
+    out_s = torch.gather(h, 1, local[..., None].expand(*local.shape, d))
+    return out_s * (gts_s * mine)[..., None].to(out_s.dtype)
+
+
+def _combine(out_s, order, k: int, tp=None, sharded: bool = False):
+    """Each token's ``k`` slot outputs summed in sorted order (= expert-id
+    order), left to right in ``out_s.dtype``.  With the experts ``sharded``
+    the ranks' per-slot outputs are all-reduced first: each slot is
+    non-zero on one rank only, so the sum is exact and the combine is one
+    device's."""
+    if sharded:
+        out_s = tp.all_reduce_sum(out_s)
+    b, sk, d = out_s.shape
     inv = torch.argsort(order, dim=1)  # sorted position of slot (token, choice)
-    at = torch.sort(inv.reshape(b, s, k), dim=-1).values.reshape(b, s * k)
-    parts = torch.gather(out_s, 1, at[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
+    at = torch.sort(inv.reshape(b, sk // k, k), dim=-1).values.reshape(b, sk)
+    parts = torch.gather(out_s, 1, at[..., None].expand(b, sk, d)).reshape(b, sk // k, k, d)
     y = parts[:, :, 0]
     for j in range(1, k):
         y = y + parts[:, :, j]
+    return y
 
+
+def moe_apply(params: dict, x: torch.Tensor, cfg, *,
+              capacity_factor: Optional[float] = None, impl=None, tp=None):
+    """x: [B, S, D] → ([B, S, D], aux_loss).  Sort-based capacity dispatch;
+    under ``tp`` the rank's experts or hidden share (module docstring)."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    cap = capacity(cfg, s, capacity_factor)
+    idx, gate, aux = _route(params, x, cfg, tp)  # [B, S, k]
+    routed = _dispatch(idx, gate, s, cap, e)
+    held = _n_experts_held(params["w_in"])
+    first = 0 if held == e else tp.rank * held
+    out_s = _slot_outputs(params, x, cfg, routed, cap, first=first, impl=impl, tp=tp)
+    y = _combine(out_s, routed[0], k, tp, sharded=held != e)
     if cfg.n_shared_experts:
-        y = y + _shared(params, x, cfg, impl=impl)
+        y = y + _shared(params, x, cfg, impl=impl, tp=tp)
     return y, aux
 
 

@@ -64,11 +64,11 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
     if mode == "prefill":
         if mla:
             return attention.mla_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
-                                         impl=impl)
+                                         impl=impl, tp=tp)
         return attention.gqa_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
                                      impl=impl, tp=tp)
     if mla:
-        return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl)
+        return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
     return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
 
 
@@ -84,7 +84,8 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
     Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
-    (GQA and the dense FFN only; the model checks) runs the rank's shards."""
+    (GQA or MLA, a dense or MoE FFN; the model checks) runs the rank's
+    shards."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
         a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl)
@@ -108,8 +109,10 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
         return x, cache, aux
     h2 = layers.norm_apply(params["ln2"], x, cfg)
     if ffn == "moe":
-        moe_fn = moe.moe_apply_einsum if cfg.moe_impl == "einsum" else moe.moe_apply
-        y, aux = moe_fn(params["ffn"], h2, cfg, impl=impl)
+        if cfg.moe_impl == "einsum":
+            y, aux = moe.moe_apply_einsum(params["ffn"], h2, cfg, impl=impl)
+        else:
+            y, aux = moe.moe_apply(params["ffn"], h2, cfg, impl=impl, tp=tp)
     else:
         y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl, tp=tp)
     return x + y.to(x.dtype), cache, aux

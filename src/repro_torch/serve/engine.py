@@ -108,19 +108,48 @@ def convert_params(params, cfg, spec, *, min_dim: int = 64):
 
 
 def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int = 64,
-                          tp: int = 1, keep=None):
+                          tp: int = 1, keep=None, mesh=None, rules=None):
     """``convert_params(materialize(cfg, seed, device, tp), cfg, spec)``,
     equal to it bit for bit, with each leaf converted as soon as it is
     drawn: the float tree is never held whole, so a model whose float
     weights do not fit the card beside their converted form (qwen1.5-32b)
     fits.  ``keep(leaf)`` maps each converted leaf before the next is drawn
     (``lambda leaf: tree_to(leaf, "cpu")`` keeps the tree on the host, where
-    a tensor-parallel engine cuts each rank's shards from it)."""
+    a tensor-parallel engine cuts each rank's shards from it).
+
+    With ``mesh`` (this rank's ``DeviceMesh``, its ``model`` axis ``tp``
+    ways) and ``rules``, each leaf is cut to the rank's shard as soon as it
+    is drawn, equal bit for bit to the rank's shard of the whole tree's
+    conversion (``ServeEngine(..., sharded=True)`` serves it): a stacked
+    expert leaf whose expert axis the rules shard converts only the rank's
+    experts (each expert converts on its own), any other leaf converts
+    whole and is then cut (a weight's per-column scales are its whole
+    column's, so a shard of its K rows cannot convert alone)."""
     convert = leaf_converter(residency.ResidencySpec.parse(spec), min_dim)
+    if mesh is not None:
+        convert = _shard_converter(convert, model_lib.specs(cfg, tp), mesh, rules)
     if keep is not None:
         return model_lib.draw(cfg, seed, device, tp=tp,
                               leaf=lambda path, w: keep(convert(path, w)))
     return model_lib.draw(cfg, seed, device, leaf=convert, tp=tp)
+
+
+def _shard_converter(convert, spec_tree, mesh, rules):
+    """``convert(path, w)`` followed by the cut to this rank's shard on
+    ``mesh`` (:func:`materialize_converted`)."""
+    sizes, coords = P.mesh_sizes(mesh), P.mesh_coords(mesh)
+
+    def one(path, w):
+        spec = spec_tree
+        for key in path:
+            spec = spec[int(key)] if isinstance(spec, list) else spec[key]
+        first = P.spec_for(spec.axes, rules)[0]
+        if w.ndim == 3 and first is not None:  # the rank's experts alone
+            w = P.take_index(w, P.shard_index(w.shape, (first, None, None), sizes, coords))
+            spec = dataclasses.replace(spec, shape=tuple(w.shape), axes=(None,) + spec.axes[1:])
+        return P.shard_leaf(convert(path, w), spec, sizes, coords, rules)
+
+    return one
 
 
 def leaf_converter(spec, min_dim: int):
@@ -185,10 +214,15 @@ def _tensor_parallel(cfg, tp: int, rules, mesh):
             "a mesh with a data axis above 1: the slots' batch sharding waits for "
             "ROADMAP Queue 1, item 8")
     shard_kv = attention.attn_dims(cfg, tp)[2]
+    shard_experts = bool(cfg.n_experts) and cfg.n_experts % tp == 0
     if rules is None:
-        rules = P.base_rules(data_axes=("data",), shard_kv_heads=shard_kv)
+        rules = P.base_rules(data_axes=("data",), shard_kv_heads=shard_kv,
+                             shard_experts=shard_experts)
     want = {"heads": "model", "mlp": "model", "vocab": "model", "embed": None,
-            "kv_heads": "model" if shard_kv else None}
+            "kv_heads": "model" if shard_kv else None, "kv_lora": None}
+    if cfg.n_experts:  # the experts, or else their hidden width, on the model axis
+        want.update(expert="model" if shard_experts else None,
+                    moe_mlp=None if shard_experts else "model")
     if any(rules.get(k) != v for k, v in want.items()):
         raise ValueError(f"the tensor-parallel layers need the rules {want}, got "
                          f"{ {k: rules.get(k) for k in want} }")
@@ -256,13 +290,18 @@ class ServeEngine:
     ``mesh`` (a ``DeviceMesh`` whose ``model`` axis is ``tp`` long; the
     PyTorch form of the reference's ambient mesh) under ``rules`` (default
     :func:`~repro_torch.sharding.partitioning.base_rules` with the KV-head
-    rule ``attn_dims`` gives).  ``params`` is then the global tree of
+    rule ``attn_dims`` gives, and ``expert`` on the model axis where the
+    experts divide it, ``moe_mlp`` otherwise, as the reference's ``plan``
+    decides).  ``params`` is then the global tree of
     ``model.specs(cfg, tp)`` (float or already converted), best on the
     host: it is converted as a whole, and each rank copies only its own
     shard of every leaf to ``device`` (:func:`repro_torch.core.transfer.
     place_shard`).  Every rank runs the same scheduler on the same
     all-gathered logits, and :meth:`run` ends by checking that every rank
-    emitted the same tokens.  A mesh with a ``data`` (or ``pod``) axis above 1
+    emitted the same tokens.  With ``sharded`` the ``params`` are this
+    rank's shards, already converted to ``mode``
+    (``materialize_converted(..., mesh=mesh, rules=rules)``), and are only
+    moved to ``device``.  A mesh with a ``data`` (or ``pod``) axis above 1
     raises: the reference shards the slots over it, which waits for the
     batch sharding of ROADMAP Queue 1, item 8.
     """
@@ -274,18 +313,22 @@ class ServeEngine:
                  scheduler: sched_lib.SchedulerLike = "fcfs", min_dim: int = 64,
                  trace_logits: bool = False, trace=False,
                  page_pool_pages: Optional[int] = None,
-                 clock: Callable[[], float] = time.perf_counter, device=None):
+                 clock: Callable[[], float] = time.perf_counter, device=None,
+                 sharded: bool = False):
         self.device = resolve_device(device)
         spec = residency.ResidencySpec.parse(mode)
         self.tp, self.rules, self.mesh = tp, rules, mesh
         self._tp = None
         if tp > 1:
             self._tp, self.rules = _tensor_parallel(cfg, tp, rules, mesh)
-            if not spec.is_trivial:
-                params = convert_params(params, cfg, spec, min_dim=min_dim)
-            params = P.shard_tree(
-                params, model_lib.specs(cfg, tp), mesh, self.rules,
-                place=lambda t, index: transfer.place_shard(t, index, self.device))
+            if sharded:  # the rank's shards, converted to ``mode`` already
+                params = tree_to(params, self.device)
+            else:
+                if not spec.is_trivial:
+                    params = convert_params(params, cfg, spec, min_dim=min_dim)
+                params = P.shard_tree(
+                    params, model_lib.specs(cfg, tp), mesh, self.rules,
+                    place=lambda t, index: transfer.place_shard(t, index, self.device))
         else:
             params = tree_to(params, self.device)
             if not spec.is_trivial:

@@ -1,12 +1,14 @@
-"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``).
+"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``
+and, with ``"suite": "moe"``, ``tests/test_torch_tp_moe.py``).
 
 Run as ``python tests/_torch_tp_rank.py '<json>'`` with ``rank``, ``world``,
 ``port`` and ``workdir``: the rank joins a gloo process group on
 ``tcp://localhost:<port>``, builds a ``(data=1, model=world)`` mesh, reads
-the reference's float parameters (``workdir/params.npz``, the reference's
-``materialize(specs(cfg, world))`` in its stacked layout) and writes what it
+the float parameters in the reference's stacked layout (``workdir/
+params.npz``, the reference's ``materialize(specs(cfg, world))``; for the
+MoE suite ``workdir/<arch>.npz``, one a config) and writes what it
 computed to ``workdir/rank<r>.npz``.  It imports only ``repro_torch``,
-torch and numpy; the test module imports this one for the shared inputs.
+torch and numpy; the test modules import this one for the shared inputs.
 """
 
 from __future__ import annotations
@@ -39,6 +41,29 @@ def smoke_cfg(tp: int, lib):
     get, f32 = lib
     cfg = get(ARCH).scaled(dtype=f32)
     return cfg.scaled(d_ff=96) if tp == 3 else cfg
+
+
+#: the MoE suite's configs: MLA + MoE with shared experts, a sliding window
+#: + MoE, MLA with a low-rank query
+MOE_ARCHS = ("deepseek-v2-lite-16b", "mixtral-8x7b", "minicpm3-4b")
+
+
+def moe_cfg(arch: str, tp: int, lib):
+    """``arch``'s smoke config in float32 for the MoE suite.  The MoE
+    configs take capacity factor 1.25 (the smoke configs' 8.0 never drops)
+    and deepseek 4 experts a token (its smoke config's 2 would make every
+    combine a sum of two, which no order of adding changes).  At tp = 3
+    the FFNs are 96 wide and the experts 48: the smoke widths (w_in's 256
+    and 64 columns) do not divide three ways in either package."""
+    get, f32 = lib
+    cfg = get(arch).scaled(dtype=f32)
+    if cfg.n_experts:
+        cfg = cfg.scaled(capacity_factor=1.25)
+    if arch == "deepseek-v2-lite-16b":
+        cfg = cfg.scaled(experts_per_tok=4)
+    if tp == 3:
+        cfg = cfg.scaled(d_ff=96, **({"moe_d_ff": 48} if cfg.n_experts else {}))
+    return cfg
 
 
 def prefill_inputs(vocab: int):
@@ -104,12 +129,17 @@ class BoundaryCodes:
     def restore(self):
         self._quant.quantize = self._quantize
 
+    def _next_ref(self, shape):
+        """The reference's next rounding (values over scale, codes) for a
+        port rounding of ``shape``."""
+        self.calls += 1
+        return self.ref[self.calls - 1]
+
     def quantize(self, x, *, bits=8, axis=-1, scale=None):
         import dataclasses
 
         qt = self._quantize(x, bits=bits, axis=axis, scale=scale)
-        v_ref, q_ref = (a.reshape(-1) for a in self.ref[self.calls])
-        self.calls += 1
+        v_ref, q_ref = (a.reshape(-1) for a in self._next_ref(tuple(qt.data.shape)))
         q = qt.data.numpy().reshape(-1).copy()
         v = (x / qt.scale).numpy().reshape(-1)
         if q.shape != q_ref.shape:
@@ -122,6 +152,28 @@ class BoundaryCodes:
         self.forced += int(near.sum())
         self.far += int((~near).sum())
         return dataclasses.replace(qt, data=torch.from_numpy(q.reshape(qt.data.shape)))
+
+
+class ExpertBoundaryCodes(BoundaryCodes):
+    """:class:`BoundaryCodes` where the port rounds a MoE layer's stacked
+    expert input ``[e, M, K]`` at once and the reference (a ``vmap`` over the
+    experts) rounds ``[M, K]`` once an expert: the reference's ``n_experts``
+    roundings are stacked and the rank's ``e`` experts taken (all of them
+    where ``e`` is ``n_experts``, the hidden width sharded)."""
+
+    def __init__(self, ref, quant, n_experts: int, rank: int):
+        super().__init__(ref, quant)
+        self.n_experts, self.rank = n_experts, rank
+
+    def _next_ref(self, shape):
+        nxt = self.ref[self.calls][1] if self.calls < len(self.ref) else None
+        if len(shape) != 3 or nxt is None or nxt.size != shape[1] * shape[2]:
+            return super()._next_ref(shape)
+        parts = self.ref[self.calls:self.calls + self.n_experts]
+        self.calls += self.n_experts
+        first = 0 if shape[0] == self.n_experts else self.rank * shape[0]
+        return tuple(np.stack([a.reshape(shape[1:]) for a in arrays])[first:first + shape[0]]
+                     for arrays in zip(*parts))
 
 
 def _prefill_decode(eng, model_lib, vocab: int) -> dict:
@@ -156,6 +208,119 @@ def _bias_check(tp, layers) -> dict:
     return {"want": (x @ w + b).numpy(), "once": once.numpy(), "every": every.numpy()}
 
 
+def _wait_codes(path: str):
+    """The reference's codes (values over scale and codes, in call order),
+    written by the test process while the ranks run."""
+    deadline = time.monotonic() + CODES_WAIT_S
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no reference codes after {CODES_WAIT_S} s")
+        time.sleep(0.2)
+    with np.load(path) as z:
+        return [(z[f"v{i}"], z[f"q{i}"]) for i in range(len(z.files) // 2)]
+
+
+def _moe_faults(moe):
+    """The planted faults of the MoE suite, each a ``(name, function name,
+    replacement(original))``: the router's softmax over the rank's own
+    experts only (its probabilities gathered after it), the shared experts'
+    whole output added on every rank and summed, and the ranks' per-token
+    partial sums all-reduced in place of the per-slot outputs."""
+
+    def local_softmax(orig):
+        def logits(params, x, cfg, tp=None):
+            local = torch.softmax(torch.einsum("bsd,de->bse", x.to(torch.float32),
+                                               params["router"]), dim=-1)
+            return torch.log(tp.all_gather(local, dim=-1))  # softmax(log p) = p / sum p
+        return logits
+
+    def shared_every_rank(orig):
+        return lambda params, x, cfg, impl=None, tp=None: tp.all_reduce_sum(
+            orig(params, x, cfg, impl=impl, tp=tp))
+
+    def token_partials(orig):
+        def combine(out_s, order, k, tp=None, sharded=False):
+            y = orig(out_s, order, k)
+            return tp.all_reduce_sum(y) if sharded else y
+        return combine
+
+    return (("local_softmax", "_router_logits", local_softmax),
+            ("shared_every_rank", "_shared", shared_every_rank),
+            ("token_partials", "_combine", token_partials))
+
+
+def main_moe(rank: int, world: int, workdir: str, mesh) -> dict:
+    """The MoE suite on one rank: every config of :data:`MOE_ARCHS` at tp =
+    ``world``, prefill + decode on every stack (path A with the reference's
+    boundary codes forced), the weights' resident bytes; at tp = 2 also
+    the ``w8a8`` drive at tp = 1 on the same weights, deepseek's
+    teacher-forced ``w8a8`` serve and the planted faults."""
+    from repro_torch import configs, convert
+    from repro_torch.core import quant
+    from repro_torch.models import model as model_lib
+    from repro_torch.models import moe
+    from repro_torch.serve import engine
+
+    out: dict = {}
+    for arch in MOE_ARCHS:
+        cfg = moe_cfg(arch, world, (configs.get_smoke_config, torch.float32))
+        with np.load(f"{workdir}/{arch}.npz") as z:
+            tree = _nest({k: z[k] for k in z.files})
+        params = convert.params_from_numpy(tree, cfg, "cpu", tp=world)
+
+        def build(stack, tp=world):
+            mode, cache = STACKS[stack]
+            return engine.ServeEngine(params, cfg, tp=tp, mesh=mesh if tp > 1 else None,
+                                      slots=2, max_len=MAX_LEN, mode=mode, cache_format=cache,
+                                      min_dim=16, trace_logits=True, device="cpu")
+
+        def drive(stack, tp=world):
+            return _prefill_decode(build(stack, tp), model_lib, cfg.vocab_size)["logits"]
+
+        for stack in STACKS:
+            eng = build(stack)
+            out[f"{arch}/bytes/{stack}"] = np.array(eng.resident_bytes()["weights"])
+            if stack != "A":
+                out[f"{arch}/pd/{stack}"] = _prefill_decode(eng, model_lib,
+                                                            cfg.vocab_size)["logits"]
+        if world == 2:
+            out[f"{arch}/pd/w8a8_tp1"] = drive("w8a8", tp=1)
+            # the rank's shards drawn and converted alone: the test's weights
+            # are materialize(cfg, seed=0, tp=world)'s
+            own = engine.materialize_converted(cfg, "w8a8", seed=0, device="cpu", min_dim=16,
+                                               tp=world, mesh=mesh, rules=build("w8a8").rules)
+            eng = engine.ServeEngine(own, cfg, tp=world, mesh=mesh, slots=2, max_len=MAX_LEN,
+                                     mode="w8a8", min_dim=16, device="cpu", sharded=True)
+            out[f"{arch}/pd/w8a8_sharded_draw"] = _prefill_decode(eng, model_lib,
+                                                                  cfg.vocab_size)["logits"]
+        if world == 2 and cfg.n_experts:
+            for name, fn_name, plant in _moe_faults(moe):
+                keep = getattr(moe, fn_name)
+                setattr(moe, fn_name, plant(keep))
+                try:
+                    out[f"{arch}/fault/{name}"] = drive("w8a8")
+                finally:
+                    setattr(moe, fn_name, keep)
+        if world == 2 and arch == MOE_ARCHS[0]:
+            eng = build("w8a8")
+            reqs = schedule(eng, cfg.vocab_size)
+            out[f"{arch}/serve/tokens"] = np.array([t for r in reqs for t in r.out])
+            out[f"{arch}/serve/logits"] = np.concatenate(
+                [np.reshape(lg, (-1, lg.shape[-1])) for _, _, lg in eng.logit_trace])
+            out[f"{arch}/serve/kinds"] = np.array([f"{k}{list(s)}" for k, s, _ in
+                                                   eng.logit_trace])
+        eng = build("A")  # converted before the codes are forced
+        codes = ExpertBoundaryCodes(_wait_codes(f"{workdir}/codes_{arch}.npz"), quant,
+                                    cfg.n_experts, rank)
+        try:
+            out[f"{arch}/pd/A"] = _prefill_decode(eng, model_lib, cfg.vocab_size)["logits"]
+        finally:
+            codes.restore()
+        out[f"{arch}/pd/A_codes"] = np.array([codes.calls, len(codes.ref), codes.forced,
+                                              codes.far])
+    return out
+
+
 def main(argv) -> int:
     args = json.loads(argv[1])
     rank, world, workdir = args["rank"], args["world"], args["workdir"]
@@ -170,6 +335,10 @@ def main(argv) -> int:
     mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{args['port']}",
                   device="cpu", backend="gloo")
     mesh = mesh_lib.device_mesh("cpu", (1, world), ("data", "model"))
+    if args.get("suite") == "moe":
+        np.savez(f"{workdir}/rank{rank}.npz", **main_moe(rank, world, workdir, mesh))
+        torch.distributed.destroy_process_group()
+        return 0
     cfg = smoke_cfg(world, (configs.get_smoke_config, torch.float32))
     with np.load(f"{workdir}/params.npz") as z:
         tree = _nest({k: z[k] for k in z.files})
@@ -222,13 +391,7 @@ def main(argv) -> int:
     model_lib.mask_pad_vocab = keep_mask
     # path A's int4 activation codes forced to the reference's at boundaries
     # (recorded by the test process while the ranks ran the rest)
-    deadline = time.monotonic() + CODES_WAIT_S
-    while not os.path.exists(f"{workdir}/codes_A.npz"):
-        if time.monotonic() > deadline:
-            raise TimeoutError(f"no reference codes after {CODES_WAIT_S} s")
-        time.sleep(0.2)
-    with np.load(f"{workdir}/codes_A.npz") as z:
-        ref_codes = [(z[f"v{i}"], z[f"q{i}"]) for i in range(len(z.files) // 2)]
+    ref_codes = _wait_codes(f"{workdir}/codes_A.npz")
     eng = build("A")
     codes = BoundaryCodes(ref_codes, quant)
     out["pd/A_forced"] = _prefill_decode(eng, model_lib, cfg.vocab_size)["logits"]

@@ -1015,3 +1015,25 @@ class TestThirteenthSliceOnTheCard:
             for k, v in src.batch(step).items():
                 np.testing.assert_array_equal(b[k].cpu().numpy(), v)
         gen.close()
+
+
+@pytest.mark.gpu
+class TestSeventeenthSliceOnTheCard:
+    """The launch that tensor-parallel MoE layers add: the grouped W8A8
+    product's raw int32 sums (a row-parallel expert ``w_out`` sums its ranks'
+    partials before the epilogue)."""
+
+    @pytest.mark.parametrize("m", [4, 37])
+    def test_grouped_matmul_int8_raw_int32(self, cuda, m):
+        gen = torch.Generator(device=cuda).manual_seed(330 + m)
+        x = torch.randint(-128, 128, (3, m, 160), dtype=torch.int8, generator=gen, device=cuda)
+        w = torch.randint(-128, 128, (3, 160, 72), dtype=torch.int8, generator=gen, device=cuda)
+        ones_m = torch.ones((3, m, 1), device=cuda)
+        ones_n = torch.ones((3, 1, 72), device=cuda)
+        ops.reset_counts()
+        got = gemv_int8.matmul_int8_grouped(x, w, ones_m, ones_n, out_int32=True)
+        assert ops.launch_counts()["matmul_int8"] == 1 and got.dtype == torch.int32
+        assert torch.equal(got, gemv_int8.matmul_int8_grouped_plain(x, w, ones_m, ones_n,
+                                                                    out_int32=True))
+        assert torch.equal(got.cpu(), torch.stack([ref.dot_i32(a, b)
+                                                   for a, b in zip(x.cpu(), w.cpu())]))

@@ -316,8 +316,8 @@ def test_placements_name_the_sharded_dims():
 
 def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
     """tp > 1 without a mesh, on a mesh whose data axis is above 1, or on a
-    config with MLA, MoE, Mamba or cross layers raises; at tp = 1 nothing
-    is checked."""
+    config with Mamba or cross layers raises, and so does training MLA or
+    MoE layers (serving them is covered); at tp = 1 nothing is checked."""
     from repro_torch.distributed.mesh import TensorParallel
     from repro_torch.serve import engine
 
@@ -332,10 +332,19 @@ def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
         engine.ServeEngine(params, cfg, tp=2, mesh=StandIn((1, 4), ("data", "model")),
                            device="cpu")
     for arch in ("minicpm3-4b", "deepseek-v2-lite-16b", "falcon-mamba-7b",
-                 "llama-3.2-vision-11b", "seamless-m4t-medium", "mixtral-8x7b"):
+                 "llama-3.2-vision-11b", "seamless-m4t-medium", "mixtral-8x7b",
+                 "jamba-1.5-large-398b"):
         other = configs.get_smoke_config(arch)
         model_lib.check_tp(other, None)
-        model_lib.check_tp(other, TensorParallel(size=1, rank=0))
+        model_lib.check_tp(other, TensorParallel(size=1, rank=0), train=True)
         with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+            model_lib.check_tp(other, TensorParallel(size=2, rank=0), train=True)
+        if arch in ("minicpm3-4b", "deepseek-v2-lite-16b", "mixtral-8x7b"):
             model_lib.check_tp(other, TensorParallel(size=2, rank=0))
-    model_lib.check_tp(cfg, TensorParallel(size=2, rank=0))
+        else:
+            with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+                model_lib.check_tp(other, TensorParallel(size=2, rank=0))
+    einsum = configs.get_smoke_config("mixtral-8x7b").scaled(moe_impl="einsum")
+    with pytest.raises(NotImplementedError, match="einsum"):
+        model_lib.check_tp(einsum, TensorParallel(size=2, rank=0))
+    model_lib.check_tp(cfg, TensorParallel(size=2, rank=0), train=True)
