@@ -30,7 +30,8 @@ pages (8 tokens a page, 64 a slot at max_len 512):
      mix: every token and logit row equal to A's serves, A's launches a
      decode step, the cache's bytes the analytic pool + tables + pos_ids
      count, and the block-table gathers profiled alone
-  Y  under ``prefix_cache`` at slots=4 on a 176-page pool: twelve
+  Y  under ``prefix_cache`` at slots=4 on a 176-page pool, the first
+     ``Y_DEPTH`` (8) of the 28 layers: twelve
      requests behind one 256-token system prompt, the last wrapping its
      ring into the shared pages, traced (``trace=True`` and a Chrome-trace
      sink): prefix hits, copy-on-write, the shared pages' bytes intact,
@@ -148,10 +149,14 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       ``ShardCodeLog``) within ``PATH_LIMITS``; a MoE router choice that
       differs from tp = 1's counted, and that run then held with tp = 1's
       choices forced (``_record_routes``); every rank's tokens equal;
-      each rank's resident bytes equal to the shards ``spec_for`` cuts over
-      the formats' ``data_axes`` on meta tensors; each kernel's launches a
-      decode step equal to tp = 1's; a decode step profiled on each rank,
-      the collectives' host time printed.  Phase 2 times the kernels at
+      each rank's resident bytes equal to the dry run's count of a rank's
+      (``dryrun.rank_bytes``: the meta trees cut by the formats'
+      ``data_axes`` and ``cache_pspecs``); the serve's collectives, by kind
+      in count and raw bytes, equal to the dry run's count of its model
+      calls (``dryrun.serve_collectives``, ``ModelCallLog``); each kernel's
+      launches a decode step equal to tp = 1's; a decode step profiled on
+      each rank, its busy ms over the dry run's step bound at tp = 2
+      (collective term included) and the collectives' host time printed.  Phase 2 times the kernels at
       the shard shapes (``TP_PROJ``; the row-parallel wo and w_out through
       ``matmul_int8``'s raw int32 route; ``_rows_tp_moe``: the grouped
       launches over a rank's 32 and 4 experts, MLA's wq on 8 heads).  The tp = 2 runs are no speed
@@ -164,20 +169,30 @@ two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
       ``(data=2, model=1)`` mesh with FSDP at path Z's settings, 3 steps:
       each step's ms (CUDA events), tokens/s, each rank's peak allocation
       against its shard of the analytic train state, the collectives'
-      counts and host ms; every replicated leaf bitwise equal on both
+      counts and host ms; every step's collectives, by kind in count and
+      raw bytes, equal to ``dryrun.train_step_collectives``' count, and
+      each rank's parameter shards and optimizer state to
+      ``dryrun.rank_bytes``'; every replicated leaf bitwise equal on both
       ranks after each step; the first loss the one-rank loss on the same
       weights and batch within path Z's bf16 limit
   (b) the 2-layer float32 cut over FSDP (data=2), TP (model=2) and the
       int8 pod hop (pod=2) against (data=1, model=1) on the same weights
       and batches: loss and gradients within 1e-5 of each leaf's largest,
       the parameters after 2 steps likewise but for Adam's sign moves
-      (counted), the hop's output the quantized global gradient exactly
+      (counted), the hop's output the quantized global gradient exactly,
+      a whole step's collectives equal to the dry run's count
   (c) the cut's trainer at data=2 failing before step 3 and restarting
       from its step-2 checkpoint, bitwise equal to an uninterrupted run,
       and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
       device within (b)'s limits of an uninterrupted run there
   (d) ``pipeline_apply`` at pipe=2 over the cut's two layers against the
       sequential stack
+
+and then the example twins (``phase_examples``): ``repro_torch.examples.
+quickstart`` (train the reduced qwen3, convert to ``w8a8``, prefill and
+decode) and ``repro_torch.examples.serve_quantized`` (every weight format,
+the mixed policies with their cache suffixes, the traced all-fused row) on
+the card, no plain version on CUDA.
 
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
@@ -204,7 +219,10 @@ path's decode step against its analytic traffic and H100 step bound
 (``dryrun.analytic_traffic``, ``hlo_stats.roofline_terms``, a
 ``ShapeCell`` of the path's slots and max_len), busy ms over the bound;
 ``dryrun.analyze_cell`` for all 33 arch × shape cells under path A's
-stack, one line each; ``hlo_stats.HW``'s HBM bytes against the card's.  Phase 4 compares the kernel path with the plain path on a 2-layer
+stack, one line each, then at the pod and multi-pod meshes and
+jamba-1.5-large-398b's decode cell on 4 and 8 cards (a rank's bytes, fits
+80 GB, wire bytes or the check that raises); ``hlo_stats.HW``'s HBM bytes
+against the card's.  Phase 4 compares the kernel path with the plain path on a 2-layer
 cut for each weight format, the ``int8`` cache, a chunked serve and each
 further config on its two stacks (with the share of MoE routing choices
 that agree; O-R's configs too, B's stack held to a zero difference),
@@ -2014,6 +2032,9 @@ def phase_paged(torch, device, card, engine, qparams, cfg, served_a) -> dict:
 #: tokens, whose positions run to 551 and wrap its ring into pages 0-4,
 #: which the prefix index still holds.  All are submitted at step 0.
 Y_SHARED, Y_REQUESTS, Y_LONG, Y_LONG_NEW = 256, 11, 200, 96
+#: path Y's layers: the first Y_DEPTH of path A's converted tree (its three
+#: serves of 211 steps are host-bound: at all 28 layers they took ~130 s)
+Y_DEPTH = 8
 
 
 def _prefix_mix(cfg):
@@ -2084,7 +2105,8 @@ def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
     contiguous ``int4_bp_fused`` cache under ``prefix_cache`` serves the
     same mix: the share of equal tokens and each request's first-logit
     distance are printed, not held (an attached request reads K/V its donor
-    computed at another M).  Returns the traced run's kernel launches."""
+    computed at another M).  Served on the first :data:`Y_DEPTH` layers.
+    Returns the traced run's kernel launches."""
     import json
     import os
     import tempfile
@@ -2094,6 +2116,8 @@ def phase_prefix(torch, device, card, engine, qparams, cfg) -> dict:
     from repro_torch import obs
     from repro_torch.kernels import ops
 
+    cfg = cfg.scaled(n_layers=Y_DEPTH)
+    qparams = dict(qparams, layers=qparams["layers"][:Y_DEPTH])
     shared, prompts, max_news = _prefix_mix(cfg)
     snap: dict = {}
 
@@ -3008,7 +3032,14 @@ def phase_dryrun(torch, card) -> None:
     depth it served), ``roofline_terms``' ``step_lower_bound`` and busy ms
     over it; (c) ``dryrun.analyze_cell`` for every arch × applicable shape
     under path A's stack, one line each (fits one card, dominant term,
-    bound).  Host arithmetic over meta tensors: no kernel runs."""
+    bound); (d) the same cells at the 16 × 16 pod and the 2 × 16 × 16
+    multi-pod mesh, and jamba-1.5-large-398b's decode cell at (data, model)
+    = (1, 4) and (1, 8) (:data:`DRYRUN_JAMBA_MESHES`), one ``dry run mesh``
+    line each: a rank's bytes and whether they fit the card, the step's
+    collective wire bytes or the check that keeps the port from running the
+    cell there, the dominant term and the bound (probes skipped: the port's
+    counts are its full-depth counts).  Host arithmetic over meta tensors:
+    no kernel runs."""
     from repro_torch.configs import ARCH_NAMES, applicable_shapes, get_config
     from repro_torch.configs.base import ShapeCell
     from repro_torch.launch import dryrun, hlo_stats
@@ -3044,6 +3075,40 @@ def phase_dryrun(torch, card) -> None:
         print(f"dry run {arch} {shape} ({qmode}, cache {cache}): fits one card {one['fits']} "
               f"({one['total_bytes']} B), dominant {roof['dominant']}, step_lower_bound "
               f"{roof['step_lower_bound'] * 1e3:.4f} ms")
+    t0 = time.perf_counter()
+    for mesh in ("pod", "multipod"):
+        for arch, shape in cells:
+            _mesh_line(dryrun.analyze_cell(arch, shape, mesh=mesh, qmode=qmode,
+                                           cache_format=cache, skip_probes=True), mesh)
+    for mesh_shape in DRYRUN_JAMBA_MESHES:
+        _mesh_line(dryrun.analyze_cell("jamba-1.5-large-398b", "decode_32k", qmode=qmode,
+                                       cache_format=cache, mesh_shape=mesh_shape,
+                                       skip_probes=True), f"(data, model) = {mesh_shape}")
+    print(f"dry run at the meshes: {2 * len(cells) + len(DRYRUN_JAMBA_MESHES)} records in "
+          f"{time.perf_counter() - t0:.1f} s of host arithmetic")
+
+
+#: jamba-1.5-large-398b's decode cell on four and on eight cards of one host
+DRYRUN_JAMBA_MESHES = ((1, 4), (1, 8))
+
+
+def _mesh_line(rec: dict, mesh: str) -> None:
+    """One ``dry run mesh`` line: a rank's bytes and whether they fit the
+    card, the step's wire bytes or why the port runs no count there, the
+    dominant roofline term and the bound."""
+    mine, roof = rec["rank"], rec["roofline"]
+    wire = (f"collectives null ({rec['unsupported']})" if rec["collectives"] is None
+            else f"wire {rec['collective_wire_bytes']:.0f} B/device ("
+            + ", ".join(f"{k} {v['count']}" for k, v in sorted(rec["collectives"].items()))
+            + ")")
+    print(f"dry run mesh {mesh} ({rec['devices']} devices, tp {rec['mesh_shape'].get('model')})"
+          f" {rec['arch']} {rec['shape']} ({rec['qmode']}): a rank {mine['total']} B (weights "
+          f"{mine.get('weights', mine.get('params'))}, cache {mine.get('cache', 0)}, batch "
+          f"{mine['batch']}), fits 80 GB {mine['fits']}; {wire}; dominant {roof['dominant']}, "
+          f"step_lower_bound {roof['step_lower_bound'] * 1e3:.4f} ms (collective "
+          f"{roof['t_collective'] * 1e3:.4f} ms)")
+    check(mine["total"] > 0 and (rec["collectives"] is None) == (rec["unsupported"] is not None),
+          f"dry run mesh {mesh} {rec['arch']} {rec['shape']}: {mine}, {rec['unsupported']}")
 
 
 # ---------------------------------------------------------------------------
@@ -3174,11 +3239,21 @@ def _record_routes(forced=None):
 
     from repro_torch.models import moe
 
-    log, route = [], moe._route
+    log, route, router_logits = [], moe._route, moe._router_logits
 
     def recording(params, x, cfg, tp=None):
-        idx, gate, aux = route(params, x, cfg, tp)
-        probs = torch.softmax(moe._router_logits(params, x, cfg, tp), dim=-1)
+        seen = []  # the logits _route takes (no second router product, no second all-reduce)
+
+        def capture(*args, **kw):
+            seen.append(router_logits(*args, **kw))
+            return seen[-1]
+
+        moe._router_logits = capture
+        try:
+            idx, gate, aux = route(params, x, cfg, tp)
+        finally:
+            moe._router_logits = router_logits
+        probs = torch.softmax(seen[-1], dim=-1)
         top = torch.topk(probs, cfg.experts_per_tok + 1, dim=-1).values
         log.append((idx, torch.sort(idx, dim=-1).values.cpu(),
                     (top[..., -2] - top[..., -1]).min()))
@@ -3482,23 +3557,20 @@ def _nccl_one_rank(port: int, outdir: str) -> None:
         json.dump({"collectives": sorted(out), "s": time.perf_counter() - t0}, f)
 
 
-def tp_cache_twin(cfg, slots: int, max_len: int, tp: int, rules) -> int:
-    """A rank's cache bytes from the formats' axes: the global cache of
-    ``model.init_cache(..., local=False)`` on the meta device, each leaf cut
-    by its ``cache_pspecs`` entries."""
-    from repro_torch.models import attention
-    from repro_torch.models import model as model_lib
-    from repro_torch.sharding import partitioning as P
+def tp_step_bound(cfg, mode: str, cache: str, tp: int, slots: int, max_len: int) -> dict:
+    """The dry run's bound of a ``tp``-way decode step at ``slots`` and
+    ``max_len``: ``roofline_terms`` of the rank's model FLOPs (over ``tp``),
+    its analytic traffic and the wire bytes of the step's collectives at
+    NVLink's rate."""
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun, hlo_stats
 
-    caches = model_lib.init_cache(cfg, slots, max_len, device="meta", tp=tp, local=False)
-    entries = P.cache_pspecs(caches, rules, attention.attn_dims(cfg, tp)[2], cfg)
-    sizes = {"data": 1, "model": tp}
-    total = 0
-    for layer, layer_entries in zip(caches, entries):
-        for name, t in layer.items():
-            spec = layer_entries[name] or (None,) * t.ndim
-            total += math.prod(P.local_shape(t.shape, spec, sizes)) * t.element_size()
-    return total
+    cfg = cfg.scaled(cache_format=cache)
+    cell = ShapeCell("tp decode step", max_len, slots, "decode")
+    traffic = dryrun.analytic_traffic(cfg, cell, mode, tp=tp, mesh_axes={"data": 1, "model": tp})
+    wire = hlo_stats.collective_stats(
+        dryrun.call_collectives(cfg, mode, "decode", batch=slots, seq=1, tp=tp)).wire_bytes
+    return hlo_stats.roofline_terms(dryrun.model_flops(cfg, cell, tp) / tp, traffic["total"], wire)
 
 
 def _rank_share(full, local, rank: int, tp: int):
@@ -3695,9 +3767,7 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
     from repro_torch.distributed import mesh as mesh_lib
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
-    from repro_torch.models import model as model_lib
     from repro_torch.serve import engine
-    from repro_torch.sharding import partitioning as P
 
     device = torch.device(TP_DEVICE)
     mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{port}",
@@ -3746,7 +3816,11 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
         ops.reset_counts()
         codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
         op_log = OpLog(one_ops, rank, world)
-        (eng, trace, toks, wall), routes = serve_tp(codes, op_log)
+        with dryrun.ModelCallLog() as served:
+            (eng, trace, toks, wall), routes = serve_tp(codes, op_log)
+        res["collectives"] = dryrun.held_collectives(eng._tp,
+                                                     dryrun.serve_collectives(eng, served.calls))
+        res["model_calls"] = len(served.calls)
         plain = ops.plain_cuda_counts()
         check(all(v == 0 for v in plain.values()), f"tp {label}: a plain version ran on CUDA")
         res["routes"] = _route_differences(routes, routes1) if moe else None
@@ -3755,10 +3829,10 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
                    collective_calls=dict(eng._tp.calls), weights=got["weights"],
                    cache=got["cache"],
                    launches={k: v for k, v in ops.launch_counts().items() if v})
-        res.update(
-            weights_twin=P.local_bytes(dryrun.serve_params_meta(cfg, mode, tp=world),
-                                       model_lib.specs(cfg, world), mesh, eng.rules),
-            cache_twin=tp_cache_twin(eng.cfg, TP_SLOTS, TP_MAX_LEN, world, eng.rules))
+        counted = dryrun.rank_bytes(eng.cfg, "decode", mesh_axes={"data": 1, "model": world},
+                                    rules=eng.rules, qmode=mode, batch=TP_SLOTS,
+                                    cache_len=TP_MAX_LEN)
+        res.update(weights_twin=counted["weights"], cache_twin=counted["cache"])
         del eng
         if moe and res["routes"][0]:  # held with tp = 1's expert choices forced
             codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
@@ -3800,7 +3874,7 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
         prof = engine.ServeEngine(host, cfg, tp=world, mesh=mesh, mode=mode, cache_format=cache,
                                   slots=4, max_len=512, device=device)
         res["step_launches"] = _step_launches(torch, prof, cfg)
-        prof._tp.collective_s, prof._tp.calls = 0.0, {}
+        prof._tp.reset_counts()
         res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
             torch, prof.step, 3, f"tp phase rank {rank} {label} profile decode step "
             f"(slots=4, tp={world}, {cfg.n_layers} layers, {card}, under the profiler)")
@@ -3858,6 +3932,8 @@ def phase_tp(torch, card) -> None:
     collective host time printed."""
     import tempfile
 
+    from repro_torch.configs import get_config
+
     with tempfile.TemporaryDirectory() as outdir:
         t0 = time.perf_counter()
         _run_children([(_nccl_one_rank, (_free_port(), outdir))], NCCL_JOIN_S, "tp (a) NCCL")
@@ -3893,6 +3969,21 @@ def phase_tp(torch, card) -> None:
             check(res["step_launches"] == res["tp1_step_launches"],
                   f"{tag}: {res['step_launches']} a decode step, tp=1 launches "
                   f"{res['tp1_step_launches']}")
+            have, want = res["collectives"]
+            check(have == want, f"{tag}: the serve's collectives {have} != the dry run's {want}")
+            cfg = get_config(arch).scaled(n_layers=depth)
+            terms = tp_step_bound(cfg, *PATHS[path][:2], TP_WORLD, 4, 512)
+            bound_ms = terms["step_lower_bound"] * 1e3
+            print(f"tp {label} rank {r['rank']}: the serve's collectives (kind, [count, raw "
+                  f"bytes]) {have} = the dry run's count (call_collectives of its "
+                  f"{res['model_calls']} model calls and the token "
+                  f"check); profiled decode step busy {res['profile_busy_ms']:.3f} ms = "
+                  f"{res['profile_busy_ms'] / bound_ms:.2f} x the dry run's step bound at "
+                  f"tp={TP_WORLD} {bound_ms:.4f} ms ({terms['dominant']}; compute "
+                  f"{terms['t_compute'] * 1e3:.4f}, memory {terms['t_memory'] * 1e3:.4f}, "
+                  f"collective {terms['t_collective'] * 1e3:.4f} ms at NVLink's rate); the wall "
+                  f"time is gloo's: it stages each collective through the host at 2-4.4 ms a "
+                  f"call; on {card}")
             rel, cos, agree = res["drift"]
             print(f"tp {label} rank {r['rank']} ({r['device']}, {depth} layers): resident "
                   f"weights {res['weights']} B of tp=1's {res['tp1_weights']} B (twin "
@@ -4008,6 +4099,16 @@ def _replicated_digest(params, tm) -> str:
     return h.hexdigest()
 
 
+def tree_bytes(tree) -> int:
+    """Bytes of every tensor of a tree of dicts, lists and tuples (the
+    optimizer state's named tuples, ``Stacked`` leaves)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(tree_bytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
+
+
 def _state_bytes_of_specs(spec_tree) -> int:
     """:func:`train_state_bytes`'s total over a ParamSpec tree (meta tensors)."""
     import torch
@@ -4027,6 +4128,7 @@ def _mesh_full(torch, device, rank: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch, to_device
     from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as model_lib
     from repro_torch.optim import adamw
     from repro_torch.train import trainstep
@@ -4054,18 +4156,26 @@ def _mesh_full(torch, device, rank: int) -> dict:
     params = model_lib.draw(cfg, SEED, device, leaf=tm.shard_leaf)
     state = trainstep.init_opt_state(opt, params, cfg, tm)
     out["draw_s"] = time.perf_counter() - t0
-    sizes = train_state_bytes(params)
-    out["analytic"] = sizes["params"] + sizes["grads"] + sizes["moments"]
+    axes = {k: a.size for k, a in tm.view.axes.items()}
+    mine = dryrun.rank_bytes(cfg, "train", mesh_axes=axes, rules=tm.rules, moments="f32",
+                             batch=TRAIN_BATCH, seq_len=TRAIN_SEQ)
+    out["analytic"] = mine["params"] + mine["grads"] + mine["moments"]
+    out["state_bytes"] = [[tree_bytes(params), tree_bytes(state)],
+                          [mine["params"], mine["moments"]]]
     out["analytic_full"] = _state_bytes_of_specs(model_lib.specs(cfg))
     for i in range(MESH_STEPS):
         batch = to_device(shard_batch(src.batch(i), tm.view, tm.rules), device)
         _reset_peak(torch, device)
         tm.view.reset_counts()
         (params, state, m), ms = _step_ms(torch, device, lambda: step(params, state, batch))
+        want = dryrun.train_step_collectives(cfg, mesh_axes=axes, rules=tm.rules,
+                                             rows=batch["tokens"].shape[0], seq=TRAIN_SEQ,
+                                             moments="f32")
         out["steps"].append({
             "loss": m["loss"].item(), "ce": m["ce"].item(), "grad_norm": m["grad_norm"].item(),
             "tokens": m["tokens"].item(), "ms": ms, "peak": _peak(torch, device),
             "calls": tm.view.calls, "collective_ms": tm.view.collective_s * 1e3,
+            "collectives": dryrun.held_collectives(tm.view, want),
             "replicated": _replicated_digest(params, tm)})
     del params, state
     if device.type == "cuda":
@@ -4132,6 +4242,7 @@ def _mesh_cut(torch, device, rank: int) -> dict:
     from repro_torch.core import quant
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch, to_device
     from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.launch import dryrun
     from repro_torch.models import model as model_lib
     from repro_torch.optim import adamw
     from repro_torch.train import trainstep
@@ -4182,9 +4293,13 @@ def _mesh_cut(torch, device, rank: int) -> dict:
             res["hop_differ"] = differ
         state, _ = trainstep.apply_grads(opt, params, state, grads, cut, tm)
         del grads
-        for b in batches[1:]:
+        for b in batches[1:]:  # whole steps: their collectives held to the dry run's count
+            tm.view.reset_counts()
             params, state, m = step(params, state, b)
             res["losses"].append(m["loss"].item())
+        res["collectives"] = dryrun.held_collectives(tm.view, dryrun.train_step_collectives(
+            cut, mesh_axes={k: a.size for k, a in tm.view.axes.items()}, rules=tm.rules,
+            rows=b["tokens"].shape[0], seq=CUT_SEQ, compress_pod_grads=compress, moments="f32"))
         res["params"] = _held(torch, tm.gather(params), params1, MESH_CUT_STEPS)
         res.update(step_loss=res["losses"][0], one_loss=loss1, calls=tm.view.calls,
                    s=time.perf_counter() - t0, one_s=one_s)
@@ -4352,11 +4467,22 @@ def phase_train_mesh(torch, card) -> None:
                   f"({st['peak'] / r['a']['analytic']:.2f}x; the whole state "
                   f"{r['a']['analytic_full']} B), collectives {st['calls']} "
                   f"{st['collective_ms']:.1f} ms host; on {card}")
+            have, want = st["collectives"]
+            print(f"mesh (a) step {i} rank {r['rank']}: collectives (kind, [count, raw bytes]) "
+                  f"{have} = the dry run's count (train_step_collectives)")
+            check(have == want, f"mesh (a) step {i} rank {r['rank']}: collectives {have} != "
+                  f"the dry run's {want}")
             check(math.isfinite(st["loss"]), f"mesh (a): step {i} loss {st['loss']}")
             check(st["loss"] == ranks[0]["a"]["steps"][i]["loss"],
                   f"mesh (a) step {i}: the ranks' losses differ")
             check(st["replicated"] == ranks[0]["a"]["steps"][i]["replicated"],
                   f"mesh (a) step {i}: a replicated leaf differs between the ranks")
+    for r in ranks:
+        (p_have, s_have), (p_want, s_want) = r["a"]["state_bytes"]
+        print(f"mesh (a) rank {r['rank']}: parameter shards {p_have} B, optimizer state "
+              f"{s_have} B = the dry run's (rank_bytes) {p_want} B, {s_want} B")
+        check([p_have, s_have] == [p_want, s_want],
+              f"mesh (a) rank {r['rank']}: state bytes {p_have}, {s_have} != {p_want}, {s_want}")
     first, one = a0["steps"][0]["loss"], a0["one_rank_loss"]
     tol = MICROBATCH_TOL["atol"] + MICROBATCH_TOL["rtol"] * abs(one)
     print(f"mesh (a): every replicated leaf bitwise equal on both ranks after each step; step "
@@ -4385,6 +4511,11 @@ def phase_train_mesh(torch, card) -> None:
                   f"{p['signs']} elements")
             check(other.get("hop_differ", 0) == 0, f"mesh (b) {name}: the hop is not the "
                   "dequantized quantization of the global gradient")
+            have, want = other["collectives"]
+            print(f"mesh (b) {name} rank {r['rank']}: a step's collectives {have} = the dry "
+                  f"run's count")
+            check(have == want, f"mesh (b) {name} rank {r['rank']}: collectives {have} != the "
+                  f"dry run's {want}")
     c0 = ranks[0]["c"]
     want = restart_pattern(RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"])
     print(f"mesh (c) trainer at (data=2, model=1), FailureSim(fail_at={RESTART['fail_at']}): "
@@ -4415,6 +4546,52 @@ def phase_train_mesh(torch, card) -> None:
               f"mesh rank {r['rank']}: a kernel wrapper ran: {r['launches']} {r['plain']}")
     print(f"mesh phase: training over a mesh launched none of the eight kernels; "
           f"{wall:.1f} s for the ranks, start to exit, on {card}")
+
+
+# ---------------------------------------------------------------------------
+# The example twins on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_examples(torch, card) -> None:
+    """The twins of ``examples/quickstart.py`` (train the reduced qwen3 40
+    steps, convert to ``w8a8``, prefill and greedy decode) and
+    ``examples/serve_quantized.py`` (every registered format, the mixed
+    policies with their cache suffixes, the traced all-fused row) on the
+    card at the reference's sizes: no plain version may run on CUDA
+    (``ops.plain_cuda_counts()``), the quantized rows launch their kernels."""
+    from repro_torch.examples import quickstart, serve_quantized
+    from repro_torch.kernels import ops
+
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    q = quickstart.main(["--device", "cuda"])
+    q_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    q_plain = {k: v for k, v in ops.plain_cuda_counts().items() if v}
+    losses = [h["loss"] for h in q["history"]]
+    print(f"examples: quickstart on {card}: losses {[round(x, 4) for x in losses]}, "
+          f"{len(q['tokens'])} tokens generated on w8a8 weights, launches {q_launches}, "
+          f"plain versions on CUDA {q_plain or 'none'}, {time.perf_counter() - t0:.1f} s")
+    check(len(q["tokens"]) == 9 and all(0 <= t < q["cfg"].vocab_size for t in q["tokens"])
+          and all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"quickstart: tokens {q['tokens']}, losses {losses}")
+    check(not q_plain, f"examples: a plain version ran on CUDA in quickstart: {q_plain}")
+    check(q_launches.get("matmul_int8", 0) > 0, f"quickstart launched {q_launches}")
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    sq = serve_quantized.main(["--device", "cuda"])
+    s_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    plain = {k: v for k, v in ops.plain_cuda_counts().items() if v}
+    print(f"examples: serve_quantized on {card}: {len(sq['rows'])} rows, traced run "
+          f"{sq['traced']['records']} records, launches {s_launches}, plain versions on CUDA "
+          f"{plain or 'none'}, {time.perf_counter() - t0:.1f} s")
+    check(not plain, f"examples: a plain version ran on CUDA: {plain}")
+    check(len(sq["rows"]) == len(serve_quantized.MODES)
+          and all(r["tokens"] > 0 for r in sq["rows"]), "serve_quantized: a row served nothing")
+    want = {"bsdp_gemm_fused", "bsdp_gemm", "dequant_matmul", "matmul_int8",
+            "matmul_int4_packed", "plane_decode_attention"}
+    check(want <= set(s_launches), f"serve_quantized launched {sorted(s_launches)}, not all "
+          f"of {sorted(want)}")
 
 
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape
@@ -4464,6 +4641,9 @@ def main() -> int:
     done("tp phase")
     phase_train_mesh(torch, card)
     done("mesh training phase")
+    phase_examples(torch, card)
+    torch.cuda.empty_cache()
+    done("examples")
     counts["D"] = phase_ops_path(torch, device)
     torch.cuda.empty_cache()
     phase_paths(torch, device)

@@ -13,8 +13,11 @@ never maps rank ``r`` to ``cuda:r``.
 ``model`` or ``pipe``): its index, the axis size, the process group, and
 the collectives issued over it (all-reduce SUM and MAX, all-gather,
 reduce-scatter, and the pipeline's ring shift), on the tensors where they
-lie.  ``collective_s`` sums the host time spent in them
-and ``calls`` counts them by kind.  :class:`TensorParallel` is the model
+lie.  ``collective_s`` sums the host time spent in them,
+``calls`` counts them by kind, and ``events`` counts each
+:class:`CollectiveEvent` (the reference's HLO kind, the result's bytes,
+the group size) that ``repro_torch.launch.hlo_stats.collective_stats``
+tallies into wire bytes.  :class:`TensorParallel` is the model
 axis's view, with ``shard_kv`` (the KV heads split over the axis).
 :class:`MeshView` holds every axis of a mesh, and reduces over several in
 turn.
@@ -40,14 +43,27 @@ without an axis or at one rank):
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import datetime
 import time
 import warnings
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
+
+
+class CollectiveEvent(NamedTuple):
+    """One collective on one rank: its HLO ``kind`` (``all-reduce``,
+    ``all-gather``, ``reduce-scatter``, ``all-to-all`` or
+    ``collective-permute``), the ``bytes`` of its result (an all-gather's
+    gathered tensor, a reduce-scatter's shard, an all-reduce's tensor) and
+    the ``group`` of ranks it spans."""
+
+    kind: str
+    bytes: int
+    group: int
 
 
 def default_backend(device) -> str:
@@ -95,18 +111,23 @@ class Axis:
     name: str = ""
     collective_s: float = 0.0
     calls: dict = dataclasses.field(default_factory=dict)
+    events: collections.Counter = dataclasses.field(default_factory=collections.Counter)
 
     @classmethod
     def from_mesh(cls, mesh, axis: str, **kw):
         return cls(size=mesh.size(mesh.mesh_dim_names.index(axis)),
                    rank=mesh.get_local_rank(axis), group=mesh.get_group(axis), name=axis, **kw)
 
-    def _run(self, name: str, t: torch.Tensor, fn) -> torch.Tensor:
+    def _run(self, name: str, kind: str, nbytes: int, t: torch.Tensor, fn) -> torch.Tensor:
         t0 = time.perf_counter()
         self.calls[name] = self.calls.get(name, 0) + 1
+        self.events[CollectiveEvent(kind, nbytes, self.size)] += 1
         out = fn(t)
         self.collective_s += time.perf_counter() - t0
         return out
+
+    def reset_counts(self) -> None:
+        self.collective_s, self.calls, self.events = 0.0, {}, collections.Counter()
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
         """The sum over the axis of ``t``, on every rank (``t`` itself is
@@ -117,7 +138,8 @@ class Axis:
             dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
             return x
 
-        return self._run("sum_" + str(t.dtype).removeprefix("torch."), t, fn)
+        return self._run("sum_" + str(t.dtype).removeprefix("torch."), "all-reduce",
+                         _nbytes(t), t, fn)
 
     def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
         """The elementwise maximum over the axis, on every rank."""
@@ -127,7 +149,7 @@ class Axis:
             dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.group)
             return x
 
-        return self._run("max", t, fn)
+        return self._run("max", "all-reduce", _nbytes(t), t, fn)
 
     def all_gather(self, t: torch.Tensor, dim: int = -1) -> torch.Tensor:
         """Every rank's ``t`` concatenated along ``dim`` in rank order."""
@@ -142,7 +164,7 @@ class Axis:
             dist.all_gather(parts, x, group=self.group)
             return parts
 
-        return self._run("gather", t, fn)
+        return self._run("gather", "all-gather", self.size * _nbytes(t), t, fn)
 
     def reduce_scatter(self, t: torch.Tensor, dim: int = 0) -> torch.Tensor:
         """The sum over the axis of ``t``, cut in ``size`` equal parts along
@@ -156,7 +178,7 @@ class Axis:
                 dist.reduce_scatter_tensor(out, x, group=self.group)
             return out.movedim(0, dim)
 
-        return self._run("reduce_scatter", t, fn)
+        return self._run("reduce_scatter", "reduce-scatter", _nbytes(t) // self.size, t, fn)
 
     def shift(self, t: torch.Tensor, offset: int = 1) -> torch.Tensor:
         """The ring shift: the tensor of the rank ``offset`` upstream, on every
@@ -177,6 +199,10 @@ class TensorParallel(Axis):
     def from_mesh(cls, mesh, *, shard_kv: bool = True, axis: str = "model"
                   ) -> "TensorParallel":
         return super().from_mesh(mesh, axis, shard_kv=shard_kv)
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
 
 
 def tp_size(tp: Optional[Axis]) -> int:
@@ -252,9 +278,17 @@ class MeshView:
                 out[k] = out.get(k, 0) + v
         return out
 
+    @property
+    def events(self) -> collections.Counter:
+        """Collective events over every axis."""
+        out: collections.Counter = collections.Counter()
+        for a in self.axes.values():
+            out.update(a.events)
+        return out
+
     def reset_counts(self) -> None:
         for a in self.axes.values():
-            a.collective_s, a.calls = 0.0, {}
+            a.reset_counts()
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,10 @@ raise naming the world size they need when the group is another size.
 The reference's 16 x 16 pod is TPU v5e's; the shapes are kept as the
 reference's so that :func:`plan` decides as it does.
 
+:func:`stand_in_mesh` gives the same shapes with no device and no process
+group (:class:`StandInMesh`: the axis names and shape alone), which is all
+that :func:`plan` and the dry run read.
+
 ``plan(cfg, cell, mesh)`` centralizes the per-architecture decisions: the
 rule table (tensor parallelism everywhere; FSDP over ``data`` on the train
 path; KV-head sharding only when the GQA group structure survives padding;
@@ -38,6 +42,42 @@ def make_production_mesh(*, multi_pod: bool = False, device="cuda"):
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
     return device_mesh(device, shape, axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Devices:
+    shape: tuple
+
+    @property
+    def size(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
+
+@dataclasses.dataclass(frozen=True)
+class StandInMesh:
+    """A mesh's ``axis_names`` and shape (``devices.shape``, ``devices.size``)
+    with no device behind it: what :func:`plan` and the dry run read."""
+
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def devices(self) -> _Devices:
+        return _Devices(tuple(self.shape))
+
+
+def stand_in_mesh(*, multi_pod: bool = False, mesh_shape=None) -> StandInMesh:
+    """The production mesh's names and shape (16 x 16 ``(data, model)``, or
+    2 x 16 x 16 ``(pod, data, model)`` with ``multi_pod``), or a ``(data,
+    model)`` mesh of ``mesh_shape``, as a :class:`StandInMesh`."""
+    if mesh_shape is not None:
+        return StandInMesh(("data", "model"), tuple(mesh_shape))
+    if multi_pod:
+        return StandInMesh(("pod", "data", "model"), (2, 16, 16))
+    return StandInMesh(("data", "model"), (16, 16))
 
 
 def make_pp_mesh(*, stages: int = 2, data: int = 16, model: int = 16, device="cuda"):

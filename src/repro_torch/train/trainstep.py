@@ -37,8 +37,11 @@ the batch:
 * each rank updates its own shards (:mod:`repro_torch.optim.adamw` with
   the step's :class:`~repro_torch.optim.adamw.LeafShard` tree).
 
-``probe`` (the dry-run's cost counting) waits for ROADMAP Queue 1, item
-8(b).
+``probe`` is accepted and changes nothing: the reference's probe programs
+collapse its scans so that XLA's cost analysis counts every layer, and the
+port has no scan and no compiled program to count.  The dry run
+(:mod:`repro_torch.launch.dryrun`) counts a step's collectives from these
+code paths (``train_step_collectives``) and probes by depth itself.
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ class TrainStepConfig:
     compress_pod_grads: bool = False  # int8 cross-pod gradient sync
     aux_weight: float = 0.01
     z_weight: float = 1e-4
-    probe: bool = False  # dry-run cost counting
+    probe: bool = False  # the reference's cost-counting probe: a no-op here
 
 
 # ---------------------------------------------------------------------------
@@ -358,10 +361,8 @@ def make_train_step(cfg, opt: optim_lib.Optimizer, *, tp: int = 1, rules=None,
     device, the global batch's on every rank.  Over ``mesh`` (a
     ``DeviceMesh`` whose model axis is ``tp`` ways, or a :class:`TrainMesh`)
     the step takes the rank's shards and rows; its :class:`TrainMesh` is
-    ``train_step.mesh`` (None on one device)."""
-    if step_cfg.probe:
-        raise NotImplementedError("probe: the dry-run's cost counting waits for ROADMAP "
-                                  "Queue 1, item 8(b)")
+    ``train_step.mesh`` (None on one device).  ``step_cfg.probe`` runs the
+    same step (see the module docstring)."""
     if mesh is None and tp != 1:
         raise ValueError(f"tp={tp} needs a mesh")
     tm = None if mesh is None else train_mesh(cfg, mesh, tp=tp, rules=rules)

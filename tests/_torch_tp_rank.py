@@ -176,18 +176,53 @@ class ExpertBoundaryCodes(BoundaryCodes):
                      for arrays in zip(*parts))
 
 
+def _held_collectives(eng, calls) -> list:
+    """The rank's recorded collectives beside the dry run's count of
+    ``calls`` (``(kind, batch, seq)`` model calls), each as per-kind
+    (count, raw bytes); the events are reset after."""
+    from repro_torch.launch import dryrun
+
+    held = dryrun.held_collectives(
+        eng._tp, dryrun.serve_collectives(eng, calls, min_dim=16, agree=False))
+    eng._tp.reset_counts()
+    return held
+
+
 def _prefill_decode(eng, model_lib, vocab: int) -> dict:
+    """The prefill and decode steps of :func:`prefill_inputs` → their last
+    logits and, at tp > 1, each call's recorded collectives beside the dry
+    run's count (``collectives``, JSON)."""
     toks, pos, steps, step_pos = prefill_inputs(vocab)
+    held = []
+    if eng._tp is not None:
+        eng._tp.reset_counts()
     batch = {"tokens": torch.from_numpy(toks).long(), "positions": torch.from_numpy(pos)}
     logits, caches = model_lib.prefill(eng.params, batch, eng.cfg, max_len=MAX_LEN,
                                        tp=eng._tp)
+    if eng._tp is not None:
+        held.append(_held_collectives(eng, [("prefill",) + tuple(toks.shape)]))
     out = [logits[:, -1].numpy()]
     for tok, p in zip(steps, step_pos):
         logits, caches = model_lib.decode_step(eng.params, torch.from_numpy(tok[:, None]).long(),
                                                caches, torch.from_numpy(p), eng.cfg,
                                                tp=eng._tp)
+        if eng._tp is not None:
+            held.append(_held_collectives(eng, [("decode", len(tok), 1)]))
         out.append(logits[:, -1].numpy())
-    return {"logits": np.stack(out)}
+    return {"logits": np.stack(out), "collectives": np.array(json.dumps(held))}
+
+
+def counted_serve(eng, run):
+    """``run()`` (a serve of ``eng``) with its model calls recorded → (its
+    result, [the rank's recorded collectives, the dry run's count of the
+    calls and of the closing ``check_ranks_agree``] as JSON)."""
+    from repro_torch.launch import dryrun
+
+    eng._tp.reset_counts()
+    with dryrun.ModelCallLog() as log:
+        result = run()
+    held = dryrun.held_collectives(eng._tp, dryrun.serve_collectives(eng, log.calls, min_dim=16))
+    return result, np.array(json.dumps(held))
 
 
 def _bias_check(tp, layers) -> dict:
@@ -281,8 +316,9 @@ def main_moe(rank: int, world: int, workdir: str, mesh) -> dict:
             eng = build(stack)
             out[f"{arch}/bytes/{stack}"] = np.array(eng.resident_bytes()["weights"])
             if stack != "A":
-                out[f"{arch}/pd/{stack}"] = _prefill_decode(eng, model_lib,
-                                                            cfg.vocab_size)["logits"]
+                pd = _prefill_decode(eng, model_lib, cfg.vocab_size)
+                out[f"{arch}/pd/{stack}"] = pd["logits"]
+                out[f"{arch}/coll/{stack}"] = pd["collectives"]
         if world == 2:
             out[f"{arch}/pd/w8a8_tp1"] = drive("w8a8", tp=1)
             # the rank's shards drawn and converted alone: the test's weights
@@ -303,7 +339,8 @@ def main_moe(rank: int, world: int, workdir: str, mesh) -> dict:
                     setattr(moe, fn_name, keep)
         if world == 2 and arch == MOE_ARCHS[0]:
             eng = build("w8a8")
-            reqs = schedule(eng, cfg.vocab_size)
+            reqs, out[f"{arch}/serve/collectives"] = counted_serve(
+                eng, lambda: schedule(eng, cfg.vocab_size))
             out[f"{arch}/serve/tokens"] = np.array([t for r in reqs for t in r.out])
             out[f"{arch}/serve/logits"] = np.concatenate(
                 [np.reshape(lg, (-1, lg.shape[-1])) for _, _, lg in eng.logit_trace])
@@ -352,15 +389,18 @@ def main(argv) -> int:
                                   min_dim=16, trace_logits=True, device="cpu")
 
     for stack in STACKS:
-        out[f"pd/{stack}"] = _prefill_decode(build(stack), model_lib, cfg.vocab_size)["logits"]
+        pd = _prefill_decode(build(stack), model_lib, cfg.vocab_size)
+        out[f"pd/{stack}"], out[f"coll/{stack}"] = pd["logits"], pd["collectives"]
     for stack in SERVED:
         eng = build(stack)
-        reqs = schedule(eng, cfg.vocab_size)
+        reqs, out[f"serve/{stack}/collectives"] = counted_serve(
+            eng, lambda: schedule(eng, cfg.vocab_size))
         out[f"serve/{stack}/tokens"] = np.array([t for r in reqs for t in r.out])
         out[f"serve/{stack}/logits"] = np.concatenate(
             [np.reshape(lg, (-1, lg.shape[-1])) for _, _, lg in eng.logit_trace])
         out[f"serve/{stack}/kinds"] = np.array([f"{k}{list(s)}" for k, s, _ in eng.logit_trace])
         out[f"serve/{stack}/bytes"] = np.array(eng.resident_bytes()["weights"])
+        out[f"serve/{stack}/cache_bytes"] = np.array(eng.resident_bytes()["cache"])
     if world == 2 and rank == 0:  # the one-device serve of the same weights
         eng = build("w8a8", tp=1)
         schedule(eng, cfg.vocab_size)

@@ -10,7 +10,10 @@ its own ``DeviceMesh`` of the four ranks, writing what it computed to
   steps with f32 or int8 moments from the reference's parameters
   (``workdir/params.npz``), the first batch's labels masked on one data
   rank only; the first step's loss, metrics and global gradients, the
-  global state after each step, the rank's replicated leaves;
+  global state after each step, the rank's replicated leaves, each step's
+  recorded collectives beside ``dryrun.train_step_collectives``' count
+  and the rank's parameter and optimizer-state bytes beside
+  ``dryrun.rank_bytes``';
 * ``dm_mb2``: the same mesh, one step of two microbatches (each rank's
   two slices fall in the reference's two microbatches of the global batch);
 * ``pod``: ``(pod=2, data=2)`` with ``compress_pod_grads``: the global
@@ -93,6 +96,14 @@ def _flat(tree, prefix="") -> dict:
     return {prefix[:-1]: np.array(tree)}
 
 
+def _bytes(tree) -> int:
+    """Bytes of every tensor of a tree of dicts, lists and tuples (the
+    optimizer state's NamedTuples, ``Stacked`` leaves)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    return sum(_bytes(v) for v in (tree.values() if isinstance(tree, dict) else tree))
+
+
 def _state(params, state, cfg, tm) -> dict:
     from repro_torch.train import trainer
 
@@ -117,6 +128,7 @@ def train_case(name, mesh, tp, params, cfg, moment, workdir, rank, compress=Fals
     from repro_torch import convert
     from repro_torch import tree as tree_lib
     from repro_torch.data.pipeline import DataConfig, SyntheticLM, shard_batch, to_device
+    from repro_torch.launch import dryrun
     from repro_torch.optim import adamw
     from repro_torch.train import trainstep
 
@@ -131,7 +143,10 @@ def train_case(name, mesh, tp, params, cfg, moment, workdir, rank, compress=Fals
     mine = tm.shard(tree_lib.map_leaves(torch.clone, params))
     state = trainstep.init_opt_state(opt, mine, cfg, tm)
     src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, **DATA))
-    out: dict = {}
+    axes = {k: a.size for k, a in tm.view.axes.items()}
+    counted = dryrun.rank_bytes(cfg, "train", mesh_axes=axes, rules=tm.rules, moments=moment)
+    out: dict = {"bytes": np.array(json.dumps(
+        [[_bytes(mine), _bytes(state)], [counted["params"], counted["moments"]]]))}
     for i, host in enumerate(batches(src)[:steps]):
         batch = to_device(shard_batch(host, tm.view, tm.rules), "cpu")
         if i == 0:  # the first step's gradients, as the optimizer sees them
@@ -145,6 +160,11 @@ def train_case(name, mesh, tp, params, cfg, moment, workdir, rank, compress=Fals
         mine, state, metrics = step(mine, state, batch)
         out.update({f"step{i}/{k}": v.numpy() for k, v in metrics.items()})
         out[f"step{i}/calls"] = np.array(json.dumps(tm.view.calls))
+        want = dryrun.train_step_collectives(
+            cfg, mesh_axes=axes, rules=tm.rules, rows=batch["tokens"].shape[0],
+            seq=batch["tokens"].shape[1], microbatches=microbatches, remat=step_cfg.remat,
+            compress_pod_grads=compress, moments=moment)
+        out[f"step{i}/collectives"] = np.array(json.dumps(dryrun.held_collectives(tm.view, want)))
         out.update({f"step{i}/{k}": v for k, v in _state(mine, state, cfg, tm).items()})
     out.update(_replicated(mine, tm))
     np.savez(f"{workdir}/{name}_rank{rank}.npz", **out)

@@ -374,6 +374,33 @@ def test_compressed_pod_hop_is_the_quantized_global_gradient(runs):
     assert json.loads(str(got["step0/calls"])).get("gather", 0) > 0
 
 
+@pytest.mark.parametrize("case", ["dm_f32", "dm_int8", "dm_mb2", "pod"])
+def test_train_step_collectives_equal_the_dry_run(runs, case):
+    """Every step on every rank: the collectives recorded, by kind in count
+    and raw bytes, are ``dryrun.train_step_collectives``' count (FSDP's
+    gathers and reduce-scatters, TP's all-reduces with remat's recompute,
+    the microbatches' counts, the int8 moments' MAX, the pod hop)."""
+    _, ranks, _ = runs
+    for files in ranks:
+        got = files[case]
+        steps = [k for k in got if k.endswith("/collectives")]
+        assert len(steps) == (1 if case == "dm_mb2" else R.STEPS)
+        for key in steps:
+            have, want = json.loads(str(got[key]))
+            assert have == want and have, key
+
+
+@pytest.mark.parametrize("case", ["dm_f32", "dm_int8", "dm_mb2", "pod"])
+def test_rank_state_bytes_equal_the_dry_run(runs, case):
+    """A rank's parameter shards and optimizer state (its moments' codes
+    and every chunk's scale for int8) are ``dryrun.rank_bytes``', to the
+    byte."""
+    _, ranks, _ = runs
+    for files in ranks:
+        have, want = json.loads(str(files[case]["bytes"]))
+        assert have == want
+
+
 def test_compressed_psum_distinct_values_average(runs):
     """The reference's bound: 1.0 on pod 0 and 3.0 on pod 1 average to 2.0
     within 2 / 127; equal values come back within max|x| / 127, equal to

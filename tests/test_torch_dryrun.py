@@ -30,9 +30,11 @@ from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core import kvcache as ref_kvcache
 from repro.core import residency as ref_residency
 from repro.models import model as ref_model
+from repro.sharding import partitioning as RP
 from repro_torch import obs
 from repro_torch.configs import ARCH_NAMES, SHAPES, applicable_shapes, get_config, get_smoke_config
 from repro_torch.core import kvcache, residency
+from repro_torch.distributed.mesh import CollectiveEvent
 from repro_torch.launch import dryrun, hlo_stats
 from repro_torch.models import model
 from repro_torch.serve import engine
@@ -69,13 +71,13 @@ def _cfgs(arch, *, smoke=False, **over):
             dataclasses.replace(get_config(arch), **over))
 
 
-def _close(a, b):
+def _close(a, b, rtol=RTOL):
     if isinstance(a, dict):
         assert set(a) == set(b)
         for k in a:
-            _close(a[k], b[k])
+            _close(a[k], b[k], rtol)
     elif isinstance(a, float) or isinstance(b, float):
-        assert a == pytest.approx(b, rel=RTOL, abs=0.0)
+        assert a == pytest.approx(b, rel=rtol, abs=0.0)
     else:
         assert a == b
 
@@ -482,7 +484,9 @@ def test_analyze_cell_records():
     train = dryrun.analyze_cell("qwen3-1.7b", "train_4k")
     state = train["one_card"]["train_state_bytes"]
     n = dryrun.param_counts(get_config("qwen3-1.7b"))["total"]
-    n_leaves = len(dryrun.tree_lib.leaves(model.specs(get_config("qwen3-1.7b"))))
+    # the optimizer's leaves: the reference's layout, a stacked leaf's layers under one moment
+    n_leaves = len(dryrun.tree_lib.leaves(dryrun.convert.reference_layout(
+        model.specs(get_config("qwen3-1.7b")), get_config("qwen3-1.7b"))))
     assert state["grads"] == 4 * n
     assert state["moments"] == 2 * (2 * n + 4 * n_leaves) + 4  # bf16 moments, their scales, step
     assert train["one_card"]["fits"] is True and "serving_model" not in train
@@ -513,3 +517,211 @@ def test_cli_refuses_unregistered_names(capsys):
             dryrun.main(argv)
         assert e.value.code == 2
     assert "registered" in capsys.readouterr().err
+
+
+# ---------------------------------------------------------------------------
+# At a mesh: tp, a rank's bytes, the collectives, the probes
+# ---------------------------------------------------------------------------
+
+TPS = (1, 2, 4, 16)
+#: the acceptance's tolerance on floats at tp (integers are equal)
+MESH_RTOL = 1e-12
+STACK_B = "w8a8"
+
+
+def _mesh_axes(tp):
+    return {"data": 16 // tp, "model": tp}
+
+
+@pytest.mark.parametrize("tp", TPS)
+def test_restored_functions_match_reference_at_tp(tp, monkeypatch):
+    """``param_counts``, ``model_flops``, ``residency_qbytes``,
+    ``analytic_traffic`` (with ``mb``), ``analytic_serving``,
+    ``analytic_cache_bytes``, ``analytic_weight_bytes`` and
+    ``_cache_bytes_local`` at ``tp`` on a (16/tp, tp) mesh, every arch at
+    full size, both main stacks: the reference's values, integers equal,
+    floats to 1e-12; where the reference raises (a Mamba layer's cache), the
+    port raises."""
+    monkeypatch.setitem(ref_hlo_stats.HW, "hbm_bw", hlo_stats.HW["hbm_bw"])
+    axes = _mesh_axes(tp)
+    for arch in ARCH_NAMES:
+        ref_cfg, cfg = _cfgs(arch)
+        _close(dryrun.param_counts(cfg, tp), ref_dryrun.param_counts(ref_cfg, tp), MESH_RTOL)
+        for q in (STACK_A, STACK_B):
+            _close(dryrun.residency_qbytes(cfg, q, tp=tp),
+                   ref_dryrun.residency_qbytes(ref_cfg, tp, q), MESH_RTOL)
+            assert dryrun.analytic_weight_bytes(cfg, q, tp=tp) == \
+                ref_dryrun.analytic_weight_bytes(ref_cfg, q, tp=tp, rules=RP.base_rules()), arch
+        for shape in applicable_shapes(cfg):
+            cell, ref_cell = SHAPES[shape], REF_SHAPES[shape]
+            _close(dryrun.model_flops(cfg, cell, tp),
+                   ref_dryrun.model_flops(ref_cfg, ref_cell, tp), MESH_RTOL)
+            _close(dryrun._cache_bytes_local(cfg, cell, tp=tp, mesh_axes=axes),
+                   ref_dryrun._cache_bytes_local(ref_cfg, ref_cell, tp, axes), MESH_RTOL)
+            for q in (STACK_A, STACK_B):
+                _close(dryrun.analytic_traffic(cfg, cell, q, tp=tp, mesh_axes=axes, mb=2),
+                       ref_dryrun.analytic_traffic(ref_cfg, ref_cell, tp, axes, 2, q), MESH_RTOL)
+        got = _raises_or(lambda: dryrun.analytic_cache_bytes(cfg, 4, 512, tp=tp))
+        assert got == _raises_or(lambda: ref_dryrun.analytic_cache_bytes(ref_cfg, 4, 512,
+                                                                        tp=tp)), arch
+    for arch in ("qwen3-1.7b", "deepseek-v2-lite-16b"):
+        ref_cfg, cfg = _cfgs(arch)
+        _close(dryrun.analytic_serving(cfg, SHAPES["decode_32k"], STACK_B, tp=tp, mesh_axes=axes),
+               ref_dryrun.analytic_serving(ref_cfg, REF_SHAPES["decode_32k"], tp, axes, STACK_B),
+               MESH_RTOL)
+
+
+def test_rank_bytes_on_one_card_are_the_one_card_counts():
+    """At one device ``rank_bytes`` is the one-card record: the weights'
+    ``analytic_weight_bytes``, the cache's ``model.init_cache`` bytes (every
+    mixer kind), the train state's ``train_state_bytes``, the batch's."""
+    for arch, shape in (("qwen3-1.7b", "decode_32k"), ("jamba-1.5-large-398b", "long_500k"),
+                        ("seamless-m4t-medium", "prefill_32k"), ("qwen1.5-32b", "train_4k")):
+        rec = dryrun.analyze_cell(arch, shape, qmode=STACK_A, skip_probes=True)
+        one, mine = rec["one_card"], rec["rank"]
+        assert mine["total"] == one["total_bytes"] and mine["even"] and mine["fits"] == one["fits"]
+        assert mine.get("weights") == one.get("weight_bytes")
+        assert mine.get("cache") == one.get("cache_bytes")
+        assert mine["batch"] == one["batch_bytes"]
+
+
+def test_rank_bytes_cut_by_the_rules():
+    """At (data=2, model=4) a serve rank holds a quarter of every sharded
+    leaf (the bit-plane ``w_out`` whole, the tied embedding's vocab rows a
+    quarter), its slots' half of the cache; uneven slots count the largest
+    rank; a train rank's FSDP shards are the data axis's share again."""
+    cfg = get_config("qwen3-1.7b")
+    axes = {"data": 2, "model": 4}
+    whole = dryrun.rank_bytes(cfg, "decode", qmode=STACK_A, batch=8, cache_len=512)
+    mine = dryrun.rank_bytes(cfg, "decode", mesh_axes=axes, qmode=STACK_A, batch=8, cache_len=512)
+    assert whole["weights"] == dryrun.analytic_weight_bytes(cfg, STACK_A)
+    assert whole["weights"] / 4 < mine["weights"] < whole["weights"] / 2
+    pos = 8 * 512 * 4 * cfg.n_layers  # pos_ids: the slots' half on each model rank, whole
+    assert mine["cache"] == (whole["cache"] - pos) // 8 + pos // 2
+    odd = dryrun.rank_bytes(cfg, "decode", mesh_axes=axes, qmode=STACK_A, batch=3, cache_len=512)
+    assert not odd["even"] and odd["batch"] == 2 * 1 * 4  # the larger rank's two rows
+    train = dryrun.rank_bytes(cfg, "train", mesh_axes=axes, batch=8, seq_len=16)
+    full = dryrun.train_state_bytes(cfg)
+    assert train["params"] < full["params"] / 4 and train["grads"] < full["grads"] / 4
+    assert train["batch"] == 2 * 4 * 16 * 4  # tokens and labels of 4 rows
+
+
+def _hlo_text(events) -> str:
+    """One HLO line a collective event, as XLA prints them: the result's
+    shape (bytes as u8), the kind, and the replica groups or the permute's
+    pairs."""
+    lines = []
+    for i, ev in enumerate(events):
+        t = f"u8[{ev.bytes}]{{0}}"
+        if ev.kind == "collective-permute":
+            tail = "source_target_pairs={{0,1},{1,0}}"
+        else:
+            tail = "replica_groups={{" + ",".join(str(j) for j in range(ev.group)) + "}}"
+        lines.append(f"  %c{i} = {t} {ev.kind}({t} %p{i}), {tail}")
+    return "\n".join(lines)
+
+
+def test_collective_stats_matches_reference_on_hlo_text():
+    """The port's ``collective_stats`` over events equals the reference's
+    over HLO text of the same kinds, sizes and groups: a deepseek decode
+    step and a qwen3 prefill at tp, a train step over (pod, data, model),
+    an all-to-all, a permute and a group of one."""
+    ev = dryrun.call_collectives(get_config("deepseek-v2-lite-16b"), STACK_B, "decode", batch=8,
+                                 seq=1, tp=16)
+    ev += dryrun.call_collectives(get_config("qwen3-1.7b"), STACK_A, "prefill", batch=2, seq=64,
+                                  tp=4)
+    cut = get_config("qwen3-1.7b").scaled(n_layers=2)
+    ev += dryrun.train_step_collectives(cut, mesh_axes={"pod": 2, "data": 2, "model": 2},
+                                        rows=2, seq=16, compress_pod_grads=True, moments="int8")
+    ev += [CollectiveEvent("all-to-all", 4096, 4),
+           CollectiveEvent("collective-permute", 512, 2),
+           CollectiveEvent("all-reduce", 64, 1)]
+    got = hlo_stats.collective_stats(ev)
+    want = ref_hlo_stats.collective_stats(_hlo_text(ev))
+    assert set(got.by_kind) == set(hlo_stats.KINDS)
+    _close(got.by_kind, want.by_kind, MESH_RTOL)
+    assert got.count == want.count == len(ev)
+    assert got.wire_bytes == pytest.approx(want.wire_bytes, rel=MESH_RTOL)
+
+
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (16, 16)], ids=["card", "pod"])
+def test_corrected_totals_equal_the_direct_count(mesh_shape):
+    """The probes at depth 1 and 2 (and encoder depth 2), differenced as the
+    reference does, give back the direct full-depth count of every cost
+    key: the port counts every layer."""
+    for arch in ("qwen3-1.7b", "starcoder2-3b", "deepseek-v2-lite-16b", "jamba-1.5-large-398b",
+                 "seamless-m4t-medium"):
+        for shape in applicable_shapes(get_config(arch)):
+            rec = dryrun.analyze_cell(arch, shape, qmode=STACK_A, mesh_shape=mesh_shape)
+            for key in dryrun._COST_KEYS:
+                if rec[key] is None:
+                    assert rec["corrected"][key] is None and rec["unsupported"]
+                else:
+                    assert rec["corrected"][key] == pytest.approx(rec[key], rel=MESH_RTOL), \
+                        (arch, shape, key)
+
+
+def test_a_count_of_one_superblock_fails_the_correction(monkeypatch):
+    """Planted: a direct count that counts the per-layer terms once (as
+    XLA's cost analysis counts a scanned body once) leaves the corrected
+    totals above it."""
+    lower = dryrun.lower_cell
+
+    def scanned(arch, shape, *, probe=None, **kw):
+        return lower(arch, shape, probe=probe or (1, 1), **kw)
+
+    monkeypatch.setattr(dryrun, "lower_cell", scanned)
+    rec = dryrun.analyze_cell("qwen3-1.7b", "train_4k", mesh_shape=(16, 16))
+    for key in dryrun._COST_KEYS:
+        assert rec["corrected"][key] > 1.5 * rec[key], key
+
+
+def test_mesh_records():
+    """The pod record of a served cell: 256 devices, the tp = 16 plan, wire
+    bytes from the collectives, the rank's bytes as ``argument_size``, the
+    collective term in the roofline; the cells the port does not run at a
+    mesh hold ``collectives: null`` and the check that raises."""
+    rec = dryrun.analyze_cell("qwen3-1.7b", "decode_32k", qmode=STACK_A,
+                              cache_format="int4_bp_fused", mesh="pod")
+    assert rec["devices"] == 256 and rec["mesh_shape"] == {"data": 16, "model": 16}
+    assert set(rec["collectives"]) == {"all-reduce", "all-gather"}
+    assert rec["collective_wire_bytes"] > 0 and rec["unsupported"] is None
+    assert rec["memory"]["argument_size_in_bytes"] == rec["rank"]["total"]
+    assert rec["roofline"]["t_collective"] == pytest.approx(
+        rec["corrected"]["collective_wire_bytes"] / hlo_stats.HW["nvlink_bw"])
+    assert "one_card" not in rec and set(dryrun.XLA_KEYS) >= {"flops_per_device"}
+    for arch, shape, check in (("falcon-mamba-7b", "decode_32k", "check_tp"),
+                               ("minicpm3-4b", "train_4k", "check_tp"),
+                               ("mixtral-8x7b", "long_500k", "plan")):
+        rec = dryrun.analyze_cell(arch, shape, mesh="multipod", skip_probes=True)
+        assert rec["devices"] == 512 and rec["collectives"] is None
+        assert rec["collective_wire_bytes"] is None and rec["unsupported"].startswith(check)
+    moe = dryrun.analyze_cell("deepseek-v2-lite-16b", "train_4k", mesh_shape=(16, 1),
+                              skip_probes=True)
+    assert moe["unsupported"].startswith("check_mesh")
+    jamba = dryrun.analyze_cell("jamba-1.5-large-398b", "decode_32k", qmode=STACK_A,
+                                mesh_shape=(1, 4), skip_probes=True)
+    assert jamba["unsupported"].startswith("check_tp") and jamba["rank"]["total"] > 0
+
+
+def test_cli_writes_every_cell_at_both_meshes(tmp_path, capsys):
+    """``--mesh both``: a record for every arch × shape at the pod and the
+    multi-pod mesh, each with wire bytes or ``collectives: null`` and the
+    check that raises; ``--mesh-shape`` names its own."""
+    assert dryrun.main(["--all", "--mesh", "both", "--skip-probes", "--qmode", STACK_A,
+                        "--scheduler", "fcfs", "--out", str(tmp_path)]) == 0
+    recs = [json.loads(f.read_text()) for f in sorted(tmp_path.iterdir())]
+    assert len(recs) == 2 * 33
+    assert {(r["arch"], r["shape"], r["devices"]) for r in recs} == \
+        {(a, s, n) for a, s in CELLS for n in (256, 512)}
+    for r in recs:
+        assert r["status"] == "ok"
+        assert (r["collectives"] is None) == (r["collective_wire_bytes"] is None) == \
+            (r["unsupported"] is not None)
+        assert r["unsupported"] is None or r["unsupported"].split(":")[0] in (
+            "check_tp", "check_mesh", "plan")
+    assert sum(r["collectives"] is not None for r in recs) > 20
+    assert "dry-run complete: 66 ok, 0 failed" in capsys.readouterr().out
+    assert dryrun.main(["--arch", "jamba-1.5-large-398b", "--shape", "decode_32k",
+                        "--mesh-shape", "1", "4", "--skip-probes", "--out", str(tmp_path)]) == 0
+    assert (tmp_path / "jamba-1.5-large-398b__decode_32k__d1m4__bf16.json").exists()

@@ -21,6 +21,8 @@ chip run converts it (falcon-mamba-7b's 8192 × 288).  The port runs on
 the CPU, where every kernel wrapper takes its plain version.
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +32,7 @@ import torch
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.models import mamba as ref_mamba
 from repro.serve import engine as ref_engine
+from repro.serve import scheduler as ref_sched
 from repro.serve.scheduler import DECODING as REF_DECODING
 from repro.sharding import partitioning as P
 from repro_torch import configs, convert
@@ -51,6 +54,18 @@ RTOL, ATOL = 1e-4, 1e-5
 
 
 _PARAMS: dict = {}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread (the
+    process's count restored after the module), so that the test run's
+    parallel workers do not oversubscribe the machine's cores; no result
+    depends on it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _ssm_params(arch=ARCH, dtype="float32"):
@@ -255,16 +270,28 @@ def test_ssm_initializers_follow_the_reference():
 # ---------------------------------------------------------------------------
 
 _SERVES: dict = {}
+_REF_ENGINES: dict = {}
 
 
 def reference_serve(arch, stack, sched):
+    """The reference's serve of ``schedule`` → (a view of its engine with
+    this serve's ``logit_trace``, the requests).  One reference engine an
+    (arch, stack), handed each scheduler in turn (``engine.scheduler``), so
+    that its decode jit compiles once."""
     key = arch, stack, sched
     if key not in _SERVES:
-        ref = ref_engine.ServeEngine(_ssm_params(arch), cfgs(arch, vocab_size=VOCAB)[0],
-                                     slots=2, max_len=32, mode=stack[0],
-                                     cache_format=stack[1], scheduler=sched, min_dim=16,
-                                     trace_logits=True)
-        _SERVES[key] = ref, schedule(ref)
+        if (arch, stack) not in _REF_ENGINES:
+            _REF_ENGINES[arch, stack] = ref_engine.ServeEngine(
+                _ssm_params(arch), cfgs(arch, vocab_size=VOCAB)[0], slots=2, max_len=32,
+                mode=stack[0], cache_format=stack[1], scheduler=sched, min_dim=16,
+                trace_logits=True)
+        ref = _REF_ENGINES[arch, stack]
+        ref.scheduler = ref_sched.make_scheduler(sched)
+        start = len(ref.logit_trace)
+        reqs = schedule(ref)
+        view = types.SimpleNamespace(logit_trace=ref.logit_trace[start:], _pad_ok=ref._pad_ok,
+                                     params=ref.params)
+        _SERVES[key] = view, reqs
     return _SERVES[key]
 
 

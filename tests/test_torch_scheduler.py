@@ -53,6 +53,18 @@ MODES = ["bf16", "w8a8", "ffn=bsdp_fused,mixer=w8a16"]
 LOGIT_RTOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The port's tensors here are small: one intra-op thread (the
+    process's count restored after the module), so that the test run's
+    parallel workers do not oversubscribe the machine's cores; no result
+    depends on it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs():
     ref_cfg = ref_smoke_config("qwen3-1.7b").scaled(
         n_layers=2, vocab_size=VOCAB, dtype=jnp.float32)
@@ -93,17 +105,36 @@ def _engines(**kw):
 
 
 _SERVES: dict = {}
+_REF_ENGINES: dict = {}
+
+
+def _ref_engine(scheduler, cache, mode):
+    """The reference's engine of a (cache, weights) pair, built once and
+    handed each scheduler in turn: its decode jit compiles once an engine,
+    and a scheduler is host-side policy that the engine reads at every
+    step (``engine.scheduler``)."""
+    if (cache, mode) not in _REF_ENGINES:
+        ref_params, _ = _params()
+        _REF_ENGINES[cache, mode] = ref_engine.ServeEngine(
+            ref_params, _cfgs()[0], slots=2, max_len=32, mode=mode, cache_format=cache,
+            scheduler=scheduler, min_dim=16, trace_logits=True)
+    eng = _REF_ENGINES[cache, mode]
+    eng.scheduler = ref_sched.make_scheduler(scheduler)
+    return eng
 
 
 def _serve(scheduler, cache, mode):
     """Both engines serve the forced schedule, then the greedy one (one
-    engine per package and combination, so the reference compiles once);
-    returns {forced: (ref trace, ref reqs, port trace, port reqs, the
-    port's planned chunk rows)}."""
+    port engine per combination, one reference engine per cache and
+    weights, :func:`_ref_engine`); returns {forced: (ref trace, ref reqs,
+    port trace, port reqs, the port's planned chunk rows)}."""
     key = (scheduler, cache, mode)
     if key not in _SERVES:
-        engines = _engines(slots=2, max_len=32, mode=mode, cache_format=cache,
-                           scheduler=scheduler, min_dim=16, trace_logits=True)
+        _, params = _params()
+        engines = (_ref_engine(scheduler, cache, mode),
+                   ServeEngine(params, _cfgs()[1], slots=2, max_len=32, mode=mode,
+                               cache_format=cache, scheduler=scheduler, min_dim=16,
+                               trace_logits=True, device="cpu"))
         plan = engines[1].scheduler.plan
         chunks = []  # the port's chunk rows, as its scheduler planned them
 

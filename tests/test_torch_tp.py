@@ -20,8 +20,10 @@ Held: ``model.prefill`` and three ``decode_step`` calls on the float,
 pad logit exactly ``NEG_INF``; the teacher-forced serves on ``w8a8`` and
 path A with the reference's tokens and trace and logits within 1e-4;
 every rank's results equal; ``w8a8`` at tp = 2 equal to tp = 1 bit for bit;
-each rank's resident weight bytes equal to the shard sizes ``spec_for``
-gives on meta tensors; the transfer plans' shards and byte counts.
+each rank's resident weight and cache bytes equal to the dry run's count
+(``dryrun.rank_bytes``), and every prefill's, decode step's and serve's
+collectives, by kind in count and raw bytes, to its count
+(``dryrun.call_collectives``); the transfer plans' shards and byte counts.
 Planted faults fail: a local activation amax, a bias added on every rank,
 and an unmasked pad logit.  In process, no rank spawned: where the KV
 heads stay whole (tp = 4), each rank's attention equals its head of the
@@ -266,18 +268,72 @@ def test_w8a8_tp2_is_bit_identical_to_one_device(runs):
     assert np.array_equal(ranks[0]["serve/w8a8/logits"], ranks[0]["serve/w8a8/tp1_logits"])
 
 
+def _rank_bytes(tp, stack):
+    """The dry run's count of a rank's bytes (``dryrun.rank_bytes``) of a
+    2-slot engine of the rank script's ring on ``stack``."""
+    cfg = _port_cfg(tp)
+    rules = P.base_rules(data_axes=("data",), shard_kv_heads=True)
+    return dryrun.rank_bytes(cfg.scaled(cache_format=R.STACKS[stack][1]), "decode",
+                             mesh_axes={"data": 1, "model": tp}, rules=rules,
+                             qmode=R.STACKS[stack][0], min_dim=16, batch=2,
+                             cache_len=R.MAX_LEN)
+
+
 @pytest.mark.parametrize("stack", R.SERVED)
 @pytest.mark.parametrize("tp", WORLDS)
 def test_resident_bytes_equal_the_shard_twin(runs, tp, stack):
-    """Each rank's weight bytes equal the shards ``spec_for`` cuts of the
-    converted tree on meta tensors (the formats' ``data_axes``)."""
+    """Each rank's weight bytes equal the dry run's count of a rank's
+    (``rank_bytes``: the converted tree on meta tensors cut by the formats'
+    ``data_axes``), and that count is the partitioning's ``local_bytes``."""
     _, ranks = runs[tp]
     cfg = _port_cfg(tp)
-    spec_tree = model_lib.specs(cfg, tp)
+    twin = _rank_bytes(tp, stack)["weights"]
     meta = dryrun.serve_params_meta(cfg, R.STACKS[stack][0], min_dim=16, tp=tp)
     rules = P.base_rules(data_axes=("data",), shard_kv_heads=True)
-    twin = P.local_bytes(meta, spec_tree, _StandIn((1, tp), ("data", "model")), rules)
+    assert twin == P.local_bytes(meta, model_lib.specs(cfg, tp),
+                                 _StandIn((1, tp), ("data", "model")), rules)
     assert all(int(r[f"serve/{stack}/bytes"]) == twin for r in ranks)
+
+
+@pytest.mark.parametrize("stack", R.SERVED)
+@pytest.mark.parametrize("tp", WORLDS)
+def test_cache_bytes_equal_the_dry_run(runs, tp, stack):
+    """Each rank's cache after the serve equals ``rank_bytes``' cache: the
+    global cache on meta tensors cut by ``cache_pspecs``."""
+    _, ranks = runs[tp]
+    want = _rank_bytes(tp, stack)
+    assert want["even"] and want["cache"] > 0
+    assert all(int(r[f"serve/{stack}/cache_bytes"]) == want["cache"] for r in ranks)
+
+
+def _held(record) -> list:
+    """A rank's [recorded, counted] collectives, each a list of (kind,
+    [count, raw bytes]), call by call."""
+    return json.loads(str(record))
+
+
+@pytest.mark.parametrize("stack", list(R.STACKS))
+@pytest.mark.parametrize("tp", WORLDS)
+def test_prefill_decode_collectives_equal_the_dry_run(runs, tp, stack):
+    """A prefill's and each decode step's collectives on every rank, by
+    kind in count and raw bytes, are ``dryrun.call_collectives``' count."""
+    _, ranks = runs[tp]
+    for r in ranks:
+        calls = _held(r[f"coll/{stack}"])
+        assert len(calls) == 1 + R.DECODE_STEPS
+        for have, want in calls:
+            assert have == want and {k for k, _ in have} == {"all-reduce", "all-gather"}
+
+
+@pytest.mark.parametrize("stack", R.SERVED)
+@pytest.mark.parametrize("tp", WORLDS)
+def test_serve_collectives_equal_the_dry_run(runs, tp, stack):
+    """A whole teacher-forced serve: the collectives of every model call the
+    engine made and of its closing token check, as counted."""
+    _, ranks = runs[tp]
+    for r in ranks:
+        have, want = _held(r[f"serve/{stack}/collectives"])
+        assert have == want and dict(have)["all-reduce"][0] > 0
 
 
 class _StandIn:

@@ -310,12 +310,35 @@ def test_resident_bytes_equal_the_shard_twin(runs, tp, arch, stack):
     meta = dryrun.serve_params_meta(cfg, R.STACKS[stack][0], min_dim=16, tp=tp)
     rules = P.base_rules(data_axes=("data",), shard_kv_heads=True,
                          shard_experts=not cfg.n_experts or cfg.n_experts % tp == 0)
-    twin = P.local_bytes(meta, model_lib.specs(cfg, tp), _StandIn((1, tp), ("data", "model")),
-                         rules)
-    whole = P.local_bytes(meta, model_lib.specs(cfg, tp), _StandIn((1, 1), ("data", "model")),
-                          rules)
-    assert twin < whole
+    twin = dryrun.rank_bytes(cfg, "prefill", mesh_axes={"data": 1, "model": tp}, rules=rules,
+                             qmode=R.STACKS[stack][0], min_dim=16)["weights"]
+    assert twin < dryrun.analytic_weight_bytes(cfg, R.STACKS[stack][0], tp=tp, min_dim=16)
+    assert twin == P.local_bytes(meta, model_lib.specs(cfg, tp),
+                                 _StandIn((1, tp), ("data", "model")), rules)
     assert all(int(r[f"{arch}/bytes/{stack}"]) == twin for r in ranks)
+
+
+@pytest.mark.parametrize("stack", [s for s in R.STACKS if s != "A"])
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("tp", WORLDS)
+def test_prefill_decode_collectives_equal_the_dry_run(runs, tp, arch, stack):
+    """MLA on a rank's heads, the experts sharded (tp = 2) or their hidden
+    width (tp = 3), the shared experts: a prefill's and each decode step's
+    collectives, by kind in count and raw bytes, are
+    ``dryrun.call_collectives``' count on every rank."""
+    _, ranks = runs[tp]
+    for r in ranks:
+        calls = json.loads(str(r[f"{arch}/coll/{stack}"]))
+        assert len(calls) == 1 + R.DECODE_STEPS
+        for have, want in calls:
+            assert have == want and have
+
+
+def test_deepseek_serve_collectives_equal_the_dry_run(runs):
+    _, ranks = runs[2]
+    for r in ranks:
+        have, want = json.loads(str(r[f"{DEEPSEEK}/serve/collectives"]))
+        assert have == want and dict(have)["all-reduce"][0] > 0
 
 
 class _StandIn:
