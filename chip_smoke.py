@@ -60,13 +60,13 @@ the same two stacks:
      grouped ``matmul_int8`` per projection
 
 and the sliding-window MoE and Mamba configs, at full published width and
-8 layers, on the same two stacks:
+4 layers, on the same two stacks:
 
-  O  mixtral-8x7b (8 of its 32 layers, 8 experts top 2, window 4096, untied head) on
+  O  mixtral-8x7b (4 of its 32 layers, 8 experts top 2, window 4096, untied head) on
      path A's stack: the experts through one grouped ``bsdp_gemm_fused``
      per projection at E = 8, K 4096 / N 28672
   P  mixtral-8x7b on path B's stack: grouped ``matmul_int8``, the head too
-  Q  falcon-mamba-7b (8 of its 64 Mamba-1 layers, d_inner 8192, no attention,
+  Q  falcon-mamba-7b (4 of its 64 Mamba-1 layers, d_inner 8192, no attention,
      tied head) on path A's stack: ``dequant_matmul`` on in_proj, x_proj (N =
      288) and out_proj
   R  falcon-mamba-7b on path B's stack: ``matmul_int8`` on the same
@@ -135,10 +135,17 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       deepseek-v2-lite-16b at full width and 4 layers (its dense layer 0 and
       3 MoE layers: MLA on a rank's 8 of 16 heads over the whole latent, 32
       of 64 experts a rank, the shared experts column- then row-parallel) on
-      B's and A's stacks, and mixtral-8x7b at full width and 1 layer (4 of 8
-      experts a rank, the 4096 window) on B's, 4 requests of 16-128 tokens,
-      16 new tokens each,
-      slots=4, ``fcfs``, each rank's shards placed from a host copy of the
+      B's and A's stacks, mixtral-8x7b at full width and 1 layer (4 of 8
+      experts a rank, the 4096 window) on B's, and falcon-mamba-7b at full
+      width and 2 layers (4096 of its 8192 Mamba channels a rank, x_proj and
+      out_proj row-parallel) on B's and A's, 4 requests of 16-128 tokens,
+      16 new tokens each, slots=4, ``fcfs``; llama-3.2-vision-11b at full
+      width and 4 layers (layer 3 cross-attends to the [4, 1601, 4096]
+      patch embeddings, 4 of 8 KV heads a rank) on B's stack and
+      seamless-m4t-medium at full width and depth (its encoder over [4, 1536,
+      1024] frames on 8 of 16 heads a rank) on A's, the same 4 prompts
+      driven through ``model.prefill`` and 15 ``decode_step`` calls
+      (``_tp_drive``: no engine serves a context); each rank's shards placed from a host copy of the
       converted weights (``transfer.place_shard``), and the same mix served
       at tp = 1 in the rank's process on the same weights, tp = 2
       teacher-forced to tp = 1's tokens: B bit for bit or, where a float op
@@ -159,7 +166,10 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       (collective term included) and the collectives' host time printed.  Phase 2 times the kernels at
       the shard shapes (``TP_PROJ``; the row-parallel wo and w_out through
       ``matmul_int8``'s raw int32 route; ``_rows_tp_moe``: the grouped
-      launches over a rank's 32 and 4 experts, MLA's wq on 8 heads).  The tp = 2 runs are no speed
+      launches over a rank's 32 and 4 experts, MLA's wq on 8 heads;
+      ``_rows_tp_hybrid``: falcon-mamba's three projections, llama-vision's
+      cross K/V prefill, seamless's attention, FFN and plane attention on 8
+      heads).  The tp = 2 runs are no speed
       result: two processes time-share one card
 
 and then training over a mesh (``phase_train_mesh``, after the tp phase),
@@ -237,10 +247,10 @@ needs a CUDA device and the repository's ``src``; without either it fails
 before printing a result.
 
 Every serving path runs at full width, and at full depth but for cuts
-made to keep the run well inside the 1200 s it may take: paths G-J serve
-their configs at 4 layers and K-R at 8 (``CONFIG_DEPTH``; on one H100, G-N
-at full depth took ~380 s of a 1,063 s run with O-S, G-J at 8 layers 30 s,
-and O-R at full depth ~100-157 s of runs up to 897 s), and S serves
+made to keep the run well inside the 1200 s it may take: paths G-J and O-R
+serve their configs at 4 layers and K-N at 8 (``CONFIG_DEPTH``; on one H100,
+G-N at full depth took ~380 s of a 1,063 s run with O-S, G-J at 8 layers 30
+s, and O-R at full depth ~100-157 s of runs up to 897 s), and S serves
 mixtral-8x7b at 1 of its
 32 layers (its 4,160-token prefill and its plain-path comparisons at
 full depth would take many minutes; at 2 layers S took ~175 s of runs
@@ -324,13 +334,14 @@ MLA_PATHS = {
 #: time) and K-R at 8 (deepseek-v2-lite-16b's dense layer 0 and 7 MoE
 #: layers), so that the run stays well inside its time limit: at full depth
 #: G-N took ~380 s of a 1,063 s run on one H100, O-R ~100-157 s of runs up
-#: to 897 s; at 8 layers G-J 30 s.  K and L stay at 8: minicpm3-4b's
+#: to 897 s; at 8 layers G-J 30 s; O-R went from 8 to 4 layers to make room
+#: for the tp phase's Mamba and cross serves.  K and L stay at 8: minicpm3-4b's
 #: conversion peaks while its 752 MB float32 embedding is drawn, whatever
 #: the depth, and at 4 layers that peak (1.88 GB) exceeds draw_converted's
 #: bound (resident + 2 x the largest layer leaf + slack: 1.81 GB).  A layer's
 #: shapes, and so each kernel launch, are those of the full depth.
 CONFIG_DEPTH = {"starcoder2-3b": 4, "qwen1.5-32b": 4, "minicpm3-4b": 8,
-                "deepseek-v2-lite-16b": 8, "mixtral-8x7b": 8, "falcon-mamba-7b": 8}
+                "deepseek-v2-lite-16b": 8, "mixtral-8x7b": 4, "falcon-mamba-7b": 4}
 #: the mesh phase's (a) trains qwen3-1.7b at full width and this many of its 28
 #: layers (None: all), its ranks' gloo collectives through the host setting
 #: the time: at 28 layers a step took 12.4-30.4 s by CUDA events (11.6-17.0 s
@@ -350,7 +361,7 @@ def config_for(arch: str):
 
 #: the sliding-window MoE and Mamba configs at full width, depth cut by
 #: CONFIG_DEPTH: path → (arch, the stack's path, kernels that must launch by
-#: slots, launches per decode step at slots=4 on 8 layers).  On A's stack:
+#: slots, launches per decode step at slots=4 on 4 layers).  On A's stack:
 #: mixtral-8x7b's 4 W8A16 attention projections, 2 grouped BSDP GEMMs (w_in,
 #: w_out over 8 experts) and one plane attention a layer, the head left in
 #: bf16; falcon-mamba-7b's 3 W8A16 projections a layer (in_proj, x_proj,
@@ -360,13 +371,13 @@ WINDOW_SSM_PATHS = {
     "O": ("mixtral-8x7b", "A",
           {4: ("bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"),
            1: ("bsdp_gemv", "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention")},
-          {"dequant_matmul": 32, "bsdp_gemm_fused": 16, "plane_decode_attention": 8}),
+          {"dequant_matmul": 16, "bsdp_gemm_fused": 8, "plane_decode_attention": 4}),
     "P": ("mixtral-8x7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 49}),
+          {"matmul_int8": 25}),
     "Q": ("falcon-mamba-7b", "A", {4: ("dequant_matmul",), 1: ("dequant_matmul",)},
-          {"dequant_matmul": 24}),
+          {"dequant_matmul": 12}),
     "R": ("falcon-mamba-7b", "B", {4: ("matmul_int8",), 1: ("matmul_int8",)},
-          {"matmul_int8": 24}),
+          {"matmul_int8": 12}),
 }
 #: paths G-R draw and convert leaf by leaf (``engine.materialize_converted``),
 #: and the peak allocation may exceed the resident bytes by two float32
@@ -689,6 +700,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_cross(torch, device, gen, timer, rows, min_m)
     _rows_tp(torch, device, gen, timer, rows, min_m)
     _rows_tp_moe(torch, device, gen, timer, rows, min_m)
+    _rows_tp_hybrid(torch, device, gen, timer, rows, min_m)
     dequant_accuracy(torch, device, gen)
     for row in rows:
         print("kernel " + json.dumps(row))
@@ -718,27 +730,35 @@ def _rows_tp(torch, device, gen, timer, rows, min_m):
         _int8_rows_at(torch, device, gen, timer, rows, min_m, f"tp2 {layer}", *TP_PROJ[layer],
                       (4,))
     for layer in ("wo", "w_out"):
-        k, n = TP_PROJ[layer]
-        w, x = _int8(torch, gen, device, k, n), _int8(torch, gen, device, 4, k)
-        ones_m = torch.ones((4, 1), device=device)
-        ones_n = torch.ones((1, n), device=device)
-        got = gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True)
-        err = _int_err(got, gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n, out_int32=True))
-        check(err == 0, f"matmul_int8 tp2 {layer} out_int32: not bit-exact (max err {err})")
-        lib, note = _int_mm(torch, x, w, min_m)
-        check(torch.equal(got, lib()[:4]), f"matmul_int8 tp2 {layer}: != torch._int_mm")
-        _row(rows, "matmul_int8", gemv_int8.KERNEL, f"tp2 {layer} M=4 N={n} K={k} out_int32",
-             err, timer, lambda: gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True),
-             timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n,
-                                                          out_int32=True)),
-             bound(4 * k + k * n + 4 * 4 * n, 2 * 4 * n * k / INT8_OPS_PER_S), timer.ms(lib),
-             note or "torch._int_mm")
+        _int8_raw_row(torch, device, gen, timer, rows, min_m, f"tp2 {layer}", *TP_PROJ[layer])
     for layer in ("wq", "wk", "wo"):
         _dequant_rows_at(torch, device, gen, timer, rows, f"tp2 {layer} ", *TP_PROJ[layer],
                          (torch.bfloat16,), (4,))
     _bsdp_rows_at(torch, device, gen, timer, rows, min_m, "tp2 w_in", *TP_PROJ["w_in"],
                   {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4,)})
     _attention_decode_row(torch, device, gen, timer, rows, 4, 4, 2)
+
+
+def _int8_raw_row(torch, device, gen, timer, rows, min_m, label, k, n):
+    """``matmul_int8``'s raw int32 route at one row-parallel shard ``[K/tp,
+    N]`` at M = 4 (the partial sums a rank all-reduces before the epilogue),
+    bit-exact to its plain version and to ``torch._int_mm``."""
+    from repro_torch.kernels import gemv_int8
+
+    m = 4
+    w, x = _int8(torch, gen, device, k, n), _int8(torch, gen, device, m, k)
+    ones_m = torch.ones((m, 1), device=device)
+    ones_n = torch.ones((1, n), device=device)
+    got = gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True)
+    err = _int_err(got, gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n, out_int32=True))
+    check(err == 0, f"matmul_int8 {label} out_int32: not bit-exact (max err {err})")
+    lib, note = _int_mm(torch, x, w, min_m)
+    check(torch.equal(got, lib()[:m]), f"matmul_int8 {label}: != torch._int_mm")
+    _row(rows, "matmul_int8", gemv_int8.KERNEL, f"{label} M={m} N={n} K={k} out_int32",
+         err, timer, lambda: gemv_int8.matmul_int8(x, w, ones_m, ones_n, out_int32=True),
+         timer.ms(lambda: gemv_int8.matmul_int8_plain(x, w, ones_m, ones_n, out_int32=True)),
+         bound(m * k + k * n + 4 * m * n, 2 * m * n * k / INT8_OPS_PER_S), timer.ms(lib),
+         note or "torch._int_mm")
 
 
 #: deepseek-v2-lite-16b's MLA query projection as one rank of tp = 2 holds it:
@@ -762,6 +782,53 @@ def _rows_tp_moe(torch, device, gen, timer, rows, min_m):
     _int8_rows_at(torch, device, gen, timer, rows, min_m, "tp2 mla wq", *TP_MLA_WQ, (4,))
     _dequant_rows_at(torch, device, gen, timer, rows, "tp2 mla wq ", *TP_MLA_WQ,
                      (torch.bfloat16,), (4,))
+
+
+#: falcon-mamba-7b's projections as one rank of tp = 2 holds them: in_proj's
+#: half of each of its x | z blocks (column-parallel), x_proj's and
+#: out_proj's half of the K rows (row-parallel)
+TP_MAMBA_PROJ = {"in_proj": (4096, 8192), "x_proj": (4096, 288), "out_proj": (4096, 4096)}
+#: seamless-m4t-medium's at tp = 2: the attention's wq (8 of 16 heads of 64;
+#: wk and wv alike) and wo (K halved), and the FFN's w_in (N halved; a
+#: bit-plane w_out stays whole)
+TP_SEAMLESS_PROJ = {"wq": (1024, 512), "wo": (512, 1024), "w_in": (1024, 2048)}
+#: llama-3.2-vision-11b's cross K / V projection at tp = 2: 4 of its 8 KV
+#: heads of 128, over the context's 4 x 1601 patch rows
+TP_CROSS_WK = (4096, 512)
+
+
+def _rows_tp_hybrid(torch, device, gen, timer, rows, min_m):
+    """The Mamba and cross layers' shard shapes at tp = 2, decode at slots=4:
+    falcon-mamba-7b's in_proj (``matmul_int8``), x_proj and out_proj
+    (``matmul_int8``'s raw int32 route: their partials are all-reduced before
+    the epilogue) and all three through ``dequant_matmul`` (bf16 x);
+    llama-3.2-vision-11b's cross K / V prefill (``matmul_int8`` at M = 4 x
+    1601); seamless-m4t-medium's wq and wo (``dequant_matmul``, bf16 x), its
+    w_in half (``bsdp_gemv`` at M = 1, ``bsdp_gemm_fused`` at M = 4 and at
+    the encoder's M = 4 x 1536) and plane attention over 8 of its 16 heads
+    (R = 32, G = 1, Fw = 2)."""
+    from repro_torch.configs import get_config
+
+    for name, (k, n) in TP_MAMBA_PROJ.items():
+        label = f"tp2 falcon-mamba-7b {name}"
+        if name == "in_proj":
+            _int8_rows_at(torch, device, gen, timer, rows, min_m, label, k, n, (4,))
+        else:
+            _int8_raw_row(torch, device, gen, timer, rows, min_m, label, k, n)
+        _dequant_rows_at(torch, device, gen, timer, rows, label + " ", k, n, (torch.bfloat16,),
+                         (4,))
+    vlm, enc_dec = get_config("llama-3.2-vision-11b"), get_config("seamless-m4t-medium")
+    _int8_rows_at(torch, device, gen, timer, rows, min_m, f"tp2 {vlm.name} cross wk",
+                  *TP_CROSS_WK, (4 * vlm.encoder_tokens,))
+    for name in ("wq", "wo"):
+        _dequant_rows_at(torch, device, gen, timer, rows, f"tp2 {enc_dec.name} {name} ",
+                         *TP_SEAMLESS_PROJ[name], (torch.bfloat16,), (4,))
+    _bsdp_rows_at(torch, device, gen, timer, rows, min_m, f"tp2 {enc_dec.name} w_in",
+                  *TP_SEAMLESS_PROJ["w_in"],
+                  {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4, 4 * enc_dec.encoder_tokens)})
+    _attention_decode_row(torch, device, gen, timer, rows, 4, enc_dec.n_kv_heads // TP_WORLD,
+                          1, feat=enc_dec.d_head)
+    torch.cuda.empty_cache()
 
 
 def step_gaps(rows) -> None:
@@ -2441,16 +2508,18 @@ class CrossDrive:
     ``model.prefill`` (prompts left-padded with negative positions, each
     row's context drawn from ``SEED``) and greedy ``model.decode_step``
     calls; each call's logits are checked finite and as wide as the vocab,
-    and its tokens copied to the host (as the engine copies its logits)."""
+    and its tokens copied to the host (as the engine copies its logits).
+    ``tp`` (a rank's model axis) runs the rank's shards; ``forced`` gives each
+    call's tokens in place of the greedy ones."""
 
-    def __init__(self, torch, params, cfg, lens, device, impl=None, forced=None):
+    def __init__(self, torch, params, cfg, lens, device, impl=None, forced=None, tp=None):
         import numpy as np
 
         from repro_torch.models import model as model_lib
 
         self.torch, self.model, self.params, self.cfg, self.impl = (
             torch, model_lib, params, cfg, impl)
-        self.forced = forced
+        self.forced, self.tp = forced, tp
         b, s = len(lens), max(lens)
         rng = np.random.default_rng(SEED + 5)
         tokens = rng.integers(0, cfg.vocab_size, size=(b, s))
@@ -2482,12 +2551,14 @@ class CrossDrive:
 
     def prefill(self):
         logits, self.caches = self.model.prefill(self.params, self.batch, self.cfg,
-                                                 max_len=CROSS_MAX_LEN, impl=self.impl)
+                                                 max_len=CROSS_MAX_LEN, impl=self.impl,
+                                                 tp=self.tp)
         self._take("prefill", logits)
 
     def step(self):
         logits, self.caches = self.model.decode_step(self.params, self.tok, self.caches,
-                                                     self.pos, self.cfg, impl=self.impl)
+                                                     self.pos, self.cfg, impl=self.impl,
+                                                     tp=self.tp)
         self.pos = self.pos + 1
         self._take("decode", logits)
 
@@ -3613,7 +3684,8 @@ class OpLog:
     """The outputs of the model's float ops outside the kernels, in call
     order: the norms, the embedding, the q / k / v projections (after rope),
     the prefill and decode attention, the activation, every row-parallel
-    projection's (whole) output and the logits.  Without ``plain`` it keeps
+    projection's (whole) output (a Mamba layer's x_proj and out_proj too),
+    each Mamba chunk's scan output and state, and the logits.  Without ``plain`` it keeps
     each output; with ``plain`` (a one-device run's log) it compares each
     with its rank's share of that run's (:func:`_rank_share`) and keeps the
     first that differs: ``first`` = (call, op, model call, max |Δ|, shape),
@@ -3622,7 +3694,8 @@ class OpLog:
     SITES = (("layers", "norm_apply"), ("layers", "embed_apply"), ("layers", "logits_apply"),
              ("layers", "activation"), ("layers", "row_parallel"),
              ("attention", "row_parallel"), ("attention", "_project_qkv"),
-             ("attention", "chunked_attention"), ("attention", "_decode_attention"))
+             ("attention", "chunked_attention"), ("attention", "_decode_attention"),
+             ("mamba", "row_parallel"), ("mamba", "_chunk_step"))
 
     def __init__(self, plain=None, rank: int = 0, tp: int = 1):
         self.plain, self.rank, self.tp = plain, rank, tp
@@ -3653,9 +3726,9 @@ class OpLog:
             self.model_calls += 1
 
     def __enter__(self):
-        from repro_torch.models import attention, layers
+        from repro_torch.models import attention, layers, mamba
 
-        mods = {"layers": layers, "attention": attention}
+        mods = {"layers": layers, "attention": attention, "mamba": mamba}
         self._undo = []
         for mod_name, fn_name in self.SITES:
             mod = mods[mod_name]
@@ -3701,6 +3774,48 @@ def _tp_serve(engine, params, cfg, mode, cache, device, *, tp=1, mesh=None, forc
     return eng, eng.logit_trace, [r.out for r in eng.requests], time.perf_counter() - t0
 
 
+def _tp_drive(engine, params, cfg, mode, cache, device, *, tp=1, mesh=None, force=None):
+    """One drive of the tp mix through ``model.prefill`` (with each row's
+    seeded context) and :data:`TP_NEW` - 1 decode steps (greedy, or
+    teacher-forced to ``force``), for a cross-attention config, which no
+    engine serves: an engine holds the weights (at ``tp`` it places the
+    rank's shards) and is never stepped; the drive's caches are handed to it
+    so that its ``resident_bytes`` counts them → (engine, logit trace,
+    tokens by request, wall s)."""
+    import numpy as np
+    import torch
+
+    eng = engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, mode=mode, cache_format=cache,
+                             slots=TP_SLOTS, max_len=CROSS_MAX_LEN, device=device)
+    forced = None if force is None else np.array(force).T
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    drive = CrossDrive(torch, eng.params, eng.cfg, [len(p) for p in _tp_mix(cfg)], device,
+                       forced=forced, tp=eng._tp)
+    drive.prefill()
+    for _ in range(TP_NEW - 1):
+        drive.step()
+    torch.cuda.synchronize()
+    eng.caches = drive.caches
+    return (eng, drive.logits, np.stack(drive.out).T.tolist(), time.perf_counter() - t0)
+
+
+def _drive_step(torch, eng, cfg, device):
+    """(each kernel's launches in one decode step, the drive's ``step``) of a
+    cross drive on ``eng``'s weights at slots=4: four 64-token prompts with
+    their contexts prefilled, one decode step run, the next counted."""
+    from repro_torch.kernels import ops
+
+    drive = CrossDrive(torch, eng.params, eng.cfg, [64] * 4, device, tp=eng._tp)
+    drive.prefill()
+    drive.step()
+    torch.cuda.synchronize()
+    ops.reset_counts()
+    drive.step()
+    torch.cuda.synchronize()
+    return {k: v for k, v in ops.launch_counts().items() if v}, drive.step
+
+
 def _first_difference(a, b):
     """(call index, kind, max |Δ|) of the first logit row that differs."""
     import numpy as np
@@ -3716,14 +3831,26 @@ def _first_difference(a, b):
 TP_DEPTH = 8
 #: the tp phase's serves: label → (arch, the path whose stack it serves, layers):
 #: deepseek-v2-lite-16b's dense layer 0 and 3 MoE layers, mixtral-8x7b's one
-#: layer (as path S)
+#: layer (as path S), falcon-mamba-7b's first 2 Mamba layers,
+#: llama-3.2-vision-11b's first 4 (layer 3 cross-attends to the [4, 1601,
+#: 4096] patch embeddings), seamless-m4t-medium whole (12 encoder layers over
+#: [4, 1536, 1024] frames, 12 decoder layers)
 TP_SERVES = {
     "qwen3-1.7b B": ("qwen3-1.7b", "B", TP_DEPTH),
     "qwen3-1.7b A": ("qwen3-1.7b", "A", TP_DEPTH),
     "deepseek-v2-lite-16b B": ("deepseek-v2-lite-16b", "B", 4),
     "deepseek-v2-lite-16b A": ("deepseek-v2-lite-16b", "A", 4),
     "mixtral-8x7b B": ("mixtral-8x7b", "B", 1),
+    "falcon-mamba-7b B": ("falcon-mamba-7b", "B", 2),
+    "falcon-mamba-7b A": ("falcon-mamba-7b", "A", 2),
+    "llama-3.2-vision-11b B": ("llama-3.2-vision-11b", "B", 4),
+    "seamless-m4t-medium A": ("seamless-m4t-medium", "A", 12),
 }
+
+
+def _cross_config(cfg) -> bool:
+    """Whether ``cfg`` attends to a context (driven, not served)."""
+    return cfg.is_enc_dec or cfg.family == "vlm"
 
 
 def _step_launches(torch, eng, cfg) -> dict:
@@ -3780,9 +3907,13 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
         cfg = get_config(arch).scaled(n_layers=depth)
         mode, cache = PATHS[path][:2]
         moe = bool(cfg.n_experts)
+        cross = _cross_config(cfg)
+        run, max_len = (_tp_drive, CROSS_MAX_LEN) if cross else (_tp_serve, TP_MAX_LEN)
         t0 = time.perf_counter()
         host = engine.materialize_converted(cfg, mode, seed=SEED, device=device, tp=world,
                                             keep=lambda leaf: engine.tree_to(leaf, "cpu"))
+        if cross:
+            open_gates(host, cfg)
         res = {"draw_s": time.perf_counter() - t0, "layers": depth}
 
         def routed(run, forced=None):
@@ -3800,26 +3931,26 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
         one_ops = OpLog()
         with one_log or _Null(), one_ops:
             (eng1, trace1, toks1, _), routes1 = routed(
-                lambda: _tp_serve(engine, engine.tree_to(host, device), cfg, mode, cache,
-                                  device))
+                lambda: run(engine, engine.tree_to(host, device), cfg, mode, cache, device))
         res["tp1_weights"] = eng1.resident_bytes()["weights"]
         trace1 = list(trace1)  # the launch count below steps eng1 on
-        res["tp1_step_launches"] = _step_launches(torch, eng1, cfg)
+        res["tp1_step_launches"] = (_drive_step(torch, eng1, cfg, device)[0] if cross
+                                    else _step_launches(torch, eng1, cfg))
         del eng1
         torch.cuda.empty_cache()
 
         def serve_tp(codes, op_log, forced=None, c=cfg, force=toks1):
             with codes or _Null(), op_log or _Null():
-                return routed(lambda: _tp_serve(engine, host, c, mode, cache, device, tp=world,
-                                                mesh=mesh, force=force), forced)
+                return routed(lambda: run(engine, host, c, mode, cache, device, tp=world,
+                                          mesh=mesh, force=force), forced)
 
         ops.reset_counts()
         codes = ShardCodeLog(one_log, rank, world) if path == "A" else None
         op_log = OpLog(one_ops, rank, world)
         with dryrun.ModelCallLog() as served:
             (eng, trace, toks, wall), routes = serve_tp(codes, op_log)
-        res["collectives"] = dryrun.held_collectives(eng._tp,
-                                                     dryrun.serve_collectives(eng, served.calls))
+        res["collectives"] = dryrun.held_collectives(
+            eng._tp, dryrun.serve_collectives(eng, served.calls, agree=not cross))
         res["model_calls"] = len(served.calls)
         plain = ops.plain_cuda_counts()
         check(all(v == 0 for v in plain.values()), f"tp {label}: a plain version ran on CUDA")
@@ -3831,7 +3962,7 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
                    launches={k: v for k, v in ops.launch_counts().items() if v})
         counted = dryrun.rank_bytes(eng.cfg, "decode", mesh_axes={"data": 1, "model": world},
                                     rules=eng.rules, qmode=mode, batch=TP_SLOTS,
-                                    cache_len=TP_MAX_LEN)
+                                    cache_len=max_len)
         res.update(weights_twin=counted["weights"], cache_twin=counted["cache"])
         del eng
         if moe and res["routes"][0]:  # held with tp = 1's expert choices forced
@@ -3855,7 +3986,7 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
             f32 = dataclasses.replace(cfg, dtype=torch.float32)
             log32 = CodeLog()
             with log32:
-                (_, trace32_1, toks32, _), routes32_1 = routed(lambda: _tp_serve(
+                (_, trace32_1, toks32, _), routes32_1 = routed(lambda: run(
                     engine, engine.tree_to(host, device), f32, mode, cache, device))
             torch.cuda.empty_cache()
             forced = ShardCodeLog(log32, rank, world, force=True)
@@ -3873,14 +4004,17 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
         # launches of one decode step, then a profiled decode step, at slots=4
         prof = engine.ServeEngine(host, cfg, tp=world, mesh=mesh, mode=mode, cache_format=cache,
                                   slots=4, max_len=512, device=device)
-        res["step_launches"] = _step_launches(torch, prof, cfg)
+        if cross:
+            res["step_launches"], step = _drive_step(torch, prof, cfg, device)
+        else:
+            res["step_launches"], step = _step_launches(torch, prof, cfg), prof.step
         prof._tp.reset_counts()
         res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
-            torch, prof.step, 3, f"tp phase rank {rank} {label} profile decode step "
+            torch, step, 3, f"tp phase rank {rank} {label} profile decode step "
             f"(slots=4, tp={world}, {cfg.n_layers} layers, {card}, under the profiler)")
         res["profile_collective_ms"] = prof._tp.collective_s * 1e3 / 3
         res["profile_collective_calls"] = {k: v / 3 for k, v in prof._tp.calls.items()}
-        del prof, host
+        del prof, host, step
         torch.cuda.empty_cache()
         out[label] = res
     torch.distributed.destroy_process_group()
@@ -3920,9 +4054,12 @@ def _run_children(targets, join_s: float, label: str) -> None:
 
 def phase_tp(torch, card) -> None:
     """(a) NCCL's four collectives at one rank; (b) two gloo ranks on the one
-    card serving :data:`TP_SERVES` (qwen3-1.7b, deepseek-v2-lite-16b and
-    mixtral-8x7b at full width, cut in depth) at tp = 2, each held against
-    tp = 1 on the same weights: B bit for bit or its first differing op
+    card serving :data:`TP_SERVES` (qwen3-1.7b, deepseek-v2-lite-16b,
+    mixtral-8x7b and falcon-mamba-7b through the engine, llama-3.2-vision-11b
+    and seamless-m4t-medium with their contexts through ``model.prefill`` /
+    ``decode_step``, at full width, all but seamless cut in depth) at tp =
+    2, each held against tp = 1 on the same weights: B bit for bit or its
+    first differing op
     named and its rows within PATH_LIMITS, A within PATH_LIMITS in float32
     with the int4 boundary codes forced (its bf16 serve's drift and first
     differing op printed), a MoE serve whose expert choices differ from
@@ -3976,8 +4113,9 @@ def phase_tp(torch, card) -> None:
             bound_ms = terms["step_lower_bound"] * 1e3
             print(f"tp {label} rank {r['rank']}: the serve's collectives (kind, [count, raw "
                   f"bytes]) {have} = the dry run's count (call_collectives of its "
-                  f"{res['model_calls']} model calls and the token "
-                  f"check); profiled decode step busy {res['profile_busy_ms']:.3f} ms = "
+                  f"{res['model_calls']} model calls"
+                  f"{'' if _cross_config(cfg) else ' and the token check'}); profiled decode "
+                  f"step busy {res['profile_busy_ms']:.3f} ms = "
                   f"{res['profile_busy_ms'] / bound_ms:.2f} x the dry run's step bound at "
                   f"tp={TP_WORLD} {bound_ms:.4f} ms ({terms['dominant']}; compute "
                   f"{terms['t_compute'] * 1e3:.4f}, memory {terms['t_memory'] * 1e3:.4f}, "

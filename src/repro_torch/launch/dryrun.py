@@ -678,8 +678,13 @@ def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
     ``moe``):
 
     * the vocab-sharded embedding: an all-reduce of its float32 rows;
-    * each attention layer's ``wo`` (GQA or MLA: the rank's heads) and a
-      dense FFN's ``w_out``: :func:`_row_parallel`;
+    * each attention layer's ``wo`` (GQA or MLA: the rank's heads), a cross
+      layer's ``wo`` (an ``attn_cross`` layer's both) and a dense FFN's
+      ``w_out``: :func:`_row_parallel`;
+    * a Mamba layer's ``x_proj`` (to ``dt_rank + 2·d_state``) and
+      ``out_proj``: :func:`_row_parallel` each;
+    * at a prefill of an encoder-decoder, each encoder layer's ``wo`` and
+      ``w_out`` on its ``batch × encoder_tokens`` frames;
     * a MoE layer with its experts sharded: the router's float32 logits
       all-reduced, and the per-slot outputs ``[batch, seq·k, d]`` in the
       activations' dtype; with their hidden width sharded: the stacked
@@ -699,9 +704,29 @@ def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
     act = _itemsize(cfg.dtype)
     d, tokens = cfg.d_model, batch * seq
     ev = [CollectiveEvent("all-reduce", tokens * d * 4, tp)]  # the embedding
+    if kind == "prefill" and cfg.is_enc_dec:
+        frames = batch * cfg.encoder_tokens
+        for p, s in zip(tree["encoder"]["layers"], spec["encoder"]["layers"]):
+            for key in (("mixer", "wo"), ("ffn", "w_out")):
+                ev += _row_parallel(p[key[0]][key[1]], s[key[0]][key[1]], rules, sizes,
+                                    frames, d, act)
     for i in range(cfg.n_layers):
         p, s = tree["layers"][i], spec["layers"][i]
-        ev += _row_parallel(p["mixer"]["wo"], s["mixer"]["wo"], rules, sizes, tokens, d, act)
+        mixer = cfg.mixer_kind(i)
+        if mixer == "mamba":
+            xdb = cfg.dt_rank_actual + 2 * cfg.d_state
+            ev += _row_parallel(p["mixer"]["x_proj"], s["mixer"]["x_proj"], rules, sizes,
+                                tokens, xdb, act)
+            ev += _row_parallel(p["mixer"]["out_proj"], s["mixer"]["out_proj"], rules, sizes,
+                                tokens, d, act)
+        else:
+            ev += _row_parallel(p["mixer"]["wo"], s["mixer"]["wo"], rules, sizes, tokens, d,
+                                act)
+        if mixer == "attn_cross":
+            ev += _row_parallel(p["cross"]["wo"], s["cross"]["wo"], rules, sizes, tokens, d,
+                                act)
+        if cfg.ffn_kind(i) == "none":
+            continue
         if cfg.ffn_kind(i) == "dense":
             ev += _row_parallel(p["ffn"]["w_out"], s["ffn"]["w_out"], rules, sizes, tokens, d,
                                 act)
@@ -947,14 +972,15 @@ def n_superblocks(cfg: ModelConfig) -> int:
 
 def unsupported(cfg: ModelConfig, cell: ShapeCell, pl: mesh_lib.Plan, sizes: dict):
     """Why the port runs no collective count for this cell at this plan:
-    the message of the check that raises (``check_tp`` for Mamba and cross
-    layers, and for MLA or MoE training; ``check_mesh`` for a MoE layer
-    over a split batch), or the sequence-parallel decode of ``plan`` that
-    the engine does not serve; None where it runs."""
+    the message of the check that raises (``check_tp`` for MLA, MoE, Mamba
+    and cross training, and for a Mamba ``d_inner`` the model axis does not
+    divide; ``check_mesh`` for a MoE layer over a split batch), or the
+    sequence-parallel decode of ``plan`` that the engine does not serve;
+    None where it runs."""
     train = cell.kind == "train"
     try:
         _tp_check(cfg, pl.tp, train=train)
-    except NotImplementedError as e:
+    except (NotImplementedError, ValueError) as e:
         return f"check_tp: {e}"
     if train and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)):
         ways = math.prod(sizes.get(a, 1) for a in model_lib.batch_axes(pl.rules))

@@ -31,7 +31,12 @@ projects the context's K and V once, at prefill, and they stay per-slot
 float state ``{"ck", "cv"}`` ``[B, ctx, Hkv, dh]`` in the config's dtype,
 through no cache format; :func:`cross_apply` attends to them with no rope
 and no mask (queries and keys all at position 0), under a tanh ``gate``
-where the config is not an encoder-decoder.
+where the config is not an encoder-decoder.  Under ``tp`` a cross layer is
+split as self-attention is: a rank projects its KV heads of the context
+(:func:`attn_dims`' padded heads, or all of them where they stay whole),
+attends with its query heads, each paired with its own KV head as
+:func:`_kv_window` pairs self-attention's, and ``wo`` is row-parallel; the
+gate scales the summed output.
 """
 
 from __future__ import annotations
@@ -109,6 +114,17 @@ def _over_window(q, window, attend):
     return attend(block)[:, :, off:off + hq]
 
 
+def _rank_attention(q, k, v, kv_window, **kw):
+    """:func:`chunked_attention` of the rank's query heads ``q`` against the
+    KV heads ``k``, ``v`` it holds: all of them, or under a
+    :func:`_kv_window` the window's, the queries placed in its block."""
+    if kv_window is None:
+        return chunked_attention(q, k, v, **kw)
+    k0, k1 = kv_window[:2]
+    return _over_window(q, kv_window, lambda qq: chunked_attention(
+        qq, k[:, :, k0:k1], v[:, :, k0:k1], **kw))
+
+
 def _project_qkv(params, x, cfg, positions, impl=None, tp=None):
     """q, k, v ``[B, S, heads, dh]`` of this rank's heads.  Under ``tp`` in
     training, the leaves every rank holds whole but applies to its own
@@ -138,19 +154,15 @@ def _project_qkv(params, x, cfg, positions, impl=None, tp=None):
     return q, k, v
 
 
-def _gqa(params, x, cfg, positions, impl=None, tp=None):
-    """Full-sequence causal (windowed with ``cfg.sliding_window``) GQA →
-    (output, k, v).  Under ``tp`` on the rank's heads, ``wo`` row-parallel."""
+def _gqa(params, x, cfg, positions, impl=None, tp=None, causal: bool = True):
+    """Full-sequence causal (windowed with ``cfg.sliding_window``) GQA, or
+    with ``causal=False`` the encoder's attention (every position sees
+    every other, no window) → (output, k, v).  Under ``tp`` on the rank's
+    heads, ``wo`` row-parallel."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl, tp=tp)
-    window = _kv_window(cfg, tp)
-
-    def attend(qq, k0=0, k1=k.shape[2]):
-        return chunked_attention(qq, k[:, :, k0:k1], v[:, :, k0:k1], q_pos=positions,
-                                 kv_pos=positions, window=cfg.sliding_window)
-
-    out = attend(q) if window is None else _over_window(q, window,
-                                                        lambda qq: attend(qq, *window[:2]))
+    out = _rank_attention(q, k, v, _kv_window(cfg, tp), q_pos=positions, kv_pos=positions,
+                          causal=causal, window=cfg.sliding_window if causal else None)
     return row_parallel(params["wo"], out.reshape(b, s, -1), tp, impl=impl), k, v
 
 
@@ -362,34 +374,43 @@ def cross_specs(cfg, tp: int = 1) -> dict:
     }
 
 
-def init_cross_cache(cfg, batch: int, *, device=None) -> dict:
+def init_cross_cache(cfg, batch: int, *, tp: int = 1, local: bool = True,
+                     device=None) -> dict:
     """Zero context K/V ``{"ck", "cv"}`` ``[B, encoder_tokens, Hkv, dh]`` in
     the config's dtype on ``device`` (default ``"cuda"``): what
-    :func:`cross_kv` leaves in a cross layer's cache at prefill."""
+    :func:`cross_kv` leaves in a cross layer's cache at prefill.  At ``tp``
+    ways ``Hkv`` is the KV heads one rank holds (:func:`kv_heads_held`), or
+    with ``local=False`` all the padded ones."""
     device = resolve_device(device)
-    shape = (batch, cfg.encoder_tokens, cfg.n_kv_heads, cfg.d_head)
+    heads = kv_heads_held(cfg, tp) if local else attn_dims(cfg, tp)[1]
+    shape = (batch, cfg.encoder_tokens, heads, cfg.d_head)
     return {name: torch.zeros(shape, dtype=cfg.dtype, device=device) for name in ("ck", "cv")}
 
 
-def cross_kv(params, ctx, cfg, impl=None) -> dict:
+def cross_kv(params, ctx, cfg, impl=None, tp=None) -> dict:
     """Project the context ``[B, ctx, D]`` once → ``{"ck", "cv"}`` ``[B,
-    ctx, Hkv, dh]``, reused by every decode step."""
+    ctx, Hkv, dh]`` (under ``tp`` the rank's KV heads), reused by every
+    decode step."""
     b, s, _ = ctx.shape
-    k = dense(params["wk"], ctx, impl=impl).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
-    v = dense(params["wv"], ctx, impl=impl).reshape(b, s, cfg.n_kv_heads, cfg.d_head)
+    ctx = copy_to(tp, ctx)
+    k = dense(params["wk"], ctx, impl=impl).reshape(b, s, -1, cfg.d_head)
+    v = dense(params["wv"], ctx, impl=impl).reshape(b, s, -1, cfg.d_head)
     return {"ck": k, "cv": v}
 
 
-def cross_apply(params, x, kv, cfg, *, gated=True, impl=None) -> torch.Tensor:
+def cross_apply(params, x, kv, cfg, *, gated=True, impl=None, tp=None) -> torch.Tensor:
     """``x [B, S, D]`` attends over the projected context ``kv`` with no
-    rope and no mask; ``gated`` scales the output by ``tanh(gate)``."""
+    rope and no mask; ``gated`` scales the output by ``tanh(gate)``.  Under
+    ``tp`` the rank's query heads against its KV heads, ``wo``
+    row-parallel, the gate applied after the sum."""
     b, s, _ = x.shape
-    q = dense(params["wq"], x, impl=impl).reshape(b, s, cfg.n_heads, cfg.d_head)
+    q = dense(params["wq"], copy_to(tp, x), impl=impl).reshape(b, s, -1, cfg.d_head)
     k, v = kv["ck"], kv["cv"]
     q_pos = torch.zeros((b, s), dtype=torch.int32, device=x.device)
     kv_pos = torch.zeros((b, k.shape[1]), dtype=torch.int32, device=x.device)
-    out = chunked_attention(q, k, v, q_pos=q_pos, kv_pos=kv_pos, causal=False)
-    out = dense(params["wo"], out.reshape(b, s, -1), impl=impl)
+    out = _rank_attention(q, k, v, _kv_window(cfg, tp), q_pos=q_pos, kv_pos=kv_pos,
+                          causal=False)
+    out = row_parallel(params["wo"], out.reshape(b, s, -1), tp, impl=impl)
     if gated:
         out = torch.tanh(params["gate"]).to(out.dtype) * out
     return out

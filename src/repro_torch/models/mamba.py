@@ -16,6 +16,17 @@ plain ``jnp``; ``in_proj``, ``x_proj`` and ``out_proj`` go through
 :func:`~repro_torch.models.layers.dense`, so they run the residency's
 kernels.  Decode keeps an O(1) state, batch first: ``{"conv": [B, d_conv-1,
 d_inner], "ssm": [B, d_inner, n]}`` float32.
+
+Under ``tp`` (a :class:`~repro_torch.distributed.mesh.TensorParallel`) a
+rank holds ``d_inner / tp`` of the channels, as the reference's ``mlp``
+rule places them: ``in_proj`` column-parallel (its fused x | z halves cut
+block by block, so a rank's x and z channels stay paired), ``conv_w``,
+``conv_b``, ``dt_w``'s columns, ``dt_b``, ``A_log`` and ``D`` on the rank's
+channels, and ``x_proj`` and ``out_proj`` row-parallel
+(:func:`~repro_torch.models.layers.row_parallel`): ``x_proj``'s ``[B, S,
+dt_rank + 2n]`` partials are all-reduced before ``dt``, B and C are split,
+so every rank scans its channels with the whole B and C.  The state is the
+rank's channels, ``[B, d_conv-1, d_inner/tp]`` and ``[B, d_inner/tp, n]``.
 """
 
 from __future__ import annotations
@@ -26,7 +37,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import resolve_device
-from repro_torch.models.layers import dense
+from repro_torch.distributed.mesh import copy_to, tp_size
+from repro_torch.models.layers import dense, row_parallel
+
+
+def inner_per_rank(cfg, tp: int = 1) -> int:
+    """A rank's channels of ``d_inner`` at ``tp`` ways; a ``ValueError`` where
+    ``tp`` does not divide it (the reference cannot place it either)."""
+    if cfg.d_inner % tp:
+        raise ValueError(f"{cfg.name}: d_inner {cfg.d_inner} does not divide over a model "
+                         f"axis of {tp}")
+    return cfg.d_inner // tp
 
 
 def mamba_specs(cfg) -> dict:
@@ -90,22 +111,27 @@ def _chunk_step(params, h0, dt_c, b_c, c_c, xc_c):
     inp = (dt_c * xc_c.to(torch.float32))[..., None] * b_c[:, :, None, :]
     pa, pb = _scan(decay, inp)
     h_all = pb + pa * h0[:, None]
-    y_c = torch.einsum("bcdn,bcn->bcd", h_all, c_c)
+    # a product and a sum over n, not an einsum: its batched matmul sums in
+    # an order that depends on the channel count, and a rank's d_inner / tp
+    # channels must sum as one device's do
+    y_c = (h_all * c_c[:, :, None, :]).sum(-1)
     return y_c, h_all[:, -1]
 
 
 def mamba_apply(params: dict, x: torch.Tensor, cfg, *, chunk: int = 64,
-                state: Optional[dict] = None, return_state: bool = False, impl=None):
+                state: Optional[dict] = None, return_state: bool = False, impl=None,
+                tp=None):
     """The selective SSM over ``x [B, S, D]`` → ``[B, S, D]``, from ``state``
     (default zeros).  With ``return_state`` also returns the state after
-    the last step, ``{"conv", "ssm"}``."""
+    the last step, ``{"conv", "ssm"}``.  Under ``tp`` on the rank's
+    channels (see the module doc)."""
     b, s, _ = x.shape
-    di, n, dtr = cfg.d_inner, cfg.d_state, cfg.dt_rank_actual
-    xz = dense(params["in_proj"], x, impl=impl)
+    di, n, dtr = inner_per_rank(cfg, tp_size(tp)), cfg.d_state, cfg.dt_rank_actual
+    xz = dense(params["in_proj"], copy_to(tp, x), impl=impl)
     x_in, z = xz[..., :di], xz[..., di:]
     x_conv, new_conv = _causal_conv(params, x_in, None if state is None else state["conv"])
 
-    xdb = dense(params["x_proj"], x_conv, impl=impl).to(torch.float32)
+    xdb = row_parallel(params["x_proj"], x_conv, tp, impl=impl).to(torch.float32)
     dt_low, bmat, cmat = xdb[..., :dtr], xdb[..., dtr:dtr + n], xdb[..., dtr + n:]
     dt = F.softplus(dt_low @ params["dt_w"] + params["dt_b"])  # [B,S,di]
 
@@ -126,21 +152,25 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *, chunk: int = 64,
 
     y = y + params["D"] * x_conv.to(torch.float32)
     y = (y * F.silu(z.to(torch.float32))).to(x.dtype)
-    out = dense(params["out_proj"], y, impl=impl)
+    out = row_parallel(params["out_proj"], y, tp, impl=impl)
     if return_state:
         return out, {"conv": new_conv, "ssm": h}
     return out
 
 
-def init_mamba_state(cfg, batch: int, device=None) -> dict:
-    """Zero decode state on ``device`` (default ``"cuda"``)."""
+def init_mamba_state(cfg, batch: int, device=None, *, tp: int = 1, local: bool = True) -> dict:
+    """Zero decode state on ``device`` (default ``"cuda"``): at ``tp`` ways the
+    rank's ``d_inner / tp`` channels, or with ``local=False`` all of them
+    (the global state the sharding rules cut)."""
     device = resolve_device(device)
-    di, n, dc = cfg.d_inner, cfg.d_state, cfg.d_conv
+    di = inner_per_rank(cfg, tp) if local else cfg.d_inner
+    n, dc = cfg.d_state, cfg.d_conv
     return {"conv": torch.zeros((batch, dc - 1, di), dtype=torch.float32, device=device),
             "ssm": torch.zeros((batch, di, n), dtype=torch.float32, device=device)}
 
 
-def mamba_decode(params, x, state, cfg, *, impl=None):
+def mamba_decode(params, x, state, cfg, *, impl=None, tp=None):
     """Tokens ``x [B, S, D]`` against the state (one step a token) →
     (output, new state)."""
-    return mamba_apply(params, x, cfg, chunk=1, state=state, return_state=True, impl=impl)
+    return mamba_apply(params, x, cfg, chunk=1, state=state, return_state=True, impl=impl,
+                       tp=tp)

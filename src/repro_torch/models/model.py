@@ -42,14 +42,15 @@ Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
 TensorParallel` on :func:`prefill` / :func:`decode_step` / :func:`forward`
 / :func:`loss_fn`; an int on the shape functions :func:`specs` /
 :func:`init_cache`) covers dense GQA models in serving and in training, and
-MLA and MoE layers in serving:
+MLA, MoE, Mamba and cross-attention layers (and the encoder) in serving:
 ``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
 vocab (:func:`padded_vocab`) as the reference does, zero rows drawn for the
 pad heads' ``wo`` rows and the pad vocab rows (``valid_dim0``), and every
 rank runs its shards (:mod:`repro_torch.models.layers` writes the
-collectives).  The pad logits are masked to ``NEG_INF``.  Mamba and cross
-layers raise at ``tp > 1``, and so do MLA and MoE layers on the train path
-(ROADMAP Queue 1, item 8(c)).  The train path takes a mesh too
+collectives).  The pad logits are masked to ``NEG_INF``.  MLA, MoE, Mamba and
+cross layers raise at ``tp > 1`` on the train path (ROADMAP Queue 1, item
+8(c)), and a Mamba layer whose ``d_inner`` the model axis does not divide
+raises a ``ValueError``.  The train path takes a mesh too
 (:func:`forward`, :func:`loss_fn`): FSDP shards gathered on use, and the
 loss's means over the global batch.
 
@@ -279,21 +280,23 @@ def materialize(cfg, seed: int = 0, device=None, tp: int = 1) -> dict:
     return draw(cfg, seed, device, tp=tp)
 
 
-def encode(params, enc_embeds: torch.Tensor, cfg, *, impl=None) -> torch.Tensor:
+def encode(params, enc_embeds: torch.Tensor, cfg, *, impl=None, tp=None) -> torch.Tensor:
     """The encoder (encoder-decoder only): ``enc_embeds [B, S, D]`` (the
     stub frontend's frames, cast to ``cfg.dtype``) through the
-    ``n_enc_layers`` non-causal layers and the encoder's final norm."""
+    ``n_enc_layers`` non-causal layers and the encoder's final norm; under
+    ``tp`` each layer on the rank's heads and FFN columns, its output whole
+    on every rank."""
     x = enc_embeds.to(cfg.dtype)
     for p in params["encoder"]["layers"]:
-        x, _, _ = stack.layer_apply(p, x, cfg, mode="encode", impl=impl)
+        x, _, _ = stack.layer_apply(p, x, cfg, mode="encode", impl=impl, tp=tp)
     return layers.norm_apply(params["encoder"]["final_norm"], x, cfg)
 
 
-def _context(params, batch: dict, cfg, impl=None):
+def _context(params, batch: dict, cfg, impl=None, tp=None):
     """The context the cross layers attend to: the encoder's output, a VLM's
     patch embeddings, or None."""
     if cfg.is_enc_dec:
-        return encode(params, batch["enc_embeds"], cfg, impl=impl)
+        return encode(params, batch["enc_embeds"], cfg, impl=impl, tp=tp)
     if cfg.family == "vlm":
         return batch["ctx_embeds"].to(cfg.dtype)
     return None
@@ -340,7 +343,7 @@ def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = Fals
         def gather(i, p):
             return P.gather_on_use(p, spec["layers"][i], mesh, rules)
 
-    ctx = _context(params, batch, cfg, impl=impl)
+    ctx = _context(params, batch, cfg, impl=impl, tp=tp)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)
     x, _, aux = stack.stack_apply(params["layers"], x, cfg, mode="train", ctx=ctx, impl=impl,
                                   remat=remat, tp=tp, gather=gather)
@@ -396,20 +399,21 @@ def mask_pad_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def check_tp(cfg, tp, *, train: bool = False) -> None:
-    """Raise unless ``cfg`` runs at ``tp``'s width: every layer
-    self-attention (GQA, or MLA when serving) with a dense FFN (or a
-    sort-dispatch MoE one when serving), or one device."""
+    """Raise unless ``cfg`` runs at ``tp``'s width: when serving, GQA, MLA,
+    Mamba (its ``d_inner`` divided by the model axis, else a
+    ``ValueError``) and cross-attention layers with a dense FFN, a
+    sort-dispatch MoE one or none; when training, GQA self-attention with a
+    dense FFN; or one device."""
     if tp is None or tp.size == 1:
         return
-    if cfg.is_enc_dec or any(cfg.mixer_kind(i) != "attn" for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba and cross layers at tp > 1 wait for ROADMAP Queue 1, "
-            "item 8(c)")
+    kinds = {cfg.mixer_kind(i) for i in range(cfg.n_layers)}
     moe_layers = any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
-    if train and (cfg.attn_type == "mla" or moe_layers):
+    if train and (cfg.is_enc_dec or kinds != {"attn"} or cfg.attn_type == "mla" or moe_layers):
         raise NotImplementedError(
-            f"{cfg.name}: training MLA and MoE layers at tp > 1 waits for ROADMAP Queue 1, "
-            "item 8(c); tensor-parallel training covers dense GQA models")
+            f"{cfg.name}: training MLA, MoE, Mamba and cross layers at tp > 1 waits for ROADMAP "
+            "Queue 1, item 8(c); tensor-parallel training covers dense GQA models")
+    if "mamba" in kinds:
+        mamba.inner_per_rank(cfg, tp.size)
     if moe_layers and cfg.moe_impl == "einsum":
         raise NotImplementedError(f"{cfg.name}: the einsum MoE dispatch has no tensor-parallel "
                                   "form; serve it with moe_impl='sort'")
@@ -423,11 +427,10 @@ def prefill(params, batch: dict, cfg, *, max_len: int, impl=None, tp=None):
     left-pad tokens with negative positions, which attention ignores and a
     Mamba layer cannot (the engine never pads an SSM config's prompts);
     ``batch["ctx_embeds"]`` (VLM) or ``batch["enc_embeds"]``
-    (encoder-decoder) carries the context.  Under ``tp`` (GQA or MLA, dense
-    or MoE FFN) each rank runs its shards and every rank gets the whole
-    logits."""
+    (encoder-decoder) carries the context.  Under ``tp`` each rank runs its
+    shards (the encoder's too) and every rank gets the whole logits."""
     check_tp(cfg, tp)
-    ctx = _context(params, batch, cfg, impl=impl)
+    ctx = _context(params, batch, cfg, impl=impl, tp=tp)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)
     x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="prefill",
                                      pos=batch.get("positions"),
@@ -446,8 +449,9 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None, tp: int = 1,
     Mamba state; a cross layer's context K/V), zero, on ``device`` (default
     ``"cuda"``).  ``device="meta"`` gives the abstract cache the dry run
     counts; its bytes equal the reference's stacked ``init_cache``.  At
-    ``tp`` ways an attention ring holds one rank's KV heads, or with
-    ``local=False`` all the padded ones (the global cache)."""
+    ``tp`` ways an attention ring and a context's K/V hold one rank's KV
+    heads and a Mamba state its channels, or with ``local=False`` all of
+    them (the global cache)."""
     cache_len = attention.cache_len_for(cfg, max_len)
     return [stack.init_layer_cache(cfg, cfg.mixer_kind(i), batch, cache_len, device=device,
                                    tp=tp, local=local)

@@ -28,18 +28,14 @@ import torch
 from torch.utils import checkpoint
 
 from repro_torch.models import attention, layers, mamba, moe
-from repro_torch.models.layers import dense
 
 
-def _bidir_attn(params, h, cfg, impl=None):
+def _bidir_attn(params, h, cfg, impl=None, tp=None):
     """Non-causal self-attention (encoder stacks): rope at ``arange(S)``,
-    every position sees every other."""
-    b, s, _ = h.shape
+    every position sees every other; under ``tp`` on the rank's heads,
+    ``wo`` row-parallel."""
     positions = attention._arange_positions(h)
-    q, k, v = attention._project_qkv(params, h, cfg, positions, impl=impl)
-    out = attention.chunked_attention(q, k, v, q_pos=positions, kv_pos=positions,
-                                      causal=False)
-    return dense(params["wo"], out.reshape(b, s, -1), impl=impl)
+    return attention._gqa(params, h, cfg, positions, impl=impl, tp=tp, causal=False)[0]
 
 
 MODES = ("train", "prefill", "decode", "encode")
@@ -51,16 +47,16 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
     mla = cfg.attn_type == "mla"
     if mode == "train":  # full sequence, no cache
         if kind == "mamba":
-            return mamba.mamba_apply(params, h, cfg, impl=impl), None
+            return mamba.mamba_apply(params, h, cfg, impl=impl, tp=tp), None
         if mla:
             return attention.mla_apply(params, h, cfg, impl=impl), None
         return attention.gqa_apply(params, h, cfg, impl=impl, tp=tp), None
     if kind == "mamba":
         if mode == "prefill":
-            return mamba.mamba_apply(params, h, cfg, return_state=True, impl=impl)
-        return mamba.mamba_decode(params, h, cache, cfg, impl=impl)
+            return mamba.mamba_apply(params, h, cfg, return_state=True, impl=impl, tp=tp)
+        return mamba.mamba_decode(params, h, cache, cfg, impl=impl, tp=tp)
     if mode == "encode":  # the encoder's GQA layers: non-causal, no cache
-        return _bidir_attn(params, h, cfg, impl=impl), None
+        return _bidir_attn(params, h, cfg, impl=impl, tp=tp), None
     if mode == "prefill":
         if mla:
             return attention.mla_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
@@ -72,11 +68,13 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
     return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
 
 
-def _cross(params, h, cfg, *, mode, cache, ctx, impl):
+def _cross(params, h, cfg, *, mode, cache, ctx, impl, tp=None):
     """Cross-attention of ``h`` over the context: K/V projected from ``ctx``
-    at prefill, read from ``cache`` at decode.  Returns (output, K/V)."""
-    kv = cache if mode == "decode" else attention.cross_kv(params, ctx, cfg, impl=impl)
-    return attention.cross_apply(params, h, kv, cfg, gated=not cfg.is_enc_dec, impl=impl), kv
+    at prefill, read from ``cache`` at decode.  Returns (output, K/V); under
+    ``tp`` the rank's heads."""
+    kv = cache if mode == "decode" else attention.cross_kv(params, ctx, cfg, impl=impl, tp=tp)
+    return attention.cross_apply(params, h, kv, cfg, gated=not cfg.is_enc_dec, impl=impl,
+                                 tp=tp), kv
 
 
 def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: str = "dense",
@@ -84,11 +82,11 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
     Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
-    (GQA or MLA, a dense or MoE FFN; the model checks) runs the rank's
-    shards."""
+    runs the rank's shards (the model checks what it serves and trains)."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
-        a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl)
+        a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl,
+                          tp=tp)
         x = x + a.to(x.dtype)
     else:
         both = mixer == "attn_cross"
@@ -100,7 +98,7 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
             hx = layers.norm_apply(params["ln_x"], x, cfg)
             cx, kv = _cross(params["cross"], hx, cfg, mode=mode,
                             cache=cache["cross"] if mode == "decode" else None, ctx=ctx,
-                            impl=impl)
+                            impl=impl, tp=tp)
             x = x + cx.to(x.dtype)
             own = {"self": own, "cross": kv}
         cache = own
@@ -124,18 +122,20 @@ def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None
     (default ``"cuda"``): the ring of an ``attn`` layer (GQA or MLA,
     ``cache_len`` positions before the format's page rounding), a Mamba
     layer's state, a ``cross`` layer's context K/V, an ``attn_cross``
-    layer's ``{"self": ring, "cross": K/V}``."""
+    layer's ``{"self": ring, "cross": K/V}``; at ``tp`` ways a rank's heads
+    and channels, or with ``local=False`` the global cache."""
     if mixer == "mamba":
-        return mamba.init_mamba_state(cfg, batch, device=device)
+        return mamba.init_mamba_state(cfg, batch, device=device, tp=tp, local=local)
     if mixer == "cross":
-        return attention.init_cross_cache(cfg, batch, device=device)
+        return attention.init_cross_cache(cfg, batch, tp=tp, local=local, device=device)
     if cfg.attn_type == "mla":
         ring = attention.init_mla_cache(cfg, batch, cache_len, device=device)
     else:
         ring = attention.init_kv_cache(cfg, batch, cache_len, tp=tp, local=local,
                                        device=device)
     if mixer == "attn_cross":
-        return {"self": ring, "cross": attention.init_cross_cache(cfg, batch, device=device)}
+        return {"self": ring, "cross": attention.init_cross_cache(cfg, batch, tp=tp, local=local,
+                                                                  device=device)}
     return ring
 
 

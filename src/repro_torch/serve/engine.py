@@ -122,9 +122,12 @@ def materialize_converted(cfg, spec, *, seed: int = 0, device=None, min_dim: int
     is drawn, equal bit for bit to the rank's shard of the whole tree's
     conversion (``ServeEngine(..., sharded=True)`` serves it): a stacked
     expert leaf whose expert axis the rules shard converts only the rank's
-    experts (each expert converts on its own), any other leaf converts
-    whole and is then cut (a weight's per-column scales are its whole
-    column's, so a shard of its K rows cannot convert alone)."""
+    experts (each expert converts on its own), a column-parallel weight
+    (its output columns sharded, its K rows not: the Mamba ``in_proj``, a
+    cross layer's projections, ``wq`` ...) only the rank's columns (each
+    column converts on its own), any other leaf converts whole and is then
+    cut (a weight's per-column scales are its whole column's, so a shard of
+    its K rows cannot convert alone)."""
     convert = leaf_converter(residency.ResidencySpec.parse(spec), min_dim)
     if mesh is not None:
         convert = _shard_converter(convert, model_lib.specs(cfg, tp), mesh, rules)
@@ -143,10 +146,13 @@ def _shard_converter(convert, spec_tree, mesh, rules):
         spec = spec_tree
         for key in path:
             spec = spec[int(key)] if isinstance(spec, list) else spec[key]
-        first = P.spec_for(spec.axes, rules)[0]
-        if w.ndim == 3 and first is not None:  # the rank's experts alone
-            w = P.take_index(w, P.shard_index(w.shape, (first, None, None), sizes, coords))
+        entries = P.spec_for(spec.axes, rules)
+        if w.ndim == 3 and entries[0] is not None:  # the rank's experts alone
+            w = P.take_index(w, P.shard_index(w.shape, (entries[0], None, None), sizes, coords))
             spec = dataclasses.replace(spec, shape=tuple(w.shape), axes=(None,) + spec.axes[1:])
+        elif w.ndim >= 2 and entries[-2] is None and entries[-1] is not None:
+            # the rank's columns alone, converted as the whole leaf would be
+            return convert(path, P.shard_leaf(w, spec, sizes, coords, rules), tuple(w.shape))
         return P.shard_leaf(convert(path, w), spec, sizes, coords, rules)
 
     return one
@@ -160,9 +166,11 @@ def leaf_converter(spec, min_dim: int):
     from float32, a block of columns at a time): a ``[K, N]`` weight one
     state, a stacked ``[E, K, N]`` expert weight one stacked state,
     converted an expert at a time.  Everything else stays as it is; a
-    quantizable leaf of any other rank raises."""
+    quantizable leaf of any other rank raises.  ``shape`` (default
+    ``w.shape``) is the whole leaf's where ``w`` is a shard of it: the rule
+    decides on the whole leaf."""
 
-    def convert(path, w):
+    def convert(path, w, shape=None):
         if not path or path[-1] not in QUANTIZABLE_KEYS:
             return w
         mode = spec.mode_for(".".join(path))
@@ -171,7 +179,7 @@ def leaf_converter(spec, min_dim: int):
         if w.ndim not in (2, 3):
             raise ValueError(f"{'.'.join(path)}: cannot convert a {w.ndim}-D weight "
                              f"{tuple(w.shape)} to {mode}")
-        if min(w.shape[-2:]) < min_dim:
+        if min((shape or w.shape)[-2:]) < min_dim:
             return w
         return residency.from_float(w, mode, dtype=torch.float32)
 

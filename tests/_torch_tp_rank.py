@@ -1,12 +1,13 @@
-"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``
-and, with ``"suite": "moe"``, ``tests/test_torch_tp_moe.py``).
+"""One rank of the port's tensor-parallel CPU tests (``tests/test_torch_tp.py``;
+with ``"suite": "moe"``, ``tests/test_torch_tp_moe.py``; with ``"suite":
+"hybrid"``, ``tests/test_torch_tp_hybrid.py``).
 
 Run as ``python tests/_torch_tp_rank.py '<json>'`` with ``rank``, ``world``,
 ``port`` and ``workdir``: the rank joins a gloo process group on
 ``tcp://localhost:<port>``, builds a ``(data=1, model=world)`` mesh, reads
 the float parameters in the reference's stacked layout (``workdir/
 params.npz``, the reference's ``materialize(specs(cfg, world))``; for the
-MoE suite ``workdir/<arch>.npz``, one a config) and writes what it
+MoE and hybrid suites ``workdir/<arch>.npz``, one a config) and writes what it
 computed to ``workdir/rank<r>.npz``.  It imports only ``repro_torch``,
 torch and numpy; the test modules import this one for the shared inputs.
 """
@@ -119,12 +120,23 @@ class BoundaryCodes:
     its roundings' values over scale and codes, in call order) where the
     two differ by one and both values lie within :data:`FLIP_TOL` of the
     half-step between them; ``forced`` counts those and ``far`` any other
-    code that differs."""
+    code that differs.  A row-parallel rounding (the port quantizes rank
+    ``rank``'s ``K / tp`` features of each row, the reference the whole
+    row) is compared with the rank's share of the reference's."""
 
-    def __init__(self, ref, quant):
+    def __init__(self, ref, quant, rank: int = 0, tp: int = 1):
         self.ref, self.calls, self.forced, self.far = ref, 0, 0, 0
+        self.rank, self.tp = rank, tp
         self._quant, self._quantize = quant, quant.quantize
         quant.quantize = self.quantize
+
+    def _share(self, a, shape):
+        """The rank's features of a whole-row reference rounding ``a`` for a
+        port rounding of ``shape``; ``a`` itself where the sizes agree."""
+        k = shape[-1]
+        if self.tp == 1 or a.size != self.tp * int(np.prod(shape)):
+            return a.reshape(-1)
+        return a.reshape(-1, self.tp * k)[:, self.rank * k:(self.rank + 1) * k].reshape(-1)
 
     def restore(self):
         self._quant.quantize = self._quantize
@@ -139,7 +151,8 @@ class BoundaryCodes:
         import dataclasses
 
         qt = self._quantize(x, bits=bits, axis=axis, scale=scale)
-        v_ref, q_ref = (a.reshape(-1) for a in self._next_ref(tuple(qt.data.shape)))
+        shape = tuple(qt.data.shape)
+        v_ref, q_ref = (self._share(a, shape) for a in self._next_ref(shape))
         q = qt.data.numpy().reshape(-1).copy()
         v = (x / qt.scale).numpy().reshape(-1)
         if q.shape != q_ref.shape:
@@ -161,9 +174,9 @@ class ExpertBoundaryCodes(BoundaryCodes):
     roundings are stacked and the rank's ``e`` experts taken (all of them
     where ``e`` is ``n_experts``, the hidden width sharded)."""
 
-    def __init__(self, ref, quant, n_experts: int, rank: int):
-        super().__init__(ref, quant)
-        self.n_experts, self.rank = n_experts, rank
+    def __init__(self, ref, quant, n_experts: int, rank: int, tp: int = 1):
+        super().__init__(ref, quant, rank, tp)
+        self.n_experts = n_experts
 
     def _next_ref(self, shape):
         nxt = self.ref[self.calls][1] if self.calls < len(self.ref) else None
@@ -176,43 +189,49 @@ class ExpertBoundaryCodes(BoundaryCodes):
                      for arrays in zip(*parts))
 
 
-def _held_collectives(eng, calls) -> list:
+def _held_collectives(eng, calls, min_dim: int = 16) -> list:
     """The rank's recorded collectives beside the dry run's count of
     ``calls`` (``(kind, batch, seq)`` model calls), each as per-kind
     (count, raw bytes); the events are reset after."""
     from repro_torch.launch import dryrun
 
     held = dryrun.held_collectives(
-        eng._tp, dryrun.serve_collectives(eng, calls, min_dim=16, agree=False))
+        eng._tp, dryrun.serve_collectives(eng, calls, min_dim=min_dim, agree=False))
     eng._tp.reset_counts()
     return held
 
 
-def _prefill_decode(eng, model_lib, vocab: int) -> dict:
-    """The prefill and decode steps of :func:`prefill_inputs` → their last
-    logits and, at tp > 1, each call's recorded collectives beside the dry
-    run's count (``collectives``, JSON)."""
+def _prefill_decode(eng, model_lib, vocab: int, context=None, min_dim: int = 16) -> dict:
+    """The prefill and decode steps of :func:`prefill_inputs` (with the
+    ``context`` arrays, :func:`hybrid_context`) → their last logits, the
+    caches' bytes after the prefill and, at tp > 1, each call's recorded
+    collectives beside the dry run's count (``collectives``, JSON)."""
+    from repro_torch.core import kvcache
+
     toks, pos, steps, step_pos = prefill_inputs(vocab)
     held = []
     if eng._tp is not None:
         eng._tp.reset_counts()
-    batch = {"tokens": torch.from_numpy(toks).long(), "positions": torch.from_numpy(pos)}
+    batch = {"tokens": torch.from_numpy(toks).long(), "positions": torch.from_numpy(pos),
+             **{k: torch.from_numpy(a) for k, a in (context or {}).items()}}
     logits, caches = model_lib.prefill(eng.params, batch, eng.cfg, max_len=MAX_LEN,
                                        tp=eng._tp)
+    cache_bytes = kvcache.cache_resident_bytes(caches)
     if eng._tp is not None:
-        held.append(_held_collectives(eng, [("prefill",) + tuple(toks.shape)]))
+        held.append(_held_collectives(eng, [("prefill",) + tuple(toks.shape)], min_dim))
     out = [logits[:, -1].numpy()]
     for tok, p in zip(steps, step_pos):
         logits, caches = model_lib.decode_step(eng.params, torch.from_numpy(tok[:, None]).long(),
                                                caches, torch.from_numpy(p), eng.cfg,
                                                tp=eng._tp)
         if eng._tp is not None:
-            held.append(_held_collectives(eng, [("decode", len(tok), 1)]))
+            held.append(_held_collectives(eng, [("decode", len(tok), 1)], min_dim))
         out.append(logits[:, -1].numpy())
-    return {"logits": np.stack(out), "collectives": np.array(json.dumps(held))}
+    return {"logits": np.stack(out), "collectives": np.array(json.dumps(held)),
+            "cache_bytes": np.array(cache_bytes)}
 
 
-def counted_serve(eng, run):
+def counted_serve(eng, run, min_dim: int = 16):
     """``run()`` (a serve of ``eng``) with its model calls recorded → (its
     result, [the rank's recorded collectives, the dry run's count of the
     calls and of the closing ``check_ranks_agree``] as JSON)."""
@@ -221,7 +240,8 @@ def counted_serve(eng, run):
     eng._tp.reset_counts()
     with dryrun.ModelCallLog() as log:
         result = run()
-    held = dryrun.held_collectives(eng._tp, dryrun.serve_collectives(eng, log.calls, min_dim=16))
+    held = dryrun.held_collectives(eng._tp, dryrun.serve_collectives(eng, log.calls,
+                                                                     min_dim=min_dim))
     return result, np.array(json.dumps(held))
 
 
@@ -358,6 +378,148 @@ def main_moe(rank: int, world: int, workdir: str, mesh) -> dict:
     return out
 
 
+#: the hybrid suite's configs: Mamba-1, the Mamba / attention / MoE hybrid, the
+#: VLM and the encoder-decoder; at tp = 3 the VLM alone (falcon-mamba's
+#: d_inner of 128 does not divide three ways in either package)
+HYBRID_ARCHS = ("falcon-mamba-7b", "jamba-1.5-large-398b", "llama-3.2-vision-11b",
+                "seamless-m4t-medium")
+HYBRID_WORLDS = {2: HYBRID_ARCHS, 3: ("llama-3.2-vision-11b",)}
+#: the configs the engine serves (it serves no context)
+HYBRID_SERVED = HYBRID_ARCHS[:2]
+#: the hybrid suite's conversion threshold: ``x_proj`` (128 x 12 at the smoke
+#: width) converts, so that its row-parallel integer path runs
+HYBRID_MIN_DIM = 8
+#: the stacks whose activation codes are forced to the reference's at
+#: rounding boundaries (W8A8's int8 codes, path A's int4 ones)
+CODED = ("w8a8", "A")
+
+
+def hybrid_cfg(arch: str, tp: int, lib):
+    """``arch``'s smoke config in float32 for the hybrid suite; at tp = 3 the
+    FFN is 96 wide (w_in's 256 fused columns do not divide three ways)."""
+    get, f32 = lib
+    cfg = get(arch).scaled(dtype=f32)
+    return cfg.scaled(d_ff=96) if tp == 3 else cfg
+
+
+def hybrid_context(cfg) -> dict:
+    """The prompt rows' seeded context: a VLM's ``ctx_embeds`` or an
+    encoder-decoder's ``enc_embeds`` ``[2, encoder_tokens, d_model]``;
+    empty for a config with no cross layer."""
+    if not cfg.is_enc_dec and cfg.family != "vlm":
+        return {}
+    rng = np.random.default_rng(13)
+    shape = (len(PROMPT_LENS), cfg.encoder_tokens, cfg.d_model)
+    return {"enc_embeds" if cfg.is_enc_dec else "ctx_embeds":
+            rng.normal(size=shape).astype(np.float32)}
+
+
+def _hybrid_faults(cfg, mamba, attention, stack, layers):
+    """The planted faults of the hybrid suite, each ``(name, arch, module,
+    function name, replacement(original))``: falcon-mamba's ``x_proj``
+    partials left unreduced (the rank's own dt, B and C), llama-vision's
+    cross queries paired with the next rank's KV heads, seamless's encoder
+    made causal."""
+
+    def unreduced_x_proj(orig):
+        def row_parallel(w, x, tp=None, impl=None, bias=None):
+            if w.shape[-1] == cfg.dt_rank_actual + 2 * cfg.d_state:  # x_proj, not out_proj
+                return layers.dense(w, x, impl=impl)
+            return orig(w, x, tp, impl=impl, bias=bias)
+        return row_parallel
+
+    def other_ranks_kv(orig):
+        def cross_kv(params, ctx, cfg, impl=None, tp=None):
+            kv = orig(params, ctx, cfg, impl=impl, tp=tp)
+            return {n: tp.all_gather_list(t)[(tp.rank + 1) % tp.size] for n, t in kv.items()}
+        return cross_kv
+
+    def causal_encoder(orig):
+        def bidir(params, h, cfg, impl=None, tp=None):
+            positions = attention._arange_positions(h)
+            return attention._gqa(params, h, cfg, positions, impl=impl, tp=tp)[0]
+        return bidir
+
+    return (("unreduced_x_proj", HYBRID_ARCHS[0], mamba, "row_parallel", unreduced_x_proj),
+            ("other_ranks_kv", HYBRID_ARCHS[2], attention, "cross_kv", other_ranks_kv),
+            ("causal_encoder", HYBRID_ARCHS[3], stack, "_bidir_attn", causal_encoder))
+
+
+def main_hybrid(rank: int, world: int, workdir: str, mesh, arch: str, part: str) -> dict:
+    """One case of the hybrid suite on one rank: ``arch`` at tp = ``world``.
+    ``part`` ``"pd"``: prefill + decode (with the context) on every stack,
+    the ``w8a8`` and path A drives again with the reference's boundary codes
+    forced, the weights' and the caches' resident bytes and each call's
+    collectives, and at tp = 2 the ``w8a8`` drive at tp = 1 on the same
+    weights and the planted faults; ``"serve"``: the teacher-forced engine
+    serves (an SSM or hybrid config of :data:`HYBRID_SERVED`)."""
+    from repro_torch import configs, convert
+    from repro_torch.core import quant
+    from repro_torch.models import attention, layers, mamba, stack
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import engine
+
+    out: dict = {}
+    cfg = hybrid_cfg(arch, world, (configs.get_smoke_config, torch.float32))
+    with np.load(f"{workdir}/{arch}.npz") as z:
+        tree = _nest({k: z[k] for k in z.files})
+    params = convert.params_from_numpy(tree, cfg, "cpu", tp=world)
+    context = hybrid_context(cfg)
+
+    def build(stack_, tp=world):
+        mode, cache = STACKS[stack_]
+        return engine.ServeEngine(params, cfg, tp=tp, mesh=mesh if tp > 1 else None,
+                                  slots=2, max_len=MAX_LEN, mode=mode, cache_format=cache,
+                                  min_dim=HYBRID_MIN_DIM, trace_logits=True, device="cpu")
+
+    def drive(stack_, tp=world, eng=None):
+        return _prefill_decode(eng or build(stack_, tp), model_lib, cfg.vocab_size, context,
+                               HYBRID_MIN_DIM)
+
+    if part == "serve":
+        for stack_ in SERVED:
+            eng = build(stack_)
+            reqs, out[f"{arch}/serve/{stack_}/collectives"] = counted_serve(
+                eng, lambda: schedule(eng, cfg.vocab_size), HYBRID_MIN_DIM)
+            out[f"{arch}/serve/{stack_}/tokens"] = np.array([t for r in reqs for t in r.out])
+            out[f"{arch}/serve/{stack_}/logits"] = np.concatenate(
+                [np.reshape(lg, (-1, lg.shape[-1])) for _, _, lg in eng.logit_trace])
+            out[f"{arch}/serve/{stack_}/kinds"] = np.array(
+                [f"{k}{list(s)}" for k, s, _ in eng.logit_trace])
+        return out
+    for stack_ in STACKS:
+        eng = build(stack_)
+        out[f"{arch}/bytes/{stack_}"] = np.array(eng.resident_bytes()["weights"])
+        pd = drive(stack_, eng=eng)
+        out[f"{arch}/pd/{stack_}"] = pd["logits"]
+        out[f"{arch}/coll/{stack_}"] = pd["collectives"]
+        out[f"{arch}/cache_bytes/{stack_}"] = pd["cache_bytes"]
+    if world == 2:
+        out[f"{arch}/pd/w8a8_tp1"] = drive("w8a8", tp=1)["logits"]
+        for name, fault_arch, mod, fn_name, plant in _hybrid_faults(cfg, mamba, attention,
+                                                                    stack, layers):
+            if fault_arch != arch:
+                continue
+            keep = getattr(mod, fn_name)
+            setattr(mod, fn_name, plant(keep))
+            try:
+                out[f"{arch}/fault/{name}"] = drive("float")["logits"]
+            finally:
+                setattr(mod, fn_name, keep)
+    for stack_ in CODED:
+        eng = build(stack_)  # converted before the codes are forced
+        ref_codes = _wait_codes(f"{workdir}/codes_{arch}_{stack_}.npz")
+        codes = (ExpertBoundaryCodes(ref_codes, quant, cfg.n_experts, rank, world)
+                 if cfg.n_experts else BoundaryCodes(ref_codes, quant, rank, world))
+        try:
+            out[f"{arch}/pd/{stack_}_forced"] = drive(stack_, eng=eng)["logits"]
+        finally:
+            codes.restore()
+        out[f"{arch}/pd/{stack_}_codes"] = np.array([codes.calls, len(codes.ref),
+                                                     codes.forced, codes.far])
+    return out
+
+
 def main(argv) -> int:
     args = json.loads(argv[1])
     rank, world, workdir = args["rank"], args["world"], args["workdir"]
@@ -372,8 +534,10 @@ def main(argv) -> int:
     mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{args['port']}",
                   device="cpu", backend="gloo")
     mesh = mesh_lib.device_mesh("cpu", (1, world), ("data", "model"))
-    if args.get("suite") == "moe":
-        np.savez(f"{workdir}/rank{rank}.npz", **main_moe(rank, world, workdir, mesh))
+    if args.get("suite") in ("moe", "hybrid"):
+        out = (main_moe(rank, world, workdir, mesh) if args["suite"] == "moe"
+               else main_hybrid(rank, world, workdir, mesh, args["arch"], args["part"]))
+        np.savez(f"{workdir}/rank{rank}.npz", **out)
         torch.distributed.destroy_process_group()
         return 0
     cfg = smoke_cfg(world, (configs.get_smoke_config, torch.float32))

@@ -440,7 +440,7 @@ def test_bf16_prefill_decode_matches_reference(arch, stack_):
 
 
 def _causal_encoder(monkeypatch):
-    def causal(params_, h, cfg, impl=None):
+    def causal(params_, h, cfg, impl=None, tp=None):
         b, s, _ = h.shape
         out, _ = attention.gqa_prefill(params_, h, cfg, cache_len=s, impl=impl)
         return out

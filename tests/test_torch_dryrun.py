@@ -680,7 +680,8 @@ def test_mesh_records():
     """The pod record of a served cell: 256 devices, the tp = 16 plan, wire
     bytes from the collectives, the rank's bytes as ``argument_size``, the
     collective term in the roofline; the cells the port does not run at a
-    mesh hold ``collectives: null`` and the check that raises."""
+    mesh hold ``collectives: null`` and the check that raises; a Mamba
+    config's and jamba's serve cells count their collectives."""
     rec = dryrun.analyze_cell("qwen3-1.7b", "decode_32k", qmode=STACK_A,
                               cache_format="int4_bp_fused", mesh="pod")
     assert rec["devices"] == 256 and rec["mesh_shape"] == {"data": 16, "model": 16}
@@ -690,7 +691,7 @@ def test_mesh_records():
     assert rec["roofline"]["t_collective"] == pytest.approx(
         rec["corrected"]["collective_wire_bytes"] / hlo_stats.HW["nvlink_bw"])
     assert "one_card" not in rec and set(dryrun.XLA_KEYS) >= {"flops_per_device"}
-    for arch, shape, check in (("falcon-mamba-7b", "decode_32k", "check_tp"),
+    for arch, shape, check in (("falcon-mamba-7b", "train_4k", "check_tp"),
                                ("minicpm3-4b", "train_4k", "check_tp"),
                                ("mixtral-8x7b", "long_500k", "plan")):
         rec = dryrun.analyze_cell(arch, shape, mesh="multipod", skip_probes=True)
@@ -699,9 +700,14 @@ def test_mesh_records():
     moe = dryrun.analyze_cell("deepseek-v2-lite-16b", "train_4k", mesh_shape=(16, 1),
                               skip_probes=True)
     assert moe["unsupported"].startswith("check_mesh")
-    jamba = dryrun.analyze_cell("jamba-1.5-large-398b", "decode_32k", qmode=STACK_A,
-                                mesh_shape=(1, 4), skip_probes=True)
-    assert jamba["unsupported"].startswith("check_tp") and jamba["rank"]["total"] > 0
+    mamba = dryrun.analyze_cell("falcon-mamba-7b", "decode_32k", mesh="multipod",
+                                skip_probes=True)
+    assert mamba["unsupported"] is None and mamba["collective_wire_bytes"] > 0
+    for mesh_shape in ((1, 4), (1, 8)):
+        jamba = dryrun.analyze_cell("jamba-1.5-large-398b", "decode_32k", qmode=STACK_A,
+                                    mesh_shape=mesh_shape, skip_probes=True)
+        assert jamba["unsupported"] is None and jamba["rank"]["total"] > 0
+        assert set(jamba["collectives"]) == {"all-reduce", "all-gather"}
 
 
 def test_cli_writes_every_cell_at_both_meshes(tmp_path, capsys):

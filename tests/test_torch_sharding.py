@@ -315,9 +315,10 @@ def test_placements_name_the_sharded_dims():
 
 
 def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
-    """tp > 1 without a mesh, on a mesh whose data axis is above 1, or on a
-    config with Mamba or cross layers raises, and so does training MLA or
-    MoE layers (serving them is covered); at tp = 1 nothing is checked."""
+    """tp > 1 without a mesh or on a mesh whose data axis is above 1 raises,
+    and so does training MLA, MoE, Mamba or cross layers (serving them is
+    covered, a Mamba layer where the model axis divides its d_inner); at
+    tp = 1 nothing is checked."""
     from repro_torch.distributed.mesh import TensorParallel
     from repro_torch.serve import engine
 
@@ -339,11 +340,10 @@ def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
         model_lib.check_tp(other, TensorParallel(size=1, rank=0), train=True)
         with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
             model_lib.check_tp(other, TensorParallel(size=2, rank=0), train=True)
-        if arch in ("minicpm3-4b", "deepseek-v2-lite-16b", "mixtral-8x7b"):
-            model_lib.check_tp(other, TensorParallel(size=2, rank=0))
-        else:
-            with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-                model_lib.check_tp(other, TensorParallel(size=2, rank=0))
+        model_lib.check_tp(other, TensorParallel(size=2, rank=0))
+        if arch in ("falcon-mamba-7b", "jamba-1.5-large-398b"):
+            with pytest.raises(ValueError, match="d_inner"):
+                model_lib.check_tp(other, TensorParallel(size=3, rank=0))
     einsum = configs.get_smoke_config("mixtral-8x7b").scaled(moe_impl="einsum")
     with pytest.raises(NotImplementedError, match="einsum"):
         model_lib.check_tp(einsum, TensorParallel(size=2, rank=0))

@@ -46,6 +46,7 @@ import torch
 from jax.sharding import AxisType
 
 import _torch_tp_rank as R
+from _torch_once import once_a_session
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core import quant as ref_quant
 from repro.models import model as ref_model
@@ -165,7 +166,13 @@ def _reference(tp, params) -> dict:
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(request, tmp_path_factory):
+    """Once a session (``_torch_once``): :func:`_runs`."""
+    return once_a_session(request, tmp_path_factory, "test_torch_tp",
+                          lambda: _runs(tmp_path_factory))
+
+
+def _runs(tmp_path_factory):
     """Spawn every world's ranks, compute the reference meanwhile, then join
     each set within ``JOIN_S`` → ``{tp: (reference, [rank results])}``."""
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -51,6 +51,7 @@ import torch
 from jax.sharding import AxisType
 
 import _torch_tp_rank as R
+from _torch_once import once_a_session
 from repro.configs import get_smoke_config as ref_smoke_config
 from repro.core import quant as ref_quant
 from repro.models import model as ref_model
@@ -192,7 +193,13 @@ def _write_codes(work, arch, codes) -> None:
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs(request, tmp_path_factory):
+    """Once a session (``_torch_once``): :func:`_runs`."""
+    return once_a_session(request, tmp_path_factory, "test_torch_tp_moe",
+                          lambda: _runs(tmp_path_factory))
+
+
+def _runs(tmp_path_factory):
     """Spawn every world's ranks, compute the reference meanwhile (its
     boundary codes first: the ranks wait for them), then join each set
     within ``JOIN_S`` → ``{tp: (reference, [rank results])}``."""
