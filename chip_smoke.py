@@ -31,7 +31,7 @@ pages (8 tokens a page, 64 a slot at max_len 512):
      decode step, the cache's bytes the analytic pool + tables + pos_ids
      count, and the block-table gathers profiled alone
   Y  under ``prefix_cache`` at slots=4 on a 176-page pool, the first
-     ``Y_DEPTH`` (8) of the 28 layers: twelve
+     ``Y_DEPTH`` (4) of the 28 layers: twelve
      requests behind one 256-token system prompt, the last wrapping its
      ring into the shared pages, traced (``trace=True`` and a Chrome-trace
      sink): prefix hits, copy-on-write, the shared pages' bytes intact,
@@ -130,10 +130,10 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       and all-gather on CUDA tensors, each checked, the group destroyed
   (b) two gloo ranks on the one card (NCCL refuses two ranks on one
       device), a ``(data=1, model=2)`` ``DeviceMesh``, both ranks on
-      cuda:0: qwen3-1.7b at full width and ``TP_DEPTH`` (8) of its 28
+      cuda:0: qwen3-1.7b at full width and ``TP_DEPTH`` (4) of its 28
       layers on path B's and path A's stacks at tp = 2, then (``TP_SERVES``)
-      deepseek-v2-lite-16b at full width and 4 layers (its dense layer 0 and
-      3 MoE layers: MLA on a rank's 8 of 16 heads over the whole latent, 32
+      deepseek-v2-lite-16b at full width and 2 layers (its dense layer 0 and
+      a MoE layer: MLA on a rank's 8 of 16 heads over the whole latent, 32
       of 64 experts a rank, the shared experts column- then row-parallel) on
       B's and A's stacks, mixtral-8x7b at full width and 1 layer (4 of 8
       experts a rank, the 4096 window) on B's, and falcon-mamba-7b at full
@@ -142,8 +142,9 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       16 new tokens each, slots=4, ``fcfs``; llama-3.2-vision-11b at full
       width and 4 layers (layer 3 cross-attends to the [4, 1601, 4096]
       patch embeddings, 4 of 8 KV heads a rank) on B's stack and
-      seamless-m4t-medium at full width and depth (its encoder over [4, 1536,
-      1024] frames on 8 of 16 heads a rank) on A's, the same 4 prompts
+      seamless-m4t-medium at full width and 6 of its 12 + 12 layers (its
+      encoder over [4, 1536, 1024] frames on 8 of 16 heads a rank) on A's,
+      the same 4 prompts
       driven through ``model.prefill`` and 15 ``decode_step`` calls
       (``_tp_drive``: no engine serves a context); each rank's shards placed from a host copy of the
       converted weights (``transfer.place_shard``), and the same mix served
@@ -169,8 +170,37 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       launches over a rank's 32 and 4 experts, MLA's wq on 8 heads;
       ``_rows_tp_hybrid``: falcon-mamba's three projections, llama-vision's
       cross K/V prefill, seamless's attention, FFN and plane attention on 8
-      heads).  The tp = 2 runs are no speed
-      result: two processes time-share one card
+      heads; ``_rows_seq_attention``: plane attention with its row
+      statistics at a sequence-parallel rank's block, R = 8, G = 4, L =
+      2048).  The tp = 2 runs are no speed result: two processes time-share
+      one card
+
+and then the data axis (``phase_data``, after the tp phase), two spawned
+gloo ranks on cuda:0 over a ``(data=2, model=1)`` mesh:
+
+  (e) qwen3-1.7b at full width and ``DATA_DEPTH`` (4) layers on path B's
+      and path A's stacks, the tp phase's mix (2 of the 4 slots a rank),
+      against data = 1 in the rank's process on the same weights,
+      teacher-forced to its tokens: every rank's tokens equal; B bit for bit
+      or its first differing op named (``OpLog``, the rank's rows of the
+      one-device op) and its rows within ``PATH_LIMITS``; A's bf16 drift
+      printed and A in float32 with its boundary codes forced
+      (``RowCodeLog``) within ``PATH_LIMITS``; each rank's resident bytes
+      equal to ``dryrun.rank_bytes``; the serve's collectives (the ids' and
+      logits' gathers of every round, the token check) equal to
+      ``dryrun.serve_collectives``; each kernel's launches a decode step
+      equal to data = 1's; a decode step profiled on each rank
+  (f) mixtral-8x7b at full width and 1 layer, batch 1, on B's and A's
+      stacks: path S's 4,160-token prompt prefilled on one device in each
+      rank, the rank's 2048-slot block of the wrapped 4096-slot ring kept
+      under ``plan(cfg, SHAPES["long_500k"], mesh).rules`` (the blocks put
+      together equal to the one-device ring bit for bit), then 16
+      sequence-parallel ``decode_step`` calls against the one-device
+      decode: every rank's logits equal, float32 within 1e-5 of the largest
+      logit with the boundary codes forced, the bf16 drift printed, each
+      call's collectives equal to ``dryrun.call_collectives`` under the
+      plan's rules (a MAX and a SUM), the rank's bytes to ``rank_bytes`` of
+      that plan, plane attention's launches a decode step data = 1's
 
 and then training over a mesh (``phase_train_mesh``, after the tp phase),
 two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
@@ -510,9 +540,18 @@ def card_line() -> str:
 # ---------------------------------------------------------------------------
 
 
+#: a timed call whose second warm-up call takes longer than SLOW_CALL_MS (the
+#: plain versions at their paths' shapes: 5-350 ms; every kernel and library
+#: call at most ~2) is the median of SLOW_REPS calls, not of 25: the plain
+#: versions' 25 calls took ~65 s of phase 2 on one H100)
+SLOW_CALL_MS, SLOW_REPS = 5.0, 5
+
+
 class Timer:
-    """Median of CUDA-event times of single calls, with the 50 MB L2 flushed
-    before each call (the serving path finds the weights cold)."""
+    """Median of CUDA-event times of single calls (25, or
+    :data:`SLOW_REPS` of a call slower than :data:`SLOW_CALL_MS`), with the
+    50 MB L2 flushed before each call (the serving path finds the weights
+    cold)."""
 
     def __init__(self, torch, device):
         self.torch = torch
@@ -522,6 +561,11 @@ class Timer:
         torch = self.torch
         fn()
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if (time.perf_counter() - t0) * 1e3 > SLOW_CALL_MS:
+            reps = min(reps, SLOW_REPS)
         events = [(torch.cuda.Event(enable_timing=True),
                    torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
         for start, end in events:
@@ -701,6 +745,7 @@ def phase_kernels(torch, device, timer) -> list[dict]:
     _rows_tp(torch, device, gen, timer, rows, min_m)
     _rows_tp_moe(torch, device, gen, timer, rows, min_m)
     _rows_tp_hybrid(torch, device, gen, timer, rows, min_m)
+    _rows_seq_attention(torch, device, gen, timer, rows)
     dequant_accuracy(torch, device, gen)
     for row in rows:
         print("kernel " + json.dumps(row))
@@ -828,6 +873,78 @@ def _rows_tp_hybrid(torch, device, gen, timer, rows, min_m):
                   {"bsdp_gemv": (1,), "bsdp_gemm_fused": (4, 4 * enc_dec.encoder_tokens)})
     _attention_decode_row(torch, device, gen, timer, rows, 4, enc_dec.n_kv_heads // TP_WORLD,
                           1, feat=enc_dec.d_head)
+    torch.cuda.empty_cache()
+
+
+#: a sequence-parallel rank's block of mixtral-8x7b's 4096-slot window ring
+#: at two data ways (path (f) of the data phase)
+SEQ_BLOCK = 2048
+
+
+def _rows_seq_attention(torch, device, gen, timer, rows):
+    """Plane attention with its row statistics (``stats=True``) at the shape
+    one rank of (f)'s sequence-parallel decode gives it: mixtral-8x7b at
+    batch 1, 8 KV heads → R = 8 rows of G = 4 query heads over the rank's
+    block of L = 2048 slots of its wrapped 4096-slot ring (rank 0's: slots
+    0..63 hold positions 4096..4159, the rest 64..2047; the window keeps
+    them all at position 4159), F = 128 (Fw = 4), the bias the engine's
+    expanded view.  The output equal bit for bit to the launch without
+    statistics, output and statistics within ``ATTN_TOL`` of the plain
+    version's; the yardstick SDPA at the same shape."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import bitplane
+    from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
+    from repro_torch.kernels import plane_attn
+
+    b, h, g, l, feat = 1, 8, 4, SEQ_BLOCK, 128
+    fw = feat // 32
+    kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
+              _words(torch, gen, device, b, l, h, 4, fw))
+    ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
+    pos_ids = torch.arange(l, device=device)
+    pos_ids[:64] += 4096
+    cur = 4159
+    valid = (pos_ids <= cur) & (pos_ids > cur - 4096)
+    bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[None, None, None, :]
+    bias = bias.expand(b, h, g, l)
+    q = torch.randn((b, h, g, feat), generator=gen, device=device)
+    q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
+    args = (q_planes, q_scale, kp, ks, vp, vs, bias)
+    sm = 1.0 / math.sqrt(feat)
+    tag = f"R={b * h} G={g} L={l} Fw={fw} stats (a sequence-parallel rank's block)"
+    got, st = plane_attn.plane_decode_attention(*args, sm_scale=sm, stats=True)
+    want, want_st = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm, stats=True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all() and torch.isfinite(st).all()),
+          f"plane_decode_attention {tag}: non-finite output")
+    check(torch.equal(got, plane_attn.plane_decode_attention(*args, sm_scale=sm)),
+          f"plane_decode_attention {tag}: the output moved with the statistics")
+    check(torch.allclose(got, want, rtol=ATTN_TOL, atol=ATTN_TOL),
+          f"plane_decode_attention {tag}: max err {(got - want).abs().max().item()}")
+    check(torch.allclose(st, want_st, rtol=ATTN_TOL, atol=ATTN_TOL),
+          f"plane_decode_attention {tag}: statistics max err "
+          f"{(st - want_st).abs().max().item()}")
+    r = b * h
+    kd, vd = (bitplane.decode(planes).to(torch.float32)[..., :feat] * scale[..., None]
+              for planes, scale in ((kp, ks), (vp, vs)))
+    kd, vd = (x.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous() for x in (kd, vd))
+    qd = q.reshape(r, 1, g, feat)
+    mask = bias.reshape(r, 1, g, l)
+    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4 + 2 * (kp.numel() * 4 + ks.numel() * 4)
+              + bias.untyped_storage().nbytes() + r * g * (feat + 2) * 4)
+    ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
+    err = max((got - want).abs().max().item(), (st - want_st).abs().max().item())
+    _row(rows, "plane_decode_attention", plane_attn.KERNEL, tag, err, timer,
+         lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm, stats=True),
+         timer.ms(lambda: plane_attn.plane_decode_attention_plain(*args, sm_scale=sm,
+                                                                  stats=True)),
+         bound(nbytes, ops_s),
+         timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                         scale=sm)),
+         "F.scaled_dot_product_attention over K/V dequantized ahead of time (no row "
+         "statistics)")
     torch.cuda.empty_cache()
 
 
@@ -2101,7 +2218,7 @@ def phase_paged(torch, device, card, engine, qparams, cfg, served_a) -> dict:
 Y_SHARED, Y_REQUESTS, Y_LONG, Y_LONG_NEW = 256, 11, 200, 96
 #: path Y's layers: the first Y_DEPTH of path A's converted tree (its three
 #: serves of 211 steps are host-bound: at all 28 layers they took ~130 s)
-Y_DEPTH = 8
+Y_DEPTH = 4
 
 
 def _prefix_mix(cfg):
@@ -3826,26 +3943,37 @@ def _first_difference(a, b):
     return None
 
 
-#: qwen3-1.7b's layers in the tp phase (28 in PR 25: cut to make room for the
-#: MLA and MoE serves; a cut layer launches what a full one does)
-TP_DEPTH = 8
+#: qwen3-1.7b's layers in the tp phase (cut to make room for the MLA, MoE,
+#: Mamba and cross serves and the data phase; a cut layer launches what a
+#: full one does)
+TP_DEPTH = 4
 #: the tp phase's serves: label → (arch, the path whose stack it serves, layers):
-#: deepseek-v2-lite-16b's dense layer 0 and 3 MoE layers, mixtral-8x7b's one
+#: deepseek-v2-lite-16b's dense layer 0 and a MoE layer, mixtral-8x7b's one
 #: layer (as path S), falcon-mamba-7b's first 2 Mamba layers,
 #: llama-3.2-vision-11b's first 4 (layer 3 cross-attends to the [4, 1601,
-#: 4096] patch embeddings), seamless-m4t-medium whole (12 encoder layers over
-#: [4, 1536, 1024] frames, 12 decoder layers)
+#: 4096] patch embeddings), seamless-m4t-medium at 6 of its 12 encoder layers
+#: over [4, 1536, 1024] frames and 6 of its 12 decoder layers (an
+#: encoder-decoder's depth cuts both stacks, :func:`_tp_config`)
 TP_SERVES = {
     "qwen3-1.7b B": ("qwen3-1.7b", "B", TP_DEPTH),
     "qwen3-1.7b A": ("qwen3-1.7b", "A", TP_DEPTH),
-    "deepseek-v2-lite-16b B": ("deepseek-v2-lite-16b", "B", 4),
-    "deepseek-v2-lite-16b A": ("deepseek-v2-lite-16b", "A", 4),
+    "deepseek-v2-lite-16b B": ("deepseek-v2-lite-16b", "B", 2),
+    "deepseek-v2-lite-16b A": ("deepseek-v2-lite-16b", "A", 2),
     "mixtral-8x7b B": ("mixtral-8x7b", "B", 1),
     "falcon-mamba-7b B": ("falcon-mamba-7b", "B", 2),
     "falcon-mamba-7b A": ("falcon-mamba-7b", "A", 2),
     "llama-3.2-vision-11b B": ("llama-3.2-vision-11b", "B", 4),
-    "seamless-m4t-medium A": ("seamless-m4t-medium", "A", 12),
+    "seamless-m4t-medium A": ("seamless-m4t-medium", "A", 6),
 }
+
+
+def _tp_config(arch: str, depth: int):
+    """``arch``'s config cut to ``depth`` layers (an encoder-decoder's
+    encoder too)."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return cfg.scaled(n_layers=depth, **({"n_enc_layers": depth} if cfg.is_enc_dec else {}))
 
 
 def _cross_config(cfg) -> bool:
@@ -3890,7 +4018,6 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
 
     import torch
 
-    from repro_torch.configs import get_config
     from repro_torch.distributed import mesh as mesh_lib
     from repro_torch.kernels import ops
     from repro_torch.launch import dryrun
@@ -3904,7 +4031,7 @@ def _tp_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
     out: dict = {"rank": rank, "device": torch.cuda.get_device_name(torch.cuda.current_device()),
                  "current_device": torch.cuda.current_device(), "mesh": str(mesh)}
     for label, (arch, path, depth) in TP_SERVES.items():
-        cfg = get_config(arch).scaled(n_layers=depth)
+        cfg = _tp_config(arch, depth)
         mode, cache = PATHS[path][:2]
         moe = bool(cfg.n_experts)
         cross = _cross_config(cfg)
@@ -4069,8 +4196,6 @@ def phase_tp(torch, card) -> None:
     collective host time printed."""
     import tempfile
 
-    from repro_torch.configs import get_config
-
     with tempfile.TemporaryDirectory() as outdir:
         t0 = time.perf_counter()
         _run_children([(_nccl_one_rank, (_free_port(), outdir))], NCCL_JOIN_S, "tp (a) NCCL")
@@ -4108,7 +4233,7 @@ def phase_tp(torch, card) -> None:
                   f"{res['tp1_step_launches']}")
             have, want = res["collectives"]
             check(have == want, f"{tag}: the serve's collectives {have} != the dry run's {want}")
-            cfg = get_config(arch).scaled(n_layers=depth)
+            cfg = _tp_config(arch, depth)
             terms = tp_step_bound(cfg, *PATHS[path][:2], TP_WORLD, 4, 512)
             bound_ms = terms["step_lower_bound"] * 1e3
             print(f"tp {label} rank {r['rank']}: the serve's collectives (kind, [count, raw "
@@ -4169,6 +4294,438 @@ def phase_tp(torch, card) -> None:
             check(f["forced"][0] <= PATH_LIMITS["float32"][0]
                   and f["forced"][1] >= PATH_LIMITS["float32"][1],
                   f"{tag}: float32 drift past PATH_LIMITS")
+
+
+# ---------------------------------------------------------------------------
+# The data axis: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+#: the data phase's ranks, on cuda:0 under gloo over a (data=2, model=1) mesh
+DATA_WORLD = 2
+#: (e): qwen3-1.7b's layers, on path B's and path A's stacks
+DATA_DEPTH = 4
+DATA_SERVES = {"qwen3-1.7b B": "B", "qwen3-1.7b A": "A"}
+#: (f): mixtral-8x7b's layers, its decode steps after path S's 4,160-token
+#: prompt, and the float32 limit of the largest logit's share
+SEQ_LAYERS, SEQ_STEPS, SEQ_RTOL = 1, 16, 1e-5
+#: seconds the parent waits for the two ranks
+DATA_JOIN_S = 600
+
+
+class RowCodeLog(CodeLog):
+    """:class:`CodeLog` against a one-device run's log, read by data rank
+    ``rank`` of ``ways`` holding a contiguous block of the slots: a rounding
+    over the slots' rows is compared with the rank's rows of the one-device
+    tensor (:func:`_rank_share` along the batch dim), and a rounding over
+    the tokens a prefill writes to the rings (``lens``: the refill group's
+    kept tokens a row, b-major) with the rank's rows' tokens."""
+
+    def __init__(self, plain, rank: int, ways: int, lens, force=False):
+        super().__init__(plain, force)
+        self.rank, self.ways, self.lens = rank, ways, list(lens)
+
+    def _share(self, full, local):
+        per = len(self.lens) // self.ways
+        off, n = sum(self.lens[:self.rank * per]), sum(self.lens[self.rank * per:][:per])
+        if full.shape[0] == sum(self.lens) and local.shape[0] == n and full.shape[0] != \
+                self.ways * local.shape[0]:
+            return full[off:off + n]
+        return _rank_share(full, local, self.rank, self.ways)
+
+    def codes(self, v, q):
+        i = len(self.calls)
+        if self.plain is not None and i < len(self.plain.calls):
+            vp, qp = self.plain.calls[i]
+            share = self._share(qp, q)
+            check(share is not None,
+                  f"rounding {i}: {tuple(q.shape)} is no rank's share of {tuple(qp.shape)}")
+            self.plain.calls[i] = (self._share(vp, v), share)
+        return super().codes(v, q)
+
+
+def _data_serves(torch, device, mesh, rank: int, card: str) -> dict:
+    """(e): qwen3-1.7b at full width and :data:`DATA_DEPTH` layers on path B's
+    and path A's stacks, the tp phase's mix served at data = 1 in this
+    process and over the (data=2, model=1) mesh on the same weights,
+    teacher-forced to data = 1's tokens."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.serve import engine
+
+    out: dict = {}
+    cfg = get_config("qwen3-1.7b").scaled(n_layers=DATA_DEPTH)
+    # the prompts' kept tokens a row: one refill group of all four, left-padded
+    lens = [min(len(p), TP_MAX_LEN) for p in _tp_mix(cfg)]
+    for label, path in DATA_SERVES.items():
+        mode, cache = PATHS[path][:2]
+        t0 = time.perf_counter()
+        host = engine.materialize_converted(cfg, mode, seed=SEED, device=device,
+                                            keep=lambda leaf: engine.tree_to(leaf, "cpu"))
+        res = {"draw_s": time.perf_counter() - t0}
+        one_log = CodeLog() if path == "A" else None
+        one_ops = OpLog()
+        with one_log or _Null(), one_ops:
+            eng1, trace1, toks1, _ = _tp_serve(engine, engine.tree_to(host, device), cfg, mode,
+                                               cache, device)
+        trace1 = list(trace1)
+        res["data1_step_launches"] = _step_launches(torch, eng1, cfg)
+        del eng1
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        codes = RowCodeLog(one_log, rank, DATA_WORLD, lens) if path == "A" else None
+        op_log = OpLog(one_ops, rank, DATA_WORLD)
+        with dryrun.ModelCallLog() as served, codes or _Null(), op_log:
+            eng, trace, toks, wall = _tp_serve(engine, host, cfg, mode, cache, device, mesh=mesh,
+                                               force=toks1)
+        res["collectives"] = dryrun.held_collectives(
+            eng.view, dryrun.serve_collectives(eng, served.calls, rounds=served.rounds))
+        res["model_calls"], res["rounds"] = len(served.calls), len(served.rounds)
+        plain = ops.plain_cuda_counts()
+        check(all(v == 0 for v in plain.values()), f"data {label}: a plain version ran on CUDA")
+        got = eng.resident_bytes()
+        twin = dryrun.rank_bytes(eng.cfg, "decode", mesh_axes={"data": DATA_WORLD, "model": 1},
+                                 rules=eng.rules, qmode=mode, batch=TP_SLOTS,
+                                 cache_len=TP_MAX_LEN)
+        res.update(weights=got["weights"], cache=got["cache"], weights_twin=twin["weights"],
+                   cache_twin=twin["cache"], wall_s=wall, collective_s=eng.view.collective_s,
+                   collective_calls=dict(eng.view.calls), tokens=toks, data1_tokens=toks1,
+                   kinds_equal=[(k, s) for k, s, _ in trace] == [(k, s) for k, s, _ in trace1],
+                   bitwise=_first_difference(trace, trace1) is None,
+                   first_difference=_first_difference(trace, trace1),
+                   drift=_drift((trace, trace1)), first_op=op_log.first,
+                   ops_differ=op_log.differ, ops=len(op_log.records))
+        del eng, one_ops, op_log
+        if codes is not None:
+            res["codes"] = dict(differ=codes.differ, far=codes.far, calls=len(codes.calls),
+                                first=codes.first)
+            del one_log, codes
+            torch.cuda.empty_cache()
+            f32 = dataclasses.replace(cfg, dtype=torch.float32)
+            log32 = CodeLog()
+            with log32:
+                _, trace32_1, toks32, _ = _tp_serve(engine, engine.tree_to(host, device), f32,
+                                                    mode, cache, device)
+            torch.cuda.empty_cache()
+            forced = RowCodeLog(log32, rank, DATA_WORLD, lens, force=True)
+            with forced:
+                _, trace32, _, _ = _tp_serve(engine, host, f32, mode, cache, device, mesh=mesh,
+                                             force=toks32)
+            res["f32"] = dict(forced=_drift((trace32, trace32_1)), differ=forced.differ,
+                              forced_codes=forced.forced, far=forced.far, edge=forced.edge,
+                              calls=len(log32.calls), first=forced.first)
+            del log32, forced
+        torch.cuda.empty_cache()
+        prof = engine.ServeEngine(host, cfg, mesh=mesh, mode=mode, cache_format=cache, slots=4,
+                                  max_len=512, device=device)
+        res["step_launches"] = _step_launches(torch, prof, cfg)
+        prof.view.reset_counts()
+        res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
+            torch, prof.step, 3, f"data phase (e) rank {rank} {label} profile decode step "
+            f"(slots=4, 2 a rank, data={DATA_WORLD}, {cfg.n_layers} layers, {card}, under the "
+            f"profiler)")
+        res["profile_collective_ms"] = prof.view.collective_s * 1e3 / 3
+        del prof, host
+        torch.cuda.empty_cache()
+        out[label] = res
+    return out
+
+
+def _seq_prompt(cfg):
+    """Path S's long prompt: :data:`S_PROMPTS`' first, 4,160 tokens (seeded)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    return rng.integers(0, cfg.vocab_size, size=S_PROMPTS[0]).astype(np.int32)
+
+
+def _seq_decodes(torch, device, mesh, rank: int, card: str, outdir: str) -> dict:
+    """(f): mixtral-8x7b at full width and :data:`SEQ_LAYERS` layer, batch 1,
+    on path B's and path A's stacks: path S's 4,160-token prompt prefilled on
+    one device in this rank, the cache cut to the rank's block of the
+    4096-slot ring under ``plan(cfg, SHAPES["long_500k"], mesh).rules``, and
+    :data:`SEQ_STEPS` ``decode_step`` calls over the blocks, teacher-forced
+    to the one-device decode's greedy tokens on the whole cache."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import kvcache
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import engine
+    from repro_torch.sharding import partitioning as P
+
+    out: dict = {}
+    cfg = get_config("mixtral-8x7b").scaled(n_layers=SEQ_LAYERS)
+    rules = launch_mesh.plan(cfg, SHAPES["long_500k"], mesh).rules
+    check(rules["kv_seq"] == ("data",) and rules["batch"] == (),
+          f"(f): plan's long_500k rules {rules['batch']!r} / {rules['kv_seq']!r}")
+    axes = {"data": DATA_WORLD, "model": 1}
+    prompt = torch.from_numpy(_seq_prompt(cfg)[None]).long().to(device)
+    p_len = prompt.shape[1]
+    for path in ("B", "A"):
+        mode, cache = PATHS[path][:2]
+        host = engine.materialize_converted(cfg, mode, seed=SEED, device=device,
+                                            keep=lambda leaf: engine.tree_to(leaf, "cpu"))
+        res: dict = {}
+
+        def drive(c, seq: bool, log=None, force=None):
+            """Prefill on one device, then SEQ_STEPS decode steps over the
+            whole ring or (``seq``) over the rank's block → (logits rows, the
+            greedy tokens, the engine, each call's held collectives, one
+            decode step's launches, the whole and the cut caches' bytes)."""
+            eng = engine.ServeEngine(host, c, mesh=mesh, mode=mode, cache_format=cache,
+                                     slots=DATA_WORLD, max_len=S_MAX_LEN, device=device)
+            with log or _Null():
+                logits, caches = model_lib.prefill(eng.params, {"tokens": prompt}, eng.cfg,
+                                                   max_len=S_MAX_LEN)
+                whole = [{k: t.clone() for k, t in c.items()} for c in caches]
+                if seq:
+                    caches = P.shard_caches(caches, mesh, rules,
+                                            attention.attn_dims(c, 1)[2], eng.cfg)
+                rows, toks, held, launches = [], [], [], None
+                tok = logits[:, -1].argmax(-1)
+                for i in range(SEQ_STEPS):
+                    if force is not None:
+                        tok = torch.tensor([force[i]], device=device)
+                    toks.append(int(tok.item()))
+                    eng.view.reset_counts()
+                    torch.cuda.synchronize()
+                    ops.reset_counts()
+                    logits, caches = model_lib.decode_step(
+                        eng.params, tok[:, None], caches,
+                        torch.tensor([p_len + i], dtype=torch.int32, device=device), eng.cfg,
+                        mesh=eng.view if seq else None, rules=rules if seq else None)
+                    torch.cuda.synchronize()
+                    if i == 1:
+                        launches = {k: v for k, v in ops.launch_counts().items() if v}
+                    if seq:
+                        held.append(dryrun.held_collectives(eng.view, dryrun.call_collectives(
+                            eng.cfg, mode, "decode", batch=1, seq=1, tp=1, rules=rules,
+                            mesh_axes=axes)))
+                    rows.append(logits[:, -1].float().cpu().numpy())
+                    tok = logits[:, -1].argmax(-1)
+            return rows, toks, eng, held, launches, whole, caches
+
+        # the whole ring against the blocks put together
+        rows1, toks1, eng, _, launches1, whole, _ = drive(cfg, False)
+        block = P.shard_caches(whole, mesh, rules, attention.attn_dims(cfg, 1)[2], eng.cfg)
+        joined = [{k: eng.view.axes["data"].all_gather(t, dim=1) for k, t in c.items()}
+                  for c in block]
+        res["blocks_equal"] = all(torch.equal(joined[i][k], whole[i][k])
+                                  for i in range(len(whole)) for k in whole[i])
+        res["block_slots"] = int(block[0]["pos_ids"].shape[1])
+        del eng, whole, block, joined
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        rows, toks, eng, held, launches, _, cut = drive(cfg, True, force=toks1)
+        plain = ops.plain_cuda_counts()
+        check(all(v == 0 for v in plain.values()), f"(f) {path}: a plain version ran on CUDA")
+        twin = dryrun.rank_bytes(eng.cfg, "decode", mesh_axes=axes, rules=rules, qmode=mode,
+                                 batch=1, cache_len=S_MAX_LEN)
+        res.update(weights=eng.resident_bytes()["weights"], weights_twin=twin["weights"],
+                   cache=kvcache.cache_resident_bytes(cut), cache_twin=twin["cache"],
+                   collectives_equal=all(have == want for have, want in held),
+                   collectives=held[0], launches=launches, launches1=launches1,
+                   tokens1=toks1, drift=_drift(([("d", (0,), r) for r in rows],
+                                                [("d", (0,), r) for r in rows1])))
+        np.save(f"{outdir}/seq_{path}_rank{rank}.npy", np.stack(rows))
+        # a decode step over the blocks, profiled
+        step_caches = [dict(c) for c in cut]
+        step_tok = torch.tensor([[toks1[-1]]], device=device)
+
+        def step():
+            model_lib.decode_step(eng.params, step_tok, step_caches,
+                                  torch.tensor([p_len + SEQ_STEPS], dtype=torch.int32,
+                                               device=device),
+                                  eng.cfg, mesh=eng.view, rules=rules)
+
+        eng.view.reset_counts()
+        res["profile_wall_ms"], res["profile_busy_ms"] = profile_steps(
+            torch, step, 3, f"data phase (f) rank {rank} mixtral-8x7b {path} profile "
+            f"sequence-parallel decode step (batch 1, {SEQ_BLOCK} of 4096 ring slots a rank, "
+            f"{cfg.n_layers} layer, {card}, under the profiler)")
+        res["profile_collective_ms"] = eng.view.collective_s * 1e3 / 3
+        del eng, cut, step_caches
+        torch.cuda.empty_cache()
+        # float32, every rounding at a boundary forced to the one-device run's
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        log32 = CodeLog()
+        rows32_1, toks32, eng, *_ = drive(f32, False, log=log32)
+        del eng
+        torch.cuda.empty_cache()
+        forced = CodeLog(log32, force=True)
+        rows32, _, eng, *_ = drive(f32, True, log=forced, force=toks32)
+        rel = max(float(np.abs(np.float64(a) - b).max() / np.abs(np.float64(b)).max())
+                  for a, b in zip(rows32, rows32_1))
+        res["f32"] = dict(rel=rel, differ=forced.differ, forced_codes=forced.forced,
+                          far=forced.far, calls=len(log32.calls))
+        del eng, log32, forced, host
+        torch.cuda.empty_cache()
+        out[f"mixtral-8x7b {path}"] = res
+    return out
+
+
+def _data_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
+    """One rank of the data phase: (e) then (f); writes what it held and
+    measured to ``outdir/data_rank<r>.json``."""
+    import torch
+
+    from repro_torch.distributed import mesh as mesh_lib
+
+    device = torch.device(TP_DEVICE)
+    mesh_lib.init(rank=rank, world_size=world, init_method=f"tcp://localhost:{port}",
+                  device=device, backend="gloo", timeout_s=TP_COLLECTIVE_TIMEOUT_S)
+    mesh = mesh_lib.device_mesh(device, (world, 1), ("data", "model"))
+    out: dict = {"rank": rank, "mesh": str(mesh), "current_device": torch.cuda.current_device()}
+    t0 = time.perf_counter()
+    out["e"] = _data_serves(torch, device, mesh, rank, card)
+    out["e_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["f"] = _seq_decodes(torch, device, mesh, rank, card, outdir)
+    out["f_s"] = time.perf_counter() - t0
+    torch.distributed.destroy_process_group()
+    with open(f"{outdir}/data_rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_data(torch, card) -> None:
+    """(e) the engine's data axis and (f) sequence-parallel decode, two gloo
+    ranks on the one card over a ``(data=2, model=1)`` mesh.
+
+    (e): qwen3-1.7b at full width and :data:`DATA_DEPTH` layers, the tp
+    phase's mix (4 requests of 16-128 tokens, 16 new each, slots = 4, 2 a
+    rank, ``fcfs``) on path B's and path A's stacks, held against data = 1
+    in the rank's process on the same weights: every rank's tokens equal;
+    B bit for bit or its first differing op named (``OpLog``, a rank's rows
+    of the one-device op) with its rows within ``PATH_LIMITS``; A's bf16
+    drift printed, and A in float32 with its boundary codes forced
+    (``RowCodeLog``) within ``PATH_LIMITS``; each rank's resident bytes
+    equal to ``dryrun.rank_bytes``; the serve's collectives, by kind in
+    count and raw bytes, equal to ``dryrun.serve_collectives`` (its model
+    calls and rounds); each kernel's launches a decode step equal to data
+    = 1's; a profiled decode step's busy ms printed.
+
+    (f): mixtral-8x7b at full width, 1 layer, batch 1, on B's and A's
+    stacks: path S's 4,160-token prompt prefilled on one device in each
+    rank, the rank's 2048-slot block of the wrapped 4096-slot ring kept
+    under ``plan``'s ``long_500k`` rules (the blocks put together equal to
+    the one-device ring bit for bit), then 16 ``decode_step`` calls held
+    against data = 1's: every rank's logits equal, float32 logits within
+    1e-5 of the largest with the boundary codes forced, the bf16 drift
+    printed, the collectives equal to ``dryrun.call_collectives`` under the
+    plan's rules, the rank's bytes to ``rank_bytes`` of that plan, plane
+    attention's launches a decode step equal to data = 1's.  The two ranks
+    time-share the card: no speed result."""
+    import tempfile
+
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as outdir:
+        t0 = time.perf_counter()
+        port = _free_port()
+        _run_children([(_data_rank, (r, DATA_WORLD, port, outdir, card))
+                       for r in range(DATA_WORLD)], DATA_JOIN_S, "data phase ranks")
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(DATA_WORLD):
+            with open(f"{outdir}/data_rank{r}.json") as f:
+                ranks.append(json.load(f))
+        seq_rows = {(path, r): np.load(f"{outdir}/seq_{path}_rank{r}.npy")
+                    for path in ("B", "A") for r in range(DATA_WORLD)}
+    print(f"data phase: {DATA_WORLD} gloo ranks on one card ({ranks[0]['mesh']}), ranks on "
+          f"cuda:{[r['current_device'] for r in ranks]}; (e) {ranks[0]['e_s']:.1f} s, (f) "
+          f"{ranks[0]['f_s']:.1f} s on rank 0; {wall:.1f} s start to exit, on {card}")
+    for label, path in DATA_SERVES.items():
+        for r in ranks:
+            res, tag = r["e"][label], f"data (e) {label} rank {r['rank']}"
+            check(res["tokens"] == ranks[0]["e"][label]["tokens"],
+                  f"{tag}: tokens differ from rank 0's")
+            check(res["tokens"] == res["data1_tokens"], f"{tag} did not emit the forced tokens")
+            check(res["kinds_equal"], f"{tag}: data=2 scheduled other steps than data=1")
+            check(res["weights"] == res["weights_twin"] and res["cache"] == res["cache_twin"],
+                  f"{tag}: bytes {res['weights']} / {res['cache']} != twins "
+                  f"{res['weights_twin']} / {res['cache_twin']}")
+            check(res["step_launches"] == res["data1_step_launches"],
+                  f"{tag}: {res['step_launches']} a decode step, data=1 launches "
+                  f"{res['data1_step_launches']}")
+            have, want = res["collectives"]
+            check(have == want, f"{tag}: the serve's collectives {have} != the dry run's {want}")
+            rel, cos, agree = res["drift"]
+            print(f"{tag} ({DATA_DEPTH} layers): resident weights {res['weights']} B (twin "
+                  f"{res['weights_twin']} B), cache {res['cache']} B (twin {res['cache_twin']} "
+                  f"B: the rank's 2 of 4 slots); the serve's collectives (kind, [count, raw "
+                  f"bytes]) {have} = the dry run's count ({res['model_calls']} model calls, "
+                  f"{res['rounds']} rounds, the token check); launches a decode step "
+                  f"{res['step_launches']} (data=1's); serve {res['wall_s'] * 1e3:.1f} ms wall, "
+                  f"collectives {res['collective_s'] * 1e3:.1f} ms host "
+                  f"{res['collective_calls']}; profiled decode step wall "
+                  f"{res['profile_wall_ms']:.2f} ms, device busy {res['profile_busy_ms']:.3f} "
+                  f"ms, collectives {res['profile_collective_ms']:.2f} ms host; on {card}")
+            print(f"{tag} vs data=1 (bf16): bit for bit {res['bitwise']}, first differing "
+                  f"logit row {res['first_difference']}, max rel err {rel:.3e}, min cosine "
+                  f"{cos:.6f}, argmax agree {agree}; first differing op (call, op, model "
+                  f"call, max |d|, shape) {res['first_op']}, {res['ops_differ']} of "
+                  f"{res['ops']} op outputs differ")
+            if path == "B":
+                check(res["bitwise"] or rel <= PATH_LIMITS["bfloat16"][0]
+                      and cos >= PATH_LIMITS["bfloat16"][1],
+                      f"{tag}: drift {rel}, {cos} past PATH_LIMITS")
+                continue
+            c, f = res["codes"], res["f32"]
+            print(f"{tag} codes (bf16): {c['differ']} of the codes rounded in {c['calls']} "
+                  f"calls differ from data=1's, {c['far']} farther than {FLIP_TOL} of a step, "
+                  f"the first at {c['first']}; printed, not held")
+            print(f"{tag} vs data=1 in float32, with {f['forced_codes']} of {f['differ']} "
+                  f"differing codes forced ({f['far']} farther than {FLIP_TOL} of a step, "
+                  f"of {f['calls']} rounding calls): max rel err {f['forced'][0]:.3e} (limit "
+                  f"{PATH_LIMITS['float32'][0]}), min cosine {f['forced'][1]:.6f}, argmax "
+                  f"agree {f['forced'][2]}")
+            check(f["far"] == 0, f"{tag}: {f['far']} codes differ away from a boundary")
+            check(f["forced"][0] <= PATH_LIMITS["float32"][0]
+                  and f["forced"][1] >= PATH_LIMITS["float32"][1],
+                  f"{tag}: float32 drift past PATH_LIMITS")
+    for path in ("B", "A"):
+        label = f"mixtral-8x7b {path}"
+        check(np.array_equal(seq_rows[(path, 0)], seq_rows[(path, 1)]),
+              f"data (f) {label}: the ranks' logits differ")
+        for r in ranks:
+            res, tag = r["f"][label], f"data (f) {label} rank {r['rank']}"
+            check(res["blocks_equal"] and res["block_slots"] == SEQ_BLOCK,
+                  f"{tag}: the blocks put together are not the one-device ring")
+            check(res["collectives_equal"], f"{tag}: a decode call's collectives differ from "
+                  f"the dry run's count {res['collectives']}")
+            check(res["weights"] == res["weights_twin"] and res["cache"] == res["cache_twin"],
+                  f"{tag}: bytes {res['weights']} / {res['cache']} != rank_bytes "
+                  f"{res['weights_twin']} / {res['cache_twin']}")
+            check(res["launches"] == res["launches1"] and
+                  res["launches"].get("plane_decode_attention", 0) == int(path == "A"),
+                  f"{tag}: a decode step launches {res['launches']}, data=1 "
+                  f"{res['launches1']}")
+            f = res["f32"]
+            check(f["far"] == 0 and f["rel"] <= SEQ_RTOL,
+                  f"{tag}: float32 {f['rel']:.3e} of the largest logit ({f['far']} codes far "
+                  f"from a boundary)")
+            rel, cos, agree = res["drift"]
+            print(f"{tag}: the rank's block {res['block_slots']} of 4096 ring slots, the blocks "
+                  f"put together the one-device ring bit for bit; cache {res['cache']} B "
+                  f"(rank_bytes {res['cache_twin']} B), weights {res['weights']} B; each "
+                  f"decode call's collectives {res['collectives']} = call_collectives under "
+                  f"the long_500k rules; launches a decode step {res['launches']} (data=1's); "
+                  f"float32 vs data=1 {f['rel']:.3e} of the largest logit (limit {SEQ_RTOL}; "
+                  f"{f['forced_codes']} of {f['differ']} differing codes forced at a boundary, "
+                  f"of {f['calls']} rounding calls); bf16 vs data=1: max rel err {rel:.3e}, "
+                  f"min cosine {cos:.6f}, argmax agree {agree} of {SEQ_STEPS} (printed); "
+                  f"profiled decode step wall {res['profile_wall_ms']:.2f} ms, device busy "
+                  f"{res['profile_busy_ms']:.3f} ms, collectives "
+                  f"{res['profile_collective_ms']:.2f} ms host; on {card}")
 
 
 # ---------------------------------------------------------------------------
@@ -4777,6 +5334,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_tp(torch, card)
     done("tp phase")
+    phase_data(torch, card)
+    done("data phase")
     phase_train_mesh(torch, card)
     done("mesh training phase")
     phase_examples(torch, card)

@@ -100,14 +100,19 @@ class CacheFormat:
         raise NotImplementedError
 
     def append(self, store: dict, x: torch.Tensor, b_idx: torch.Tensor,
-               s_idx: torch.Tensor, ring: torch.Tensor) -> None:
+               s_idx: torch.Tensor, ring: torch.Tensor, keep=None) -> None:
         """In place: write the tokens ``x[b_idx, s_idx]`` of ``x [B, S, *lead,
         F]`` at ring slots ``ring`` of batch rows ``b_idx``.  The caller
         leaves padded tokens and duplicate slots out of the index lists:
         each ``(b_idx, ring)`` pair appears at most once, since a repeated
-        index has no defined winner on the card."""
+        index has no defined winner on the card.  With ``keep`` (a boolean
+        mask over the tokens: a sequence-parallel rank's block) every token
+        is encoded, as on one device, and only the kept ones are written."""
         for sfx, enc in self._encode(x[b_idx, s_idx]).items():
-            store[sfx][b_idx, ring] = enc.to(store[sfx].dtype)
+            if keep is None:
+                store[sfx][b_idx, ring] = enc.to(store[sfx].dtype)
+            else:
+                store[sfx][b_idx[keep], ring[keep]] = enc[keep].to(store[sfx].dtype)
 
     def qk(self, q: torch.Tensor, store: dict) -> torch.Tensor:
         """``q [B, *lead, G, F]`` · the stored channel → scores ``[B, *lead,
@@ -120,7 +125,7 @@ class CacheFormat:
         raise NotImplementedError
 
     def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat,
-                         impl=None) -> torch.Tensor:
+                         impl=None, stats: bool = False):
         raise NotImplementedError(f"cache format {self.name!r} has no fused decode path")
 
     def data_axes(self, lead_axes: tuple) -> dict:
@@ -325,16 +330,19 @@ class FusedBitPlaneCacheFormat(BitPlaneCacheFormat):
     supports_fused_decode = True
 
     def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat,
-                         impl: Optional[str] = None):
+                         impl: Optional[str] = None, stats: bool = False):
+        """With ``stats`` also each row's softmax max and sum ``[..., G, 2]``
+        (a sequence-parallel block's statistics)."""
         from repro_torch.kernels import ops, plane_attn
 
         q_planes, qq_scale = self._query_planes(q)
         args = (q_planes, qq_scale, k_store[""], k_store["_scale"],
                 v_store[""], v_store["_scale"], bias)
         if impl == "plain":
-            out = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm_scale)
-            return out[..., :feat]
-        return ops.plane_decode_attention(*args, sm_scale=sm_scale, feat=feat)
+            out = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm_scale,
+                                                          stats=stats)
+            return (out[0][..., :feat], out[1]) if stats else out[..., :feat]
+        return ops.plane_decode_attention(*args, sm_scale=sm_scale, feat=feat, stats=stats)
 
 
 register_cache_format(BF16CacheFormat())

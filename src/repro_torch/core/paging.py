@@ -136,9 +136,11 @@ class PagedCacheFormat(kvcache.CacheFormat):
     def av(self, w, store, feat):
         return self.inner.av(w, self._gather(store), feat)
 
-    def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat, impl=None):
+    def decode_attention(self, q, k_store, v_store, bias, *, sm_scale, feat, impl=None,
+                         stats: bool = False):
         return self.inner.decode_attention(q, self._gather(k_store), self._gather(v_store),
-                                           bias, sm_scale=sm_scale, feat=feat, impl=impl)
+                                           bias, sm_scale=sm_scale, feat=feat, impl=impl,
+                                           stats=stats)
 
     # -- sharding --------------------------------------------------------
     def data_axes(self, lead_axes):

@@ -9,7 +9,11 @@
 //   3. softmax over L in float32;
 //   4. out[g, f] = Σ_l (p[g, l] · v_scale[l]) · v_int4[l, f], the plane values
 //      (1, 2, 4, -8) applied to the raw V bits — V is never dequantized to a
-//      value matrix in device memory.
+//      value matrix in device memory;
+//   5. with a non-null `stats`, each (row, query)'s softmax max and sum over L,
+//      stats[r, g] = (max_l score, Σ_l e^(score - max)), as the combine of the
+//      splits holds them: what a flash-decoding combine over several ranks'
+//      blocks of L (sequence-parallel KV) rescales each block's output by.
 //
 // q [R, G, 4, Fw] words, q_scale [R, G] and out [R, G, Fw·32] are contiguous.
 // K and V planes are read in the cache's stored layout [B, L, H, 4, Fw]
@@ -95,7 +99,8 @@ __global__ void __launch_bounds__(kThreads)
 plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_scale,
                   const uint32_t* __restrict__ kp, const float* __restrict__ k_scale,
                   const uint32_t* __restrict__ vp, const float* __restrict__ v_scale,
-                  const float* __restrict__ bias, float* __restrict__ out, int heads,
+                  const float* __restrict__ bias, float* __restrict__ out,
+                  float* __restrict__ stats, int heads,
                   int total_groups, int tile, int slots, int fw, int chunk, long long p_b,
                   long long p_l, long long p_h, long long s_b, long long s_l, long long s_h,
                   long long b_b, long long b_h, long long b_g, long long b_l,
@@ -241,6 +246,11 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
       }
     }
     out[(static_cast<size_t>(r) * total_groups + g0) * feat + idx] = num / den;
+    if (stats != nullptr && idx % feat == 0) {  // the thread of the row's first feature
+      float* st = stats + (static_cast<size_t>(r) * total_groups + g0 + g) * 2;
+      st[0] = mx;
+      st[1] = den;
+    }
   }
   cluster.sync();  // no block leaves while another still reads its shared memory
 }
@@ -250,7 +260,8 @@ plane_attn_kernel(const uint32_t* __restrict__ q, const float* __restrict__ q_sc
 extern "C" int plane_decode_attention(const void* q, const void* q_scale, const void* kp,
                                       const void* k_scale, const void* vp,
                                       const void* v_scale, const void* bias, void* out,
-                                      int batch, int heads, int groups, int slots, int fw,
+                                      void* stats, int batch, int heads, int groups,
+                                      int slots, int fw,
                                       long long p_b, long long p_l, long long p_h,
                                       long long s_b, long long s_l, long long s_h,
                                       long long b_b, long long b_h, long long b_g,
@@ -286,7 +297,7 @@ extern "C" int plane_decode_attention(const void* q, const void* q_scale, const 
       static_cast<const float*>(q_scale), static_cast<const uint32_t*>(kp),
       static_cast<const float*>(k_scale), static_cast<const uint32_t*>(vp),
       static_cast<const float*>(v_scale), static_cast<const float*>(bias),
-      static_cast<float*>(out), heads, groups, tile, slots, fw, chunk, p_b, p_l, p_h, s_b, s_l,
-      s_h, b_b, b_h, b_g, b_l, sm_scale, is_signed, vec);
+      static_cast<float*>(out), static_cast<float*>(stats), heads, groups, tile, slots, fw,
+      chunk, p_b, p_l, p_h, s_b, s_l, s_h, b_b, b_h, b_g, b_l, sm_scale, is_signed, vec);
   return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }

@@ -19,8 +19,9 @@ lie.  ``collective_s`` sums the host time spent in them,
 the group size) that ``repro_torch.launch.hlo_stats.collective_stats``
 tallies into wire bytes.  :class:`TensorParallel` is the model
 axis's view, with ``shard_kv`` (the KV heads split over the axis).
-:class:`MeshView` holds every axis of a mesh, and reduces over several in
-turn.
+:class:`MeshView` holds every axis of a mesh, reduces over several in
+turn, and gathers over several into the order their blocks take (a serving
+engine's slots over ``pod`` × ``data``).
 
 The autograd-aware forms (each a ``torch.autograd.Function``; the identity
 without an axis or at one rank):
@@ -264,6 +265,26 @@ class MeshView:
             if self.axis(name) is not None:
                 t = self.axes[name].all_reduce_max(t)
         return t
+
+    def all_gather(self, t: torch.Tensor, names, dim: int = 0) -> torch.Tensor:
+        """Every rank's ``t`` over the axes ``names`` (a partition entry's
+        order: the first the outermost, pod-major), concatenated along
+        ``dim`` in the order of the ranks' blocks (:meth:`block`): the
+        innermost axis gathered first, so that a rank's rows land where the
+        entry's batch sharding puts them (slot order)."""
+        for name in reversed(tuple(names)):
+            if self.axis(name) is not None:
+                t = self.axes[name].all_gather(t, dim)
+        return t
+
+    def block(self, names) -> tuple:
+        """(ways, index) of this rank's block of a dim sharded over the axes
+        ``names``, the first the outermost: the product of their sizes, and
+        the rank's place in it."""
+        ways, index = 1, 0
+        for name in names:
+            ways, index = ways * self.size(name), index * self.size(name) + self.coord(name)
+        return ways, index
 
     @property
     def collective_s(self) -> float:

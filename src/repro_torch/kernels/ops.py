@@ -176,11 +176,14 @@ def weight_only_matmul(x: torch.Tensor, w_i8: torch.Tensor,
 
 
 def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
-                           v_scale, bias, *, sm_scale: float,
-                           feat: int) -> torch.Tensor:
+                           v_scale, bias, *, sm_scale: float, feat: int,
+                           stats: bool = False):
     """Fused bit-plane decode attention → ``[B, Hkv, G, feat]`` float32; the
-    word-padded feature axis is sliced back to ``feat`` here."""
+    word-padded feature axis is sliced back to ``feat`` here.  With
+    ``stats`` also each row's softmax max and sum ``[B, Hkv, G, 2]``."""
     out = plane_attn.plane_decode_attention(
         q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias,
-        sm_scale=sm_scale)
+        sm_scale=sm_scale, stats=stats)
+    if stats:
+        return out[0][..., :feat], out[1]
     return out[..., :feat]

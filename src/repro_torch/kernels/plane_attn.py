@@ -10,7 +10,13 @@ integer math, the softmax over L in float32, and the weights — with
 L is split over a cluster of up to 8 blocks per (batch × kv-head) row
 (flash-decoding); the splits' softmax statistics and partial outputs are
 combined in a fixed order through distributed shared memory, in the same
-launch.  The query rows G (chunk × group under chunked prefill) are tiled
+launch.  On request (``stats=True``) the launch also writes each (row,
+query)'s softmax max and sum over L as that combine holds them, ``[B, Hkv,
+G, 2]`` float32: the statistics by which a flash-decoding combine over
+several ranks' blocks of L (sequence-parallel KV,
+:func:`repro_torch.models.attention.combine_blocks`) rescales each block's
+output.  Unrequested, the launch passes a null pointer and writes nothing
+more.  The query rows G (chunk × group under chunked prefill) are tiled
 over the grid's third axis, so one launch takes any G and a (row, query)'s
 result does not depend on G.
 
@@ -38,7 +44,7 @@ from repro_torch.kernels import _build
 
 KERNEL = _build.CudaKernel(
     "plane_decode_attention", "plane_attn.cu", "plane_decode_attention",
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
     replaces="src/repro/kernels/plane_attn.py:141",
 )
@@ -68,9 +74,10 @@ def _check(q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias):
 
 
 def plane_decode_attention_plain(q_planes, q_scale, k_planes, k_scale, v_planes,
-                                 v_scale, bias, *, sm_scale: float,
-                                 signed: bool = True) -> torch.Tensor:
-    """Plain version → ``[B, Hkv, G, Fw·32]`` float32."""
+                                 v_scale, bias, *, sm_scale: float, signed: bool = True,
+                                 stats: bool = False):
+    """Plain version → ``[B, Hkv, G, Fw·32]`` float32, and with ``stats``
+    each row's softmax max and sum ``[B, Hkv, G, 2]`` beside it."""
     _check(q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias)
     KERNEL.note_plain(q_planes)
     kp = k_planes.permute(0, 2, 1, 3, 4)  # [B, H, L, 4, Fw]
@@ -81,16 +88,19 @@ def plane_decode_attention_plain(q_planes, q_scale, k_planes, k_scale, v_planes,
               * sm_scale + bias)
     m = scores.amax(dim=-1, keepdim=True)
     p = torch.exp(scores - m)
-    w = p / p.sum(dim=-1, keepdim=True)
+    total = p.sum(dim=-1, keepdim=True)
+    w = p / total
     vals = bitplane.decode(v_planes.permute(0, 2, 1, 3, 4), signed=signed)
-    return torch.einsum("bhgl,bhlf->bhgf", w * vs[..., None, :],
-                        vals.to(torch.float32))
+    out = torch.einsum("bhgl,bhlf->bhgf", w * vs[..., None, :], vals.to(torch.float32))
+    return (out, torch.cat([m, total], dim=-1)) if stats else out
 
 
 def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
-                           v_scale, bias, *, sm_scale: float,
-                           signed: bool = True) -> torch.Tensor:
-    """Fused plane-layout decode attention → ``[B, Hkv, G, Fw·32]`` float32.
+                           v_scale, bias, *, sm_scale: float, signed: bool = True,
+                           stats: bool = False):
+    """Fused plane-layout decode attention → ``[B, Hkv, G, Fw·32]`` float32,
+    and with ``stats`` each row's softmax max and sum ``[B, Hkv, G, 2]``
+    float32 beside it (the plain version's to float rounding).
 
     ``q_planes [B, Hkv, G, 4, Fw]`` / ``q_scale [B, Hkv, G]`` are the int4
     query planes (G folds chunk × group); K/V planes ``[B, L, Hkv, 4, Fw]``
@@ -103,7 +113,7 @@ def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
     if q_planes.device.type == "cpu":
         return plane_decode_attention_plain(
             q_planes, q_scale, k_planes, k_scale, v_planes, v_scale, bias,
-            sm_scale=sm_scale, signed=signed)
+            sm_scale=sm_scale, signed=signed, stats=stats)
     _build.require_cuda("plane_decode_attention", q_planes, q_scale, k_planes,
                         k_scale, v_planes, v_scale, bias)
     if k_planes.stride() != v_planes.stride() or k_scale.stride() != v_scale.stride():
@@ -115,11 +125,14 @@ def plane_decode_attention(q_planes, q_scale, k_planes, k_scale, v_planes,
     qs = q_scale.contiguous()
     out = torch.empty((b, h, g, fw * bitplane.WORD), dtype=torch.float32,
                       device=q.device)
+    st = (torch.empty((b, h, g, 2), dtype=torch.float32, device=q.device) if stats
+          else None)
     pb, pl_, ph = k_planes.stride()[:3]
     sb, sl, sh = k_scale.stride()
     KERNEL.launch(
         _build.ptr(q), _build.ptr(qs), _build.ptr(k_planes), _build.ptr(k_scale),
         _build.ptr(v_planes), _build.ptr(v_scale), _build.ptr(bias), _build.ptr(out),
+        None if st is None else _build.ptr(st),
         b, h, g, l, fw, pb, pl_, ph, sb, sl, sh, *bias.stride(), float(sm_scale),
         int(signed), _build.stream())
-    return out
+    return (out, st) if stats else out

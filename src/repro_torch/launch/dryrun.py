@@ -666,8 +666,38 @@ def _tp_check(cfg, tp: int, *, train: bool = False) -> None:
     model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0), train=train)
 
 
+def _seq_axes(rules, sizes: dict) -> tuple:
+    """The axes above one way that the rules' ``kv_seq`` entry names (a
+    sequence-parallel decode's), outermost first."""
+    entry = None if rules is None else rules.get("kv_seq")
+    names = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+    return tuple(a for a in names if sizes.get(a, 1) > 1)
+
+
+def _combine_collectives(cfg, tp: int, rows: int, seq: int, axes: tuple, sizes: dict) -> list:
+    """``attention.combine_blocks`` in each GQA layer of a sequence-parallel
+    decode call over ``axes``: the all-reduce MAX of the rank's rows' block
+    maxima ``[rows, Hkv, seq·G]`` float32, then the all-reduce SUM of ``[rows,
+    Hkv, seq·G, d_head + 1]`` float32, each over every axis in turn.  ``Hkv``
+    is the KV heads the rank attends with: its share where they shard, else
+    the window of them its query heads read (``_kv_window``, rank 0's)."""
+    layers = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+    if not layers:  # a Mamba stack: no ring, no combine
+        return []
+    hp, kvp, shard_kv = attention.attn_dims(cfg, tp)
+    if tp == 1 or shard_kv:
+        held = kvp // tp
+    else:
+        k0, k1 = attention._kv_window(cfg, TensorParallel(size=tp, rank=0, shard_kv=False))[:2]
+        held = k1 - k0
+    n = rows * held * seq * (hp // kvp)
+    one = [CollectiveEvent("all-reduce", n * 4, sizes[a]) for a in axes] + \
+        [CollectiveEvent("all-reduce", n * (cfg.d_head + 1) * 4, sizes[a]) for a in axes]
+    return one * layers
+
+
 def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
-                     rules=None, min_dim: int = 64) -> list:
+                     rules=None, min_dim: int = 64, mesh_axes: Optional[dict] = None) -> list:
     """The collectives one rank of a ``tp``-way model axis issues in one
     serving model call (``kind`` ``"prefill"``: ``model.prefill`` of
     ``[batch, seq]`` tokens; ``"decode"``: ``model.decode_step`` of ``[batch,
@@ -691,19 +721,27 @@ def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
       ``w_out`` row-parallel on the ``[E, batch·cap, F/tp]`` buffer; the
       shared experts as a dense FFN;
     * the logits: an all-gather of the vocab shards (the last position of
-      a prefill, every position of a decode call).
+      a prefill, every position of a decode call);
+    * a decode call under rules whose ``kv_seq`` names axes of
+      ``mesh_axes`` above one way (sequence-parallel KV): each GQA layer's
+      flash-decoding combine over them (:func:`_combine_collectives`).
 
-    One device issues none.  Raises where ``model.check_tp`` does."""
-    if tp == 1:
-        return []
-    _tp_check(cfg, tp)
-    sizes = {"pod": 1, "data": 1, "model": tp}
+    One device issues none.  Raises where ``model.check_tp`` and
+    ``check_seq`` do."""
+    sizes = dict(_sizes(mesh_axes), model=tp)
     rules = serve_rules(cfg, {"data": 1, "model": tp}) if rules is None else rules
+    seq_axes = _seq_axes(rules, sizes) if kind == "decode" else ()
+    if seq_axes:
+        model_lib.check_seq(cfg, seq_axes)
+    ev = [] if not seq_axes else _combine_collectives(cfg, tp, batch, seq, seq_axes, sizes)
+    if tp == 1:
+        return ev
+    _tp_check(cfg, tp)
     tree = serve_params_meta(cfg, qmode, min_dim=min_dim, tp=tp)
     spec = _specs(cfg, tp)
     act = _itemsize(cfg.dtype)
     d, tokens = cfg.d_model, batch * seq
-    ev = [CollectiveEvent("all-reduce", tokens * d * 4, tp)]  # the embedding
+    ev.append(CollectiveEvent("all-reduce", tokens * d * 4, tp))  # the embedding
     if kind == "prefill" and cfg.is_enc_dec:
         frames = batch * cfg.encoder_tokens
         for p, s in zip(tree["encoder"]["layers"], spec["encoder"]["layers"]):
@@ -750,22 +788,68 @@ def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
     return ev
 
 
-def agree_collectives(tokens: int, tp: int) -> list:
-    """``ServeEngine.check_ranks_agree`` at the end of a ``tp``-way run: the
-    all-gather of every rank's ``tokens`` int32 request ids, lengths and
-    token ids."""
-    return [] if tp == 1 else [CollectiveEvent("all-gather", tp * tokens * 4, tp)]
+def agree_collectives(tokens: int, tp: int, *, mesh_axes: Optional[dict] = None) -> list:
+    """``ServeEngine.check_ranks_agree`` at the end of a run on a ``tp``-way
+    model axis, or on a mesh of ``mesh_axes`` (axis → size, in the mesh's
+    order): the all-gather of every rank's ``tokens`` int32 request ids,
+    lengths and token ids over each axis above one way, the last first."""
+    if mesh_axes is None:
+        mesh_axes = {"model": tp}
+    out, nbytes = [], tokens * 4
+    for n in reversed([n for n in mesh_axes.values() if n > 1]):
+        nbytes *= n
+        out.append(CollectiveEvent("all-gather", nbytes, n))
+    return out
+
+
+def engine_gathers(eng, rounds: int) -> list:
+    """The data-axis gathers of a ``ServeEngine`` over ``pod`` × ``data``
+    (``eng.data_ways`` above 1) in ``rounds`` prefill groups and decode
+    calls (``ServeEngine._gather_rows``): each round the rank's ``slots /
+    ways`` greedy ids (int32) and, under ``trace_logits``, its rows'
+    float32 logits (the padded vocab), each all-gathered over the batch axes
+    above one way, the innermost first."""
+    if eng.data_ways == 1:
+        return []
+    sizes = P.mesh_sizes(eng.mesh)
+    per = eng.slots // eng.data_ways
+    widths = [4] + ([4 * model_lib.padded_vocab(eng.cfg, eng.tp)] if eng.trace_logits else [])
+    out = []
+    for width in widths:
+        nbytes = per * width
+        for a in reversed(eng._batch_axes):
+            nbytes *= sizes[a]
+            out.append(CollectiveEvent("all-gather", nbytes, sizes[a]))
+    return out * rounds
 
 
 class ModelCallLog:
     """Within the block, each ``model.prefill`` and ``model.decode_step``
     call's ``(kind, batch rows, tokens a row)`` in ``calls``, in order: the
     model calls a serve made, whose collectives :func:`serve_collectives`
-    counts.  The two functions of :mod:`repro_torch.models.model` are
-    wrapped for the block's length."""
+    counts; and in ``rounds`` each prefill group and decode call of a
+    ``ServeEngine`` (``"prefill"`` / ``"decode"``), on every rank of a data
+    axis whether or not its own rows ran.  The two functions of
+    :mod:`repro_torch.models.model` and the engine's two methods are wrapped
+    for the block's length."""
 
     def __enter__(self):
-        self.calls = []
+        from repro_torch.serve import engine as engine_lib
+
+        self.calls, self.rounds = [], []
+        eng_cls = engine_lib.ServeEngine
+        self._methods = eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode
+        refill, decode = eng_cls._prefill_slots, eng_cls._chunk_decode
+
+        def rec_refill(eng, assignments):
+            self.rounds.append("prefill")
+            return refill(eng, assignments)
+
+        def rec_round(eng, chunks, decode_slots):
+            self.rounds.append("decode")
+            return decode(eng, chunks, decode_slots)
+
+        eng_cls._prefill_slots, eng_cls._chunk_decode = rec_refill, rec_round
         self._fns = prefill, decode_step = model_lib.prefill, model_lib.decode_step
 
         def rec_prefill(params, batch, cfg, **kw):
@@ -781,22 +865,29 @@ class ModelCallLog:
 
     def __exit__(self, *exc):
         model_lib.prefill, model_lib.decode_step = self._fns
+        eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode = self._methods
         return False
 
 
-def serve_collectives(eng, calls, *, min_dim: int = 64, agree: bool = True) -> list:
-    """The collectives one rank of a tensor-parallel ``ServeEngine`` issues
-    in the model calls ``calls`` (``(kind, batch, seq)``, as
-    :class:`ModelCallLog` records them; :func:`call_collectives` each, at
-    the engine's mode and rules and the ``min_dim`` it converted with), and
-    with ``agree`` the closing ``check_ranks_agree`` of a ``run()``
-    (:func:`agree_collectives` of the engine's requests)."""
-    tp = eng._tp.size
+def serve_collectives(eng, calls, *, rounds=None, min_dim: int = 64,
+                      agree: bool = True) -> list:
+    """The collectives one rank of a ``ServeEngine`` on a mesh issues in the
+    model calls ``calls`` (``(kind, batch, seq)``, as :class:`ModelCallLog`
+    records them; :func:`call_collectives` each, at the engine's mode and
+    rules and the ``min_dim`` it converted with), over a data axis in the
+    engine's ``rounds`` (:class:`ModelCallLog`'s, :func:`engine_gathers`),
+    and with ``agree`` the closing ``check_ranks_agree`` of a ``run()``
+    (:func:`agree_collectives` of the engine's requests over its mesh)."""
     events = [e for kind, b, s in calls
-              for e in call_collectives(eng.cfg, eng.mode, kind, batch=b, seq=s, tp=tp,
+              for e in call_collectives(eng.cfg, eng.mode, kind, batch=b, seq=s, tp=eng.tp,
                                         rules=eng.rules, min_dim=min_dim)]
+    if eng.data_ways > 1:
+        if rounds is None:
+            raise ValueError("an engine over a data axis: pass the rounds ModelCallLog recorded")
+        events += engine_gathers(eng, len(rounds))
     if agree:
-        events += agree_collectives(sum(2 + len(r.out) for r in eng.requests), tp)
+        events += agree_collectives(sum(2 + len(r.out) for r in eng.requests), eng.tp,
+                                    mesh_axes=P.mesh_sizes(eng.mesh))
     return events
 
 
@@ -975,8 +1066,8 @@ def unsupported(cfg: ModelConfig, cell: ShapeCell, pl: mesh_lib.Plan, sizes: dic
     the message of the check that raises (``check_tp`` for MLA, MoE, Mamba
     and cross training, and for a Mamba ``d_inner`` the model axis does not
     divide; ``check_mesh`` for a MoE layer over a split batch), or the
-    sequence-parallel decode of ``plan`` that the engine does not serve;
-    None where it runs."""
+    ``check_seq`` for a sequence-parallel decode (``plan``'s long-context
+    rule) of MLA or cross layers; None where it runs."""
     train = cell.kind == "train"
     try:
         _tp_check(cfg, pl.tp, train=train)
@@ -987,10 +1078,12 @@ def unsupported(cfg: ModelConfig, cell: ShapeCell, pl: mesh_lib.Plan, sizes: dic
         if ways > 1:
             return (f"check_mesh: {cfg.name}: a MoE layer over a batch split {ways} ways (its "
                     "aux loss over the global batch) waits for ROADMAP Queue 1, item 8(c)")
-    if pl.rules.get("kv_seq") is not None:
-        return ("plan: sequence-parallel KV decode (a batch of "
-                f"{cell.global_batch} under {sizes['pod'] * sizes['data']} data ways): the "
-                "engine serves no sequence-parallel decode (ROADMAP Queue 1, item 8(c))")
+    seq_axes = _seq_axes(pl.rules, sizes)
+    if cell.kind == "decode" and seq_axes:
+        try:
+            model_lib.check_seq(cfg, seq_axes)
+        except NotImplementedError as e:
+            return f"check_seq: {e}"
     return None
 
 
@@ -1062,7 +1155,7 @@ def lower_cell(arch: str, shape: str, *, multi_pod: bool = False, qmode="bf16",
         else:
             events = call_collectives(cfg, qmode, cell.kind, batch=rows,
                                       seq=1 if cell.kind == "decode" else cell.seq_len,
-                                      tp=tp, rules=rules, min_dim=min_dim)
+                                      tp=tp, rules=rules, min_dim=min_dim, mesh_axes=axes)
     stats = None if events is None else hlo_stats.collective_stats(events)
     mine = rank_bytes(cfg, cell.kind, mesh_axes=axes, rules=rules, qmode=qmode,
                       min_dim=min_dim, batch=cell.global_batch, seq_len=cell.seq_len)

@@ -25,6 +25,25 @@ back through ``w_uv``, both dequantized to float on every step.  Under
 ``w_dkv`` are not sharded (``kv_lora``), so every rank computes the whole
 latent and holds the whole latent ring.
 
+Sequence-parallel decode (:class:`SeqParallel`; the reference's ``plan``
+for a long-context decode whose batch is smaller than the data ways, whose
+rules name those axes under ``kv_seq``): each rank's GQA ring holds its
+contiguous ``L / ways`` block of the ring's slots, ``pos_ids`` and the K/V
+stores of every contiguous format alike (:func:`partitioning.shard_caches`
+cuts a whole cache so).  The ring write keeps the global slot ``position
+mod L``, which only its owning rank writes; each rank attends over its
+block and :func:`combine_blocks` joins the blocks as flash decoding does:
+each block's row max ``m_r``, sum ``s_r`` and normalised output ``o_r``
+(the plain formats through their ``qk`` / ``av``, the fused one through
+the kernel's statistics), ``M = max_r m_r`` (an all-reduce MAX), then one
+all-reduce SUM of ``[e^(m_r - M)·s_r·o_r, e^(m_r - M)·s_r]`` and their
+quotient.  A block whose every slot is masked (bias ``NEG_INF``) has
+``m_r = NEG_INF`` and weighs ``e^(NEG_INF - M) = 0`` beside a live block;
+a row masked on every rank gets the uniform weights of the whole ring, as
+on one device.  MLA's latent ring and the cross layers have no
+sequence-parallel form (ROADMAP Queue 1, item 8(c)); a Mamba layer has no
+ring and runs whole on every rank.
+
 Cross-attention (llama-3.2-vision's image layers, seamless-m4t's decoder)
 attends over a context the decoder did not write: :func:`cross_kv`
 projects the context's K and V once, at prefill, and they stay per-slot
@@ -41,13 +60,15 @@ gate scales the summed output.
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kvcache, residency
-from repro_torch.distributed.mesh import copy_to, tp_size
+from repro_torch.distributed.mesh import MeshView, copy_to, tp_size
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, row_parallel
 
@@ -81,6 +102,56 @@ def kv_heads_held(cfg, tp: int = 1) -> int:
     heads when :func:`attn_dims` shards them, all of them otherwise."""
     _, kvp, shard_kv = attn_dims(cfg, tp)
     return kvp // tp if shard_kv else kvp
+
+
+@dataclasses.dataclass
+class SeqParallel:
+    """One rank's block of the KV sequence: the ring's slots cut over the
+    mesh axes ``names`` (the rules' ``kv_seq`` entry, the first the
+    outermost) of ``view``, ``ways`` blocks of which this rank holds number
+    ``index``."""
+
+    view: MeshView
+    names: tuple
+
+    @property
+    def ways(self) -> int:
+        return self.view.block(self.names)[0]
+
+    @property
+    def index(self) -> int:
+        return self.view.block(self.names)[1]
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        return self.view.all_reduce_max(t, self.names)
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        return self.view.all_reduce_sum(t, self.names)
+
+
+def seq_parallel(mesh: Optional[MeshView], rules) -> Optional[SeqParallel]:
+    """The :class:`SeqParallel` of ``rules`` whose ``kv_seq`` names axes of
+    ``mesh`` (a ``MeshView``) above one way; None otherwise (one device, or
+    no sequence sharding)."""
+    entry = None if rules is None or mesh is None else rules.get("kv_seq")
+    names = () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
+    if mesh is None or mesh.block(names)[0] == 1:
+        return None
+    return SeqParallel(mesh, names)
+
+
+def combine_blocks(out: torch.Tensor, m: torch.Tensor, total: torch.Tensor,
+                   seq: SeqParallel) -> torch.Tensor:
+    """The flash-decoding combine of every rank's block: ``out [..., F]``
+    the block's normalised attention output, ``m`` / ``total`` ``[...]`` its
+    row max and sum over the block → the output over the whole ring, the
+    same on every rank: ``M = max_r m_r``, then one all-reduce SUM of
+    ``[e^(m_r - M)·s_r·o_r, e^(m_r - M)·s_r]``, then the quotient.  A
+    wholly masked block (``m_r = NEG_INF``) adds zero beside a live one."""
+    big = seq.all_reduce_max(m.to(torch.float32).clone())
+    w = torch.exp(m - big) * total
+    packed = seq.all_reduce_sum(torch.cat([out * w[..., None], w[..., None]], dim=-1))
+    return packed[..., :-1] / packed[..., -1:]
 
 
 #: cache leaves with a KV-head axis (dim 2, contiguous ring or page pool)
@@ -198,20 +269,22 @@ def _decode_positions(pos, b: int, s: int, device) -> torch.Tensor:
     return pos.expand(b, s)
 
 
-def gqa_decode(params, x, cache, cfg, *, pos, impl=None, tp=None):
+def gqa_decode(params, x, cache, cfg, *, pos, impl=None, tp=None, seq=None):
     """Decode ``x [B, S, D]`` against the ring cache (S > 1 appends a chunk
     and attends causally).  Updates ``cache`` in place and returns it.
-    Under ``tp`` the rank's heads against its cache, ``wo`` row-parallel."""
+    Under ``tp`` the rank's heads against its cache, ``wo`` row-parallel;
+    under ``seq`` (:class:`SeqParallel`) the rank's block of the ring,
+    joined by :func:`combine_blocks`."""
     b, s, _ = x.shape
     positions = _decode_positions(pos, b, s, x.device)
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
-    _ring_write(cache, k, v, positions, fmt)
+    _ring_write(cache, k, v, positions, fmt, seq=seq)
     window = _kv_window(cfg, tp)
 
     def attend(qq, sub):
         return _decode_attention(qq, sub, cur=positions, window=cfg.sliding_window, fmt=fmt,
-                                 impl=impl)
+                                 impl=impl, seq=seq)
 
     if window is None:
         out = attend(q, cache)
@@ -271,19 +344,32 @@ def _ring_slots(positions, ln: int):
     return b_idx, s_idx, pos, torch.remainder(pos, ln).to(torch.int64)
 
 
-def _ring_write(cache, k, v, positions, fmt) -> None:
+def _ring_write(cache, k, v, positions, fmt, seq=None) -> None:
     """In place: write S new (k, v) at slots = position mod L
-    (:func:`_ring_slots`)."""
-    b_idx, s_idx, pos, ring = _ring_slots(positions, cache["pos_ids"].shape[1])
-    for prefix, x in (("k", k), ("v", v)):
-        fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring)
+    (:func:`_ring_slots`).  Under ``seq`` the cache is the rank's block of
+    a ring ``ways`` times as long: the global slot is kept, every token is
+    encoded as on one device, and only the tokens whose slot lies in the
+    rank's block are written, there."""
+    ln = cache["pos_ids"].shape[1]
+    b_idx, s_idx, pos, ring = _ring_slots(positions, ln if seq is None else ln * seq.ways)
+    if seq is None:
+        for prefix, x in (("k", k), ("v", v)):
+            fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring)
+    else:  # every token encoded (one device's roundings), the rank's block written
+        ring = ring - seq.index * ln
+        mine = (ring >= 0) & (ring < ln)
+        for prefix, x in (("k", k), ("v", v)):
+            fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring, keep=mine)
+        b_idx, pos, ring = b_idx[mine], pos[mine], ring[mine]
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
 
 
-def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None):
+def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None, seq=None):
     """q: [B, S, H, D] against the whole ring cache, masked by the stored
     positions (``pos_ids <= the token's own position``, and ``> position -
-    window`` with a window)."""
+    window`` with a window).  Under ``seq`` the cache is the rank's block of
+    the ring: the block's output and statistics are joined by
+    :func:`combine_blocks`."""
     b, s, hq, dh = q.shape
     hkv = cache["k"].shape[2]
     g = hq // hkv
@@ -299,13 +385,24 @@ def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None):
         bias = bias[:, None, :, None, :].expand(b, hkv, s, g, ln).reshape(b, hkv, s * g, ln)
         out = fmt.decode_attention(
             qg, fmt.channel(cache, "k"), fmt.channel(cache, "v"), bias,
-            sm_scale=1.0 / math.sqrt(dh), feat=dh, impl=impl)
+            sm_scale=1.0 / math.sqrt(dh), feat=dh, impl=impl, stats=seq is not None)
+        if seq is not None:
+            out, st = out
+            out = combine_blocks(out, st[..., 0], st[..., 1], seq)
     else:
         scores = fmt.qk(qg, fmt.channel(cache, "k")) / math.sqrt(dh)
         scores = scores.reshape(b, hkv, s, g, ln)
         scores = torch.where(valid[:, None, :, None, :], scores, NEG_INF)
-        w = torch.softmax(scores, dim=-1).reshape(b, hkv, s * g, ln)
-        out = fmt.av(w, fmt.channel(cache, "v"), dh)
+        if seq is None:
+            w = torch.softmax(scores, dim=-1).reshape(b, hkv, s * g, ln)
+            out = fmt.av(w, fmt.channel(cache, "v"), dh)
+        else:  # the block's normalised output and its statistics
+            m = scores.amax(dim=-1, keepdim=True)
+            p = torch.exp(scores - m)
+            total = p.sum(dim=-1, keepdim=True)
+            out = fmt.av((p / total).reshape(b, hkv, s * g, ln), fmt.channel(cache, "v"), dh)
+            out = combine_blocks(out, m.reshape(b, hkv, s * g), total.reshape(b, hkv, s * g),
+                                 seq)
     out = out.reshape(b, hkv, s, g, dh).permute(0, 2, 1, 3, 4)
     return out.reshape(b, s, hq, dh).to(q.dtype)
 

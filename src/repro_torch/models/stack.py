@@ -41,7 +41,7 @@ def _bidir_attn(params, h, cfg, impl=None, tp=None):
 MODES = ("train", "prefill", "decode", "encode")
 
 
-def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
+def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None, seq=None):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     mla = cfg.attn_type == "mla"
@@ -65,7 +65,7 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None):
                                      impl=impl, tp=tp)
     if mla:
         return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
-    return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
+    return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp, seq=seq)
 
 
 def _cross(params, h, cfg, *, mode, cache, ctx, impl, tp=None):
@@ -78,11 +78,14 @@ def _cross(params, h, cfg, *, mode, cache, ctx, impl, tp=None):
 
 
 def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: str = "dense",
-                cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None, tp=None):
+                cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None, tp=None,
+                seq=None):
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
     Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
-    runs the rank's shards (the model checks what it serves and trains)."""
+    runs the rank's shards (the model checks what it serves and trains);
+    ``seq`` (decode) the rank's block of a GQA ring
+    (:class:`~repro_torch.models.attention.SeqParallel`)."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
         a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl,
@@ -92,7 +95,7 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
         both = mixer == "attn_cross"
         own = cache["self"] if both and mode == "decode" else cache
         a, own = _mixer(params["mixer"], h, cfg, kind="attn" if both else mixer, mode=mode,
-                        cache=own, pos=pos, cache_len=cache_len, impl=impl, tp=tp)
+                        cache=own, pos=pos, cache_len=cache_len, impl=impl, tp=tp, seq=seq)
         x = x + a.to(x.dtype)
         if both:
             hx = layers.norm_apply(params["ln_x"], x, cfg)
@@ -141,7 +144,7 @@ def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
                 cache_len: int = 0, ctx=None, impl=None, remat: bool = False, tp=None,
-                gather=None):
+                gather=None, seq=None):
     """Run every layer in order (``ctx``: the context the cross mixers
     project).  Returns (x, per-layer caches, the summed MoE aux loss).
     ``remat`` (train mode) keeps no activation of a layer for the backward
@@ -150,7 +153,7 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
     ``gather(i, p)`` (train mode) gives layer ``i``'s parameters from the
     rank's shards ``p`` (FSDP's gather on use); it runs inside the
     recomputed function, so remat gathers again in the backward pass, in the
-    same order on every rank."""
+    same order on every rank.  ``seq`` as for :func:`layer_apply`."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layer_params):
@@ -171,7 +174,7 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
         else:
             x, c, aux = layer_apply(p, x, cfg, mode=mode, cache=None if caches is None
                                     else caches[i], pos=pos, cache_len=cache_len, ctx=ctx,
-                                    impl=impl, tp=tp, **kind)
+                                    impl=impl, tp=tp, seq=seq, **kind)
         new_caches.append(c)
         aux_total = aux_total + aux
     return x, None if mode == "train" else new_caches, aux_total

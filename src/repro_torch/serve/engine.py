@@ -57,7 +57,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import kvcache, paging, residency, transfer
-from repro_torch.distributed.mesh import TensorParallel
+from repro_torch.distributed.mesh import MeshView, TensorParallel
 from repro_torch.models import attention
 from repro_torch.models import model as model_lib
 from repro_torch.sharding import partitioning as P
@@ -208,23 +208,25 @@ def resident_bytes(params) -> int:
     return params.numel() * params.element_size()
 
 
-def _tensor_parallel(cfg, tp: int, rules, mesh):
-    """The rank's :class:`TensorParallel` and the rule table of a ``tp``-way
-    engine on ``mesh``; raises for what the engine cannot serve."""
-    model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0))
+def _mesh_plan(cfg, tp: int, rules, mesh, *, slots: int, paged: bool, prefix: bool):
+    """(the rule table, the batch axes, their ways) of an engine at ``tp`` on
+    ``mesh``; raises for what the engine cannot serve.  Without a mesh: one
+    device (``tp`` must be 1).  On a mesh every axis is honoured: the model
+    axis must be ``tp`` ways, and every other axis above one way must shard
+    the slots (the rules' ``batch`` entry)."""
     if mesh is None:
-        raise ValueError("tp > 1 needs a mesh (a DeviceMesh with a 'model' axis)")
+        if tp > 1:
+            raise ValueError("tp > 1 needs a mesh (a DeviceMesh with a 'model' axis)")
+        return rules, (), 1
+    model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0))
     sizes = P.mesh_sizes(mesh)
-    if sizes.get("model") != tp:
+    if sizes.get("model", 1) != tp:
         raise ValueError(f"tp={tp} but the mesh's model axis is {sizes.get('model')}")
-    if sizes.get("data", 1) * sizes.get("pod", 1) > 1:
-        raise NotImplementedError(
-            "a mesh with a data axis above 1: the slots' batch sharding waits for "
-            "ROADMAP Queue 1, item 8")
     shard_kv = attention.attn_dims(cfg, tp)[2]
     shard_experts = bool(cfg.n_experts) and cfg.n_experts % tp == 0
     if rules is None:
-        rules = P.base_rules(data_axes=("data",), shard_kv_heads=shard_kv,
+        rules = P.base_rules(data_axes=tuple(a for a in ("pod", "data") if a in sizes)
+                             or ("data",), shard_kv_heads=shard_kv,
                              shard_experts=shard_experts)
     want = {"heads": "model", "mlp": "model", "vocab": "model", "embed": None,
             "kv_heads": "model" if shard_kv else None, "kv_lora": None}
@@ -234,7 +236,31 @@ def _tensor_parallel(cfg, tp: int, rules, mesh):
     if any(rules.get(k) != v for k, v in want.items()):
         raise ValueError(f"the tensor-parallel layers need the rules {want}, got "
                          f"{ {k: rules.get(k) for k in want} }")
-    return TensorParallel.from_mesh(mesh, shard_kv=shard_kv), rules
+    if rules.get("kv_seq") is not None:
+        raise NotImplementedError(
+            f"rules whose kv_seq is {rules['kv_seq']!r}: the engine places no cache by them (the "
+            "reference engine keeps its caches whole under them); sequence-parallel decode is "
+            "model.decode_step's on caches cut by partitioning.shard_caches (ROADMAP Queue 1, "
+            "item 8(c))")
+    batch = tuple(a for a in model_lib.batch_axes(rules) if sizes.get(a, 1) > 1)
+    stray = [a for a, n in sizes.items() if n > 1 and a != "model" and a not in batch]
+    if stray:
+        raise ValueError(f"the mesh's axes {stray} shard nothing under the rules' batch entry "
+                         f"{rules.get('batch')!r}: the engine would serve every slot on each "
+                         "of their ranks")
+    ways = 1
+    for a in batch:
+        ways *= sizes[a]
+    if ways > 1:
+        if slots % ways:
+            raise ValueError(f"{slots} slots do not divide the {ways} data ways of {batch} "
+                             "(uneven blocks of slots: ROADMAP Queue 1, item 8(c))")
+        if paged or prefix:
+            raise NotImplementedError(
+                f"a paged cache format or the prefix_cache scheduler over {ways} data ways: "
+                "the reference replicates its page pool over data (ROADMAP Queue 1, item "
+                "8(c))")
+    return rules, batch, ways
 
 
 @dataclasses.dataclass(eq=False)  # identity equality: queue membership
@@ -297,7 +323,8 @@ class ServeEngine:
     Tensor parallelism: ``tp > 1`` serves over the ``model`` axis of
     ``mesh`` (a ``DeviceMesh`` whose ``model`` axis is ``tp`` long; the
     PyTorch form of the reference's ambient mesh) under ``rules`` (default
-    :func:`~repro_torch.sharding.partitioning.base_rules` with the KV-head
+    :func:`~repro_torch.sharding.partitioning.base_rules` over the mesh's
+    ``pod`` / ``data`` axes, with the KV-head
     rule ``attn_dims`` gives, and ``expert`` on the model axis where the
     experts divide it, ``moe_mlp`` otherwise, as the reference's ``plan``
     decides).  ``params`` is then the global tree of
@@ -309,9 +336,31 @@ class ServeEngine:
     emitted the same tokens.  With ``sharded`` the ``params`` are this
     rank's shards, already converted to ``mode``
     (``materialize_converted(..., mesh=mesh, rules=rules)``), and are only
-    moved to ``device``.  A mesh with a ``data`` (or ``pod``) axis above 1
-    raises: the reference shards the slots over it, which waits for the
-    batch sharding of ROADMAP Queue 1, item 8.
+    moved to ``device``.
+
+    The data axis: where the rules' ``batch`` entry names axes of the mesh
+    (``pod`` × ``data``) above one way, at any ``tp``, each data rank holds
+    the contiguous block of ``slots / ways`` slots that the reference's
+    batch sharding gives it (its block's index pod-major), and its caches
+    hold only those rows; the weights are whole on every data rank, as the
+    rules place them without FSDP.  Every rank runs the same scheduler on
+    the same view.  A refill group is split by owner: each rank prefills in
+    one microbatch the refills of its own slots (left-padded to the group's
+    longest prompt, as one device pads them), none if it owns none; a
+    Mamba or hybrid config's refills are one request a call, run by the
+    owner alone.  Chunk rows and decode rows run on the owning rank, every
+    rank stepping its whole block.  After each prefill group and each
+    decode call the greedy token ids of the rows computed are all-gathered
+    over the batch axes in slot order (``MeshView.all_gather``), and their
+    logits too under ``trace_logits``, so that every rank emits every
+    slot's token; :meth:`run` ends by checking that every rank of the mesh
+    emitted the same tokens.  The engine raises where it cannot serve a
+    mesh, and never ignores one: slots the data ways do not divide, a
+    ``paged_*`` cache format or the ``prefix_cache`` scheduler over a data
+    axis (the reference replicates the page pool over ``data``), rules
+    whose ``kv_seq`` is set (the reference engine places no cache by them;
+    sequence-parallel decode is ``model.decode_step``'s), and a mesh axis
+    above one way that the rules do not name.
     """
 
     def __init__(self, params, cfg, *, tp: int = 1, rules=None, mesh=None,
@@ -325,10 +374,24 @@ class ServeEngine:
                  sharded: bool = False):
         self.device = resolve_device(device)
         spec = residency.ResidencySpec.parse(mode)
-        self.tp, self.rules, self.mesh = tp, rules, mesh
-        self._tp = None
+        self.tp, self.mesh = tp, mesh
+        if cache_format is not None:
+            cfg = dataclasses.replace(cfg, cache_format=cache_format)
+        self._fmt = kvcache.format_for(cfg)
+        self.scheduler = sched_lib.make_scheduler(scheduler)
+        self.rules, self._batch_axes, self.data_ways = _mesh_plan(
+            cfg, tp, rules, mesh, slots=slots,
+            paged=isinstance(self._fmt, paging.PagedCacheFormat),
+            prefix=bool(getattr(self.scheduler, "wants_prefix_cache", False)))
+        #: this rank's view of every mesh axis (None without a mesh), and of
+        #: its model axis at tp > 1
+        self.view = None if mesh is None else MeshView.from_mesh(
+            mesh, shard_kv=attention.attn_dims(cfg, tp)[2])
+        self._tp = self.view.axes["model"] if tp > 1 else None
+        #: the rank's block of slots: [_base, _base + _per)
+        self._per = slots // self.data_ways
+        self._base = 0 if self.view is None else self.view.block(self._batch_axes)[1] * self._per
         if tp > 1:
-            self._tp, self.rules = _tensor_parallel(cfg, tp, rules, mesh)
             if sharded:  # the rank's shards, converted to ``mode`` already
                 params = tree_to(params, self.device)
             else:
@@ -341,14 +404,10 @@ class ServeEngine:
             params = tree_to(params, self.device)
             if not spec.is_trivial:
                 params = convert_params(params, cfg, spec, min_dim=min_dim)
-        if cache_format is not None:
-            cfg = dataclasses.replace(cfg, cache_format=cache_format)
         self.params, self.cfg = params, cfg
         self.slots, self.max_len, self.impl = slots, max_len, impl
         self.mode = spec.describe()
-        self._fmt = kvcache.format_for(cfg)
         self.cache_format = self._fmt.name
-        self.scheduler = sched_lib.make_scheduler(scheduler)
         self.trace_logits = trace_logits
         #: when ``trace_logits``: [(kind, slots, np.ndarray logits)] in order;
         #: a chunked request's first-token logits also record as "prefill"
@@ -461,14 +520,16 @@ class ServeEngine:
                           pages=self._pool_stats())
 
     @staticmethod
-    def _next_token(req: Request, logits_row: np.ndarray) -> int:
+    def _next_token(req: Request, greedy: int) -> int:
         i = len(req.out)
         if req.force is not None and i < len(req.force):
             return int(req.force[i])
-        return int(np.argmax(logits_row))
+        return greedy
 
-    def _emit(self, req: Request, logits_row: np.ndarray) -> None:
-        tok = self._next_token(req, logits_row)
+    def _emit(self, req: Request, greedy: int) -> None:
+        """Emit the request's next token: its forced one, else ``greedy``
+        (the argmax of its logits row)."""
+        tok = self._next_token(req, greedy)
         req.out.append(tok)
         self._total_tokens += 1
         if obs.active():
@@ -509,6 +570,32 @@ class ServeEngine:
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
+
+    def _owns(self, slot: int) -> bool:
+        return self._base <= slot < self._base + self._per
+
+    def _gather_rows(self, own: dict) -> tuple:
+        """``({slot: greedy id}, {slot: logits row})`` of every slot this
+        round computed on any rank, from this rank's ``own`` rows (slot →
+        logits row).  At one data way they are its own; over the data axis
+        every rank's ids (``-1`` for a slot computed nowhere) are
+        all-gathered over the batch axes in slot order, and under
+        ``trace_logits`` the rows too (zeros where none was computed)."""
+        if self.data_ways == 1:
+            return {slot: int(np.argmax(row)) for slot, row in own.items()}, own
+        ids = np.full(self._per, -1, np.int32)
+        for slot, row in own.items():
+            ids[slot - self._base] = np.argmax(row)
+        every = self.view.all_gather(self._tensor(ids), self._batch_axes).cpu().numpy()
+        greedy = {slot: int(i) for slot, i in enumerate(every) if i >= 0}
+        rows = {}
+        if self.trace_logits:
+            block = np.zeros((self._per, model_lib.padded_vocab(self.cfg, self.tp)), np.float32)
+            for slot, row in own.items():
+                block[slot - self._base] = row
+            every = self.view.all_gather(self._tensor(block), self._batch_axes).cpu().numpy()
+            rows = {slot: every[slot] for slot in greedy}
+        return greedy, rows
 
     # -- paged residency ------------------------------------------------
     def _alloc_pages(self, n: int) -> np.ndarray:
@@ -621,12 +708,40 @@ class ServeEngine:
         (left-padded, pads at negative positions), then the per-row caches
         are spliced into the slots.  A whole prompt emits its first token;
         a first chunk (``n_tokens`` short of the prompt) leaves the request
-        PREFILLING and its logits are discarded."""
-        lens = [n for _, _, n in assignments]
-        s_max = max(lens)
-        toks = np.zeros((len(assignments), s_max), np.int32)
-        pos = np.zeros((len(assignments), s_max), np.int32)
-        for i, (_, req, n) in enumerate(assignments):
+        PREFILLING and its logits are discarded.  Over a data axis the call
+        holds the refills of the rank's own slots alone (padded to the
+        group's longest), and the first tokens are gathered
+        (:meth:`_gather_rows`)."""
+        s_max = max(n for _, _, n in assignments)
+        self.work += len(assignments) * s_max
+        mine = [a for a in assignments if self._owns(a[0])]
+        if self.caches is None and self.data_ways > 1:
+            self.caches = model_lib.init_cache(self.cfg, self._per, self.max_len,
+                                               device=self.device, tp=self.tp)
+        own = {}
+        if mine:
+            own = self._prefill_own(mine, s_max)
+        greedy, rows = self._gather_rows(own)
+        for slot, req, n in assignments:
+            self.active[slot] = req
+            self.pos[slot] = n
+            req.prefilled = n
+            if n == req.prompt_len:
+                req.state = DECODING
+                self._register_prefix(slot, req)
+                if self.trace_logits:
+                    self.logit_trace.append(("prefill", (slot,), rows[slot]))
+                self._emit(req, greedy[slot])
+            else:
+                req.state = PREFILLING  # a chunk's logits are partial: discard
+
+    def _prefill_own(self, mine: list, s_max: int) -> dict:
+        """The prefill call of this rank's refills ``mine``, left-padded to
+        ``s_max``, its rows spliced into the caches → {slot: last logits}."""
+        lens = [n for _, _, n in mine]
+        toks = np.zeros((len(mine), s_max), np.int32)
+        pos = np.zeros((len(mine), s_max), np.int32)
+        for i, (_, req, n) in enumerate(mine):
             pad = s_max - n
             toks[i, pad:] = req.prompt[:n]
             pos[i] = np.arange(s_max, dtype=np.int32) - pad
@@ -635,7 +750,6 @@ class ServeEngine:
             batch["positions"] = self._tensor(pos)
         logits, cache_b = model_lib.prefill(self.params, batch, self.cfg,
                                             max_len=self.max_len, impl=self.impl, tp=self._tp)
-        self.work += toks.size
         if self.caches is None:
             # a paged pool leaf holds the pool's pages, fewer than slots ×
             # pages_per_slot when page_pool_pages caps it
@@ -649,13 +763,13 @@ class ServeEngine:
                  for name, t in layer.items()}
                 for layer in cache_b
             ]
-        slot_ids = torch.tensor([slot for slot, _, _ in assignments], dtype=torch.long,
+        slot_ids = torch.tensor([slot - self._base for slot, _, _ in mine], dtype=torch.long,
                                 device=self.device)
         if self._paged:
             # the prefill batch wrote through identity tables, so its pool
             # rows [i·npp, (i+1)·npp) are batch row i's pages in order: they
             # land on the pages _execute reserved for slot i
-            new_tables = np.stack([self._tables[slot] for slot, _, _ in assignments])
+            new_tables = np.stack([self._tables[slot] for slot, _, _ in mine])
             page_ids = self._tensor(new_tables.reshape(-1))
             table_rows = self._tensor(new_tables.astype(np.int32))
         for full, rows in zip(self.caches, cache_b):
@@ -667,18 +781,7 @@ class ServeEngine:
                 else:
                     full[name][slot_ids] = t
         last_logits = logits[:, -1].cpu().numpy()
-        for i, (slot, req, n) in enumerate(assignments):
-            self.active[slot] = req
-            self.pos[slot] = n
-            req.prefilled = n
-            if n == req.prompt_len:
-                req.state = DECODING
-                self._register_prefix(slot, req)
-                if self.trace_logits:
-                    self.logit_trace.append(("prefill", (slot,), last_logits[i]))
-                self._emit(req, last_logits[i])
-            else:
-                req.state = PREFILLING  # a chunk's logits are partial: discard
+        return {slot: last_logits[i] for i, (slot, _, _) in enumerate(mine)}
 
     def _chunk_decode(self, chunks, decode_slots) -> list:
         """One ``decode_step`` for this step's chunk rows and decode rows.
@@ -688,7 +791,9 @@ class ServeEngine:
         prompt tokens at positions ``prefilled..prefilled+n``, a decode row
         its last token at ``pos[slot]``, and the rest are pads at -1.  A
         chunk that ends its prompt emits the request's first token from its
-        last logits.  Returns the ``(request, slot)`` pairs that finished.
+        last logits.  Over a data axis the rank runs its block's rows and the
+        greedy ids are gathered (:meth:`_gather_rows`).  Returns the
+        ``(request, slot)`` pairs that finished.
         """
         s_len = max([n for _, n in chunks], default=1)
         toks = np.zeros((self.slots, s_len), np.int32)
@@ -700,11 +805,14 @@ class ServeEngine:
         for slot in decode_slots:
             toks[slot, -1] = self.active[slot].out[-1]
             pos[slot, -1] = self.pos[slot]
+        block = slice(self._base, self._base + self._per)
         logits, self.caches = model_lib.decode_step(
-            self.params, self._tensor(toks).long(), self.caches, self._tensor(pos),
-            self.cfg, impl=self.impl, tp=self._tp)
+            self.params, self._tensor(toks[block]).long(), self.caches,
+            self._tensor(pos[block]), self.cfg, impl=self.impl, tp=self._tp)
         self.work += toks.size
         step_logits = logits[:, -1].cpu().numpy()
+        greedy, rows = self._gather_rows({self._base + i: row
+                                          for i, row in enumerate(step_logits)})
         for slot, n in chunks:
             req = self.active[slot]
             req.prefilled += n
@@ -713,15 +821,15 @@ class ServeEngine:
                 req.state = DECODING  # the last chunk's logits are the first token's
                 self._register_prefix(slot, req)
                 if self.trace_logits:
-                    self.logit_trace.append(("prefill", (slot,), step_logits[slot]))
-                self._emit(req, step_logits[slot])
+                    self.logit_trace.append(("prefill", (slot,), rows[slot]))
+                self._emit(req, greedy[slot])
         if decode_slots and self.trace_logits:
             self.logit_trace.append(
-                ("decode", tuple(decode_slots), step_logits[list(decode_slots)]))
+                ("decode", tuple(decode_slots), np.stack([rows[s] for s in decode_slots])))
         finished = []
         for slot in decode_slots:
             req = self.active[slot]
-            self._emit(req, step_logits[slot])
+            self._emit(req, greedy[slot])
             self.pos[slot] += 1
             if len(req.out) >= req.max_new:
                 finished.append((req, slot))
@@ -815,17 +923,24 @@ class ServeEngine:
     def run(self):
         while self.step():
             pass
-        if self._tp is not None:
+        if self._agree_axes():
             self.check_ranks_agree()
 
+    def _agree_axes(self) -> tuple:
+        """The mesh's axes above one way, in the mesh's order."""
+        if self.view is None:
+            return ()
+        return tuple(a for a in self.view.axes if self.view.axis(a) is not None)
+
     def check_ranks_agree(self) -> None:
-        """Raise unless every rank of the model axis emitted the same token
-        ids for every request (all-gathered and compared here)."""
+        """Raise unless every rank of the mesh emitted the same token ids for
+        every request (all-gathered over each axis above one way, the last
+        first, and compared here)."""
         toks = [t for req in self.requests for t in [req.uid, len(req.out), *req.out]]
         mine = torch.tensor(toks, dtype=torch.int32, device=self.device)
-        every = self._tp.all_gather(mine[None], dim=0)
+        every = self.view.all_gather(mine[None], self._agree_axes(), dim=0)
         if not bool((every == mine[None]).all()):
-            raise RuntimeError(f"tensor-parallel ranks disagree on their tokens: "
+            raise RuntimeError(f"the mesh's ranks disagree on their tokens: "
                                f"{every.cpu().numpy().tolist()}")
 
     def _note_resident_gauges(self) -> None:

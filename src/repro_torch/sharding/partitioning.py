@@ -459,6 +459,32 @@ def cache_pspecs(caches, rules: Mapping[str, MeshAxes], shard_kv: bool, cfg=None
     return walk(caches)
 
 
+def shard_caches(caches, mesh, rules: Mapping[str, MeshAxes], shard_kv: bool, cfg=None):
+    """This rank's shard of a whole decode cache, each leaf cut by its
+    :func:`cache_pspecs` entries over every mesh axis but ``model``, as the
+    reference's ``jax.device_put(caches, cache_pspecs(...))`` places it: a
+    prompt prefilled on one device (or by the model axis's ranks, whose KV
+    heads are their shard already) reaches the ranks
+    of a sequence-parallel decode (rules whose ``kv_seq`` is set), each
+    ring cut to its contiguous block of slots.  ``mesh`` is a
+    ``DeviceMesh`` or anything with ``mesh_dim_names``, ``mesh.shape`` and
+    ``get_coordinate()``.  Each block is a copy: the whole cache can be
+    dropped."""
+    sizes = dict(mesh_sizes(mesh), model=1)
+    coords = dict(mesh_coords(mesh), model=0)
+
+    def cut(leaf, entries):
+        if isinstance(leaf, dict):
+            return {k: cut(v, entries[k]) for k, v in leaf.items()}
+        if isinstance(leaf, list):
+            return [cut(v, e) for v, e in zip(leaf, entries)]
+        entries = tuple(entries) + (None,) * (leaf.ndim - len(entries))
+        return take_index(leaf, shard_index(leaf.shape, entries, sizes, coords)).clone(
+            memory_format=torch.contiguous_format)
+
+    return cut(caches, cache_pspecs(caches, rules, shard_kv, cfg))
+
+
 # ---------------------------------------------------------------------------
 # Pad-to-shardable
 # ---------------------------------------------------------------------------

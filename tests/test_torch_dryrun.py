@@ -36,6 +36,7 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, applicable_shapes, get_confi
 from repro_torch.core import kvcache, residency
 from repro_torch.distributed.mesh import CollectiveEvent
 from repro_torch.launch import dryrun, hlo_stats
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import model
 from repro_torch.serve import engine
 
@@ -681,7 +682,9 @@ def test_mesh_records():
     bytes from the collectives, the rank's bytes as ``argument_size``, the
     collective term in the roofline; the cells the port does not run at a
     mesh hold ``collectives: null`` and the check that raises; a Mamba
-    config's and jamba's serve cells count their collectives."""
+    config's and jamba's serve cells count their collectives; the
+    ``long_500k`` cells (``plan``'s sequence-parallel decode) count theirs,
+    a GQA layer's combine one MAX and one SUM over each data-like axis."""
     rec = dryrun.analyze_cell("qwen3-1.7b", "decode_32k", qmode=STACK_A,
                               cache_format="int4_bp_fused", mesh="pod")
     assert rec["devices"] == 256 and rec["mesh_shape"] == {"data": 16, "model": 16}
@@ -692,11 +695,23 @@ def test_mesh_records():
         rec["corrected"]["collective_wire_bytes"] / hlo_stats.HW["nvlink_bw"])
     assert "one_card" not in rec and set(dryrun.XLA_KEYS) >= {"flops_per_device"}
     for arch, shape, check in (("falcon-mamba-7b", "train_4k", "check_tp"),
-                               ("minicpm3-4b", "train_4k", "check_tp"),
-                               ("mixtral-8x7b", "long_500k", "plan")):
+                               ("minicpm3-4b", "train_4k", "check_tp")):
         rec = dryrun.analyze_cell(arch, shape, mesh="multipod", skip_probes=True)
         assert rec["devices"] == 512 and rec["collectives"] is None
         assert rec["collective_wire_bytes"] is None and rec["unsupported"].startswith(check)
+    for arch in ("mixtral-8x7b", "jamba-1.5-large-398b", "falcon-mamba-7b"):
+        for mesh, axes in (("pod", 1), ("multipod", 2)):
+            rec = dryrun.analyze_cell(arch, "long_500k", mesh=mesh, skip_probes=True)
+            assert "seq-parallel KV" in rec["plan_notes"] and rec["unsupported"] is None
+            assert rec["collective_wire_bytes"] > 0
+            cfg = get_config(arch)
+            rules = mesh_lib.plan(cfg, SHAPES["long_500k"],
+                                  mesh_lib.stand_in_mesh(multi_pod=mesh == "multipod")).rules
+            no_seq = dryrun.call_collectives(cfg, "bf16", "decode", batch=1, seq=1, tp=16,
+                                             rules=dict(rules, kv_seq=None))
+            attn = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
+            assert rec["collectives"]["all-reduce"]["count"] == \
+                sum(e.kind == "all-reduce" for e in no_seq) + 2 * axes * attn
     moe = dryrun.analyze_cell("deepseek-v2-lite-16b", "train_4k", mesh_shape=(16, 1),
                               skip_probes=True)
     assert moe["unsupported"].startswith("check_mesh")

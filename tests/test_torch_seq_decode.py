@@ -1,0 +1,281 @@
+"""Sequence-parallel decode attention, in process: no rank is spawned.
+
+A GQA ring of 12 slots (two rows: one written past the ring's end, one
+holding 5 positions) is cut into 1, 2 and 3 contiguous blocks, one a
+simulated rank (threads that all-reduce through a barrier, in rank order,
+as :class:`repro_torch.models.attention.SeqParallel` would over the data
+axis).  Each rank attends over its block and ``combine_blocks`` joins them.
+Held for every contiguous cache format (``bf16``, ``int8``, ``int4_bp``
+and ``int4_bp_fused`` through the kernel's plain version with its row
+statistics): every rank's output equal, within 1e-5 of the largest output
+of a float64 softmax over the whole ring (the format's own scores, its V
+dequantized in float64), and the ring write of each rank's block equal to
+its block of the whole ring.  At three blocks the short row leaves the last
+block wholly masked; a planted combine that gives each block the weight of
+its sum alone (so a masked block adds its uniform average) fails the limit.
+The kernel's plain row max and sum are held against float64; on the card
+(``gpu``-marked) the kernel's statistics against the plain version's.  A
+spawned rank of ``tests/test_torch_data_axis.py`` imports neither JAX nor
+the reference.
+"""
+
+import math
+import os
+import subprocess
+import sys
+import threading
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core import bitplane, kvcache
+from repro_torch.kernels import plane_attn
+from repro_torch.models import attention
+
+from _torch_inputs import attention_inputs, t
+
+FORMATS = ("bf16", "int8", "int4_bp", "int4_bp_fused")
+RING, HKV, GROUP, D_HEAD = 12, 2, 2, 32
+#: row 0 writes positions 0..17 (wrapping the ring), row 1 positions 0..4
+ROW_LENS = (18, 5)
+TOL = 1e-5
+
+
+class _Ranks:
+    """In-process stand-ins for ``n`` ranks' all-reduces: each thread puts its
+    tensor in its place and every one reduces them in rank order."""
+
+    def __init__(self, n: int):
+        self.n, self.barrier, self.parts = n, threading.Barrier(n, timeout=60), [None] * n
+
+    def reduce(self, rank: int, x: torch.Tensor, op) -> torch.Tensor:
+        self.parts[rank] = x.clone()
+        self.barrier.wait()
+        out = self.parts[0].clone()
+        for part in self.parts[1:]:
+            out = op(out, part)
+        self.barrier.wait()
+        return out
+
+
+class _Seq:
+    """The :class:`SeqParallel` interface of rank ``index`` of ``ranks``."""
+
+    def __init__(self, ranks: _Ranks, index: int):
+        self.ranks, self.index, self.ways = ranks, index, ranks.n
+
+    def all_reduce_max(self, x):
+        return self.ranks.reduce(self.index, x, torch.maximum)
+
+    def all_reduce_sum(self, x):
+        return self.ranks.reduce(self.index, x, torch.add)
+
+
+def _on_ranks(n: int, fn) -> list:
+    """``fn(rank)`` on ``n`` threads → the results in rank order."""
+    out, errors = [None] * n, []
+
+    def run(r):
+        try:
+            out[r] = fn(r)
+        except BaseException as e:  # noqa: BLE001 - raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(60)
+    if errors:
+        raise errors[0]
+    return out
+
+
+def _cfg(fmt: str):
+    return get_smoke_config("qwen3-1.7b").scaled(
+        dtype=torch.float32, n_heads=HKV * GROUP, n_kv_heads=HKV, d_head=D_HEAD,
+        cache_format=fmt)
+
+
+def _inputs(seed: int = 0):
+    """K and V of every written position ``[2, 18, Hkv, dh]``, their
+    positions (row 1 padded with -1) and a decode query ``[2, 1, H, dh]``
+    at each row's next position."""
+    rng = np.random.default_rng(seed)
+    s = max(ROW_LENS)
+    k, v = (torch.from_numpy(rng.normal(size=(2, s, HKV, D_HEAD)).astype(np.float32))
+            for _ in range(2))
+    pos = torch.tensor([list(range(n)) + [-1] * (s - n) for n in ROW_LENS], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(2, 1, HKV * GROUP, D_HEAD)).astype(np.float32))
+    cur = torch.tensor([[n] for n in ROW_LENS], dtype=torch.int32)
+    return k, v, pos, q, cur
+
+
+def _ring(cfg, ln: int, k, v, pos, seq=None) -> dict:
+    cache = attention.init_kv_cache(cfg, 2, ln, dtype=torch.float32, device="cpu")
+    attention._ring_write(cache, k, v, pos, kvcache.format_for(cfg), seq=seq)
+    return cache
+
+
+def _block(cache: dict, r: int, n: int) -> dict:
+    ln = cache["pos_ids"].shape[1] // n
+    return {name: x[:, r * ln:(r + 1) * ln].clone() for name, x in cache.items()}
+
+
+def _dequant_v(fmt, store) -> torch.Tensor:
+    """The stored V ``[B, L, Hkv, F]`` in float64."""
+    if fmt.name == "bf16":
+        return store[""].double()
+    if fmt.name == "int8":
+        return store[""].double() * store["_scale"].double()[..., None]
+    vals = bitplane.decode(store[""], signed=True)[..., :D_HEAD].double()
+    return vals * store["_scale"].double()[..., None]
+
+
+def _float64_attention(cfg, cache, q, cur) -> torch.Tensor:
+    """The whole ring's decode attention with the format's own scores and a
+    float64 softmax and value read → ``[B, 1, H, dh]``."""
+    fmt = kvcache.format_for(cfg)
+    b = q.shape[0]
+    qg = q.reshape(b, 1, HKV, GROUP, D_HEAD).permute(0, 2, 1, 3, 4).reshape(b, HKV, GROUP,
+                                                                          D_HEAD)
+    scores = fmt.qk(qg, fmt.channel(cache, "k")).double() / math.sqrt(D_HEAD)
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids >= 0) & (pos_ids <= cur)  # [B, L]
+    scores = torch.where(valid[:, None, None, :], scores, attention.NEG_INF)
+    w = torch.softmax(scores, dim=-1)
+    vv = _dequant_v(fmt, fmt.channel(cache, "v")).permute(0, 2, 1, 3)  # [B, Hkv, L, F]
+    out = torch.einsum("bhgl,bhlf->bhgf", w, vv)
+    return out.reshape(b, 1, HKV * GROUP, D_HEAD)
+
+
+def _sharded(cfg, n: int, q, cur, blocks) -> list:
+    fmt = kvcache.format_for(cfg)
+    ranks = _Ranks(n)
+    return _on_ranks(n, lambda r: attention._decode_attention(
+        q, blocks[r], cur=cur, fmt=fmt, impl="plain", seq=_Seq(ranks, r)))
+
+
+def _err(got, want) -> float:
+    return float((got.double() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_combine_matches_a_float64_softmax(fmt, n):
+    cfg = _cfg(fmt)
+    k, v, pos, q, cur = _inputs()
+    whole = _ring(cfg, RING, k, v, pos)
+    ranks = _Ranks(n)
+    written = _on_ranks(n, lambda r: _ring(cfg, RING // n, k, v, pos, seq=_Seq(ranks, r)))
+    for r in range(n):  # the owning rank alone writes each slot, at its global place
+        want = _block(whole, r, n)
+        assert set(written[r]) == set(want)
+        for name in want:
+            assert torch.equal(written[r][name], want[name]), (r, name)
+    outs = _sharded(cfg, n, q, cur, written)
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
+    want = _float64_attention(cfg, whole, q, cur)
+    assert _err(outs[0], want) < TOL
+    one = attention._decode_attention(q, whole, cur=cur, fmt=kvcache.format_for(cfg),
+                                      impl="plain")
+    assert _err(one, want) < TOL
+    if n == 3:  # row 1's positions 0..4 lie in blocks 0 and 1: block 2 is wholly masked
+        assert bool((written[2]["pos_ids"][1] < 0).all())
+
+
+def _averaging_combine(out, m, total, seq):
+    """Planted: each block weighted by its sum alone, as if every block's
+    max were the global one, so that a wholly masked block adds its uniform
+    average."""
+    packed = seq.all_reduce_sum(torch.cat([out * total[..., None], total[..., None]], dim=-1))
+    return packed[..., :-1] / packed[..., -1:]
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_a_combine_that_averages_a_masked_block_fails(fmt, monkeypatch):
+    cfg = _cfg(fmt)
+    k, v, pos, q, cur = _inputs()
+    whole = _ring(cfg, RING, k, v, pos)
+    blocks = [_block(whole, r, 3) for r in range(3)]
+    want = _float64_attention(cfg, whole, q, cur)
+    assert _err(_sharded(cfg, 3, q, cur, blocks)[0], want) < TOL
+    monkeypatch.setattr(attention, "combine_blocks", _averaging_combine)
+    got = _sharded(cfg, 3, q, cur, blocks)[0]
+    assert _err(got[1], want[1]) > 100 * TOL  # the row whose last block is masked
+
+
+def _float64_stats(a) -> np.ndarray:
+    """Each row's max and sum of e^(score - max) over L in float64, the
+    scores as the kernel forms them: integer plane scores, scales, bias."""
+    kp = t(a["kp"]).permute(0, 2, 1, 3, 4)
+    s_int = plane_attn.bsdp_matmul_planes(a["q_planes"], kp, signed=True).double()
+    scores = (s_int * a["q_scale"].double()[..., None]
+              * torch.from_numpy(a["ks"]).double().permute(0, 2, 1)[..., None, :] * a["sm"]
+              + torch.from_numpy(a["bias"]).double())
+    m = scores.amax(-1)
+    return torch.stack([m, torch.exp(scores - m[..., None]).sum(-1)], -1).numpy()
+
+
+def test_plain_kernel_statistics_match_float64():
+    """``plane_decode_attention_plain(..., stats=True)``: the output is the
+    one without statistics, bit for bit, and each row's max and sum are the
+    float64 ones (the max to float32 rounding, the sum within 1e-5)."""
+    a = attention_inputs()
+    args = [a["q_planes"], a["q_scale"], t(a["kp"]), torch.from_numpy(a["ks"]),
+            t(a["vp"]), torch.from_numpy(a["vs"]), torch.from_numpy(a["bias"])]
+    out, st = plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"], stats=True)
+    assert torch.equal(out, plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"]))
+    assert st.shape == out.shape[:-1] + (2,) and st.dtype == torch.float32
+    want = _float64_stats(a)
+    np.testing.assert_allclose(st[..., 0].numpy(), want[..., 0], rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(st[..., 1].numpy(), want[..., 1], rtol=1e-5)
+    # the wrapper takes the plain version on CPU tensors, statistics included
+    got = plane_attn.plane_decode_attention(*args, sm_scale=a["sm"], stats=True)
+    assert torch.equal(got[0], out) and torch.equal(got[1], st)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_kernel_statistics_match_the_plain_version(cuda):
+    """On the card: the launch with statistics gives the output of the
+    launch without them, and its row max and sum within 1e-4 of the plain
+    version's."""
+    a = attention_inputs()
+    args = [a["q_planes"], a["q_scale"], t(a["kp"]), torch.from_numpy(a["ks"]),
+            t(a["vp"]), torch.from_numpy(a["vs"]), torch.from_numpy(a["bias"])]
+    want_out, want_st = plane_attn.plane_decode_attention_plain(*args, sm_scale=a["sm"],
+                                                                stats=True)
+    on = [x.to(cuda) for x in args]
+    out, st = plane_attn.plane_decode_attention(*on, sm_scale=a["sm"], stats=True)
+    assert torch.equal(out, plane_attn.plane_decode_attention(*on, sm_scale=a["sm"]))
+    torch.testing.assert_close(out.cpu(), want_out, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(st.cpu(), want_st, rtol=1e-4, atol=1e-4)
+
+
+def test_data_axis_rank_imports_neither_jax_nor_repro():
+    """``tests/_torch_data_rank.py`` and the modules its parts run stay clear
+    of JAX and the reference."""
+    here = Path(__file__).resolve().parent
+    probe = ("import sys; sys.path.insert(0, %r); import _torch_data_rank\n"
+             "from repro_torch import configs, convert\n"
+             "from repro_torch.distributed import mesh\n"
+             "from repro_torch.launch import dryrun, mesh as launch_mesh\n"
+             "from repro_torch.serve import engine\n"
+             "from repro_torch.sharding import partitioning\n"
+             "print(','.join(sorted(m for m in sys.modules if m == 'jax' or "
+             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))))" % str(here))
+    env = dict(os.environ, PYTHONPATH=str(here.parent / "src"))
+    out = subprocess.run([sys.executable, "-c", probe], capture_output=True, text=True,
+                         env=env, timeout=120, check=True)
+    assert out.stdout.strip() == ""
