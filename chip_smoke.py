@@ -206,7 +206,8 @@ and then training over a mesh (``phase_train_mesh``, after the tp phase),
 two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
 
   (a) qwen3-1.7b at full width, depth cut to ``MESH_DEPTH``, over a
-      ``(data=2, model=1)`` mesh with FSDP at path Z's settings, 3 steps:
+      ``(data=2, model=1)`` mesh with FSDP at path Z's settings,
+      ``MESH_STEPS`` steps:
       each step's ms (CUDA events), tokens/s, each rank's peak allocation
       against its shard of the analytic train state, the collectives'
       counts and host ms; every step's collectives, by kind in count and
@@ -227,6 +228,18 @@ two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
       device within (b)'s limits of an uninterrupted run there
   (d) ``pipeline_apply`` at pipe=2 over the cut's two layers against the
       sequential stack
+  (e)-(g) the other layer kinds, each a float32 cut at full width
+      (``MESH_LAYER_PARTS``): (e) deepseek-v2-lite-16b's dense layer 0 and
+      MoE layer 1 at (data=1, model=2) (MLA on 8 of 16 heads, 32 of 64
+      experts a rank) and at (data=2, model=1) (FSDP, the global aux loss),
+      (f) falcon-mamba-7b at 2 layers, (g) seamless-m4t-medium at 2 + 2
+      layers over [CUT_BATCH, 1536, 1024] frames, both at (1, 2); each
+      against one device update by update: step 0's loss, metrics and
+      gradients within 1e-5, the parameters after each step likewise but
+      for Adam's sign moves (counted), each step's collectives equal to the
+      dry run's count and its ms, the replicated leaves bitwise equal on
+      both ranks, each rank's bytes equal to ``rank_bytes``, its peak
+      allocation printed
 
 and then the example twins (``phase_examples``): ``repro_torch.examples.
 quickstart`` (train the reduced qwen3, convert to ``w8a8``, prefill and
@@ -284,10 +297,15 @@ s, and O-R at full depth ~100-157 s of runs up to 897 s), and S serves
 mixtral-8x7b at 1 of its
 32 layers (its 4,160-token prefill and its plain-path comparisons at
 full depth would take many minutes; at 2 layers S took ~175 s of runs
-up to 1,001 s); the mesh phase trains qwen3-1.7b at 4 of its 28 layers
+up to 1,001 s); the mesh phase trains qwen3-1.7b at 2 of its 28 layers
 (``MESH_DEPTH``: gloo's collectives through the host set its step time,
-12.4-30.4 s a step at 28 layers, the phase 240.8 s).  A cut layer
-launches what a full-depth layer does, at the same shapes.
+12.4-30.4 s a step at 28 layers, the phase 240.8 s; at 4 layers, before
+(e)-(g), ~145-190.7 s); (e)-(g) are paid for by three cuts in the phase:
+``MESH_DEPTH`` 4 -> 2, ``MESH_STEPS`` 3 -> 2, and (b) holding each rank's
+shards where it gathered the global gradients and parameters: the phase
+166.2 s with (e)-(g)'s 48.9 s (the whole run 996.5 s, NVIDIA H100 80GB
+HBM3, 700.00 W; the host's speed moves these ~1.3x between calls).  A
+cut layer launches what a full-depth layer does, at the same shapes.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it the
 card's name and power limit; the one before that a JSON object with every
@@ -376,8 +394,9 @@ CONFIG_DEPTH = {"starcoder2-3b": 4, "qwen1.5-32b": 4, "minicpm3-4b": 8,
 #: layers (None: all), its ranks' gloo collectives through the host setting
 #: the time: at 28 layers a step took 12.4-30.4 s by CUDA events (11.6-17.0 s
 #: of collective host time) and the phase 240.8 s of its 150 s budget, at 8
-#: layers 4.3-23.1 s and 201.7 s (NVIDIA H100 80GB HBM3, 700.00 W)
-MESH_DEPTH = 4
+#: layers 4.3-23.1 s and 201.7 s (NVIDIA H100 80GB HBM3, 700.00 W); 2 (from
+#: 4) to pay for the mesh phase's (e)-(g)
+MESH_DEPTH = 2
 
 
 def config_for(arch: str):
@@ -3429,7 +3448,7 @@ def _record_routes(forced=None):
 
     log, route, router_logits = [], moe._route, moe._router_logits
 
-    def recording(params, x, cfg, tp=None):
+    def recording(params, x, cfg, tp=None, global_counts=None):
         seen = []  # the logits _route takes (no second router product, no second all-reduce)
 
         def capture(*args, **kw):
@@ -3438,7 +3457,7 @@ def _record_routes(forced=None):
 
         moe._router_logits = capture
         try:
-            idx, gate, aux = route(params, x, cfg, tp)
+            idx, gate, aux = route(params, x, cfg, tp, global_counts)
         finally:
             moe._router_logits = router_logits
         probs = torch.softmax(seen[-1], dim=-1)
@@ -4737,9 +4756,9 @@ MESH_WORLD = 2
 MESH_DEVICE = "cuda:0"
 #: (a): full-width qwen3-1.7b at (data=2, model=1), FSDP, path Z's settings:
 #: bf16 layers, f32 moments, remat, TRAIN_BATCH x TRAIN_SEQ tokens a step
-#: (2 rows a rank), MESH_STEPS steps, the depth cut to MESH_DEPTH (beside
-#: CONFIG_DEPTH), width full
-MESH_STEPS = 3
+#: (2 rows a rank), MESH_STEPS steps (2, from 3, to pay for (e)-(g)), the
+#: depth cut to MESH_DEPTH (beside CONFIG_DEPTH), width full
+MESH_STEPS = 2
 #: (b)-(d): the 2-layer float32 cut (CUT_LAYERS, CUT_SEQ, CUT_BATCH), each
 #: mesh against (data=1, model=1) on the same weights and batches: the loss,
 #: every gradient leaf and the parameters after MESH_CUT_STEPS steps within
@@ -4907,16 +4926,20 @@ def _one_device_steps(torch, cut, opt, params, batches, quantize: bool):
     return first[0], first[1], params
 
 
-def _held(torch, got: dict, want: dict, steps=None) -> dict:
+def _held(torch, got: dict, want: dict, steps=None, tm=None) -> dict:
     """Leaf by leaf (port layout trees): the largest difference over the
     leaf's largest |value|; with ``steps``, the elements past MESH_RTOL of it
-    (each must be within Adam's 2 · lr a step)."""
+    (each must be within Adam's 2 · lr a step).  With ``tm`` (a rank's
+    ``TrainMesh``), ``got`` is the rank's shards, held against its shards of
+    the global ``want``, each leaf's scale its global largest |value|."""
     from repro_torch import tree as tree_lib
 
     worst, signs, n, bad = 0.0, 0, 0, []
-    for (path, g), w in zip(tree_lib.flatten(got), tree_lib.leaves(want)):
+    mine = want if tm is None else tm.shard(want)
+    for (path, g), w, whole in zip(tree_lib.flatten(got), tree_lib.leaves(mine),
+                                   tree_lib.leaves(want)):
         d = (g.double() - w.double()).abs()
-        scale = w.double().abs().max().clamp_min(1e-30)
+        scale = whole.double().abs().max().clamp_min(1e-30)
         worst = max(worst, (d.max() / scale).item())
         n += d.numel()
         if steps is not None:
@@ -4973,7 +4996,7 @@ def _mesh_cut(torch, device, rank: int) -> dict:
         # step 0 by the train step's pieces, to hold the gradients it applies
         share, _, grads = trainstep.compute_grads(params, batches[0], cut, step_cfg, tm)
         grads = trainstep.sync_grads(grads, tm)
-        res = {"grads": _held(torch, tm.gather(grads), grads1),
+        res = {"grads": _held(torch, grads, grads1, tm=tm),
                "losses": [tm.view.all_reduce_sum(share, tm.batch_axes).item()]}
         if compress:  # the hop, code for code: dequantize(quantize(g)) of each global leaf
             before = convert.reference_layout(tm.gather(grads), cut)
@@ -4995,7 +5018,7 @@ def _mesh_cut(torch, device, rank: int) -> dict:
         res["collectives"] = dryrun.held_collectives(tm.view, dryrun.train_step_collectives(
             cut, mesh_axes={k: a.size for k, a in tm.view.axes.items()}, rules=tm.rules,
             rows=b["tokens"].shape[0], seq=CUT_SEQ, compress_pod_grads=compress, moments="f32"))
-        res["params"] = _held(torch, tm.gather(params), params1, MESH_CUT_STEPS)
+        res["params"] = _held(torch, params, params1, MESH_CUT_STEPS, tm)
         res.update(step_loss=res["losses"][0], one_loss=loss1, calls=tm.view.calls,
                    s=time.perf_counter() - t0, one_s=one_s)
         out[name] = res
@@ -5003,6 +5026,144 @@ def _mesh_cut(torch, device, rank: int) -> dict:
     del one, initial
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    return out
+
+
+#: (e)-(g): the other layer kinds trained over a mesh, each a float32 cut at
+#: full published width (depth cut as below), CUT_BATCH x CUT_SEQ tokens a
+#: step, MESH_CUT_STEPS steps at CUT_LR, against (data=1, model=1) on the
+#: same weights and batches: part → (arch, the cut, its meshes (data, model)).
+#: (e) deepseek-v2-lite-16b's dense layer 0 and MoE layer 1 (MLA on 8 of 16
+#: heads and 32 of 64 experts a rank at model=2; FSDP and the global aux
+#: loss at data=2), (f) falcon-mamba-7b (4096 of 8192 channels a rank), (g)
+#: seamless-m4t-medium's encoder and decoder (frames [CUT_BATCH, 1536, 1024])
+MESH_LAYER_PARTS = {
+    "e": ("deepseek-v2-lite-16b", {"n_layers": 2}, ((1, 2), (2, 1))),
+    "f": ("falcon-mamba-7b", {"n_layers": 2}, ((1, 2),)),
+    "g": ("seamless-m4t-medium", {"n_layers": 2, "n_enc_layers": 2}, ((1, 2),)),
+}
+
+
+def _layer_batches(cfg) -> list:
+    """(e)-(g)'s host batches: SyntheticLM's, with an encoder-decoder's
+    frames ``[CUT_BATCH, encoder_tokens, d_model]`` seeded by the step."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=CUT_SEQ,
+                                 global_batch=CUT_BATCH, seed=SEED))
+    out = []
+    for i in range(MESH_CUT_STEPS):
+        b = src.batch(i)
+        if cfg.is_enc_dec:
+            b["enc_embeds"] = np.random.default_rng(SEED + i).normal(
+                size=(CUT_BATCH, cfg.encoder_tokens, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+def _mesh_layers(torch, device, rank: int) -> dict:
+    """(e)-(g): each part's cut trained over each of its meshes against one
+    device, update by update (every rank runs the one-device steps itself and
+    holds its own shards): the one-device step ``i`` starts from the mesh's
+    parameters after step ``i - 1`` (gathered; the initial ones at step 0)
+    and the one-device optimizer state, since a MoE layer's routing turns a
+    sign move of Adam's into another expert's choice a step later.  Held:
+    step 0's loss, metrics and gradients (the step by train_step's pieces),
+    the parameters after each step, each step's collectives against
+    ``dryrun.train_step_collectives`` and its ms, the replicated leaves'
+    digest, the rank's bytes against ``dryrun.rank_bytes`` and its peak
+    allocation."""
+    from repro_torch import tree as tree_lib
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import shard_batch, to_device
+    from repro_torch.distributed import mesh as mesh_lib
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim import adamw
+    from repro_torch.train import trainstep
+
+    out = {}
+    for part, (arch, cut_kw, meshes) in MESH_LAYER_PARTS.items():
+        cfg = get_config(arch).scaled(dtype=torch.float32, **cut_kw)
+        hosts = _layer_batches(cfg)
+        opt = adamw.adamw(CUT_LR, moment_dtype="f32")
+        res = {"arch": arch, "layers": cfg.n_layers, "enc_layers": cfg.n_enc_layers,
+               "meshes": {}}
+        for shape in meshes:
+            t0 = time.perf_counter()
+            one = model_lib.draw(cfg, SEED, device)  # the one-device parameters
+            if cfg.family == "vlm" or cfg.is_enc_dec:
+                open_gates(one, cfg)
+            mesh = mesh_lib.device_mesh(device, shape, ("data", "model"))
+            step = trainstep.make_train_step(cfg, opt, tp=shape[1], mesh=mesh)
+            tm = step.mesh
+            params = tm.shard(one)
+            state = trainstep.init_opt_state(opt, params, cfg, tm)
+            one_state = trainstep.init_opt_state(opt, one, cfg)
+            axes = {k: a.size for k, a in tm.view.axes.items()}
+            mine = dryrun.rank_bytes(cfg, "train", mesh_axes=axes, rules=tm.rules, moments="f32")
+            got = {"state_bytes": [[tree_bytes(params), tree_bytes(state)],
+                                   [mine["params"], mine["moments"]]], "steps": [],
+                   "params": {"worst": 0.0, "signs": 0, "n": 0, "bad": []}}
+            _reset_peak(torch, device)
+            for i, host in enumerate(hosts):
+                if i:  # the one-device step from the mesh's parameters (a leaf no axis
+                    # shards is gathered as the mesh's own tensor: copied, not updated twice)
+                    one = tree_lib.map_leaves(lambda g, p: g.clone() if g is p else g,
+                                              tm.gather(params), params)
+                loss1, metrics1, grads1 = trainstep.compute_grads(one, to_device(host, device),
+                                                                  cfg)
+                one_state, _ = trainstep.apply_grads(opt, one, one_state, grads1, cfg)
+                batch = to_device(shard_batch(host, tm.view, tm.rules), device)
+                tm.view.reset_counts()
+                if i == 0:  # train_step's pieces, to hold the gradients it applies
+                    def backward():
+                        loss, metrics, grads = trainstep.compute_grads(params, batch, cfg,
+                                                                       tm=tm)
+                        return loss, metrics, trainstep.sync_grads(grads, tm)
+
+                    def update():
+                        shares = torch.stack([loss, metrics["ce"], metrics["aux"],
+                                              metrics["z"]])
+                        total, ce, aux, z = tm.view.all_reduce_sum(shares,
+                                                                   tm.batch_axes).unbind(0)
+                        new_state, _ = trainstep.apply_grads(opt, params, state, grads, cfg,
+                                                             tm)
+                        return new_state, dict(metrics, loss=total, ce=ce, aux=aux, z=z)
+
+                    (loss, metrics, grads), ms0 = _step_ms(torch, device, backward)
+                    got["grads"] = _held(torch, grads, grads1, tm=tm)
+                    (state, m), ms = _step_ms(torch, device, update)
+                    ms += ms0
+                    del grads
+                else:
+                    (params, state, m), ms = _step_ms(torch, device,
+                                                      lambda: step(params, state, batch))
+                del grads1
+                held = _held(torch, params, one, 1, tm)
+                got["params"] = {"worst": max(got["params"]["worst"], held["worst"]),
+                                 "signs": got["params"]["signs"] + held["signs"],
+                                 "n": got["params"]["n"] + held["n"],
+                                 "bad": got["params"]["bad"] + held["bad"]}
+                want = dryrun.train_step_collectives(
+                    cfg, mesh_axes=axes, rules=tm.rules, rows=batch["tokens"].shape[0],
+                    seq=CUT_SEQ, moments="f32")
+                got["steps"].append({
+                    **{k: m[k].item() for k in ("loss", "ce", "aux", "z", "tokens")},
+                    "one": dict({k: v.item() for k, v in metrics1.items()}, loss=loss1.item()),
+                    "ms": ms, "calls": tm.view.calls,
+                    "collective_ms": tm.view.collective_s * 1e3,
+                    "collectives": dryrun.held_collectives(tm.view, want),
+                    "replicated": _replicated_digest(params, tm)})
+            got["peak"] = _peak(torch, device)
+            got["s"] = time.perf_counter() - t0
+            res["meshes"][f"{shape[0]}x{shape[1]}"] = got
+            del params, state, one, one_state, step, tm
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        out[part] = res
     return out
 
 
@@ -5105,9 +5266,14 @@ def _mesh_rank(rank: int, world: int, port: int, outdir: str) -> None:
     t0 = time.perf_counter()
     out["a"] = _mesh_full(torch, device, rank)
     out["a_s"] = time.perf_counter() - t0
-    out["b"] = _mesh_cut(torch, device, rank)
-    out["c"] = _mesh_elastic(torch, device, rank, os.path.join(outdir, "ckpt"))
-    out["d"] = _mesh_pipe(torch, device)
+    for part, run in (("b", lambda: _mesh_cut(torch, device, rank)),
+                      ("c", lambda: _mesh_elastic(torch, device, rank,
+                                                  os.path.join(outdir, "ckpt"))),
+                      ("d", lambda: _mesh_pipe(torch, device)),
+                      ("efg", lambda: _mesh_layers(torch, device, rank))):
+        t0 = time.perf_counter()
+        out[part] = run()
+        out[f"{part}_s"] = time.perf_counter() - t0
     out["launches"] = {k: v for k, v in ops.launch_counts().items() if v}
     out["plain"] = {k: v for k, v in ops.plain_cuda_counts().items() if v}
     torch.distributed.destroy_process_group()
@@ -5130,8 +5296,10 @@ def phase_train_mesh(torch, card) -> None:
     (c) the trainer's restart at data=2 bitwise equal to an uninterrupted
     run, and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
     device within (b)'s limits of an uninterrupted run there.  (d)
-    ``pipeline_apply`` at pipe=2 against the sequential stack.  No kernel of
-    the eight may launch."""
+    ``pipeline_apply`` at pipe=2 against the sequential stack.  (e)-(g) the
+    MLA + MoE, Mamba and encoder-decoder cuts of ``MESH_LAYER_PARTS`` at
+    tp = 2 (and deepseek's at data = 2) against one device, update by update
+    (:func:`_mesh_layers`).  No kernel of the eight may launch."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as outdir:
@@ -5239,6 +5407,55 @@ def phase_train_mesh(torch, card) -> None:
         check(d["err"] <= MESH_RTOL, f"mesh (d) rank {r['rank']}: {d['err']} off")
         check(not r["launches"] and not r["plain"],
               f"mesh rank {r['rank']}: a kernel wrapper ran: {r['launches']} {r['plain']}")
+    for part, (arch, _, meshes) in MESH_LAYER_PARTS.items():
+        for shape in meshes:
+            key = f"{shape[0]}x{shape[1]}"
+            for r in ranks:
+                res = r["efg"][part]
+                got = res["meshes"][key]
+                g, p, st0 = got["grads"], got["params"], got["steps"][0]
+                one = st0["one"]
+                depth = f"{res['layers']} layers" + (
+                    f" + {res['enc_layers']} encoder layers" if res["enc_layers"] else "")
+                print(f"mesh ({part}) {arch} rank {r['rank']} at (data={shape[0]}, "
+                      f"model={shape[1]}) (float32 cut at full width, {depth}, {CUT_BATCH} x "
+                      f"{CUT_SEQ} tokens): step 0 loss {st0['loss']:.7f} vs one device "
+                      f"{one['loss']:.7f}, aux {st0['aux']:.7f} vs {one['aux']:.7f}; gradients "
+                      f"within {g['worst']:.3e} of each leaf's largest; the parameters after each "
+                      f"of {MESH_CUT_STEPS} steps (the one-device step from the mesh's "
+                      f"parameters) within {p['worst']:.3e}, {p['signs']} of {p['n']} elements "
+                      f"past {MESH_RTOL} (Adam's sign(g), each within 2 lr); peak {got['peak']} B; "
+                      f"{got['s']:.1f} s; on {card}")
+                for i, st in enumerate(got["steps"]):
+                    have, want = st["collectives"]
+                    print(f"mesh ({part}) {key} step {i} rank {r['rank']}: loss {st['loss']:.7f} "
+                          f"(one device from the mesh's parameters {st['one']['loss']:.7f}), "
+                          f"{st['ms']:.2f} ms (CUDA events), collectives {st['calls']} "
+                          f"{st['collective_ms']:.1f} ms host, (kind, [count, raw bytes]) {have} "
+                          f"= the dry run's count; on {card}")
+                    check(have == want, f"mesh ({part}) {key} step {i} rank {r['rank']}: "
+                          f"collectives {have} != the dry run's {want}")
+                    check(st["replicated"] == ranks[0]["efg"][part]["meshes"][key]["steps"][i][
+                        "replicated"], f"mesh ({part}) {key} step {i}: a replicated leaf "
+                          "differs between the ranks")
+                    for k in ("loss", "ce", "aux", "z"):
+                        check(abs(st[k] - st["one"][k]) <= MESH_RTOL * abs(st["one"][k]),
+                              f"mesh ({part}) {key} step {i}: {k} {st[k]} off the one-device "
+                              f"{st['one'][k]}")
+                    check(st["tokens"] == st["one"]["tokens"], f"mesh ({part}) {key} step {i}: "
+                          f"tokens {st['tokens']} != {st['one']['tokens']}")
+                check(g["worst"] <= MESH_RTOL, f"mesh ({part}) {key}: gradients {g['worst']} off")
+                check(not p["bad"] and p["signs"] <= 1e-3 * p["n"],
+                      f"mesh ({part}) {key}: parameters off beyond Adam's sign moves: "
+                      f"{p['bad'][:4]}, {p['signs']} elements")
+                (p_have, s_have), (p_want, s_want) = got["state_bytes"]
+                print(f"mesh ({part}) {key} rank {r['rank']}: parameter shards {p_have} B, "
+                      f"optimizer state {s_have} B = the dry run's (rank_bytes) {p_want} B, "
+                      f"{s_want} B")
+                check([p_have, s_have] == [p_want, s_want], f"mesh ({part}) {key} rank "
+                      f"{r['rank']}: state bytes {p_have}, {s_have} != {p_want}, {s_want}")
+    print("mesh phase seconds (rank 0): " + ", ".join(
+        f"({k}) {ranks[0][f'{k}_s']:.1f}" for k in ("a", "b", "c", "d", "efg")))
     print(f"mesh phase: training over a mesh launched none of the eight kernels; "
           f"{wall:.1f} s for the ranks, start to exit, on {card}")
 

@@ -550,12 +550,16 @@ def serve_rules(cfg, mesh_axes: Optional[dict] = None) -> dict:
                         shard_experts=bool(cfg.n_experts) and cfg.n_experts % tp == 0)
 
 
-def train_rules(mesh_axes: Optional[dict] = None) -> dict:
+def train_rules(cfg, mesh_axes: Optional[dict] = None) -> dict:
     """A train step's default rules at a mesh of ``mesh_axes``, as
     ``trainstep.train_mesh`` takes them: ``base_rules(fsdp=True)`` over the
-    mesh's batch axes."""
-    return P.base_rules(fsdp=True, data_axes=tuple(a for a in ("pod", "data")
-                                                   if a in (mesh_axes or {})))
+    mesh's batch axes, the experts over the model axis where they divide
+    it (else their hidden width)."""
+    from repro_torch.train import trainstep
+
+    return trainstep.default_rules(cfg, tuple(a for a in ("pod", "data")
+                                              if a in (mesh_axes or {})),
+                                   _sizes(mesh_axes)["model"])
 
 
 def rank_bytes(cfg, kind: str, *, mesh_axes: Optional[dict] = None, rules=None,
@@ -583,7 +587,7 @@ def rank_bytes(cfg, kind: str, *, mesh_axes: Optional[dict] = None, rules=None,
     sizes = _sizes(mesh_axes)
     tp = sizes["model"]
     if rules is None:
-        rules = train_rules(mesh_axes) if kind == "train" else serve_rules(cfg, mesh_axes)
+        rules = train_rules(cfg, mesh_axes) if kind == "train" else serve_rules(cfg, mesh_axes)
     out: dict = {}
     even = True
     if kind == "train":
@@ -662,8 +666,8 @@ def _row_parallel(leaf, spec, rules, sizes, m: int, n: int, act: int, e: int = 0
     return [CollectiveEvent("all-reduce", lead * m * n * 4, tp)]
 
 
-def _tp_check(cfg, tp: int, *, train: bool = False) -> None:
-    model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0), train=train)
+def _tp_check(cfg, tp: int) -> None:
+    model_lib.check_tp(cfg, TensorParallel(size=tp, rank=0))
 
 
 def _seq_axes(rules, sizes: dict) -> tuple:
@@ -922,103 +926,203 @@ def _gathers(spec, rules, sizes, *, skip=("model",)) -> list:
     return out
 
 
+def _mixer_collectives(cfg, kind: str, ffn: str, spec: dict, rules, tp: int, t: int,
+                       te: int) -> tuple:
+    """(forward events a recompute reissues, forward events after the
+    layer's last saved tensor, which it does not, backward events) of a
+    ``kind`` mixer in a layer whose FFN is ``ffn``, at ``tp`` on ``t``
+    tokens (``te`` context frames):
+    a row-parallel output's float32 ``reduce_from``, and the ``copy_to``
+    gradients of the column-parallel inputs (``x``; MLA's latent, rope key
+    and low-rank query; Mamba's whole ``dt`` / B / C; an encoder-decoder's
+    context, which every cross layer projects) and of the GQA leaves a rank
+    holds whole but applies to its own heads."""
+    act, d = _itemsize(cfg.dtype), cfg.d_model
+    # the mixer's last reduce_from is followed by a tensor-saving op unless
+    # the layer ends there (no FFN) and no cross gate scales it
+    last_early = ffn != "none" or (kind == "cross" and not cfg.is_enc_dec)
+    early, late, bwd = [], [], []
+
+    def out(nbytes, is_last=True):
+        (early if last_early or not is_last else late).append(
+            CollectiveEvent("all-reduce", nbytes, tp))
+
+    def grad(nbytes):
+        bwd.append(CollectiveEvent("all-reduce", nbytes, tp))
+
+    if kind == "mamba":
+        xdb = cfg.dt_rank_actual + 2 * cfg.d_state
+        grad(t * d * act)  # in_proj's input
+        grad(t * xdb * 4)  # the whole dt, B and C
+        out(t * xdb * 4, is_last=False)  # x_proj
+        out(t * d * 4)  # out_proj
+        return early, late, bwd
+    if kind in ("attn", "attn_cross"):
+        mixer = spec["mixer"]
+        if cfg.attn_type == "mla":
+            grad(t * (cfg.q_lora_rank or d) * act)  # cq, or x for wq
+            grad(t * cfg.kv_lora_rank * act)  # c_kv
+            grad(t * cfg.qk_rope_dim * act)  # k_rope
+        else:
+            grad(t * d * act)
+            whole_kv = not attention.attn_dims(cfg, tp)[2]
+            model_only = {"pod": 1, "data": 1, "model": tp}
+            for key in ("q_norm", "k_norm") + (("wk", "wv", "bk", "bv") if whole_kv else ()):
+                if key in mixer:
+                    s = mixer[key]
+                    grad(math.prod(_local_shape(s.shape, P.spec_for(s.axes, rules),
+                                                model_only)[0]) * _itemsize(s.dtype))
+        out(t * d * 4, is_last=kind == "attn")  # wo
+    if kind in ("cross", "attn_cross"):
+        grad(t * d * act)  # the queries' input
+        if cfg.is_enc_dec:  # the encoder's output, projected by every cross layer
+            grad(te * d * act)
+        out(t * d * 4)  # wo
+    return early, late, bwd
+
+
+def _ffn_collectives(cfg, kind: str, spec: dict, rules, sizes: dict, t: int, rows: int,
+                     seq: int) -> tuple:
+    """(reissued, not reissued, backward) events of a ``kind`` FFN at the
+    model axis of ``sizes``, as :func:`_mixer_collectives`: a dense FFN's
+    input ``copy_to`` and ``w_out``; a MoE layer's input ``copy_to`` (its
+    experts', and with the experts sharded its router's), with the experts
+    sharded the gates' ``copy_to``, the router's float32 logits and the
+    per-slot outputs ``reduce_from``, with their hidden width sharded the
+    stacked ``w_out``'s float32 ``[E, rows·cap, d]``; the shared experts as a
+    dense FFN."""
+    tp, act, d = sizes["model"], _itemsize(cfg.dtype), cfg.d_model
+    early, late, bwd = [], [], []
+    if kind == "none":
+        return early, late, bwd
+
+    def ev(nbytes):
+        return CollectiveEvent("all-reduce", nbytes, tp)
+
+    bwd.append(ev(t * d * act))
+    if kind == "dense":
+        return early, late + [ev(t * d * 4)], bwd
+    e, k = cfg.n_experts, cfg.experts_per_tok
+    if e // _parts(P.spec_for(spec["ffn"]["w_in"].axes, rules)[0], sizes) != e:
+        bwd.append(ev(t * k * act))  # the gates
+        early += [ev(t * e * 4), ev(t * k * d * act)]  # router logits, per-slot outputs
+    else:
+        early.append(ev(e * rows * moe_lib.capacity(cfg, seq) * d * 4))
+    if cfg.n_shared_experts:
+        bwd.append(ev(t * d * act))
+        late.append(ev(t * d * 4))
+    return early, late, bwd
+
+
+def _microbatch_collectives(cfg, spec: dict, rules, sizes: dict, rows: int, seq: int, *,
+                            remat: bool, backward: bool = True, counts: tuple = ()) -> list:
+    """The collectives of one microbatch's forward (and with ``backward`` its
+    backward) on ``rows`` rows of ``seq`` tokens: FSDP's gathers (the
+    top-level leaves once, a layer's again in remat's recompute; each
+    gradient reduce-scattered back), and at ``tp`` the embedding's
+    ``reduce_from``, every layer's (:func:`_mixer_collectives`,
+    :func:`_ffn_collectives`; remat's recompute reissues a layer's forward
+    collectives up to its last tensor-saving op, where
+    ``torch.utils.checkpoint`` stops), the encoder's layers (run once), the
+    logits' input ``copy_to`` and their all-gather; a MoE layer's top-1
+    counts all-reduced over the batch axes ``counts``, again in the
+    recompute."""
+    tp, act, d = sizes["model"], _itemsize(cfg.dtype), cfg.d_model
+    t, te = rows * seq, rows * cfg.encoder_tokens
+    ev: list = []
+    again = 2 if remat and backward else 1
+
+    def gathered(s, forward: int = 1):
+        for ag, rs in _gathers(s, rules, sizes):
+            ev.extend([ag] * forward + ([rs] if backward else []))
+
+    def layer(s, kind, ffn, tokens, times):
+        if tp > 1:
+            a = _mixer_collectives(cfg, kind, ffn, s, rules, tp, tokens, te)
+            b = _ffn_collectives(cfg, ffn, s, rules, sizes, tokens, rows, seq)
+            ev.extend(list(a[0] + b[0]) * times + list(a[1] + b[1]))
+            if backward:
+                ev.extend(a[2] + b[2])
+        if ffn == "moe":
+            ev.extend([CollectiveEvent("all-reduce", cfg.n_experts * 4, sizes[a])
+                       for a in counts] * times)
+
+    for s in [s for k in spec if k != "layers" for s in tree_lib.leaves(spec[k])]:
+        gathered(s)
+    if tp > 1:
+        ev.append(CollectiveEvent("all-reduce", t * d * 4, tp))  # embedding
+    for s in spec.get("encoder", {}).get("layers", ()):
+        layer(s, "attn", "dense", te, 1)
+    for i, s in enumerate(spec["layers"]):
+        for leaf in tree_lib.leaves(s):
+            gathered(leaf, again)
+        layer(s, cfg.mixer_kind(i), cfg.ffn_kind(i), t, again)
+    if tp > 1:
+        vocab = model_lib.padded_vocab(cfg, tp)
+        if backward:
+            ev.append(CollectiveEvent("all-reduce", t * d * act, tp))  # logits' copy_to
+        ev.append(CollectiveEvent("all-gather", t * vocab * act, tp))
+    return ev
+
+
 def train_step_collectives(cfg, *, mesh_axes: dict, rules=None, rows: int, seq: int,
                            microbatches: int = 1, remat: bool = True,
                            compress_pod_grads: bool = False, moments: str = "f32",
                            clip: bool = True) -> list:
     """The collectives one rank issues in one ``make_train_step`` step over
     a mesh of ``mesh_axes`` (``pod`` / ``data`` / ``model``; the model axis
-    tensor parallelism of dense GQA) under ``rules`` (default
-    ``base_rules(fsdp=True)`` over the mesh's batch axes), the rank holding
-    ``rows`` rows of ``seq`` tokens cut in ``microbatches``.  Written from
-    ``train/trainstep.py``, ``models/*.py``, ``sharding/partitioning.py``
-    and ``optim/adamw.py``:
+    tensor parallelism) under ``rules`` (default :func:`train_rules`), the
+    rank holding ``rows`` rows of ``seq`` tokens cut in ``microbatches``.
+    Written from ``train/trainstep.py``, ``models/*.py``,
+    ``sharding/partitioning.py`` and ``optim/adamw.py``:
 
-    * a microbatch's forward: every FSDP-sharded leaf gathered over each
-      batch axis that shards it (an all-gather, its gradient
-      reduce-scattered back), the top-level leaves once and a layer's
-      again in remat's recompute; at ``tp`` the embedding's and each
-      ``wo`` and ``w_out``'s float32 all-reduce (``reduce_from``), the
-      logits' all-gather; backward the all-reduce of the gradient of every
-      column-parallel input (``copy_to``: each layer's attention and FFN
-      input, the final norm's output, the q / k norms, and the K / V
-      projections where the KV heads are whole); remat's recompute
-      reissues ``wo``'s all-reduce and stops before ``w_out``'s, the
-      layer's last op that saves a tensor (``torch.utils.checkpoint``
-      stops recomputing there); the loss's token count over each batch
-      axis (one microbatch);
+    * each microbatch's forward and backward (:func:`_microbatch_collectives`)
+      and, on one microbatch, the loss's token count over each batch axis;
+    * with several microbatches over a split batch, a MoE model's forward
+      without gradients a slice (its gathers and forward collectives) and
+      the all-reduce of every slice's top-1 counts (``trainstep._route_tables``);
     * the step: the microbatches' token counts and the global count
       (several microbatches), the gradients no batch axis shards summed in
       one bucket an axis, the int8 pod hop (``compress_pod_grads``: every
       leaf gathered whole, then its int8 codes and scales gathered over
-      ``pod``), the loss shares over the batch axes, the global norm over
-      every axis twice (clipping, then the metric), and an int8 moment's
-      chunk max-abs over every axis a leaf.
+      ``pod``), the loss, ``ce``, ``aux`` and ``z`` shares over the batch
+      axes, the global norm over every axis twice (clipping, then the
+      metric), and an int8 moment's chunk max-abs over every axis a leaf.
 
-    Raises where ``model.check_tp`` and ``check_mesh`` do."""
+    Raises where ``model.check_tp`` does."""
     sizes = _sizes(mesh_axes)
     names = [a for a in mesh_axes if mesh_axes[a] > 1]  # the axes that issue collectives
     tp = sizes["model"]
-    rules = train_rules(mesh_axes) if rules is None else rules
-    _tp_check(cfg, tp, train=True)
+    rules = train_rules(cfg, mesh_axes) if rules is None else rules
+    _tp_check(cfg, tp)
     bax = [a for a in model_lib.batch_axes(rules) if sizes.get(a, 1) > 1]
-    if bax and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)):
-        raise NotImplementedError(f"{cfg.name}: a MoE layer over a split batch (check_mesh)")
     spec = _specs(cfg, tp)
-    model_only = {"pod": 1, "data": 1, "model": tp}  # a leaf gathered over the batch axes
-    act, d = _itemsize(cfg.dtype), cfg.d_model
     m = microbatches
-    tokens = rows // m * seq
-    ev: list = []
-
-    def gathered(s, forward: int = 1):
-        for ag, rs in _gathers(s, rules, sizes):
-            ev.extend([ag] * forward + [rs])
+    per = rows // m
+    moe = bool(bax) and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
 
     def all_reduce(nbytes, axes):
-        ev.extend(CollectiveEvent("all-reduce", nbytes, sizes[a]) for a in axes)
+        return [CollectiveEvent("all-reduce", nbytes, sizes[a]) for a in axes]
 
-    top = [s for k in spec if k != "layers" for s in tree_lib.leaves(spec[k])]
-    # one microbatch (every microbatch issues the same)
-    for s in top:
-        gathered(s)
-    if tp > 1:
-        ev.append(CollectiveEvent("all-reduce", tokens * d * 4, tp))  # embedding
-    for layer in spec["layers"]:
-        for s in tree_lib.leaves(layer):
-            gathered(s, 2 if remat else 1)
-        if tp == 1:
-            continue
-        mixer = layer["mixer"]
-        whole_kv = not attention.attn_dims(cfg, tp)[2]
-        ev.append(CollectiveEvent("all-reduce", tokens * d * act, tp))  # copy_to x
-        for key in ("q_norm", "k_norm") + (("wk", "wv", "bk", "bv") if whole_kv else ()):
-            if key in mixer:
-                s = mixer[key]
-                ev.append(CollectiveEvent("all-reduce", math.prod(_local_shape(
-                    s.shape, P.spec_for(s.axes, rules), model_only)[0])
-                    * _itemsize(s.dtype), tp))
-        ev.extend([CollectiveEvent("all-reduce", tokens * d * 4, tp)]
-                  * (2 if remat else 1))  # wo's reduce_from, again in the recompute
-        ev.append(CollectiveEvent("all-reduce", tokens * d * act, tp))  # FFN copy_to
-        ev.append(CollectiveEvent("all-reduce", tokens * d * 4, tp))  # w_out
-    if tp > 1:
-        vocab = model_lib.padded_vocab(cfg, tp)
-        ev.append(CollectiveEvent("all-reduce", tokens * d * act, tp))  # logits copy_to
-        ev.append(CollectiveEvent("all-gather", tokens * vocab * act, tp))
+    one = _microbatch_collectives(cfg, spec, rules, sizes, per, seq, remat=remat,
+                                  counts=tuple(bax) if m == 1 else ())
+    ev = one * m
     if m == 1:
-        all_reduce(4, bax)  # the loss's token count
-    ev *= m
-    if m > 1:
+        ev += all_reduce(4, bax)  # the loss's token count
+    else:
         ways = math.prod(sizes[a] for a in model_lib.batch_axes(rules))
-        all_reduce(4 * ways * m, bax)  # the microbatches' token counts
-        all_reduce(4, bax)  # the step's token count
+        ev += all_reduce(4 * ways * m, bax)  # the microbatches' token counts
+        if moe:  # the slices' top-1 counts, each slice's forward without gradients
+            ev += _microbatch_collectives(cfg, spec, rules, sizes, per, seq, remat=False,
+                                          backward=False) * m
+            ev += all_reduce(4 * ways * m * cfg.n_layers * cfg.n_experts, bax)
+        ev += all_reduce(4, bax)  # the step's token count
     for name in bax:  # sync_grads: the leaves no shard of which lies on `name`
         numel = sum(math.prod(_local_shape(s.shape, P.spec_for(s.axes, rules), sizes)[0])
                     for s in tree_lib.leaves(spec)
                     if name not in {a for _, a in P.sharded_dims(s, rules, sizes)})
         if numel:
-            all_reduce(4 * numel, [name])
+            ev += all_reduce(4 * numel, [name])
     if compress_pod_grads and "pod" in mesh_axes:
         for s in tree_lib.leaves(spec):  # gather_tree of the float32 gradients
             held = 4 * math.prod(_local_shape(s.shape, P.spec_for(s.axes, rules), sizes)[0])
@@ -1029,13 +1133,13 @@ def train_step_collectives(cfg, *, mesh_axes: dict, rules=None, rows: int, seq: 
             chunks = -(-numel // 256)
             ev.append(CollectiveEvent("all-gather", sizes["pod"] * chunks * 256, sizes["pod"]))
             ev.append(CollectiveEvent("all-gather", sizes["pod"] * chunks * 4, sizes["pod"]))
-    all_reduce(12, bax)  # the loss, ce and z shares
+    ev += all_reduce(16, bax)  # the loss, ce, aux and z shares
     if clip:
-        all_reduce(4, names)
+        ev += all_reduce(4, names)
     if moments == "int8":
         for _, numel in _moment_leaves(cfg, tp):
-            all_reduce(2 * -(-numel // optim_lib._CHUNK) * 4, names)
-    all_reduce(4, names)  # the reported gradient norm
+            ev += all_reduce(2 * -(-numel // optim_lib._CHUNK) * 4, names)
+    ev += all_reduce(4, names)  # the reported gradient norm
     return ev
 
 
@@ -1063,21 +1167,14 @@ def n_superblocks(cfg: ModelConfig) -> int:
 
 def unsupported(cfg: ModelConfig, cell: ShapeCell, pl: mesh_lib.Plan, sizes: dict):
     """Why the port runs no collective count for this cell at this plan:
-    the message of the check that raises (``check_tp`` for MLA, MoE, Mamba
-    and cross training, and for a Mamba ``d_inner`` the model axis does not
-    divide; ``check_mesh`` for a MoE layer over a split batch), or the
-    ``check_seq`` for a sequence-parallel decode (``plan``'s long-context
-    rule) of MLA or cross layers; None where it runs."""
-    train = cell.kind == "train"
+    the message of the check that raises (``check_tp`` for a Mamba
+    ``d_inner`` the model axis does not divide and the einsum MoE dispatch;
+    ``check_seq`` for a sequence-parallel decode, ``plan``'s long-context
+    rule, of MLA or cross layers); None where it runs."""
     try:
-        _tp_check(cfg, pl.tp, train=train)
+        _tp_check(cfg, pl.tp)
     except (NotImplementedError, ValueError) as e:
         return f"check_tp: {e}"
-    if train and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)):
-        ways = math.prod(sizes.get(a, 1) for a in model_lib.batch_axes(pl.rules))
-        if ways > 1:
-            return (f"check_mesh: {cfg.name}: a MoE layer over a batch split {ways} ways (its "
-                    "aux loss over the global batch) waits for ROADMAP Queue 1, item 8(c)")
     seq_axes = _seq_axes(pl.rules, sizes)
     if cell.kind == "decode" and seq_axes:
         try:

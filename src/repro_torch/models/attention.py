@@ -23,7 +23,8 @@ back through ``w_uv``, both dequantized to float on every step.  Under
 :func:`mla_dims`) of the query projection, ``w_uk`` and ``w_uv``, and
 ``wo``'s matching rows (row-parallel); the down-projections ``w_dq`` /
 ``w_dkv`` are not sharded (``kv_lora``), so every rank computes the whole
-latent and holds the whole latent ring.
+latent and holds the whole latent ring (in training the latent's gradient
+is summed over the model axis).
 
 Sequence-parallel decode (:class:`SeqParallel`; the reference's ``plan``
 for a long-context decode whose batch is smaller than the data ways, whose
@@ -518,17 +519,19 @@ def cross_apply(params, x, kv, cfg, *, gated=True, impl=None, tp=None) -> torch.
 # ---------------------------------------------------------------------------
 
 
-def _mla_q(params, x, cfg, positions, impl=None):
+def _mla_q(params, x, cfg, positions, impl=None, tp=None):
     """Queries, split into the no-rope part and the roped part ``[B, S, H, *]``
     (H: the heads the rank holds): through the low-rank ``w_dq`` → RMSNorm →
-    ``w_uq`` (q_lora_rank) or the full-rank ``wq``."""
+    ``w_uq`` (q_lora_rank) or the full-rank ``wq``.  Under ``tp`` the input
+    of the column-parallel projection (the whole low-rank ``cq``, or ``x``)
+    goes through ``copy_to``."""
     b, s, _ = x.shape
     dn, dr = cfg.qk_nope_dim, cfg.qk_rope_dim
     if cfg.q_lora_rank:
         cq = layers.rms_norm(dense(params["w_dq"], x, impl=impl), params["q_norm"])
-        q = dense(params["w_uq"], cq, impl=impl)
+        q = dense(params["w_uq"], copy_to(tp, cq), impl=impl)
     else:
-        q = dense(params["wq"], x, impl=impl)
+        q = dense(params["wq"], copy_to(tp, x), impl=impl)
     q = q.reshape(b, s, -1, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     return q_nope, layers.apply_rope(q_rope, positions, cfg.rope_theta)
@@ -550,12 +553,17 @@ def _mla(params, x, cfg, positions, impl=None, tp=None):
     """Full-sequence MLA: the latent expanded through ``w_uk`` / ``w_uv`` to
     per-head keys and values, then :func:`chunked_attention` with v padded
     to the q head width → (output, c_kv, k_rope).  Under ``tp`` on the
-    rank's heads, ``wo`` row-parallel."""
+    rank's heads, ``wo`` row-parallel; the rank's heads read the whole
+    latent, so in training the gradients of ``c_kv``, ``k_rope`` and the
+    low-rank ``cq`` (and with them those of ``w_dkv``, ``kv_norm``,
+    ``w_dq`` and ``q_norm``, which every rank holds whole) are summed over
+    the model axis (``copy_to``)."""
     b, s, _ = x.shape
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl)
+    q_nope, q_rope = _mla_q(params, x, cfg, positions, impl=impl, tp=tp)
     h = q_nope.shape[2]
     c_kv, k_rope = _mla_latent(params, x, cfg, positions, impl=impl)
+    c_kv, k_rope = copy_to(tp, c_kv), copy_to(tp, k_rope)
     k_nope = dense(params["w_uk"], c_kv, impl=impl).reshape(b, s, h, dn)
     v = dense(params["w_uv"], c_kv, impl=impl).reshape(b, s, h, dv)
     q = torch.cat([q_nope, q_rope], dim=-1)
@@ -565,11 +573,11 @@ def _mla(params, x, cfg, positions, impl=None, tp=None):
     return row_parallel(params["wo"], out.reshape(b, s, h * dv), tp, impl=impl), c_kv, k_rope
 
 
-def mla_apply(params, x, cfg, *, positions=None, impl=None):
+def mla_apply(params, x, cfg, *, positions=None, impl=None, tp=None):
     """Full-sequence MLA with no cache (the train path: the reference's
-    ``mla_apply`` without ``cache_len``)."""
+    ``mla_apply`` without ``cache_len``); under ``tp`` the rank's heads."""
     positions = _arange_positions(x) if positions is None else positions
-    return _mla(params, x, cfg, positions, impl=impl)[0]
+    return _mla(params, x, cfg, positions, impl=impl, tp=tp)[0]
 
 
 def mla_prefill(params, x, cfg, *, cache_len, positions=None, impl=None, tp=None):

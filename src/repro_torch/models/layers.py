@@ -25,8 +25,9 @@ vocab-sharded and are all-gathered, so every rank sees every logit.
 The float collectives are the autograd-aware forms of
 :mod:`repro_torch.distributed.mesh`, so the same code trains: a
 column-parallel projection's input goes through ``copy_to`` (its gradient
-summed over the model axis), a row-parallel output and the embedding
-through ``reduce_from``, the logits through ``gather_replicated``.
+summed over the model axis), a row-parallel output (a MoE layer's stacked
+``w_out`` too) and the embedding through ``reduce_from``, the logits
+through ``gather_replicated``.
 """
 
 from __future__ import annotations
@@ -91,7 +92,7 @@ def row_parallel_stacked(w, x: torch.Tensor, tp, impl=None) -> torch.Tensor:
         fmt = residency.get_format(w.mode)
         return fmt.apply_stacked_row_parallel(w, x, tp, impl=impl).to(x.dtype)
     partial = torch.einsum("emk,ekn->emn", x.to(torch.float32), w.to(torch.float32))
-    return tp.all_reduce_sum(partial).to(x.dtype)
+    return reduce_from(tp, partial).to(x.dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

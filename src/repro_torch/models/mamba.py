@@ -25,8 +25,12 @@ block by block, so a rank's x and z channels stay paired), ``conv_w``,
 channels, and ``x_proj`` and ``out_proj`` row-parallel
 (:func:`~repro_torch.models.layers.row_parallel`): ``x_proj``'s ``[B, S,
 dt_rank + 2n]`` partials are all-reduced before ``dt``, B and C are split,
-so every rank scans its channels with the whole B and C.  The state is the
-rank's channels, ``[B, d_conv-1, d_inner/tp]`` and ``[B, d_inner/tp, n]``.
+so every rank scans its channels with the whole B and C.  In training the
+whole ``dt`` / B / C go through ``copy_to`` (each rank's channels give a
+partial gradient of them), and the rank's ``conv``, ``dt`` columns,
+``A_log`` and ``D`` take their gradients from its channels alone.  The
+state is the rank's channels, ``[B, d_conv-1, d_inner/tp]`` and ``[B,
+d_inner/tp, n]``.
 """
 
 from __future__ import annotations
@@ -131,7 +135,9 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg, *, chunk: int = 64,
     x_in, z = xz[..., :di], xz[..., di:]
     x_conv, new_conv = _causal_conv(params, x_in, None if state is None else state["conv"])
 
-    xdb = row_parallel(params["x_proj"], x_conv, tp, impl=impl).to(torch.float32)
+    # the whole dt, B and C feed the rank's channels: in training their
+    # gradient is summed over the model axis
+    xdb = copy_to(tp, row_parallel(params["x_proj"], x_conv, tp, impl=impl).to(torch.float32))
     dt_low, bmat, cmat = xdb[..., :dtr], xdb[..., dtr:dtr + n], xdb[..., dtr + n:]
     dt = F.softplus(dt_low @ params["dt_w"] + params["dt_b"])  # [B,S,di]
 

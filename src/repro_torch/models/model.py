@@ -41,18 +41,19 @@ across with :mod:`repro_torch.convert`.
 Tensor parallelism (``tp``, a :class:`~repro_torch.distributed.mesh.
 TensorParallel` on :func:`prefill` / :func:`decode_step` / :func:`forward`
 / :func:`loss_fn`; an int on the shape functions :func:`specs` /
-:func:`init_cache`) covers dense GQA models in serving and in training, and
-MLA, MoE, Mamba and cross-attention layers (and the encoder) in serving:
+:func:`init_cache`) covers every layer kind, GQA, MLA, MoE, Mamba and
+cross-attention (and the encoder), in serving and in training:
 ``specs(cfg, tp)`` pads the heads (``attention.attn_dims``) and the
 vocab (:func:`padded_vocab`) as the reference does, zero rows drawn for the
 pad heads' ``wo`` rows and the pad vocab rows (``valid_dim0``), and every
 rank runs its shards (:mod:`repro_torch.models.layers` writes the
-collectives).  The pad logits are masked to ``NEG_INF``.  MLA, MoE, Mamba and
-cross layers raise at ``tp > 1`` on the train path (ROADMAP Queue 1, item
-8(c)), and a Mamba layer whose ``d_inner`` the model axis does not divide
-raises a ``ValueError``.  The train path takes a mesh too
+collectives, autograd-aware, so the same code trains).  The pad logits are
+masked to ``NEG_INF``.  A Mamba layer whose ``d_inner`` the model axis does
+not divide raises a ``ValueError``, and the einsum MoE dispatch has no
+tensor-parallel form (:func:`check_tp`).  The train path takes a mesh too
 (:func:`forward`, :func:`loss_fn`): FSDP shards gathered on use, and the
-loss's means over the global batch.
+loss's means, a MoE layer's load-balancing loss included, over the global
+batch.
 
 The context the cross layers attend to comes with the prompt: a VLM's
 ``batch["ctx_embeds"]`` (patch embeddings, cast to ``cfg.dtype``), or an
@@ -308,21 +309,25 @@ def batch_axes(rules) -> tuple:
     return () if entry is None else ((entry,) if isinstance(entry, str) else tuple(entry))
 
 
-def check_mesh(cfg, mesh, rules) -> None:
-    """Raise unless ``cfg`` trains with its rows split over ``mesh``'s batch
-    axes: a MoE layer's load-balancing loss and its capacity are the
-    batch's, which a split batch does not see whole."""
-    if mesh is None:
-        return
-    ways = math.prod(mesh.size(a) for a in batch_axes(rules))
-    if ways > 1 and any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers)):
-        raise NotImplementedError(
-            f"{cfg.name}: a MoE layer over a batch split {ways} ways (its aux loss over the "
-            "global batch) waits for ROADMAP Queue 1, item 8(c)")
+def route_counts(mesh, rules, table=None):
+    """The hook through which a MoE layer's load-balancing loss reads the
+    top-1 counts of the global batch when ``rules`` split its rows over
+    ``mesh``'s batch axes (None otherwise: the rank's rows are the batch):
+    ``hook(i, local) -> (counts [E], ways)`` for layer ``i``, the counts
+    all-reduced over the batch axes, or with ``table`` (a microbatch's
+    global counts a layer, ``[n_layers, E]``, that the train step counted
+    beforehand) read from it."""
+    axes = batch_axes(rules) if mesh is not None else ()
+    ways = math.prod(mesh.size(a) for a in axes) if axes else 1
+    if ways == 1:
+        return None
+    if table is not None:
+        return lambda i, local: (table[i], ways)
+    return lambda i, local: (mesh.all_reduce_sum(local, axes), ways)
 
 
 def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = False, impl=None,
-            mesh=None):
+            mesh=None, global_counts=None):
     """The train path's forward: ``batch["tokens"] [B, S]`` (with the
     context, ``ctx_embeds`` or ``enc_embeds``) through every layer with no
     cache → (logits [B, S, V] in ``cfg.dtype``, the summed MoE aux loss).
@@ -330,9 +335,11 @@ def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = Fals
     (a :class:`~repro_torch.distributed.mesh.MeshView`) with ``rules``,
     ``params`` are the rank's shards: each layer's are gathered over every
     axis but the model axis when the layer runs (FSDP's gather on use, again
-    in remat's recompute), the rest once; under ``tp`` (dense GQA) each rank
-    runs its model shards and every rank gets the whole logits."""
-    check_tp(cfg, tp, train=True)
+    in remat's recompute), the rest once; under ``tp`` each rank runs its
+    model shards and every rank gets the whole logits.  ``global_counts``
+    (:func:`route_counts`) makes the aux loss the rank's share of the
+    global batch's."""
+    check_tp(cfg, tp)
     gather = None
     if mesh is not None and rules is not None:
         spec = specs(cfg, 1 if tp is None else tp.size)
@@ -346,14 +353,15 @@ def forward(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = Fals
     ctx = _context(params, batch, cfg, impl=impl, tp=tp)
     x = layers.embed_apply(params["embed"], batch["tokens"], cfg, tp=tp)
     x, _, aux = stack.stack_apply(params["layers"], x, cfg, mode="train", ctx=ctx, impl=impl,
-                                  remat=remat, tp=tp, gather=gather)
+                                  remat=remat, tp=tp, gather=gather,
+                                  global_counts=global_counts)
     x = layers.norm_apply(params["final_norm"], x, cfg)
     return layers.logits_apply(params["embed"], x, cfg, impl=impl, tp=tp), aux
 
 
 def loss_fn(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = False,
             aux_weight: float = 0.01, z_weight: float = 1e-4, impl=None, mesh=None,
-            denom=None):
+            denom=None, counts=None):
     """Next-token cross entropy over the positions whose ``batch["labels"]``
     are >= 0, plus ``aux_weight`` · the MoE aux loss and ``z_weight`` · the
     z-loss (the mean squared log-partition) → (loss, {"ce", "aux", "z",
@@ -363,12 +371,13 @@ def loss_fn(params, batch: dict, cfg, *, tp=None, rules=None, remat: bool = Fals
     1)``: under ``mesh`` with ``rules`` the rank holds its rows, divides its
     sums by the token count all-reduced over the batch axes (or by
     ``denom``, a microbatch's global count), and returns its share of ``ce``,
-    ``z`` and the loss, whose sum over the batch axes is the global value
-    (so the gradients are summed over them, not averaged); ``tokens`` is the
+    ``aux``, ``z`` and the loss, whose sum over the batch axes is the global
+    value (so the gradients are summed over them, not averaged); the MoE
+    layers' top-1 counts are the global batch's, all-reduced, or a
+    microbatch's from ``counts`` (:func:`route_counts`); ``tokens`` is the
     global count."""
-    check_mesh(cfg, mesh, rules)
     logits, aux = forward(params, batch, cfg, tp=tp, rules=rules, remat=remat, impl=impl,
-                          mesh=mesh)
+                          mesh=mesh, global_counts=route_counts(mesh, rules, counts))
     logits = mask_pad_vocab(logits.to(torch.float32), cfg)
     labels = batch["labels"]
     mask = (labels >= 0).to(torch.float32)
@@ -398,20 +407,15 @@ def mask_pad_vocab(logits: torch.Tensor, cfg) -> torch.Tensor:
     return torch.where(iota < cfg.vocab_size, logits, NEG_INF)
 
 
-def check_tp(cfg, tp, *, train: bool = False) -> None:
-    """Raise unless ``cfg`` runs at ``tp``'s width: when serving, GQA, MLA,
+def check_tp(cfg, tp) -> None:
+    """Raise unless ``cfg`` serves and trains at ``tp``'s width: GQA, MLA,
     Mamba (its ``d_inner`` divided by the model axis, else a
     ``ValueError``) and cross-attention layers with a dense FFN, a
-    sort-dispatch MoE one or none; when training, GQA self-attention with a
-    dense FFN; or one device."""
+    sort-dispatch MoE one or none; or one device."""
     if tp is None or tp.size == 1:
         return
     kinds = {cfg.mixer_kind(i) for i in range(cfg.n_layers)}
     moe_layers = any(cfg.ffn_kind(i) == "moe" for i in range(cfg.n_layers))
-    if train and (cfg.is_enc_dec or kinds != {"attn"} or cfg.attn_type == "mla" or moe_layers):
-        raise NotImplementedError(
-            f"{cfg.name}: training MLA, MoE, Mamba and cross layers at tp > 1 waits for ROADMAP "
-            "Queue 1, item 8(c); tensor-parallel training covers dense GQA models")
     if "mamba" in kinds:
         mamba.inner_per_rank(cfg, tp.size)
     if moe_layers and cfg.moe_impl == "einsum":

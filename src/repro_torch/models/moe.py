@@ -34,6 +34,24 @@ and ``w_out`` row-parallel (:func:`repro_torch.models.layers.
 row_parallel_stacked`).  The shared experts are a dense FFN, column- then
 row-parallel (:func:`repro_torch.models.layers.mlp_apply`), added once.
 
+The same code trains.  The sums are ``reduce_from`` (the router's logits,
+the per-slot outputs), whose forward is the all-reduce above, and the
+tensors every rank holds whole but feeds only its share of the work go
+through ``copy_to``, their gradients summed over the model axis: the
+experts' input (the rank's experts, or its share of their hidden width),
+with the experts sharded the router's input too (the rank's router
+columns), and the gates (the rank's slots).
+
+The load-balancing loss is the batch's: ``me`` (the mean router
+probability an expert) and ``ce`` (the share of tokens whose first choice
+it is) over all of the batch's rows.  Over a batch split across ranks
+(``global_counts``) the top-1 counts are the global batch's (or the
+microbatch's), and each rank returns its share of the loss, ``E ·
+Σ_e ce_e · (its rows' probabilities summed) / N``: the shares sum to the
+global loss, and each share's gradient is the global loss's gradient
+with respect to the rank's rows.  Capacity is per row, as in the
+reference: a split batch changes no drop.
+
 :func:`moe_apply_einsum` is the GShard one-hot dispatch, and :func:`moe_ref`
 the dense reference (every expert on every token, gate-masked) that the
 tests hold the dispatch to; neither takes ``tp``.
@@ -46,6 +64,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import residency
+from repro_torch.distributed.mesh import copy_to, reduce_from
 from repro_torch.models import layers
 from repro_torch.models.layers import activation, dense, dense_stacked
 
@@ -69,19 +88,27 @@ def _router_logits(params, x, cfg, tp=None):
     if held != e:
         w = torch.nn.functional.pad(w, (tp.rank * held, e - (tp.rank + 1) * held))
     logits = torch.einsum("bsd,de->bse", x.to(torch.float32), w)
-    return logits if held == e else tp.all_reduce_sum(logits)
+    return logits if held == e else reduce_from(tp, logits)
 
 
-def _route(params, x, cfg, tp=None):
+def _route(params, x, cfg, tp=None, global_counts=None):
     """Top-k routing.  x: [B, S, D] → (idx [B,S,k] int64, gate [B,S,k] in
-    x.dtype, aux loss), the same on every rank."""
+    x.dtype, aux loss), the same on every rank.  ``global_counts(local)``,
+    over a split batch, gives the top-1 counts ``[E]`` of the whole
+    (micro)batch from this rank's and the ways the batch is split; the aux
+    loss is then the rank's share (module docstring)."""
     probs = torch.softmax(_router_logits(params, x, cfg, tp), dim=-1)
     gate, idx = torch.topk(probs, cfg.experts_per_tok, dim=-1)
     gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
     e = cfg.n_experts
-    me = probs.mean(dim=(0, 1))  # mean router probability per expert
-    ce = torch.nn.functional.one_hot(idx[..., 0], e).to(torch.float32).mean(dim=(0, 1))
-    aux = e * torch.sum(me * ce)
+    top1 = torch.nn.functional.one_hot(idx[..., 0], e).to(torch.float32)
+    if global_counts is None:
+        me = probs.mean(dim=(0, 1))  # mean router probability per expert
+        aux = e * torch.sum(me * top1.mean(dim=(0, 1)))
+    else:
+        counts, ways = global_counts(top1.sum(dim=(0, 1)))
+        n = probs.shape[0] * probs.shape[1] * ways
+        aux = e * torch.sum(probs.sum(dim=(0, 1)) / n * (counts / n))
     return idx, gate.to(x.dtype), aux
 
 
@@ -156,7 +183,7 @@ def _combine(out_s, order, k: int, tp=None, sharded: bool = False):
     non-zero on one rank only, so the sum is exact and the combine is one
     device's."""
     if sharded:
-        out_s = tp.all_reduce_sum(out_s)
+        out_s = reduce_from(tp, out_s)
     b, sk, d = out_s.shape
     inv = torch.argsort(order, dim=1)  # sorted position of slot (token, choice)
     at = torch.sort(inv.reshape(b, sk // k, k), dim=-1).values.reshape(b, sk)
@@ -168,31 +195,38 @@ def _combine(out_s, order, k: int, tp=None, sharded: bool = False):
 
 
 def moe_apply(params: dict, x: torch.Tensor, cfg, *,
-              capacity_factor: Optional[float] = None, impl=None, tp=None):
+              capacity_factor: Optional[float] = None, impl=None, tp=None,
+              global_counts=None):
     """x: [B, S, D] → ([B, S, D], aux_loss).  Sort-based capacity dispatch;
-    under ``tp`` the rank's experts or hidden share (module docstring)."""
+    under ``tp`` the rank's experts or hidden share, over a split batch
+    (``global_counts``, :func:`_route`) the rank's share of the aux loss
+    (module docstring)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_tok
     cap = capacity(cfg, s, capacity_factor)
-    idx, gate, aux = _route(params, x, cfg, tp)  # [B, S, k]
-    routed = _dispatch(idx, gate, s, cap, e)
     held = _n_experts_held(params["w_in"])
-    first = 0 if held == e else tp.rank * held
-    out_s = _slot_outputs(params, x, cfg, routed, cap, first=first, impl=impl, tp=tp)
-    y = _combine(out_s, routed[0], k, tp, sharded=held != e)
+    sharded = held != e
+    xt = copy_to(tp, x)  # the experts' input: the rank's experts or hidden share
+    idx, gate, aux = _route(params, xt if sharded else x, cfg, tp, global_counts)  # [B, S, k]
+    if sharded:  # a rank's slots give a partial gradient of the gates
+        gate = copy_to(tp, gate)
+    routed = _dispatch(idx, gate, s, cap, e)
+    first = tp.rank * held if sharded else 0
+    out_s = _slot_outputs(params, xt, cfg, routed, cap, first=first, impl=impl, tp=tp)
+    y = _combine(out_s, routed[0], k, tp, sharded=sharded)
     if cfg.n_shared_experts:
         y = y + _shared(params, x, cfg, impl=impl, tp=tp)
     return y, aux
 
 
 def moe_apply_einsum(params: dict, x: torch.Tensor, cfg, *,
-                     capacity_factor: Optional[float] = None, impl=None):
+                     capacity_factor: Optional[float] = None, impl=None, global_counts=None):
     """GShard-style one-hot dispatch: the same result as :func:`moe_apply`
     up to the order of drops (identical when capacity is ample)."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_tok
     cap = capacity(cfg, s, capacity_factor)
-    idx, gate, aux = _route(params, x, cfg)
+    idx, gate, aux = _route(params, x, cfg, global_counts=global_counts)
     F = torch.nn.functional
 
     # slot-sequential position assignment: iterate the k choices,

@@ -24,6 +24,8 @@ layer's is ``{"conv", "ssm"}``, batch first, replaced each call; a ``cross`` lay
 
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch.utils import checkpoint
 
@@ -49,7 +51,7 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None, 
         if kind == "mamba":
             return mamba.mamba_apply(params, h, cfg, impl=impl, tp=tp), None
         if mla:
-            return attention.mla_apply(params, h, cfg, impl=impl), None
+            return attention.mla_apply(params, h, cfg, impl=impl, tp=tp), None
         return attention.gqa_apply(params, h, cfg, impl=impl, tp=tp), None
     if kind == "mamba":
         if mode == "prefill":
@@ -79,13 +81,15 @@ def _cross(params, h, cfg, *, mode, cache, ctx, impl, tp=None):
 
 def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: str = "dense",
                 cache=None, pos=None, cache_len: int = 0, ctx=None, impl=None, tp=None,
-                seq=None):
+                seq=None, global_counts=None):
     """One layer with mixer kind ``mixer`` (``attn``, ``mamba``, ``cross`` or
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
     Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
     runs the rank's shards (the model checks what it serves and trains);
     ``seq`` (decode) the rank's block of a GQA ring
-    (:class:`~repro_torch.models.attention.SeqParallel`)."""
+    (:class:`~repro_torch.models.attention.SeqParallel`);
+    ``global_counts`` a MoE layer's top-1 counts over a split batch
+    (:func:`repro_torch.models.moe.moe_apply`)."""
     h = layers.norm_apply(params["ln1"], x, cfg)
     if mixer == "cross":
         a, cache = _cross(params["mixer"], h, cfg, mode=mode, cache=cache, ctx=ctx, impl=impl,
@@ -111,9 +115,11 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
     h2 = layers.norm_apply(params["ln2"], x, cfg)
     if ffn == "moe":
         if cfg.moe_impl == "einsum":
-            y, aux = moe.moe_apply_einsum(params["ffn"], h2, cfg, impl=impl)
+            y, aux = moe.moe_apply_einsum(params["ffn"], h2, cfg, impl=impl,
+                                          global_counts=global_counts)
         else:
-            y, aux = moe.moe_apply(params["ffn"], h2, cfg, impl=impl, tp=tp)
+            y, aux = moe.moe_apply(params["ffn"], h2, cfg, impl=impl, tp=tp,
+                                   global_counts=global_counts)
     else:
         y = layers.mlp_apply(params["ffn"], h2, cfg, impl=impl, tp=tp)
     return x + y.to(x.dtype), cache, aux
@@ -144,7 +150,7 @@ def init_layer_cache(cfg, mixer: str, batch: int, cache_len: int, *, device=None
 
 def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
                 cache_len: int = 0, ctx=None, impl=None, remat: bool = False, tp=None,
-                gather=None, seq=None):
+                gather=None, seq=None, global_counts=None):
     """Run every layer in order (``ctx``: the context the cross mixers
     project).  Returns (x, per-layer caches, the summed MoE aux loss).
     ``remat`` (train mode) keeps no activation of a layer for the backward
@@ -153,7 +159,10 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
     ``gather(i, p)`` (train mode) gives layer ``i``'s parameters from the
     rank's shards ``p`` (FSDP's gather on use); it runs inside the
     recomputed function, so remat gathers again in the backward pass, in the
-    same order on every rank.  ``seq`` as for :func:`layer_apply`."""
+    same order on every rank.  ``seq`` as for :func:`layer_apply`;
+    ``global_counts(i, local)`` (train mode, a batch split over ranks) gives
+    MoE layer ``i`` the top-1 counts of the whole (micro)batch from the
+    rank's ``local`` ones, and the ways the batch is split."""
     new_caches = []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(layer_params):
@@ -162,7 +171,9 @@ def stack_apply(layer_params: list, x, cfg, *, mode: str, caches=None, pos=None,
             def run(x, p=p, i=i, kind=kind):
                 if gather is not None:
                     p = gather(i, p)
-                y, _, aux = layer_apply(p, x, cfg, mode=mode, ctx=ctx, impl=impl, tp=tp, **kind)
+                counts = None if global_counts is None else functools.partial(global_counts, i)
+                y, _, aux = layer_apply(p, x, cfg, mode=mode, ctx=ctx, impl=impl, tp=tp,
+                                        global_counts=counts, **kind)
                 return y, aux
 
             if remat:

@@ -17,8 +17,8 @@ Over a mesh (``mesh``: a ``DeviceMesh`` of ``pod`` / ``data`` / ``model``
 axes, or a :class:`TrainMesh`), where the reference leaves everything to
 GSPMD, each rank holds its shards of the parameters and of the optimizer
 state (``rules``, by default ``base_rules(fsdp=True)``: the ``embed`` axis
-over ``data``, the heads, FFN and vocab over ``model``) and its rows of
-the batch:
+over ``data``, the heads, FFN, experts and vocab over ``model``) and its
+rows of the batch:
 
 * each layer's shards are gathered over ``data`` when the layer runs, and
   again in remat's recompute (``partitioning.gather_on_use``); their
@@ -27,6 +27,11 @@ the batch:
   count all-reduced over the batch axes, so the gradients are summed over
   them; a microbatch's sums are divided by the count of the reference's
   microbatch (the same slice of the global batch);
+* a MoE layer's load-balancing loss is the global batch's too: each rank
+  takes its share, over the top-1 counts all-reduced over the batch axes;
+  with several microbatches those counts are the reference microbatch's,
+  whose rows other slices of this rank and other ranks hold, so a forward
+  without gradients first counts every slice's (:func:`_route_tables`);
 * the gradients of the leaves no data rank shards (the norms) are
   all-reduced over ``data``, and every gradient over ``pod``, in one
   bucket each;
@@ -168,9 +173,17 @@ def leaf_shards(cfg, spec: dict, view: MeshView, rules) -> dict:
     return tree_lib.map_leaves(one, convert.reference_layout(spec, cfg))
 
 
+def default_rules(cfg, data_axes: tuple, tp: int) -> dict:
+    """``base_rules(fsdp=True)`` over the batch axes ``data_axes``, with a MoE
+    layer's experts over the model axis where they divide its ``tp`` ways,
+    else their hidden width (``moe_mlp``)."""
+    return P.base_rules(fsdp=True, data_axes=data_axes,
+                        shard_experts=not cfg.n_experts or cfg.n_experts % tp == 0)
+
+
 def train_mesh(cfg, mesh, *, tp: int = 1, rules=None) -> TrainMesh:
     """This rank's :class:`TrainMesh` on the ``DeviceMesh`` ``mesh``; ``rules``
-    default to ``base_rules(fsdp=True)`` over the mesh's ``pod`` / ``data``
+    default to :func:`default_rules` over the mesh's ``pod`` / ``data``
     axes.  The mesh's model axis must be ``tp`` ways."""
     if isinstance(mesh, TrainMesh):
         return mesh
@@ -178,10 +191,8 @@ def train_mesh(cfg, mesh, *, tp: int = 1, rules=None) -> TrainMesh:
     if view.size("model") != tp:
         raise ValueError(f"tp={tp}, but the mesh's model axis is {view.size('model')} ways")
     if rules is None:
-        rules = P.base_rules(fsdp=True, data_axes=tuple(a for a in ("pod", "data")
-                                                         if a in view.axes))
+        rules = default_rules(cfg, tuple(a for a in ("pod", "data") if a in view.axes), tp)
     model_lib.check_tp(cfg, view.axis("model"))
-    model_lib.check_mesh(cfg, view, rules)
     spec = model_lib.specs(cfg, tp)
     return TrainMesh(view=view, rules=rules, tp=tp, spec=spec,
                      shards=leaf_shards(cfg, spec, view, rules))
@@ -201,12 +212,13 @@ def init_opt_state(opt: optim_lib.Optimizer, params: dict, cfg,
 
 
 def value_and_grad(params: dict, batch: dict, cfg, step_cfg: TrainStepConfig = TrainStepConfig(),
-                   tm: Optional[TrainMesh] = None, denom=None):
+                   tm: Optional[TrainMesh] = None, denom=None, counts=None):
     """``model.loss_fn`` on one (micro)batch and its gradient with respect to
     every parameter → (loss, metrics, grads: the parameters' tree, each
     leaf in its parameter's dtype).  Under ``tm``, the rank's share of the
-    loss (``denom``: the microbatch's global token count) and the gradient
-    of its shards, reduce-scattered over the axes that shard them."""
+    loss (``denom``: the microbatch's global token count; ``counts``: its
+    MoE layers' global top-1 counts) and the gradient of its shards,
+    reduce-scattered over the axes that shard them."""
     flat: list = []
 
     def track(p):
@@ -214,7 +226,7 @@ def value_and_grad(params: dict, batch: dict, cfg, step_cfg: TrainStepConfig = T
         return flat[-1]
 
     mesh_kw = {} if tm is None else dict(tp=tm.model, rules=tm.rules, mesh=tm.view,
-                                         denom=denom)
+                                         denom=denom, counts=counts)
     with torch.enable_grad():
         live = tree_lib.map_leaves(track, params)
         loss, metrics = model_lib.loss_fn(live, batch, cfg, remat=step_cfg.remat,
@@ -245,11 +257,38 @@ def _microbatch_counts(batch: dict, m: int, tm: TrainMesh) -> torch.Tensor:
         (tm.batch_index * m + torch.arange(m, device=labels.device)) // ways]
 
 
+def _route_tables(params: dict, batch: dict, cfg, m: int, tm: TrainMesh) -> list:
+    """The global top-1 counts ``[n_layers, E]`` of the reference microbatch
+    each of the rank's ``m`` slices falls in (:func:`_microbatch_counts`'
+    map): every slice's own counts from a forward without gradients, placed
+    at the slice's index of the global batch, all-reduced over the batch
+    axes and summed by microbatch."""
+    per = batch["labels"].shape[0] // m
+    ways = tm.batch_ways
+    device = batch["labels"].device
+    table = torch.zeros((ways * m, cfg.n_layers, cfg.n_experts), dtype=torch.float32,
+                        device=device)
+    for j in range(m):
+        row = table[tm.batch_index * m + j]
+
+        def record(i, local, row=row):
+            row[i] = local
+            return local, ways
+
+        mb = {k: v[j * per:(j + 1) * per] for k, v in batch.items()}
+        with torch.no_grad():
+            model_lib.forward(params, mb, cfg, tp=tm.model, rules=tm.rules, mesh=tm.view,
+                              global_counts=record)
+    table = tm.view.all_reduce_sum(table, tm.batch_axes)
+    table = table.reshape(m, ways, cfg.n_layers, cfg.n_experts).sum(dim=1)
+    return [table[(tm.batch_index * m + j) // ways] for j in range(m)]
+
+
 def compute_grads(params: dict, batch: dict, cfg, step_cfg: TrainStepConfig = TrainStepConfig(),
                   tm: Optional[TrainMesh] = None):
     """The step's float32 gradients over ``step_cfg.microbatches`` slices of
     the batch → (mean loss, metrics, grads).  Under ``tm``: the rank's rows
-    and shards; the loss and the ``ce`` / ``z`` metrics are the rank's
+    and shards; the loss and the ``ce`` / ``aux`` / ``z`` metrics are the rank's
     shares (their sum over the batch axes the global values), ``tokens``
     the global count, and the gradients not yet summed over the batch axes
     but through the reduce-scatters of the shards' gathers
@@ -259,6 +298,9 @@ def compute_grads(params: dict, batch: dict, cfg, step_cfg: TrainStepConfig = Tr
     if rows % m:
         raise ValueError(f"batch of {rows} rows is not a multiple of microbatches={m}")
     denoms = None if tm is None or m == 1 else _microbatch_counts(batch, m, tm)
+    tables = [None] * m
+    if denoms is not None and tm.batch_ways > 1 and cfg.n_experts:
+        tables = _route_tables(params, batch, cfg, m, tm)
     if m == 1:
         loss, metrics, grads = value_and_grad(params, batch, cfg, step_cfg, tm)
         return loss, metrics, tree_lib.map_leaves(lambda g: g.to(torch.float32), grads)
@@ -271,7 +313,7 @@ def compute_grads(params: dict, batch: dict, cfg, step_cfg: TrainStepConfig = Tr
     for i in range(m):
         mb = {k: v[i * per:(i + 1) * per] for k, v in batch.items()}
         loss, metrics, grads = value_and_grad(params, mb, cfg, step_cfg, tm,
-                                              None if denoms is None else denoms[i])
+                                              None if denoms is None else denoms[i], tables[i])
         gacc = tree_lib.map_leaves(lambda a, g: a + g.to(torch.float32), gacc, grads)
         del grads
         lacc = lacc + loss
@@ -373,9 +415,9 @@ def make_train_step(cfg, opt: optim_lib.Optimizer, *, tp: int = 1, rules=None,
             grads = sync_grads(grads, tm)
             if step_cfg.compress_pod_grads and "pod" in tm.view.axes:
                 grads = compress_pod(grads, cfg, tm)
-            shares = torch.stack([loss, metrics["ce"], metrics["z"]])
-            loss, ce, z = tm.view.all_reduce_sum(shares, tm.batch_axes).unbind(0)
-            metrics = dict(metrics, ce=ce, z=z)
+            shares = torch.stack([loss, metrics["ce"], metrics["aux"], metrics["z"]])
+            loss, ce, aux, z = tm.view.all_reduce_sum(shares, tm.batch_axes).unbind(0)
+            metrics = dict(metrics, ce=ce, aux=aux, z=z)
         opt_state, gnorm = apply_grads(opt, params, opt_state, grads, cfg, tm)
         return params, opt_state, dict(metrics, loss=loss, grad_norm=gnorm)
 

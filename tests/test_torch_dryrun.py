@@ -694,11 +694,20 @@ def test_mesh_records():
     assert rec["roofline"]["t_collective"] == pytest.approx(
         rec["corrected"]["collective_wire_bytes"] / hlo_stats.HW["nvlink_bw"])
     assert "one_card" not in rec and set(dryrun.XLA_KEYS) >= {"flops_per_device"}
-    for arch, shape, check in (("falcon-mamba-7b", "train_4k", "check_tp"),
-                               ("minicpm3-4b", "train_4k", "check_tp")):
-        rec = dryrun.analyze_cell(arch, shape, mesh="multipod", skip_probes=True)
-        assert rec["devices"] == 512 and rec["collectives"] is None
-        assert rec["collective_wire_bytes"] is None and rec["unsupported"].startswith(check)
+    for arch in ("falcon-mamba-7b", "minicpm3-4b"):  # Mamba and MLA train at tp
+        rec = dryrun.analyze_cell(arch, "train_4k", mesh="multipod", skip_probes=True)
+        assert rec["devices"] == 512 and rec["unsupported"] is None
+        assert rec["collectives"]["all-reduce"]["count"] > 0
+        assert rec["collective_wire_bytes"] > 0
+    # the checks that still raise: the einsum MoE dispatch at tp, a d_inner
+    # the model axis does not divide
+    pl = mesh_lib.plan(get_config("mixtral-8x7b"), SHAPES["train_4k"], mesh_lib.stand_in_mesh())
+    einsum = get_config("mixtral-8x7b").scaled(moe_impl="einsum")
+    assert dryrun.unsupported(einsum, SHAPES["train_4k"], pl, {"data": 16, "model": 16}) \
+        .startswith("check_tp: mixtral-8x7b: the einsum MoE dispatch")
+    odd = get_config("falcon-mamba-7b").scaled(d_model=4100)  # d_inner 8200
+    assert dryrun.unsupported(odd, SHAPES["train_4k"], pl, {"data": 16, "model": 16}) \
+        .startswith("check_tp: falcon-mamba-7b: d_inner 8200 does not divide")
     for arch in ("mixtral-8x7b", "jamba-1.5-large-398b", "falcon-mamba-7b"):
         for mesh, axes in (("pod", 1), ("multipod", 2)):
             rec = dryrun.analyze_cell(arch, "long_500k", mesh=mesh, skip_probes=True)
@@ -713,8 +722,8 @@ def test_mesh_records():
             assert rec["collectives"]["all-reduce"]["count"] == \
                 sum(e.kind == "all-reduce" for e in no_seq) + 2 * axes * attn
     moe = dryrun.analyze_cell("deepseek-v2-lite-16b", "train_4k", mesh_shape=(16, 1),
-                              skip_probes=True)
-    assert moe["unsupported"].startswith("check_mesh")
+                              skip_probes=True)  # a MoE layer over a split batch
+    assert moe["unsupported"] is None and moe["collective_wire_bytes"] > 0
     mamba = dryrun.analyze_cell("falcon-mamba-7b", "decode_32k", mesh="multipod",
                                 skip_probes=True)
     assert mamba["unsupported"] is None and mamba["collective_wire_bytes"] > 0
@@ -740,7 +749,7 @@ def test_cli_writes_every_cell_at_both_meshes(tmp_path, capsys):
         assert (r["collectives"] is None) == (r["collective_wire_bytes"] is None) == \
             (r["unsupported"] is not None)
         assert r["unsupported"] is None or r["unsupported"].split(":")[0] in (
-            "check_tp", "check_mesh", "plan")
+            "check_tp", "check_seq", "plan")
     assert sum(r["collectives"] is not None for r in recs) > 20
     assert "dry-run complete: 66 ok, 0 failed" in capsys.readouterr().out
     assert dryrun.main(["--arch", "jamba-1.5-large-398b", "--shape", "decode_32k",

@@ -307,8 +307,8 @@ def _rope_on_nope(params, monkeypatch):
     """The planted fault: rope applied to the whole query head."""
     mla_q = attention._mla_q
 
-    def wrong(p, x, cfg, positions, impl=None):
-        q_nope, q_rope = mla_q(p, x, cfg, positions, impl)
+    def wrong(p, x, cfg, positions, impl=None, tp=None):
+        q_nope, q_rope = mla_q(p, x, cfg, positions, impl, tp)
         from repro_torch.models import layers
         return layers.apply_rope(q_nope, positions, cfg.rope_theta), q_rope
 

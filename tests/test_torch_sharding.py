@@ -363,14 +363,12 @@ def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
                  "jamba-1.5-large-398b"):
         other = configs.get_smoke_config(arch)
         model_lib.check_tp(other, None)
-        model_lib.check_tp(other, TensorParallel(size=1, rank=0), train=True)
-        with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-            model_lib.check_tp(other, TensorParallel(size=2, rank=0), train=True)
-        model_lib.check_tp(other, TensorParallel(size=2, rank=0))
+        model_lib.check_tp(other, TensorParallel(size=1, rank=0))
+        model_lib.check_tp(other, TensorParallel(size=2, rank=0))  # serves and trains
         if arch in ("falcon-mamba-7b", "jamba-1.5-large-398b"):
             with pytest.raises(ValueError, match="d_inner"):
                 model_lib.check_tp(other, TensorParallel(size=3, rank=0))
     einsum = configs.get_smoke_config("mixtral-8x7b").scaled(moe_impl="einsum")
     with pytest.raises(NotImplementedError, match="einsum"):
         model_lib.check_tp(einsum, TensorParallel(size=2, rank=0))
-    model_lib.check_tp(cfg, TensorParallel(size=2, rank=0), train=True)
+    model_lib.check_tp(cfg, TensorParallel(size=2, rank=0))

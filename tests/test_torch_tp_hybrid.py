@@ -483,9 +483,18 @@ def test_falcon_mamba_at_tp3_raises():
 
 @pytest.mark.parametrize("arch", R.HYBRID_ARCHS)
 def test_training_mamba_and_cross_at_tp_still_raises(arch):
+    """Mamba and cross layers (and the encoder) train at tp > 1
+    (``tests/test_torch_tp_train.py`` holds them to the reference): the
+    train path passes ``check_tp`` and the dry run counts its step; what
+    still raises is what serving refuses, a ``d_inner`` the model axis does
+    not divide."""
     cfg = _port_cfg(arch, 2)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        model_lib.forward({}, batch, cfg, tp=TensorParallel(size=2, rank=0))
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        dryrun.train_step_collectives(cfg, mesh_axes={"data": 1, "model": 2}, rows=1, seq=4)
+    model_lib.check_tp(cfg, TensorParallel(size=2, rank=0))
+    step = dryrun.train_step_collectives(cfg, mesh_axes={"data": 1, "model": 2}, rows=1, seq=4)
+    assert sum(e.kind == "all-reduce" for e in step) > 2 * cfg.n_layers
+    if cfg.d_inner % 3 and any(cfg.mixer_kind(i) == "mamba" for i in range(cfg.n_layers)):
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+        with pytest.raises(ValueError, match="d_inner"):
+            model_lib.forward({}, batch, cfg, tp=TensorParallel(size=3, rank=0))
+        with pytest.raises(ValueError, match="d_inner"):
+            dryrun.train_step_collectives(cfg, mesh_axes={"data": 1, "model": 3}, rows=1, seq=4)

@@ -488,12 +488,21 @@ def test_sharded_draw_equals_slicing_the_whole_conversion(tp, mode):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_training_mla_and_moe_at_tp_still_raises(arch):
+    """MLA and MoE layers train at tp > 1
+    (``tests/test_torch_tp_train.py`` holds them to the reference): the train
+    path passes ``check_tp`` and the dry run counts its step; what still
+    raises is what serving refuses, the einsum MoE dispatch."""
     from repro_torch.distributed.mesh import TensorParallel
 
     cfg = _port_cfg(arch, 2)
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        model_lib.forward({}, batch, cfg, tp=TensorParallel(size=2, rank=0))
+    tp = TensorParallel(size=2, rank=0)
+    model_lib.check_tp(cfg, tp)
+    step = dryrun.train_step_collectives(cfg, mesh_axes={"data": 1, "model": 2}, rows=1, seq=4)
+    assert sum(e.kind == "all-reduce" for e in step) > 3 * cfg.n_layers
+    if cfg.n_experts:
+        batch = {"tokens": torch.zeros((1, 4), dtype=torch.long)}
+        with pytest.raises(NotImplementedError, match="einsum MoE dispatch"):
+            model_lib.forward({}, batch, cfg.scaled(moe_impl="einsum"), tp=tp)
 
 
 class _OneRank:
