@@ -172,8 +172,9 @@ part in processes of its own spawned with ``torch.multiprocessing``:
       cross K/V prefill, seamless's attention, FFN and plane attention on 8
       heads; ``_rows_seq_attention``: plane attention with its row
       statistics at a sequence-parallel rank's block, R = 8, G = 4, L =
-      2048).  The tp = 2 runs are no speed result: two processes time-share
-      one card
+      2048, and over a rank's paged ring gathered whole, R = 8, G = 2, L =
+      4352, half its slots the rank's, the bound from those alone).  The tp
+      = 2 runs are no speed result: two processes time-share one card
 
 and then the data axis (``phase_data``, after the tp phase), two spawned
 gloo ranks on cuda:0 over a ``(data=2, model=1)`` mesh:
@@ -201,6 +202,20 @@ gloo ranks on cuda:0 over a ``(data=2, model=1)`` mesh:
       call's collectives equal to ``dryrun.call_collectives`` under the
       plan's rules (a MAX and a SUM), the rank's bytes to ``rank_bytes`` of
       that plan, plane attention's launches a decode step data = 1's
+  (g) qwen3-1.7b at ``DATA_DEPTH`` layers on path Y's mix under
+      ``prefix_cache`` (the 176-page pool whole on each rank, 2 of the 4
+      slots a rank) against data = 1, teacher-forced to its tokens: path
+      B's weights over ``paged_bf16`` bit for bit, pages included; path Y's
+      stack in float32 with its boundary codes forced (``RoundCodeLog``)
+      within ``PATH_LIMITS``; the page stats key for key; at each prefix
+      attach and request end every page the rank's tables name and every
+      page the prefix index holds equal to data = 1's; bytes and
+      collectives (each prefix registration's page copy) the dry run's
+  (h) deepseek-v2-lite-16b (MLA, 1 layer), seamless-m4t-medium (2 + 2
+      layers, its context whole) and qwen3-1.7b (1 layer over
+      ``paged_int4_bp_fused``, its pages permuted) at full width in
+      float32: path S's prompt and 16 sequence-parallel decode steps within
+      1e-5 of one device's, collectives and bytes the dry run's
 
 and then training over a mesh (``phase_train_mesh``, after the tp phase),
 two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
@@ -223,9 +238,9 @@ two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
       (counted), the hop's output the quantized global gradient exactly,
       a whole step's collectives equal to the dry run's count
   (c) the cut's trainer at data=2 failing before step 3 and restarting
-      from its step-2 checkpoint, bitwise equal to an uninterrupted run,
-      and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
-      device within (b)'s limits of an uninterrupted run there
+      from its step-2 checkpoint of the global state, bitwise equal to an
+      uninterrupted run (the elastic restore on one device is held on the
+      CPU, ``tests/test_torch_distributed.py``)
   (d) ``pipeline_apply`` at pipe=2 over the cut's two layers against the
       sequential stack
   (e)-(g) the other layer kinds, each a float32 cut at full width
@@ -243,9 +258,12 @@ two spawned gloo ranks on cuda:0, which no kernel of the eight serves:
 
 and then the example twins (``phase_examples``): ``repro_torch.examples.
 quickstart`` (train the reduced qwen3, convert to ``w8a8``, prefill and
-decode) and ``repro_torch.examples.serve_quantized`` (every weight format,
-the mixed policies with their cache suffixes, the traced all-fused row) on
-the card, no plain version on CUDA.
+decode), ``repro_torch.examples.serve_quantized`` (every weight format,
+the mixed policies with their cache suffixes, the traced all-fused row) and
+``repro_torch.examples.bsdp_gemv`` (one encode, six BSDP forms bit-exact
+against the int32 oracle; the ``bsdp_gemv``, ``bsdp_gemm`` and
+``bsdp_gemm_fused`` kernels launched) on the card, no plain version on
+CUDA.
 
 MLA reads its latent cache through the cache format's plain plane math, so
 K and M launch no plane attention; Q and R have no attention at all.
@@ -898,41 +916,60 @@ def _rows_tp_hybrid(torch, device, gen, timer, rows, min_m):
 #: a sequence-parallel rank's block of mixtral-8x7b's 4096-slot window ring
 #: at two data ways (path (f) of the data phase)
 SEQ_BLOCK = 2048
+#: (h)'s paged ring: qwen3-1.7b's S_MAX_LEN slots, 544 pages of 8, half a rank
+PAGED_SEQ_PAGES = 544
 
 
 def _rows_seq_attention(torch, device, gen, timer, rows):
-    """Plane attention with its row statistics (``stats=True``) at the shape
-    one rank of (f)'s sequence-parallel decode gives it: mixtral-8x7b at
-    batch 1, 8 KV heads → R = 8 rows of G = 4 query heads over the rank's
+    """Plane attention with its row statistics (``stats=True``) at the shapes
+    one rank of the data phase's sequence-parallel decodes gives it, R = 8
+    rows (batch 1, 8 KV heads), F = 128 (Fw = 4), the bias the engine's
+    expanded view: (f) mixtral-8x7b's G = 4 query heads over the rank's
     block of L = 2048 slots of its wrapped 4096-slot ring (rank 0's: slots
     0..63 hold positions 4096..4159, the rest 64..2047; the window keeps
-    them all at position 4159), F = 128 (Fw = 4), the bias the engine's
-    expanded view.  The output equal bit for bit to the launch without
-    statistics, output and statistics within ``ATTN_TOL`` of the plain
-    version's; the yardstick SDPA at the same shape."""
+    them all at position 4159); (h) qwen3-1.7b's G = 2 over its paged ring
+    gathered whole, L = 4352 slots of 544 pages (a seeded permutation: the
+    rank holds pages 0..271, so half the slots, scattered, are its own;
+    positions 0..4175 written), the other rank's slots masked.  The output
+    equal bit for bit to the launch without statistics, output and
+    statistics within ``ATTN_TOL`` of the plain version's; the yardstick
+    SDPA at the same shape."""
+    pos_ids = torch.arange(SEQ_BLOCK, device=device)
+    pos_ids[:64] += 4096
+    _seq_attention_row(torch, device, gen, timer, rows, 4, (pos_ids <= 4159) & (pos_ids > 63),
+                       "a sequence-parallel rank's block")
+    page = 8
+    perm = torch.randperm(PAGED_SEQ_PAGES, generator=gen, device=device)
+    owned = (perm < PAGED_SEQ_PAGES // 2).repeat_interleave(page)
+    _seq_attention_row(torch, device, gen, timer, rows, 2,
+                       owned & (torch.arange(PAGED_SEQ_PAGES * page, device=device) < 4176),
+                       "a sequence-parallel rank's paged ring, gathered whole")
+
+
+def _seq_attention_row(torch, device, gen, timer, rows, g, valid, what):
+    """One row of :func:`_rows_seq_attention`: G = ``g`` query heads over L =
+    ``len(valid)`` slots, the others masked; the bound from the K/V words,
+    scales and operations of the ``valid`` slots alone (the rank's work),
+    the time that of the launch over all L."""
     import torch.nn.functional as F
 
     from repro_torch.core import bitplane
     from repro_torch.core.kvcache import FusedBitPlaneCacheFormat
     from repro_torch.kernels import plane_attn
 
-    b, h, g, l, feat = 1, 8, 4, SEQ_BLOCK, 128
+    b, h, l, feat = 1, 8, valid.shape[0], 128
     fw = feat // 32
     kp, vp = (_words(torch, gen, device, b, l, h, 4, fw),
               _words(torch, gen, device, b, l, h, 4, fw))
     ks = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
     vs = torch.rand((b, l, h), generator=gen, device=device) * 0.5 + 0.01
-    pos_ids = torch.arange(l, device=device)
-    pos_ids[:64] += 4096
-    cur = 4159
-    valid = (pos_ids <= cur) & (pos_ids > cur - 4096)
     bias = torch.where(valid, 0.0, -1e30).to(torch.float32)[None, None, None, :]
     bias = bias.expand(b, h, g, l)
     q = torch.randn((b, h, g, feat), generator=gen, device=device)
     q_planes, q_scale = FusedBitPlaneCacheFormat._query_planes(q)
     args = (q_planes, q_scale, kp, ks, vp, vs, bias)
     sm = 1.0 / math.sqrt(feat)
-    tag = f"R={b * h} G={g} L={l} Fw={fw} stats (a sequence-parallel rank's block)"
+    tag = f"R={b * h} G={g} L={l} Fw={fw} stats ({what})"
     got, st = plane_attn.plane_decode_attention(*args, sm_scale=sm, stats=True)
     want, want_st = plane_attn.plane_decode_attention_plain(*args, sm_scale=sm, stats=True)
     torch.cuda.synchronize()
@@ -951,9 +988,11 @@ def _rows_seq_attention(torch, device, gen, timer, rows):
     kd, vd = (x.permute(0, 2, 1, 3).reshape(r, 1, l, feat).contiguous() for x in (kd, vd))
     qd = q.reshape(r, 1, g, feat)
     mask = bias.reshape(r, 1, g, l)
-    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4 + 2 * (kp.numel() * 4 + ks.numel() * 4)
+    n = int(valid.sum())  # the bound counts the slots the rank must read: its own
+    nbytes = (q_planes.numel() * 4 + q_scale.numel() * 4
+              + 2 * (kp.numel() * 4 + ks.numel() * 4) * n // l
               + bias.untyped_storage().nbytes() + r * g * (feat + 2) * 4)
-    ops_s = 2 * r * g * l * feat / INT8_OPS_PER_S + 2 * r * g * l * feat / F32_OPS_PER_S
+    ops_s = 2 * r * g * n * feat / INT8_OPS_PER_S + 2 * r * g * n * feat / F32_OPS_PER_S
     err = max((got - want).abs().max().item(), (st - want_st).abs().max().item())
     _row(rows, "plane_decode_attention", plane_attn.KERNEL, tag, err, timer,
          lambda: plane_attn.plane_decode_attention(*args, sm_scale=sm, stats=True),
@@ -4592,8 +4631,422 @@ def _seq_decodes(torch, device, mesh, rank: int, card: str, outdir: str) -> dict
     return out
 
 
+#: (g): the paged serves over the data axis, path Y's mix under
+#: ``prefix_cache`` (slots=4, 2 a rank, max_len 512, the 176-page pool of
+#: PAGED_PATHS["Y"]) at DATA_DEPTH layers: path B's weights over
+#: ``paged_bf16`` (bit for bit), path Y's stack in float32 with its boundary
+#: codes forced
+PAGED_DATA = {"qwen3-1.7b B paged_bf16": ("B", "paged_bf16"), "qwen3-1.7b Y": ("A", PAGED_CACHE)}
+#: (g): the largest relative difference of a float pool leaf (the int4 cache's
+#: per-slot scales) allowed in path Y's float32 serve
+PAGE_SCALE_RTOL = 1e-5
+#: (h): the sequence-parallel configs at full width, float32: each one's cut
+#: and cache format
+LAYER_SEQ = {"deepseek-v2-lite-16b": dict(n_layers=1),
+             "seamless-m4t-medium": dict(n_layers=2, n_enc_layers=2),
+             "qwen3-1.7b": dict(n_layers=1, cache_format=PAGED_CACHE)}
+
+
+class RoundCodeLog(CodeLog):
+    """:class:`CodeLog` over a serve, its roundings grouped by the engine's
+    rounds (a prefill group, a decode call; :meth:`watch`): without
+    ``plain`` it records data = 1's roundings, the site of each and where
+    each round starts; with ``plain`` (data = 1's log) a data rank's
+    roundings are compared with the same round's, each against the rank's
+    share of the data = 1 tensor in the layout its site names
+    (:data:`ROUND_SITES`): the tokens the rows write to the cache
+    (``tokens``, ``[tokens, ...]``), the rows' queries (``queries``,
+    ``[rows, heads, S · G, feat]``, positions major) or the rows'
+    activations (``acts``, ``[rows · S, ...]``).  A rounding whose shape is
+    not its layout's share fails.  Only the rows' real tokens are compared:
+    a pad token's values (an idle row, a short row's pads, which attend to
+    stale ring slots that differ by rank) are the rank's own, and their
+    elements are counted in ``exempt``."""
+
+    def __init__(self, plain=None, force=False):
+        import types
+
+        super().__init__(None if plain is None else types.SimpleNamespace(calls=[]), force)
+        self.ref, self.starts, self.round, self.cursor = plain, [], -1, 0
+        self.layout, self.site, self.sites, self.exempt = None, "acts", [], 0
+
+    def watch(self, eng) -> None:
+        """Wrap ``eng``'s rounds (inside any ``ModelCallLog`` block)."""
+        refill, decode = eng._prefill_slots, eng._chunk_decode
+
+        def rec_refill(assignments):
+            self._start(len(assignments), [i for i, (slot, _, _) in enumerate(assignments)
+                                           if eng._owns(slot)],
+                        [n for _, _, n in assignments])
+            return refill(assignments)
+
+        def rec_decode(chunks, decode_slots):
+            kept = [0] * eng.slots
+            for slot, n in chunks:
+                kept[slot] = n
+            for slot in decode_slots:
+                kept[slot] = 1
+            self._start(eng.slots, list(range(eng._base, eng._base + eng._per)), kept)
+            return decode(chunks, decode_slots)
+
+        eng._prefill_slots, eng._chunk_decode = rec_refill, rec_decode
+
+    def __enter__(self):
+        super().__enter__()
+        from repro_torch.core import kvcache
+
+        undo, saved = self._undo, []
+        for cls, name, site in ROUND_SITES:
+            cls = getattr(kvcache, cls)
+            raw = vars(cls)[name]
+            fn = raw.__func__ if isinstance(raw, staticmethod) else raw
+
+            def at(*args, _fn=fn, _site=site):
+                self.site = _site
+                try:
+                    return _fn(*args)
+                finally:
+                    self.site = "acts"
+
+            setattr(cls, name, staticmethod(at) if isinstance(raw, staticmethod) else at)
+            saved.append((cls, name, raw))
+        self._undo = lambda: (undo(), [setattr(c, n, r) for c, n, r in saved])
+        return self
+
+    def _start(self, rows: int, mine: list, kept: list) -> None:
+        self.round += 1
+        if self.ref is None:
+            self.starts.append(len(self.calls))
+            return
+        self.cursor = self.ref.starts[self.round]
+        off = [0]
+        for n in kept:
+            off.append(off[-1] + n)
+        tokens = [t for i in mine for t in range(off[i], off[i] + kept[i])]
+        self.layout = (rows, mine, off[-1], tokens, max(kept + [1]), kept)
+
+    def codes(self, v, q):
+        import torch
+
+        if self.ref is None:
+            self.sites.append(self.site)
+            return super().codes(v, q)
+        vp, qp = self.ref.calls[self.cursor]
+        site = self.ref.sites[self.cursor]
+        check(site == self.site, f"rounding {self.cursor}: at {self.site}, data=1's at {site}")
+        self.cursor += 1
+        rows, mine, n_tok, tokens, s_len, kept = self.layout
+        n = torch.tensor([kept[i] for i in mine], device=v.device, dtype=torch.long)
+        if site == "tokens":
+            check(vp.shape[0] == n_tok, f"{site} rounding {self.cursor - 1}: "
+                  f"{tuple(vp.shape)} is not the round's {n_tok} tokens")
+            idx, real = tokens, torch.ones_like(v, dtype=torch.bool)
+        elif site == "queries":
+            check(vp.ndim == 4 and vp.shape[0] == rows and vp.shape[2] % s_len == 0,
+                  f"{site} rounding {self.cursor - 1}: {tuple(vp.shape)} is not [{rows} rows, "
+                  f"heads, {s_len} · G, feat]")
+            idx = mine
+            s = torch.arange(v.shape[2], device=v.device) // (v.shape[2] // s_len)
+            real = (s[None, :] >= s_len - n[:, None])[:, None, :, None].expand(v.shape)
+        else:
+            check(vp.shape[0] == rows * s_len, f"{site} rounding {self.cursor - 1}: "
+                  f"{tuple(vp.shape)} is not [{rows} rows · {s_len}, ...]")
+            idx = [i * s_len + j for i in mine for j in range(s_len)]
+            pos = torch.arange(v.shape[0], device=v.device)
+            real = (pos % s_len >= s_len - n[pos // s_len]).reshape(
+                -1, *[1] * (v.ndim - 1)).expand(v.shape)
+        sel = vp[idx]
+        check(sel.shape == v.shape, f"{site} rounding {self.cursor - 1}: {tuple(v.shape)} is "
+              f"not the rank's share {tuple(sel.shape)} of {tuple(vp.shape)}")
+        self.exempt += int((~real).sum())
+        self.plain.calls.append((torch.where(real, sel, v), torch.where(real, qp[idx], q)))
+        if not q.numel():  # the rank's rows write no token
+            self.calls.append(None)
+            return q
+        return super().codes(v, q)
+
+
+#: :class:`RoundCodeLog`'s rounding sites: a cache format's method and the
+#: layout of what rounds inside it; every other rounding is ``acts``
+ROUND_SITES = (("Int8CacheFormat", "_encode", "tokens"),
+               ("BitPlaneCacheFormat", "_encode", "tokens"),
+               ("BitPlaneCacheFormat", "_query_planes", "queries"))
+
+
+def _page_events(eng, on_event) -> None:
+    """``on_event(eng)`` after each prefix attach and before each request's
+    end (its pages released) of ``eng``'s run."""
+    attach, finish = eng._try_attach_prefix, eng._finish
+
+    def attached(slot, req):
+        ok = attach(slot, req)
+        if ok:
+            on_event(eng)
+        return ok
+
+    def finishing(req, slot, state):
+        if slot is not None:
+            on_event(eng)
+        finish(req, slot, state)
+
+    eng._try_attach_prefix, eng._finish = attached, finishing
+
+
+def _pool_snapshot(eng) -> dict:
+    """data = 1's caches and host tables at an event (on the card)."""
+    return {"caches": [{k: t.clone() for k, t in c.items()} for c in eng.caches],
+            "tables": eng._tables.copy()}
+
+
+def _pages_held(torch, eng, snap) -> tuple:
+    """(pages compared, integer elements differing, float elements
+    differing, the largest relative difference of a float element) of a
+    data rank's engine against data = 1's ``snap`` at the same event: every
+    page a valid table row of the rank's slots names, at the ring slots the
+    row holds (``pos_ids`` >= 0; a page's other slots hold what the rank last
+    wrote there, never read), with the rows' positions and tables; and every
+    page the prefix index holds, whole.  Integer leaves: positions, tables,
+    int8 and plane payloads; float leaves: bf16 payloads, scales."""
+    import numpy as np
+
+    from repro_torch.core import paging
+
+    check(np.array_equal(eng._tables, snap["tables"]), "the host's tables differ from data=1's")
+    pages, differ, rel = 0, [0, 0], 0.0
+    npp, page = eng._npp, eng._page
+
+    def cmp(a, b, live=None):
+        nonlocal rel
+        if live is not None:  # the ring slots the row holds
+            a, b = a.reshape(npp, page, -1)[live], b.reshape(npp, page, -1)[live]
+        differ[a.is_floating_point()] += int((a != b).sum())
+        if a.is_floating_point() and a.numel():
+            rel = max(rel, float((a.double() - b.double()).abs().max()
+                                 / b.double().abs().max().clamp_min(1e-30)))
+
+    for slot in range(eng._base, eng._base + eng._per):
+        if not eng._table_valid[slot]:
+            continue
+        row = slot - eng._base
+        idx = torch.from_numpy(eng._tables[slot]).to(eng.device)
+        pages += len(idx)
+        for mine, want in zip(eng.caches, snap["caches"]):
+            live = (mine["pos_ids"][row] >= 0).reshape(npp, page)
+            cmp(mine["pos_ids"][row], want["pos_ids"][slot])
+            for name, t in mine.items():
+                if name in paging.POOL_KEYS:
+                    cmp(t[idx], want[name][idx], live)
+                elif name in paging.TABLE_KEYS:
+                    cmp(t[row], want[name][slot])
+    indexed, stack = [], [eng.prefix_index.root]
+    while stack:
+        for node in stack.pop().values():
+            indexed.append(node.page)
+            stack.append(node.children)
+    if indexed:
+        idx = torch.tensor(indexed, device=eng.device)
+        pages += len(indexed)
+        for mine, want in zip(eng.caches, snap["caches"]):
+            for name, t in mine.items():
+                if name in paging.POOL_KEYS:
+                    cmp(t[idx], want[name][idx])
+    return pages, differ[0], differ[1], rel
+
+
+def _mix_serve(engine, params, cfg, mode, cache, device, *, mesh=None, force=None, hooks=()):
+    """One serve of path Y's mix under ``prefix_cache`` (greedy, or
+    teacher-forced to ``force``), ``hook(eng)`` each before the first
+    submit → (engine, logit trace, tokens by request, wall s)."""
+    import torch
+
+    _, prompts, max_news = _prefix_mix(cfg)
+    eng = engine.ServeEngine(params, cfg, mesh=mesh, mode=mode, cache_format=cache,
+                             scheduler="prefix_cache", slots=TP_SLOTS, max_len=512,
+                             page_pool_pages=PAGED_PATHS["Y"][1], trace_logits=True,
+                             device=device)
+    for hook in hooks:
+        hook(eng)
+    for i, (prompt, n) in enumerate(zip(prompts, max_news)):
+        eng.submit(prompt, n, force=None if force is None else force[i])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    return eng, list(eng.logit_trace), [r.out for r in eng.requests], time.perf_counter() - t0
+
+
+def _paged_serves(torch, device, mesh) -> dict:
+    """(g): qwen3-1.7b at full width and :data:`DATA_DEPTH` layers, path Y's
+    mix under ``prefix_cache`` over :data:`PAGED_DATA`'s stacks, served at
+    data = 1 in this process and over the (data=2, model=1) mesh on the same
+    weights, teacher-forced to data = 1's tokens; at each prefix attach and
+    request end the rank's pages against data = 1's (:func:`_pages_held`)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.serve import engine
+
+    out: dict = {}
+    cfg = get_config("qwen3-1.7b").scaled(n_layers=DATA_DEPTH)
+    for label, (path, cache) in PAGED_DATA.items():
+        mode = PATHS[path][0]
+        t0 = time.perf_counter()
+        host = engine.materialize_converted(cfg, mode, seed=SEED, device=device,
+                                            keep=lambda leaf: engine.tree_to(leaf, "cpu"))
+        run_cfg = cfg if path == "B" else dataclasses.replace(cfg, dtype=torch.float32)
+        snaps, held = [], []
+        log1 = RoundCodeLog() if path == "A" else None
+        hooks = [lambda e: _page_events(e, lambda x: snaps.append(_pool_snapshot(x)))]
+        with log1 or _Null():
+            eng1, trace1, toks1, _ = _mix_serve(
+                engine, engine.tree_to(host, device), run_cfg, mode, cache, device,
+                hooks=hooks + ([log1.watch] if log1 else []))
+        stats1 = eng1.stats().pages
+        del eng1
+        torch.cuda.empty_cache()
+        ops.reset_counts()
+        codes = RoundCodeLog(log1, force=True) if path == "A" else None
+        hooks = [lambda e: _page_events(e, lambda x: held.append(
+            _pages_held(torch, x, snaps[len(held)])))]
+        with dryrun.ModelCallLog() as served, codes or _Null():
+            eng, trace, toks, wall = _mix_serve(
+                engine, host, run_cfg, mode, cache, device, mesh=mesh, force=toks1,
+                hooks=hooks + ([codes.watch] if codes else []))
+        plain = ops.plain_cuda_counts()
+        check(all(v == 0 for v in plain.values()), f"data (g) {label}: a plain version ran "
+              "on CUDA")
+        got = eng.resident_bytes()  # the weights drawn and converted at cfg's dtype
+        twin = dryrun.rank_bytes(dataclasses.replace(eng.cfg, dtype=cfg.dtype), "decode",
+                                 mesh_axes={"data": DATA_WORLD, "model": 1}, rules=eng.rules,
+                                 qmode=mode, batch=TP_SLOTS, cache_len=512,
+                                 page_pool_pages=PAGED_PATHS["Y"][1])
+        res = {"collectives": dryrun.held_collectives(eng.view, dryrun.serve_collectives(
+                   eng, served.calls, rounds=served.rounds, shares=served.shares)),
+               "shares": list(served.shares), "model_calls": len(served.calls),
+               "rounds": len(served.rounds), "weights": got["weights"], "cache": got["cache"],
+               "weights_twin": twin["weights"], "cache_twin": twin["cache"],
+               "stats": eng.stats().pages, "data1_stats": stats1, "tokens": toks,
+               "data1_tokens": toks1, "wall_s": wall, "collective_s": eng.view.collective_s,
+               "kinds_equal": [(k, s) for k, s, _ in trace] == [(k, s) for k, s, _ in trace1],
+               "bitwise": _first_difference(trace, trace1) is None,
+               "first_difference": _first_difference(trace, trace1),
+               "drift": _drift((trace, trace1)), "events": len(held), "data1_events": len(snaps),
+               "pages": sum(h[0] for h in held), "pages_differ": sum(h[1] for h in held),
+               "pages_float_differ": sum(h[2] for h in held),
+               "pages_rel": max((h[3] for h in held), default=0.0),
+               "s": time.perf_counter() - t0}
+        if codes is not None:
+            res["codes"] = dict(differ=codes.differ, forced=codes.forced, far=codes.far,
+                                calls=len(codes.calls), data1_calls=len(log1.calls),
+                                exempt=codes.exempt)
+        del eng, host, snaps, held, log1, codes
+        torch.cuda.empty_cache()
+        out[label] = res
+    return out
+
+
+def _layer_seq(torch, device, mesh, rank: int, outdir: str) -> dict:
+    """(h): each :data:`LAYER_SEQ` config at full width in float32, batch 1:
+    path S's 4,160-token prompt (with a seeded context for a cross config)
+    prefilled on one device in this rank (a paged cache's pages permuted by
+    a seeded permutation, so that a rank's block of the pool holds scattered
+    ring slots), then :data:`SEQ_STEPS` ``decode_step`` calls over the whole
+    cache and, teacher-forced to those tokens, over the rank's cut under
+    ``plan(cfg, SHAPES["long_500k"], mesh).rules``."""
+    import numpy as np
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core import kvcache, paging
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as launch_mesh
+    from repro_torch.models import attention
+    from repro_torch.models import model as model_lib
+    from repro_torch.serve import engine
+    from repro_torch.sharding import partitioning as P
+
+    out: dict = {}
+    axes = {"data": DATA_WORLD, "model": 1}
+    for arch, cut in LAYER_SEQ.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch).scaled(dtype=torch.float32, **cut)
+        rules = launch_mesh.plan(cfg, SHAPES["long_500k"], mesh).rules
+        check(rules["kv_seq"] == ("data",) and rules["batch"] == (),
+              f"(h) {arch}: plan's long_500k rules {rules['batch']!r} / {rules['kv_seq']!r}")
+        eng = engine.ServeEngine(model_lib.materialize(cfg, SEED, device), cfg, mesh=mesh,
+                                 slots=DATA_WORLD, max_len=S_MAX_LEN, device=device)
+        batch = {"tokens": torch.from_numpy(_seq_prompt(cfg)[None]).long().to(device)}
+        if cfg.is_enc_dec or cfg.family == "vlm":
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            batch["enc_embeds" if cfg.is_enc_dec else "ctx_embeds"] = torch.randn(
+                (1, cfg.encoder_tokens, cfg.d_model), generator=gen, device=device)
+        p_len = batch["tokens"].shape[1]
+        logits, whole = model_lib.prefill(eng.params, batch, eng.cfg, max_len=S_MAX_LEN)
+        first = logits[:, -1].argmax(-1)
+        if isinstance(kvcache.format_for(eng.cfg), paging.PagedCacheFormat):
+            gen = torch.Generator(device=device).manual_seed(SEED + 8)
+            for c in whole:
+                pool = next(t for k, t in c.items() if k in paging.POOL_KEYS)
+                perm = torch.randperm(pool.shape[0], generator=gen, device=device)
+                for k, t in list(c.items()):
+                    if k in paging.POOL_KEYS:
+                        moved = torch.empty_like(t)
+                        moved[perm] = t
+                        c[k] = moved
+                    elif k in paging.TABLE_KEYS:
+                        c[k] = perm[t.long()].to(t.dtype)
+        cut_caches = P.shard_caches(whole, mesh, rules, attention.attn_dims(cfg, 1)[2], eng.cfg)
+
+        def drive(caches, seq: bool, force=None):
+            rows, toks, held, launches = [], [], [], None
+            tok = first
+            for i in range(SEQ_STEPS):
+                if force is not None:
+                    tok = torch.tensor([force[i]], device=device)
+                toks.append(int(tok.item()))
+                eng.view.reset_counts()
+                torch.cuda.synchronize()
+                ops.reset_counts()
+                lg, caches = model_lib.decode_step(
+                    eng.params, tok[:, None], caches,
+                    torch.tensor([p_len + i], dtype=torch.int32, device=device), eng.cfg,
+                    mesh=eng.view if seq else None, rules=rules if seq else None)
+                torch.cuda.synchronize()
+                if i == 1:
+                    launches = {k: v for k, v in ops.launch_counts().items() if v}
+                if seq:
+                    held.append(dryrun.held_collectives(eng.view, dryrun.call_collectives(
+                        eng.cfg, "bf16", "decode", batch=1, seq=1, tp=1, rules=rules,
+                        mesh_axes=axes)))
+                rows.append(lg[:, -1].cpu().numpy())
+                tok = lg[:, -1].argmax(-1)
+            return rows, toks, held, launches, caches
+
+        ops.reset_counts()
+        rows1, toks1, _, launches1, _ = drive(whole, False)
+        rows, toks, held, launches, cut_caches = drive(cut_caches, True, force=toks1)
+        plain = ops.plain_cuda_counts()
+        check(all(v == 0 for v in plain.values()), f"(h) {arch}: a plain version ran on CUDA")
+        rel = max(float(np.abs(np.float64(a) - b).max() / np.abs(np.float64(b)).max())
+                  for a, b in zip(rows, rows1))
+        twin = dryrun.rank_bytes(eng.cfg, "decode", mesh_axes=axes, rules=rules, qmode="bf16",
+                                 batch=1, cache_len=S_MAX_LEN)
+        np.save(f"{outdir}/h_{arch}_rank{rank}.npy", np.stack(rows))
+        out[arch] = dict(rel=rel, collectives_equal=all(h == w for h, w in held),
+                         collectives=held[0], launches=launches, launches1=launches1,
+                         weights=eng.resident_bytes()["weights"], weights_twin=twin["weights"],
+                         cache=kvcache.cache_resident_bytes(cut_caches),
+                         cache_twin=twin["cache"], tokens=toks, tokens1=toks1,
+                         s=time.perf_counter() - t0)
+        del eng, whole, cut_caches
+        torch.cuda.empty_cache()
+    return out
+
+
 def _data_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None:
-    """One rank of the data phase: (e) then (f); writes what it held and
+    """One rank of the data phase: (e) to (h) in turn; writes what it held and
     measured to ``outdir/data_rank<r>.json``."""
     import torch
 
@@ -4610,6 +5063,12 @@ def _data_rank(rank: int, world: int, port: int, outdir: str, card: str) -> None
     t0 = time.perf_counter()
     out["f"] = _seq_decodes(torch, device, mesh, rank, card, outdir)
     out["f_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["g"] = _paged_serves(torch, device, mesh)
+    out["g_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["h"] = _layer_seq(torch, device, mesh, rank, outdir)
+    out["h_s"] = time.perf_counter() - t0
     torch.distributed.destroy_process_group()
     with open(f"{outdir}/data_rank{rank}.json", "w") as f:
         json.dump(out, f)
@@ -4631,6 +5090,26 @@ def phase_data(torch, card) -> None:
     count and raw bytes, equal to ``dryrun.serve_collectives`` (its model
     calls and rounds); each kernel's launches a decode step equal to data
     = 1's; a profiled decode step's busy ms printed.
+
+    (g): qwen3-1.7b at full width and :data:`DATA_DEPTH` layers, path Y's
+    mix under ``prefix_cache`` (the 176-page pool, slots = 4, 2 a rank) on
+    path B's weights over ``paged_bf16`` and on path Y's stack in float32
+    with its boundary codes forced (:class:`RoundCodeLog`), held against
+    data = 1 in the rank's process: the tokens, B's logits bit for bit and
+    Y's within ``PATH_LIMITS``, the page stats key for key, at each prefix
+    attach and request end every page the rank's tables name (and every
+    page the prefix index holds) equal to data = 1's (Y's float scales
+    within :data:`PAGE_SCALE_RTOL`), the rank's bytes (the whole pool) and
+    collectives (each prefix registration's page copy among them) equal to
+    the dry run's.
+
+    (h): deepseek-v2-lite-16b (MLA, 1 layer), seamless-m4t-medium (2 + 2
+    layers, its context whole on each rank) and qwen3-1.7b (1 layer over
+    ``paged_int4_bp_fused``, its pages permuted) at full width in float32:
+    path S's prompt, 16 sequence-parallel decode steps within ``SEQ_RTOL``
+    of one device's, the collectives and bytes equal to the dry run's, the
+    kernels' launches a step (plane attention with its statistics over a
+    gathered paged block) equal to one device's.
 
     (f): mixtral-8x7b at full width, 1 layer, batch 1, on B's and A's
     stacks: path S's 4,160-token prompt prefilled on one device in each
@@ -4659,9 +5138,12 @@ def phase_data(torch, card) -> None:
                 ranks.append(json.load(f))
         seq_rows = {(path, r): np.load(f"{outdir}/seq_{path}_rank{r}.npy")
                     for path in ("B", "A") for r in range(DATA_WORLD)}
+        h_rows = {(arch, r): np.load(f"{outdir}/h_{arch}_rank{r}.npy")
+                  for arch in LAYER_SEQ for r in range(DATA_WORLD)}
     print(f"data phase: {DATA_WORLD} gloo ranks on one card ({ranks[0]['mesh']}), ranks on "
           f"cuda:{[r['current_device'] for r in ranks]}; (e) {ranks[0]['e_s']:.1f} s, (f) "
-          f"{ranks[0]['f_s']:.1f} s on rank 0; {wall:.1f} s start to exit, on {card}")
+          f"{ranks[0]['f_s']:.1f} s, (g) {ranks[0]['g_s']:.1f} s, (h) {ranks[0]['h_s']:.1f} s "
+          f"on rank 0; {wall:.1f} s start to exit, on {card}")
     for label, path in DATA_SERVES.items():
         for r in ranks:
             res, tag = r["e"][label], f"data (e) {label} rank {r['rank']}"
@@ -4711,6 +5193,75 @@ def phase_data(torch, card) -> None:
             check(f["forced"][0] <= PATH_LIMITS["float32"][0]
                   and f["forced"][1] >= PATH_LIMITS["float32"][1],
                   f"{tag}: float32 drift past PATH_LIMITS")
+    for label, (path, cache) in PAGED_DATA.items():
+        for r in ranks:
+            res, tag = r["g"][label], f"data (g) {label} rank {r['rank']}"
+            check(res["tokens"] == ranks[0]["g"][label]["tokens"]
+                  and res["tokens"] == res["data1_tokens"], f"{tag}: tokens differ")
+            check(res["kinds_equal"], f"{tag}: data=2 scheduled other steps than data=1")
+            check(res["stats"] == res["data1_stats"], f"{tag}: page stats {res['stats']} != "
+                  f"data=1's {res['data1_stats']}")
+            check(res["stats"]["prefix_hits"] > 0 and res["stats"]["cow_copies"] > 0
+                  and res["shares"], f"{tag}: no prefix attached, copied on write or shared")
+            check(res["events"] == res["data1_events"] and res["pages"] > 0,
+                  f"{tag}: {res['events']} page events, data=1 {res['data1_events']}")
+            check(res["weights"] == res["weights_twin"] and res["cache"] == res["cache_twin"],
+                  f"{tag}: bytes {res['weights']} / {res['cache']} != rank_bytes "
+                  f"{res['weights_twin']} / {res['cache_twin']}")
+            have, want = res["collectives"]
+            check(have == want, f"{tag}: the serve's collectives {have} != the dry run's {want}")
+            rel, cos, agree = res["drift"]
+            print(f"{tag} ({DATA_DEPTH} layers, path Y's mix, prefix_cache, "
+                  f"{PAGED_PATHS['Y'][1]}-page pool whole on each rank): {res['pages']} pages "
+                  f"compared at {res['events']} attaches and request ends, {res['pages_differ']} "
+                  f"integer and {res['pages_float_differ']} float elements differ from data=1's, "
+                  f"largest float difference {res['pages_rel']:.3e} of the leaf's largest"
+                  f"; page stats = data=1's {res['stats']}; {len(res['shares'])} prefix "
+                  f"registrations copied {sum(res['shares'])} pages; collectives {have} = the "
+                  f"dry run's ({res['model_calls']} model calls, {res['rounds']} rounds); cache "
+                  f"{res['cache']} B (rank_bytes {res['cache_twin']} B); serve "
+                  f"{res['wall_s'] * 1e3:.1f} ms wall, collectives "
+                  f"{res['collective_s'] * 1e3:.1f} ms host; vs data=1: bit for bit "
+                  f"{res['bitwise']}, first differing row {res['first_difference']}, max rel err "
+                  f"{rel:.3e}, min cosine {cos:.6f}, argmax agree {agree}; {res['s']:.1f} s; "
+                  f"on {card}")
+            if path == "B":
+                check(res["bitwise"] and res["pages_differ"] == res["pages_float_differ"] == 0,
+                      f"{tag}: not bit for bit data=1's")
+                continue
+            c = res["codes"]
+            print(f"{tag} codes: {c['forced']} of {c['differ']} differing codes forced at a "
+                  f"boundary ({c['far']} farther than {FLIP_TOL} of a step) in {c['calls']} "
+                  f"rank roundings of data=1's {c['data1_calls']}; {c['exempt']} elements "
+                  f"of pad tokens left the rank's own")
+            check(c["far"] == 0 and res["pages_differ"] == 0
+                  and res["pages_rel"] <= PAGE_SCALE_RTOL,
+                  f"{tag}: codes far from a boundary or pages differ")
+            check(rel <= PATH_LIMITS["float32"][0] and cos >= PATH_LIMITS["float32"][1],
+                  f"{tag}: float32 drift past PATH_LIMITS")
+    for arch in LAYER_SEQ:
+        check(np.array_equal(h_rows[(arch, 0)], h_rows[(arch, 1)]),
+              f"data (h) {arch}: the ranks' logits differ")
+        for r in ranks:
+            res, tag = r["h"][arch], f"data (h) {arch} rank {r['rank']}"
+            check(res["collectives_equal"], f"{tag}: a decode call's collectives differ from "
+                  f"the dry run's {res['collectives']}")
+            check(res["weights"] == res["weights_twin"] and res["cache"] == res["cache_twin"],
+                  f"{tag}: bytes {res['weights']} / {res['cache']} != rank_bytes "
+                  f"{res['weights_twin']} / {res['cache_twin']}")
+            paged = LAYER_SEQ[arch].get("cache_format") == PAGED_CACHE
+            check(res["launches"] == res["launches1"] and
+                  res["launches"].get("plane_decode_attention", 0) == int(paged),
+                  f"{tag}: a decode step launches {res['launches']}, one device "
+                  f"{res['launches1']}")
+            check(res["tokens"] == res["tokens1"] and res["rel"] <= SEQ_RTOL,
+                  f"{tag}: float32 {res['rel']:.3e} of the largest logit")
+            print(f"{tag} (float32, {LAYER_SEQ[arch]}, batch 1, path S's prompt): "
+                  f"{SEQ_STEPS} sequence-parallel decode steps within {res['rel']:.3e} of one "
+                  f"device's largest logit (limit {SEQ_RTOL}); each call's collectives "
+                  f"{res['collectives']} = call_collectives under the long_500k rules; cache "
+                  f"{res['cache']} B (rank_bytes {res['cache_twin']} B); launches a step "
+                  f"{res['launches']} (one device's); {res['s']:.1f} s; on {card}")
     for path in ("B", "A"):
         label = f"mixtral-8x7b {path}"
         check(np.array_equal(seq_rows[(path, 0)], seq_rows[(path, 1)]),
@@ -5167,27 +5718,24 @@ def _mesh_layers(torch, device, rank: int) -> dict:
     return out
 
 
-def _mesh_elastic(torch, device, rank: int, ckpt_dir: str) -> dict:
-    """(c): the float32 cut's trainer at (data=2, model=1), a checkpoint every
-    2 steps and a failure before step 3, against an uninterrupted run at
-    data=2 (bitwise) and, restored from the step-2 checkpoint on the mesh
-    ``plan_elastic_mesh(1, model_parallel=1)`` gives (one device), against an
-    uninterrupted run there."""
-    import shutil
-
+def _mesh_elastic(torch, device, ckpt_dir: str) -> dict:
+    """(c): the float32 cut's trainer at (data=2, model=1), a checkpoint of
+    the global state every 2 steps and a failure before step 3, against an
+    uninterrupted run at data=2 (bitwise)."""
     from repro_torch import tree as tree_lib
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.distributed import mesh as mesh_lib
-    from repro_torch.distributed.resilience import FailureSim, plan_elastic_mesh
+    from repro_torch.distributed.resilience import FailureSim
     from repro_torch.train import trainer as trainer_lib
 
     cut = get_config("qwen3-1.7b").scaled(n_layers=CUT_LAYERS, dtype=torch.float32)
     data = DataConfig(vocab_size=cut.vocab_size, seq_len=CUT_SEQ, global_batch=CUT_BATCH,
                       seed=SEED)
     steps, every, fail_at = RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"]
+    mesh = mesh_lib.device_mesh(device, (MESH_WORLD, 1), ("data", "model"))
 
-    def run(mesh, ckpt, failure, every=every):
+    def run(ckpt, failure):
         tr = trainer_lib.Trainer(
             cut, data, trainer_lib.TrainerConfig(steps=steps, ckpt_every=every, ckpt_dir=ckpt,
                                                  log_every=1, seed=SEED, peak_lr=CUT_LR,
@@ -5196,23 +5744,11 @@ def _mesh_elastic(torch, device, rank: int, ckpt_dir: str) -> dict:
         t0 = time.perf_counter()
         return tr.run(), time.perf_counter() - t0
 
-    mesh = mesh_lib.device_mesh(device, (MESH_WORLD, 1), ("data", "model"))
-    failed, sec = run(mesh, ckpt_dir, FailureSim(fail_at=fail_at))
-    clean, clean_s = run(mesh, None, None)
-    out = {"history": [h["step"] for h in failed["history"]], "s": sec,
-           "bitwise": all(torch.equal(a, b) for a, b in zip(
-               tree_lib.leaves(failed["params"]), tree_lib.leaves(clean["params"])))}
-    plan = plan_elastic_mesh(1, model_parallel=1)
-    out["plan"] = list(plan)
-    out["clean_s"] = clean_s
-    if rank == 0:  # the shrunk job on one device, from the step-2 checkpoint
-        check(plan == (1, 1), f"plan_elastic_mesh(1, model_parallel=1) gave {plan}")
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{steps:09d}"))
-        resumed, out["shrunk_s"] = run(None, ckpt_dir, None, every=steps + 1)
-        one, out["one_s"] = run(None, None, None)
-        out["shrunk_history"] = [h["step"] for h in resumed["history"]]
-        out["shrunk"] = _held(torch, resumed["params"], one["params"], steps - every)
-    return out
+    failed, sec = run(ckpt_dir, FailureSim(fail_at=fail_at))
+    clean, clean_s = run(None, None)
+    return {"history": [h["step"] for h in failed["history"]], "s": sec, "clean_s": clean_s,
+            "bitwise": all(torch.equal(a, b) for a, b in zip(
+                tree_lib.leaves(failed["params"]), tree_lib.leaves(clean["params"])))}
 
 
 def _mesh_pipe(torch, device) -> dict:
@@ -5251,8 +5787,8 @@ def _mesh_pipe(torch, device) -> dict:
 
 
 def _mesh_rank(rank: int, world: int, port: int, outdir: str) -> None:
-    """One rank of the mesh phase: (a)-(d) in turn, then what it measured to
-    ``outdir/mesh<r>.json``."""
+    """One rank of the mesh phase: (a)-(g) in turn, then what it measured
+    to ``outdir/mesh<r>.json``."""
     import torch
 
     from repro_torch.distributed import mesh as mesh_lib
@@ -5267,7 +5803,7 @@ def _mesh_rank(rank: int, world: int, port: int, outdir: str) -> None:
     out["a"] = _mesh_full(torch, device, rank)
     out["a_s"] = time.perf_counter() - t0
     for part, run in (("b", lambda: _mesh_cut(torch, device, rank)),
-                      ("c", lambda: _mesh_elastic(torch, device, rank,
+                      ("c", lambda: _mesh_elastic(torch, device,
                                                   os.path.join(outdir, "ckpt"))),
                       ("d", lambda: _mesh_pipe(torch, device)),
                       ("efg", lambda: _mesh_layers(torch, device, rank))):
@@ -5293,9 +5829,9 @@ def phase_train_mesh(torch, card) -> None:
     over FSDP, TP and the compressed pod hop against (data=1, model=1): the
     first step's loss and gradients, the parameters after MESH_CUT_STEPS
     steps (Adam's sign elements counted), the hop's output code for code.
-    (c) the trainer's restart at data=2 bitwise equal to an uninterrupted
-    run, and restored on ``plan_elastic_mesh(1, model_parallel=1)``'s one
-    device within (b)'s limits of an uninterrupted run there.  (d)
+    (c) the trainer's restart at data=2 from a checkpoint of the global
+    state bitwise equal to an uninterrupted run (the restore on a shrunk
+    mesh is held on the CPU, ``tests/test_torch_distributed.py``).  (d)
     ``pipeline_apply`` at pipe=2 against the sequential stack.  (e)-(g) the
     MLA + MoE, Mamba and encoder-decoder cuts of ``MESH_LAYER_PARTS`` at
     tp = 2 (and deepseek's at data = 2) against one device, update by update
@@ -5383,21 +5919,13 @@ def phase_train_mesh(torch, card) -> None:
     want = restart_pattern(RESTART["steps"], RESTART["ckpt_every"], RESTART["fail_at"])
     print(f"mesh (c) trainer at (data=2, model=1), FailureSim(fail_at={RESTART['fail_at']}): "
           f"history {c0['history']} (the reference's pattern {want}), {c0['s']:.1f} s (the "
-          f"uninterrupted run {c0['clean_s']:.1f} s, the one-device runs {c0['shrunk_s']:.1f} "
-          f"and {c0['one_s']:.1f} s, checkpoints of the global state, {MESH_MOMENTS} moments, "
-          f"included); resumed "
-          f"vs uninterrupted bitwise on rank 0 {c0['bitwise']}, rank 1 {ranks[1]['c']['bitwise']}; "
-          f"plan_elastic_mesh(1, model_parallel=1) = {c0['plan']}: restored from step "
-          f"{RESTART['ckpt_every']} there, history {c0['shrunk_history']}, within "
-          f"{c0['shrunk']['worst']:.3e} of an uninterrupted one-device run, "
-          f"{c0['shrunk']['signs']} of {c0['shrunk']['n']} elements past {MESH_RTOL}; on {card}")
+          f"uninterrupted run {c0['clean_s']:.1f} s; checkpoints of the global state, "
+          f"{MESH_MOMENTS} moments, included); resumed vs uninterrupted bitwise on rank 0 "
+          f"{c0['bitwise']}, rank 1 {ranks[1]['c']['bitwise']}; on {card}")
     for r in ranks:
         check(r["c"]["history"] == want and r["c"]["bitwise"],
               f"mesh (c) rank {r['rank']}: history {r['c']['history']}, bitwise "
               f"{r['c']['bitwise']}")
-    check(c0["shrunk_history"] == list(range(RESTART["ckpt_every"], RESTART["steps"]))
-          and not c0["shrunk"]["bad"] and c0["shrunk"]["signs"] <= 1e-3 * c0["shrunk"]["n"],
-          f"mesh (c): the run restored at one device is off: {c0['shrunk']}")
     for r in ranks:
         d = r["d"]
         print(f"mesh (d) pipeline_apply rank {r['rank']}: pipe=2, {MESH_PIPE_M} microbatches "
@@ -5467,12 +5995,15 @@ def phase_train_mesh(torch, card) -> None:
 
 def phase_examples(torch, card) -> None:
     """The twins of ``examples/quickstart.py`` (train the reduced qwen3 40
-    steps, convert to ``w8a8``, prefill and greedy decode) and
+    steps, convert to ``w8a8``, prefill and greedy decode),
     ``examples/serve_quantized.py`` (every registered format, the mixed
-    policies with their cache suffixes, the traced all-fused row) on the
-    card at the reference's sizes: no plain version may run on CUDA
-    (``ops.plain_cuda_counts()``), the quantized rows launch their kernels."""
-    from repro_torch.examples import quickstart, serve_quantized
+    policies with their cache suffixes, the traced all-fused row) and
+    ``examples/bsdp_gemv.py`` (one encode, every BSDP form bit-exact
+    against the int32 oracle) on the card at the reference's sizes: no
+    plain version may run on CUDA (``ops.plain_cuda_counts()``), the
+    quantized rows launch their kernels, bsdp_gemv the three BSDP
+    kernels."""
+    from repro_torch.examples import bsdp_gemv, quickstart, serve_quantized
     from repro_torch.kernels import ops
 
     t0 = time.perf_counter()
@@ -5504,6 +6035,21 @@ def phase_examples(torch, card) -> None:
             "matmul_int4_packed", "plane_decode_attention"}
     check(want <= set(s_launches), f"serve_quantized launched {sorted(s_launches)}, not all "
           f"of {sorted(want)}")
+    t0 = time.perf_counter()
+    ops.reset_counts()
+    g = bsdp_gemv.main(["--device", "cuda"])  # asserts every call bit-exact against bsdp_ref
+    g_launches = {k: v for k, v in ops.launch_counts().items() if v}
+    plain = {k: v for k, v in ops.plain_cuda_counts().items() if v}
+    per_call = {k: f["ms"] for k, f in g["forms"].items()}
+    print(f"examples: bsdp_gemv on {card}: K={bsdp_gemv.K} N={bsdp_gemv.N} M={bsdp_gemv.M}, "
+          f"{bsdp_gemv.CALLS} calls a form, every call bit-exact against ref.bsdp_ref; encode "
+          f"{g['encode_ms']:.3f} ms; ms a call (host clock, a device sync each) {per_call}; "
+          f"launches {g_launches}, plain versions on CUDA {plain or 'none'}, "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(not plain, f"examples: a plain version ran on CUDA in bsdp_gemv: {plain}")
+    check(len(g["forms"]) == len(bsdp_gemv.FORMS)
+          and {"bsdp_gemv", "bsdp_gemm", "bsdp_gemm_fused"} <= set(g_launches),
+          f"bsdp_gemv launched {sorted(g_launches)}")
 
 
 #: each kernel's entry in the ``kernels`` line: its most frequent serving shape

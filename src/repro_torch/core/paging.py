@@ -36,6 +36,13 @@ its per-page scales and the int32 block table, the dry run's count of what
 a default pool allocates.  ``data_axes`` / ``flat_cache_axes`` give the
 pool's leading page axis the ``kv_seq`` rule and the block table the
 ``batch`` rule, as the reference's do.
+
+Over the serving engine's data axis every rank holds the whole pool and
+its slots' rows of the tables; under ``kv_seq`` rules (a
+sequence-parallel decode) a rank holds the contiguous block ``[r·P/w,
+(r+1)·P/w)`` of the pool's pages and the whole tables, and attends over
+the ring slots whose pages it holds (:mod:`repro_torch.models.attention`
+maps the tables to its own pages before :meth:`append` and the reads).
 """
 
 from __future__ import annotations
@@ -108,16 +115,20 @@ class PagedCacheFormat(kvcache.CacheFormat):
                                        device=store[""].device).reshape(batch, npp)
         return store
 
-    def append(self, store, x, b_idx, s_idx, ring) -> None:
-        """In place: each kept token ``x[b_idx, s_idx]`` at ring slot
-        ``ring`` of row ``b_idx`` goes to page ``table[b_idx, ring // page]``
-        at offset ``ring % page``.  The pairs are unique as long as no two
-        rows' live table entries share a page being written (the engine's
-        copy-on-write sees to it)."""
+    def append(self, store, x, b_idx, s_idx, ring, keep=None) -> None:
+        """In place: each token ``x[b_idx, s_idx]`` at ring slot ``ring`` of
+        row ``b_idx`` goes to page ``table[b_idx, ring // page]`` at offset
+        ``ring % page``.  The pairs are unique as long as no two rows' live
+        table entries share a page being written (the engine's copy-on-write
+        sees to it).  With ``keep`` (a sequence-parallel rank's tokens: those
+        whose page it holds, the table mapped to its own pages) every token
+        is encoded and only the kept ones are written."""
         phys = store["_pages"][b_idx, ring // self.page_size].long()
         offset = ring % self.page_size
+        if keep is not None:
+            phys, offset = phys[keep], offset[keep]
         for sfx, enc in self.inner._encode(x[b_idx, s_idx]).items():
-            store[sfx][phys, offset] = enc.to(store[sfx].dtype)
+            store[sfx][phys, offset] = (enc if keep is None else enc[keep]).to(store[sfx].dtype)
 
     def _gather(self, store) -> dict:
         """The block-table gather back to the contiguous ``[B, L, ...]``

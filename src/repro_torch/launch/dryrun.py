@@ -564,7 +564,8 @@ def train_rules(cfg, mesh_axes: Optional[dict] = None) -> dict:
 
 def rank_bytes(cfg, kind: str, *, mesh_axes: Optional[dict] = None, rules=None,
                qmode="bf16", min_dim: int = 64, batch: int = 1, seq_len: int = 1,
-               cache_len: Optional[int] = None, moments: str = TRAIN_MOMENTS) -> dict:
+               cache_len: Optional[int] = None, moments: str = TRAIN_MOMENTS,
+               page_pool_pages: Optional[int] = None) -> dict:
     """A rank's resident bytes of a ``kind`` cell (``"decode"``, ``"prefill"``
     or ``"train"``) over a mesh of ``mesh_axes`` (its model axis the
     tensor-parallel width) under ``rules`` (default :func:`serve_rules`, or
@@ -576,7 +577,10 @@ def rank_bytes(cfg, kind: str, *, mesh_axes: Optional[dict] = None, rules=None,
       and scale by its format's axes);
     * ``cache``: a decode cell's cache of ``batch`` slots and ``cache_len``
       positions (``model.init_cache(..., local=False)``, each leaf by
-      ``P.cache_pspecs``; every mixer kind);
+      ``P.cache_pspecs``; every mixer kind): a paged format's whole pool
+      of ``page_pool_pages`` pages (default ``batch × pages_per_slot``)
+      where the rules leave ``kv_seq`` unset (the serving engine's data
+      axis), its block of them under ``kv_seq`` rules;
     * ``params``, ``grads``, ``moments``: a train cell's state
       (:func:`train_state_bytes` at the rank's shards);
     * ``batch``: the rank's rows of :func:`batch_specs` (``batch`` rows of
@@ -601,6 +605,11 @@ def rank_bytes(cfg, kind: str, *, mesh_axes: Optional[dict] = None, rules=None,
     if kind == "decode":
         caches = model_lib.init_cache(cfg, batch, cache_len or seq_len + DECODE_HORIZON,
                                       device=_META, tp=tp, local=False)
+        if page_pool_pages is not None:
+            from repro_torch.core import paging
+
+            caches = [{k: t.new_empty((page_pool_pages, *t.shape[1:]))
+                       if k in paging.POOL_KEYS else t for k, t in c.items()} for c in caches]
         cache_entries = P.cache_pspecs(caches, rules, attention.attn_dims(cfg, tp)[2], cfg)
         out["cache"], ok = _cache_local_bytes(caches, cache_entries, sizes)
         even = even and ok
@@ -679,24 +688,33 @@ def _seq_axes(rules, sizes: dict) -> tuple:
 
 
 def _combine_collectives(cfg, tp: int, rows: int, seq: int, axes: tuple, sizes: dict) -> list:
-    """``attention.combine_blocks`` in each GQA layer of a sequence-parallel
-    decode call over ``axes``: the all-reduce MAX of the rank's rows' block
-    maxima ``[rows, Hkv, seq·G]`` float32, then the all-reduce SUM of ``[rows,
-    Hkv, seq·G, d_head + 1]`` float32, each over every axis in turn.  ``Hkv``
-    is the KV heads the rank attends with: its share where they shard, else
-    the window of them its query heads read (``_kv_window``, rank 0's)."""
-    layers = sum(cfg.mixer_kind(i) == "attn" for i in range(cfg.n_layers))
-    if not layers:  # a Mamba stack: no ring, no combine
+    """``attention.combine_blocks`` in each layer with an attention ring
+    (``attn``, and an ``attn_cross`` layer's self-attention; a cross layer's
+    context is whole on every rank, a Mamba layer has no ring) of a
+    sequence-parallel decode call over ``axes``: the all-reduce MAX of the
+    rank's rows' block maxima, float32, then the all-reduce SUM of the
+    outputs and sums, each over every axis in turn.  GQA: ``[rows, Hkv,
+    seq·G]`` and ``[rows, Hkv, seq·G, d_head + 1]``, ``Hkv`` the KV heads
+    the rank attends with (its share where they shard, else the window of
+    them its query heads read, ``_kv_window``, rank 0's); MLA: ``[rows,
+    seq, H]`` and the latent context ``[rows, seq, H, kv_lora_rank + 1]``,
+    ``H`` the rank's heads."""
+    layers = sum(cfg.mixer_kind(i) in ("attn", "attn_cross") for i in range(cfg.n_layers))
+    if not layers:
         return []
-    hp, kvp, shard_kv = attention.attn_dims(cfg, tp)
-    if tp == 1 or shard_kv:
-        held = kvp // tp
+    if cfg.attn_type == "mla":
+        n, feat = rows * seq * (attention.mla_dims(cfg, tp) // tp), cfg.kv_lora_rank
     else:
-        k0, k1 = attention._kv_window(cfg, TensorParallel(size=tp, rank=0, shard_kv=False))[:2]
-        held = k1 - k0
-    n = rows * held * seq * (hp // kvp)
+        hp, kvp, shard_kv = attention.attn_dims(cfg, tp)
+        if tp == 1 or shard_kv:
+            held = kvp // tp
+        else:
+            k0, k1 = attention._kv_window(cfg, TensorParallel(size=tp, rank=0,
+                                                              shard_kv=False))[:2]
+            held = k1 - k0
+        n, feat = rows * held * seq * (hp // kvp), cfg.d_head
     one = [CollectiveEvent("all-reduce", n * 4, sizes[a]) for a in axes] + \
-        [CollectiveEvent("all-reduce", n * (cfg.d_head + 1) * 4, sizes[a]) for a in axes]
+        [CollectiveEvent("all-reduce", n * (feat + 1) * 4, sizes[a]) for a in axes]
     return one * layers
 
 
@@ -727,16 +745,13 @@ def call_collectives(cfg, qmode, kind: str, *, batch: int, seq: int, tp: int,
     * the logits: an all-gather of the vocab shards (the last position of
       a prefill, every position of a decode call);
     * a decode call under rules whose ``kv_seq`` names axes of
-      ``mesh_axes`` above one way (sequence-parallel KV): each GQA layer's
-      flash-decoding combine over them (:func:`_combine_collectives`).
+      ``mesh_axes`` above one way (sequence-parallel KV): each attention
+      ring's flash-decoding combine over them (:func:`_combine_collectives`).
 
-    One device issues none.  Raises where ``model.check_tp`` and
-    ``check_seq`` do."""
+    One device issues none.  Raises where ``model.check_tp`` does."""
     sizes = dict(_sizes(mesh_axes), model=tp)
     rules = serve_rules(cfg, {"data": 1, "model": tp}) if rules is None else rules
     seq_axes = _seq_axes(rules, sizes) if kind == "decode" else ()
-    if seq_axes:
-        model_lib.check_seq(cfg, seq_axes)
     ev = [] if not seq_axes else _combine_collectives(cfg, tp, batch, seq, seq_axes, sizes)
     if tp == 1:
         return ev
@@ -806,44 +821,72 @@ def agree_collectives(tokens: int, tp: int, *, mesh_axes: Optional[dict] = None)
     return out
 
 
-def engine_gathers(eng, rounds: int) -> list:
+def page_bytes(cfg, tp: int = 1) -> int:
+    """One page's bytes in every pool leaf of every layer of ``cfg``'s paged
+    cache format (payloads and per-page scales, ``PagedCacheFormat``'s
+    inner format over ``page_size`` positions): GQA's K and V channels at
+    the KV heads a rank holds, MLA's latent."""
+    fmt = kvcache.format_for(cfg)
+    if cfg.attn_type == "mla":
+        one = _channel_bytes(fmt.inner, fmt.page_size, (), cfg.kv_lora_rank, cfg.dtype)
+    else:
+        one = 2 * _channel_bytes(fmt.inner, fmt.page_size, (attention.kv_heads_held(cfg, tp),),
+                                 cfg.d_head, cfg.dtype)
+    return one * sum(cfg.mixer_kind(i) in ("attn", "attn_cross") for i in range(cfg.n_layers))
+
+
+def engine_gathers(eng, rounds: int, shares=()) -> list:
     """The data-axis gathers of a ``ServeEngine`` over ``pod`` × ``data``
     (``eng.data_ways`` above 1) in ``rounds`` prefill groups and decode
     calls (``ServeEngine._gather_rows``): each round the rank's ``slots /
     ways`` greedy ids (int32) and, under ``trace_logits``, its rows'
     float32 logits (the padded vocab), each all-gathered over the batch axes
-    above one way, the innermost first."""
+    above one way, the innermost first; and each of ``shares`` (the pages
+    of a prefix registration, ``ServeEngine._share_pages``) the pages'
+    bytes (:func:`page_bytes`) all-gathered so."""
     if eng.data_ways == 1:
         return []
     sizes = P.mesh_sizes(eng.mesh)
     per = eng.slots // eng.data_ways
-    widths = [4] + ([4 * model_lib.padded_vocab(eng.cfg, eng.tp)] if eng.trace_logits else [])
-    out = []
-    for width in widths:
-        nbytes = per * width
+
+    def gathered(nbytes):
+        out = []
         for a in reversed(eng._batch_axes):
             nbytes *= sizes[a]
             out.append(CollectiveEvent("all-gather", nbytes, sizes[a]))
-    return out * rounds
+        return out
+
+    widths = [4 * per] + ([4 * per * model_lib.padded_vocab(eng.cfg, eng.tp)]
+                          if eng.trace_logits else [])
+    out = [e for width in widths for e in gathered(width)] * rounds
+    return out + [e for n in shares for e in gathered(n * page_bytes(eng.cfg, eng.tp))]
 
 
 class ModelCallLog:
     """Within the block, each ``model.prefill`` and ``model.decode_step``
     call's ``(kind, batch rows, tokens a row)`` in ``calls``, in order: the
     model calls a serve made, whose collectives :func:`serve_collectives`
-    counts; and in ``rounds`` each prefill group and decode call of a
+    counts; in ``rounds`` each prefill group and decode call of a
     ``ServeEngine`` (``"prefill"`` / ``"decode"``), on every rank of a data
-    axis whether or not its own rows ran.  The two functions of
-    :mod:`repro_torch.models.model` and the engine's two methods are wrapped
-    for the block's length."""
+    axis whether or not its own rows ran; and in ``shares`` the pages each
+    prefix registration copied over a data axis
+    (``ServeEngine._share_pages``).  The two functions of
+    :mod:`repro_torch.models.model` and the engine's three methods are
+    wrapped for the block's length."""
 
     def __enter__(self):
         from repro_torch.serve import engine as engine_lib
 
-        self.calls, self.rounds = [], []
+        self.calls, self.rounds, self.shares = [], [], []
         eng_cls = engine_lib.ServeEngine
-        self._methods = eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode
-        refill, decode = eng_cls._prefill_slots, eng_cls._chunk_decode
+        self._methods = eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode, \
+            eng_cls._share_pages
+        refill, decode, share = eng_cls._prefill_slots, eng_cls._chunk_decode, \
+            eng_cls._share_pages
+
+        def rec_share(eng, pages, slot):
+            self.shares.append(len(pages))
+            return share(eng, pages, slot)
 
         def rec_refill(eng, assignments):
             self.rounds.append("prefill")
@@ -854,6 +897,7 @@ class ModelCallLog:
             return decode(eng, chunks, decode_slots)
 
         eng_cls._prefill_slots, eng_cls._chunk_decode = rec_refill, rec_round
+        eng_cls._share_pages = rec_share
         self._fns = prefill, decode_step = model_lib.prefill, model_lib.decode_step
 
         def rec_prefill(params, batch, cfg, **kw):
@@ -869,18 +913,19 @@ class ModelCallLog:
 
     def __exit__(self, *exc):
         model_lib.prefill, model_lib.decode_step = self._fns
-        eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode = self._methods
+        eng_cls, eng_cls._prefill_slots, eng_cls._chunk_decode, eng_cls._share_pages = \
+            self._methods
         return False
 
 
-def serve_collectives(eng, calls, *, rounds=None, min_dim: int = 64,
+def serve_collectives(eng, calls, *, rounds=None, shares=(), min_dim: int = 64,
                       agree: bool = True) -> list:
     """The collectives one rank of a ``ServeEngine`` on a mesh issues in the
     model calls ``calls`` (``(kind, batch, seq)``, as :class:`ModelCallLog`
     records them; :func:`call_collectives` each, at the engine's mode and
     rules and the ``min_dim`` it converted with), over a data axis in the
-    engine's ``rounds`` (:class:`ModelCallLog`'s, :func:`engine_gathers`),
-    and with ``agree`` the closing ``check_ranks_agree`` of a ``run()``
+    engine's ``rounds`` and ``shares`` (:class:`ModelCallLog`'s,
+    :func:`engine_gathers`), and with ``agree`` the closing ``check_ranks_agree`` of a ``run()``
     (:func:`agree_collectives` of the engine's requests over its mesh)."""
     events = [e for kind, b, s in calls
               for e in call_collectives(eng.cfg, eng.mode, kind, batch=b, seq=s, tp=eng.tp,
@@ -888,7 +933,7 @@ def serve_collectives(eng, calls, *, rounds=None, min_dim: int = 64,
     if eng.data_ways > 1:
         if rounds is None:
             raise ValueError("an engine over a data axis: pass the rounds ModelCallLog recorded")
-        events += engine_gathers(eng, len(rounds))
+        events += engine_gathers(eng, len(rounds), shares)
     if agree:
         events += agree_collectives(sum(2 + len(r.out) for r in eng.requests), eng.tp,
                                     mesh_axes=P.mesh_sizes(eng.mesh))
@@ -1168,19 +1213,12 @@ def n_superblocks(cfg: ModelConfig) -> int:
 def unsupported(cfg: ModelConfig, cell: ShapeCell, pl: mesh_lib.Plan, sizes: dict):
     """Why the port runs no collective count for this cell at this plan:
     the message of the check that raises (``check_tp`` for a Mamba
-    ``d_inner`` the model axis does not divide and the einsum MoE dispatch;
-    ``check_seq`` for a sequence-parallel decode, ``plan``'s long-context
-    rule, of MLA or cross layers); None where it runs."""
+    ``d_inner`` the model axis does not divide and the einsum MoE dispatch);
+    None where it runs."""
     try:
         _tp_check(cfg, pl.tp)
     except (NotImplementedError, ValueError) as e:
         return f"check_tp: {e}"
-    seq_axes = _seq_axes(pl.rules, sizes)
-    if cell.kind == "decode" and seq_axes:
-        try:
-            model_lib.check_seq(cfg, seq_axes)
-        except NotImplementedError as e:
-            return f"check_seq: {e}"
     return None
 
 

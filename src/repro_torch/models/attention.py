@@ -28,22 +28,28 @@ is summed over the model axis).
 
 Sequence-parallel decode (:class:`SeqParallel`; the reference's ``plan``
 for a long-context decode whose batch is smaller than the data ways, whose
-rules name those axes under ``kv_seq``): each rank's GQA ring holds its
-contiguous ``L / ways`` block of the ring's slots, ``pos_ids`` and the K/V
-stores of every contiguous format alike (:func:`partitioning.shard_caches`
-cuts a whole cache so).  The ring write keeps the global slot ``position
-mod L``, which only its owning rank writes; each rank attends over its
-block and :func:`combine_blocks` joins the blocks as flash decoding does:
-each block's row max ``m_r``, sum ``s_r`` and normalised output ``o_r``
-(the plain formats through their ``qk`` / ``av``, the fused one through
-the kernel's statistics), ``M = max_r m_r`` (an all-reduce MAX), then one
-all-reduce SUM of ``[e^(m_r - M)·s_r·o_r, e^(m_r - M)·s_r]`` and their
-quotient.  A block whose every slot is masked (bias ``NEG_INF``) has
-``m_r = NEG_INF`` and weighs ``e^(NEG_INF - M) = 0`` beside a live block;
-a row masked on every rank gets the uniform weights of the whole ring, as
-on one device.  MLA's latent ring and the cross layers have no
-sequence-parallel form (ROADMAP Queue 1, item 8(c)); a Mamba layer has no
-ring and runs whole on every rank.
+rules name those axes under ``kv_seq``): each rank's ring (GQA's K/V, MLA's
+latent and rope key) holds its contiguous ``L / ways`` block of the ring's
+slots, ``pos_ids`` and the stores of every contiguous format alike
+(:func:`partitioning.shard_caches` cuts a whole cache so).  The ring write
+keeps the global slot ``position mod L``, which only its owning rank
+writes; each rank attends over its block and :func:`combine_blocks` joins
+the blocks as flash decoding does: each block's row max ``m_r``, sum
+``s_r`` and normalised output ``o_r`` (the plain formats through their
+``qk`` / ``av``, the fused one through the kernel's statistics; MLA's
+latent context ``[B, S, H, r]`` before ``w_uv``), ``M = max_r m_r`` (an
+all-reduce MAX), then one all-reduce SUM of ``[e^(m_r - M)·s_r·o_r,
+e^(m_r - M)·s_r]`` and their quotient.  A block whose every slot is masked
+(bias ``NEG_INF``) has ``m_r = NEG_INF`` and weighs ``e^(NEG_INF - M) =
+0`` beside a live block; a row masked on every rank gets the uniform
+weights of the whole ring, as on one device.  A paged format's rank holds
+the block ``[r·P/w, (r+1)·P/w)`` of the pool's pages and the whole block
+tables, ``pos_ids`` and MLA's ``k_rope`` (a rank's pages may hold any ring
+slot): it maps the tables to its own pages, writes the new tokens whose
+page it holds, and attends over the ring slots whose pages it holds
+(:func:`_rank_pages`), the rest masked.  A cross layer's context K/V is
+whole on every rank and needs no combine; a Mamba layer has no ring and
+runs whole on every rank.
 
 Cross-attention (llama-3.2-vision's image layers, seamless-m4t's decoder)
 attends over a context the decoder did not write: :func:`cross_kv`
@@ -68,7 +74,7 @@ from typing import Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.core import kvcache, residency
+from repro_torch.core import kvcache, paging, residency
 from repro_torch.distributed.mesh import MeshView, copy_to, tp_size
 from repro_torch.models import layers
 from repro_torch.models.layers import dense, row_parallel
@@ -153,6 +159,38 @@ def combine_blocks(out: torch.Tensor, m: torch.Tensor, total: torch.Tensor,
     w = torch.exp(m - big) * total
     packed = seq.all_reduce_sum(torch.cat([out * w[..., None], w[..., None]], dim=-1))
     return packed[..., :-1] / packed[..., -1:]
+
+
+def _block_softmax(scores: torch.Tensor) -> tuple:
+    """A sequence-parallel rank's softmax over its block of the ring (the
+    last axis): the normalised weights, and the row max and sum
+    :func:`combine_blocks` takes (keepdim)."""
+    m = scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    total = p.sum(dim=-1, keepdim=True)
+    return p / total, m, total
+
+
+def _paged_seq(fmt, seq) -> bool:
+    return seq is not None and isinstance(fmt, paging.PagedCacheFormat)
+
+
+def _rank_pages(cache: dict, seq: SeqParallel) -> tuple:
+    """A paged cache under ``seq``, whose pool leaves hold this rank's
+    contiguous block ``[index·P, (index+1)·P)`` of the pool's pages and
+    whose block tables are whole → (each table mapped to the rank's own
+    page ids, 0 where another rank holds the page, by name; ``owned [B,
+    L]``, True at the ring slots whose page the rank holds).  A layer takes
+    them once and hands them to its write and its read."""
+    tables, owned = {}, None
+    for name, table in cache.items():
+        if name in paging.TABLE_KEYS:
+            pool = cache[name[:-len("_pages")]]
+            lo = seq.index * pool.shape[0]
+            mine = (table >= lo) & (table < lo + pool.shape[0])
+            tables[name] = torch.where(mine, table - lo, 0).to(table.dtype)
+            owned = mine.repeat_interleave(pool.shape[1], dim=1)
+    return tables, owned
 
 
 #: cache leaves with a KV-head axis (dim 2, contiguous ring or page pool)
@@ -280,12 +318,13 @@ def gqa_decode(params, x, cache, cfg, *, pos, impl=None, tp=None, seq=None):
     positions = _decode_positions(pos, b, s, x.device)
     q, k, v = _project_qkv(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
-    _ring_write(cache, k, v, positions, fmt, seq=seq)
+    pages = _rank_pages(cache, seq) if _paged_seq(fmt, seq) else None
+    _ring_write(cache, k, v, positions, fmt, seq=seq, pages=pages)
     window = _kv_window(cfg, tp)
 
     def attend(qq, sub):
         return _decode_attention(qq, sub, cur=positions, window=cfg.sliding_window, fmt=fmt,
-                                 impl=impl, seq=seq)
+                                 impl=impl, seq=seq, pages=pages)
 
     if window is None:
         out = attend(q, cache)
@@ -345,32 +384,49 @@ def _ring_slots(positions, ln: int):
     return b_idx, s_idx, pos, torch.remainder(pos, ln).to(torch.int64)
 
 
-def _ring_write(cache, k, v, positions, fmt, seq=None) -> None:
-    """In place: write S new (k, v) at slots = position mod L
-    (:func:`_ring_slots`).  Under ``seq`` the cache is the rank's block of
-    a ring ``ways`` times as long: the global slot is kept, every token is
-    encoded as on one device, and only the tokens whose slot lies in the
-    rank's block are written, there."""
+def _seq_write(cache, channels, positions, fmt, seq, pages=None) -> tuple:
+    """In place: each channel ``(prefix, x)`` of S new tokens at slots =
+    position mod L (:func:`_ring_slots`) → the written tokens' ``(b_idx,
+    s_idx, pos, ring)``, whose per-slot leaves (``pos_ids``, MLA's
+    ``k_rope``) the caller writes.  Under ``seq`` every token is encoded as
+    on one device and only the rank's are written: on a contiguous format
+    the cache is the rank's block of a ring ``ways`` times as long, the
+    global slot kept and the tokens of the block written there; on a paged
+    one (:func:`_rank_pages`, or its ``pages``) the tokens whose page the
+    rank holds, its per-slot leaves whole (every token returned)."""
     ln = cache["pos_ids"].shape[1]
-    b_idx, s_idx, pos, ring = _ring_slots(positions, ln if seq is None else ln * seq.ways)
-    if seq is None:
-        for prefix, x in (("k", k), ("v", v)):
-            fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring)
-    else:  # every token encoded (one device's roundings), the rank's block written
+    whole = seq is None or _paged_seq(fmt, seq)
+    b_idx, s_idx, pos, ring = _ring_slots(positions, ln if whole else ln * seq.ways)
+    keep, store = None, cache
+    if not whole:  # the rank's block of the ring
         ring = ring - seq.index * ln
-        mine = (ring >= 0) & (ring < ln)
-        for prefix, x in (("k", k), ("v", v)):
-            fmt.append(fmt.channel(cache, prefix), x, b_idx, s_idx, ring, keep=mine)
-        b_idx, pos, ring = b_idx[mine], pos[mine], ring[mine]
+        keep = (ring >= 0) & (ring < ln)
+    elif seq is not None:  # the rank's pages
+        tables, owned = pages or _rank_pages(cache, seq)
+        store = {**cache, **tables}
+        keep = owned[b_idx, ring]
+    for prefix, x in channels:
+        fmt.append(fmt.channel(store, prefix), x, b_idx, s_idx, ring, keep=keep)
+    if not whole:
+        b_idx, s_idx, pos, ring = b_idx[keep], s_idx[keep], pos[keep], ring[keep]
+    return b_idx, s_idx, pos, ring
+
+
+def _ring_write(cache, k, v, positions, fmt, seq=None, pages=None) -> None:
+    """In place: write S new (k, v) at slots = position mod L, under
+    ``seq`` the rank's (:func:`_seq_write`)."""
+    b_idx, _, pos, ring = _seq_write(cache, (("k", k), ("v", v)), positions, fmt, seq,
+                                     pages)
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
 
 
-def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None, seq=None):
+def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None, seq=None, pages=None):
     """q: [B, S, H, D] against the whole ring cache, masked by the stored
     positions (``pos_ids <= the token's own position``, and ``> position -
     window`` with a window).  Under ``seq`` the cache is the rank's block of
-    the ring: the block's output and statistics are joined by
-    :func:`combine_blocks`."""
+    the ring (on a paged format, the slots whose pages it holds:
+    :func:`_rank_pages`, or its ``pages``): the block's output and
+    statistics are joined by :func:`combine_blocks`."""
     b, s, hq, dh = q.shape
     hkv = cache["k"].shape[2]
     g = hq // hkv
@@ -381,6 +437,10 @@ def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None, seq=None):
     valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= cur[..., None])
     if window is not None:
         valid &= pos_ids[:, None, :] > cur[..., None] - window
+    if _paged_seq(fmt, seq):
+        tables, owned = pages or _rank_pages(cache, seq)
+        cache = {**cache, **tables}
+        valid &= owned[:, None, :]
     if fmt.supports_fused_decode:
         bias = torch.where(valid, 0.0, NEG_INF).to(torch.float32)  # [B, S, L]
         bias = bias[:, None, :, None, :].expand(b, hkv, s, g, ln).reshape(b, hkv, s * g, ln)
@@ -398,10 +458,8 @@ def _decode_attention(q, cache, *, cur, fmt, window=None, impl=None, seq=None):
             w = torch.softmax(scores, dim=-1).reshape(b, hkv, s * g, ln)
             out = fmt.av(w, fmt.channel(cache, "v"), dh)
         else:  # the block's normalised output and its statistics
-            m = scores.amax(dim=-1, keepdim=True)
-            p = torch.exp(scores - m)
-            total = p.sum(dim=-1, keepdim=True)
-            out = fmt.av((p / total).reshape(b, hkv, s * g, ln), fmt.channel(cache, "v"), dh)
+            w, m, total = _block_softmax(scores)
+            out = fmt.av(w.reshape(b, hkv, s * g, ln), fmt.channel(cache, "v"), dh)
             out = combine_blocks(out, m.reshape(b, hkv, s * g), total.reshape(b, hkv, s * g),
                                  seq)
     out = out.reshape(b, hkv, s, g, dh).permute(0, 2, 1, 3, 4)
@@ -609,23 +667,26 @@ def init_mla_cache(cfg, batch: int, cache_len: int, *, dtype=None, device=None) 
     return cache
 
 
-def _mla_write(cache, c_kv, k_rope, positions, fmt) -> None:
+def _mla_write(cache, c_kv, k_rope, positions, fmt, seq=None, pages=None) -> None:
     """In place: the latent and rope key of S new tokens at slots = position
-    mod L (:func:`_ring_slots`: pads left out, deterministic)."""
-    b_idx, s_idx, pos, ring = _ring_slots(positions, cache["pos_ids"].shape[1])
-    fmt.append(fmt.channel(cache, "c_kv"), c_kv, b_idx, s_idx, ring)
+    mod L (:func:`_ring_slots`: pads left out, deterministic); under ``seq``
+    the rank's (:func:`_seq_write`)."""
+    b_idx, s_idx, pos, ring = _seq_write(cache, (("c_kv", c_kv),), positions, fmt, seq,
+                                         pages)
     cache["k_rope"][b_idx, ring] = k_rope[b_idx, s_idx].to(cache["k_rope"].dtype)
     cache["pos_ids"][b_idx, ring] = pos.to(torch.int32)
 
 
-def mla_decode(params, x, cache, cfg, *, pos, impl=None, tp=None):
+def mla_decode(params, x, cache, cfg, *, pos, impl=None, tp=None, seq=None):
     """Absorbed-form MLA decode of ``x [B, S, D]`` against the latent ring
     (S > 1 appends a chunk and attends causally).  The latent reads go
     through the cache format's ``qk`` / ``av`` with lead ``()``, the (S,
     heads) axes folded into the group axis, so the int8 and bit-plane reads
     apply to the latent as to K/V.  Updates ``cache`` in place and returns
     it.  Under ``tp`` the rank's heads read the whole latent ring and
-    ``wo`` is row-parallel."""
+    ``wo`` is row-parallel; under ``seq`` (:class:`SeqParallel`) the rank's
+    block of the ring, its latent context joined by :func:`combine_blocks`
+    before ``w_uv``."""
     b, s, _ = x.shape
     dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
     positions = _decode_positions(pos, b, s, x.device)
@@ -633,23 +694,34 @@ def mla_decode(params, x, cache, cfg, *, pos, impl=None, tp=None):
     h = q_nope.shape[2]
     c_kv_new, k_rope_new = _mla_latent(params, x, cfg, positions, impl=impl)
     fmt = kvcache.format_for(cfg)
-    _mla_write(cache, c_kv_new, k_rope_new, positions, fmt)
+    pages = _rank_pages(cache, seq) if _paged_seq(fmt, seq) else None
+    _mla_write(cache, c_kv_new, k_rope_new, positions, fmt, seq=seq, pages=pages)
     ln = cache["pos_ids"].shape[1]
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= positions[..., None])
+    read = cache
+    if pages is not None:
+        tables, owned = pages
+        read = {**cache, **tables}
+        valid &= owned[:, None, :]
     # absorption needs the float matrices: the projections above run in their
     # residency formats, the latent-space products below in float32
     w_uk = _as_float(params["w_uk"], (r, h, dn), x.dtype).to(torch.float32)
     w_uv = _as_float(params["w_uv"], (r, h, dv), x.dtype).to(torch.float32)
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32), w_uk)
-    store = fmt.channel(cache, "c_kv")
+    store = fmt.channel(read, "c_kv")
     s_nope = fmt.qk(q_abs.reshape(b, s * h, r), store).reshape(b, s, h, ln)
     krope = cache["k_rope"].to(torch.float32)
     scores = (s_nope + torch.einsum("bqhd,bld->bqhl", q_rope.to(torch.float32), krope)
               ) / math.sqrt(dn + dr)
-    pos_ids = cache["pos_ids"]
-    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= positions[..., None])
     scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
-    w = torch.softmax(scores, dim=-1)
+    if seq is None:
+        w = torch.softmax(scores, dim=-1)
+    else:  # the block's normalised weights and statistics
+        w, m, total = _block_softmax(scores)
     ctx = fmt.av(w.reshape(b, s * h, ln), store, r).reshape(b, s, h, r)
+    if seq is not None:
+        ctx = combine_blocks(ctx, m[..., 0], total[..., 0], seq)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
     out = row_parallel(params["wo"], out.reshape(b, s, h * dv).to(x.dtype), tp, impl=impl)
     return out, cache

@@ -462,30 +462,6 @@ def init_cache(cfg, batch: int, max_len: int, *, device=None, tp: int = 1,
             for i in range(cfg.n_layers)]
 
 
-def check_seq(cfg, seq) -> None:
-    """Raise unless ``cfg`` decodes with its rings cut over ``seq`` (a
-    :class:`~repro_torch.models.attention.SeqParallel`, or None): GQA rings
-    of a contiguous cache format, and Mamba layers (no ring, run whole on
-    every rank)."""
-    if seq is None:
-        return
-    kinds = {cfg.mixer_kind(i) for i in range(cfg.n_layers)}
-    if cfg.attn_type == "mla" and kinds & {"attn", "attn_cross"}:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA's latent ring under sequence-parallel KV (kv_seq rules) waits "
-            "for ROADMAP Queue 1, item 8(c)")
-    if kinds & {"cross", "attn_cross"}:
-        raise NotImplementedError(
-            f"{cfg.name}: cross-attention layers under sequence-parallel KV (kv_seq rules) "
-            "wait for ROADMAP Queue 1, item 8(c)")
-    from repro_torch.core import kvcache, paging
-
-    if isinstance(kvcache.format_for(cfg), paging.PagedCacheFormat):
-        raise NotImplementedError(
-            f"{cfg.name}: a paged cache format under sequence-parallel KV (kv_seq rules) "
-            "waits for ROADMAP Queue 1, item 8(c)")
-
-
 def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None, tp=None,
                 mesh=None, rules=None):
     """One decode step: ``token [B,S]`` against the caches (updated in
@@ -493,15 +469,15 @@ def decode_step(params, token: torch.Tensor, caches, pos, cfg, *, impl=None, tp=
     Cross-attention reads its context from the caches.  ``tp`` as for
     :func:`prefill`.  Under ``rules`` whose ``kv_seq`` names axes of
     ``mesh`` (a :class:`~repro_torch.distributed.mesh.MeshView`) above one
-    way (the reference's ``plan`` for a long-context decode), each GQA
-    ring of ``caches`` is this rank's block of the ring
-    (:func:`repro_torch.sharding.partitioning.shard_caches`), the batch is
-    every rank's, and the blocks are combined over those axes
-    (:func:`repro_torch.models.attention.combine_blocks`); MLA and cross
-    layers raise there (:func:`check_seq`)."""
+    way (the reference's ``plan`` for a long-context decode), each
+    attention ring of ``caches`` (GQA's or MLA's; a paged format's block of
+    the pool's pages) is this rank's block of the ring
+    (:func:`repro_torch.sharding.partitioning.shard_caches`), a cross
+    layer's context is whole, the batch is every rank's, and the blocks are
+    combined over those axes
+    (:func:`repro_torch.models.attention.combine_blocks`)."""
     check_tp(cfg, tp)
     seq = attention.seq_parallel(mesh, rules)
-    check_seq(cfg, seq)
     pos = attention._decode_positions(pos, token.shape[0], token.shape[1], token.device)
     x = layers.embed_apply(params["embed"], token, cfg, tp=tp)
     x, caches, _ = stack.stack_apply(params["layers"], x, cfg, mode="decode",

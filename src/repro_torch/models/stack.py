@@ -66,7 +66,7 @@ def _mixer(params, h, cfg, *, kind, mode, cache, pos, cache_len, impl, tp=None, 
         return attention.gqa_prefill(params, h, cfg, cache_len=cache_len, positions=pos,
                                      impl=impl, tp=tp)
     if mla:
-        return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp)
+        return attention.mla_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp, seq=seq)
     return attention.gqa_decode(params, h, cache, cfg, pos=pos, impl=impl, tp=tp, seq=seq)
 
 
@@ -86,8 +86,9 @@ def layer_apply(params: dict, x, cfg, *, mode: str, mixer: str = "attn", ffn: st
     ``attn_cross``) and FFN kind ``ffn`` (``dense``, ``moe`` or ``none``).
     Returns (x, cache, the MoE layer's load-balancing loss or 0).  ``tp``
     runs the rank's shards (the model checks what it serves and trains);
-    ``seq`` (decode) the rank's block of a GQA ring
-    (:class:`~repro_torch.models.attention.SeqParallel`);
+    ``seq`` (decode) the rank's block of an attention ring, GQA's or MLA's
+    (:class:`~repro_torch.models.attention.SeqParallel`; a cross layer's
+    context is whole on every rank);
     ``global_counts`` a MoE layer's top-1 counts over a split batch
     (:func:`repro_torch.models.moe.moe_apply`)."""
     h = layers.norm_apply(params["ln1"], x, cfg)

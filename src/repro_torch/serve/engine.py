@@ -33,7 +33,12 @@ pages, a refill reserves a slot's pages before its prefill (waiting in the
 queue while the pool is short), and under a scheduler that
 ``wants_prefix_cache`` (``prefix_cache``) a request attaches the pages of
 the longest registered prefix of its prompt, refcounted, with a copy of a
-shared page made on the device before any write into it.
+shared page made on the device before any write into it.  Over a data
+axis every rank holds the whole pool and its block's rows of the tables,
+and writes only its own slots' rows into its copy; a page registered in
+the prefix index is copied from its owner to every rank
+(:meth:`ServeEngine._share_pages`), so that a slot of any rank may attach
+it.
 
 Each step is instrumented through :mod:`repro_torch.obs`: the spans
 ``engine.step`` / ``plan`` / ``reserve`` / ``prefill`` / ``cow`` /
@@ -208,7 +213,7 @@ def resident_bytes(params) -> int:
     return params.numel() * params.element_size()
 
 
-def _mesh_plan(cfg, tp: int, rules, mesh, *, slots: int, paged: bool, prefix: bool):
+def _mesh_plan(cfg, tp: int, rules, mesh, *, slots: int):
     """(the rule table, the batch axes, their ways) of an engine at ``tp`` on
     ``mesh``; raises for what the engine cannot serve.  Without a mesh: one
     device (``tp`` must be 1).  On a mesh every axis is honoured: the model
@@ -240,8 +245,8 @@ def _mesh_plan(cfg, tp: int, rules, mesh, *, slots: int, paged: bool, prefix: bo
         raise NotImplementedError(
             f"rules whose kv_seq is {rules['kv_seq']!r}: the engine places no cache by them (the "
             "reference engine keeps its caches whole under them); sequence-parallel decode is "
-            "model.decode_step's on caches cut by partitioning.shard_caches (ROADMAP Queue 1, "
-            "item 8(c))")
+            "model.decode_step's on caches cut by partitioning.shard_caches (ROADMAP, Known "
+            "differences)")
     batch = tuple(a for a in model_lib.batch_axes(rules) if sizes.get(a, 1) > 1)
     stray = [a for a, n in sizes.items() if n > 1 and a != "model" and a not in batch]
     if stray:
@@ -251,15 +256,10 @@ def _mesh_plan(cfg, tp: int, rules, mesh, *, slots: int, paged: bool, prefix: bo
     ways = 1
     for a in batch:
         ways *= sizes[a]
-    if ways > 1:
-        if slots % ways:
-            raise ValueError(f"{slots} slots do not divide the {ways} data ways of {batch} "
-                             "(uneven blocks of slots: ROADMAP Queue 1, item 8(c))")
-        if paged or prefix:
-            raise NotImplementedError(
-                f"a paged cache format or the prefix_cache scheduler over {ways} data ways: "
-                "the reference replicates its page pool over data (ROADMAP Queue 1, item "
-                "8(c))")
+    if slots % ways:
+        raise ValueError(f"{slots} slots do not divide the {ways} data ways of {batch} "
+                         "(the engine cuts no uneven blocks of slots: ROADMAP, Known "
+                         "differences)")
     return rules, batch, ways
 
 
@@ -354,13 +354,20 @@ class ServeEngine:
     over the batch axes in slot order (``MeshView.all_gather``), and their
     logits too under ``trace_logits``, so that every rank emits every
     slot's token; :meth:`run` ends by checking that every rank of the mesh
-    emitted the same tokens.  The engine raises where it cannot serve a
-    mesh, and never ignores one: slots the data ways do not divide, a
-    ``paged_*`` cache format or the ``prefix_cache`` scheduler over a data
-    axis (the reference replicates the page pool over ``data``), rules
-    whose ``kv_seq`` is set (the reference engine places no cache by them;
-    sequence-parallel decode is ``model.decode_step``'s), and a mesh axis
-    above one way that the rules do not name.
+    emitted the same tokens.  A ``paged_*`` cache format's pool is whole on
+    every data rank (the reference replicates it over ``data``) beside
+    the rank's rows of the block tables; the pool, the prefix index and the
+    table mirrors on the host are global, the same on every rank, and a
+    rank writes its own slots' rows alone (prefills, appends, copies on
+    write).  A page registered in the prefix index is copied from the
+    registering slot's rank to every rank (:meth:`_share_pages`, one
+    all-gather a registration), and copy-on-write precedes any later
+    write into it, so every rank's copy of an indexed page is the same and
+    a slot of any rank attaches it.  The engine raises where it cannot
+    serve a mesh, and never ignores one: slots the data ways do not
+    divide, rules whose ``kv_seq`` is set (the reference engine places no
+    cache by them; sequence-parallel decode is ``model.decode_step``'s),
+    and a mesh axis above one way that the rules do not name.
     """
 
     def __init__(self, params, cfg, *, tp: int = 1, rules=None, mesh=None,
@@ -379,10 +386,8 @@ class ServeEngine:
             cfg = dataclasses.replace(cfg, cache_format=cache_format)
         self._fmt = kvcache.format_for(cfg)
         self.scheduler = sched_lib.make_scheduler(scheduler)
-        self.rules, self._batch_axes, self.data_ways = _mesh_plan(
-            cfg, tp, rules, mesh, slots=slots,
-            paged=isinstance(self._fmt, paging.PagedCacheFormat),
-            prefix=bool(getattr(self.scheduler, "wants_prefix_cache", False)))
+        self.rules, self._batch_axes, self.data_ways = _mesh_plan(cfg, tp, rules, mesh,
+                                                                  slots=slots)
         #: this rank's view of every mesh axis (None without a mesh), and of
         #: its model axis at tp > 1
         self.view = None if mesh is None else MeshView.from_mesh(
@@ -637,16 +642,17 @@ class ServeEngine:
         self._shared_mask[slot] = False
         self._shared_mask[slot, :k] = True
         n_tok = k * self._page
-        table_row = self._tensor(self._tables[slot].astype(np.int32))
-        pos_row = np.full(self._ring_len, -1, np.int32)
-        pos_row[:n_tok] = np.arange(n_tok, dtype=np.int32)
-        pos_row = self._tensor(pos_row)
-        for layer in self.caches:
-            for name, t in layer.items():
-                if name in paging.TABLE_KEYS:
-                    t[slot] = table_row
-                elif name == "pos_ids":
-                    t[slot] = pos_row
+        if self._owns(slot):  # the slot's rows live on its own rank
+            table_row = self._tensor(self._tables[slot].astype(np.int32))
+            pos_row = np.full(self._ring_len, -1, np.int32)
+            pos_row[:n_tok] = np.arange(n_tok, dtype=np.int32)
+            pos_row = self._tensor(pos_row)
+            for layer in self.caches:
+                for name, t in layer.items():
+                    if name in paging.TABLE_KEYS:
+                        t[slot - self._base] = table_row
+                    elif name == "pos_ids":
+                        t[slot - self._base] = pos_row
         self.active[slot] = req
         self.pos[slot] = n_tok
         req.prefilled = n_tok
@@ -665,17 +671,42 @@ class ServeEngine:
         new = self.prefix_index.insert(req.prompt[:k * self._page], self._tables[slot, :k])
         if new:
             self.page_pool.retain(new)
+            if self.data_ways > 1:
+                self._share_pages(new, slot)
         # the slot's prefix pages now held elsewhere too must be copied
         # before the ring wraps into them
         for j in range(k):
             if self.page_pool.refs[self._tables[slot, j]] > 1:
                 self._shared_mask[slot, j] = True
 
+    def _share_pages(self, pages: list, slot: int) -> None:
+        """Over a data axis: make every rank's pool rows of ``pages`` (just
+        registered in the prefix index by ``slot``'s request) those of the
+        slot's rank, which wrote them.  Every rank registers the same pages
+        in the same order, so every rank enters one all-gather over the
+        batch axes of the pages' rows of every pool leaf of every layer,
+        packed as bytes, and keeps the owner's block."""
+        idx = self._tensor(np.asarray(pages, np.int64))
+        leaves = [t for layer in self.caches for name, t in layer.items()
+                  if name in paging.POOL_KEYS]
+        rows = [t[idx] for t in leaves]
+        packed = torch.cat([r.reshape(-1).view(torch.int8) for r in rows])
+        every = self.view.all_gather(packed, self._batch_axes)
+        if self._owns(slot):
+            return
+        owner = every[(slot // self._per) * packed.numel():][:packed.numel()]
+        for t, r in zip(leaves, rows):
+            n = r.numel() * r.element_size()
+            t[idx] = owner[:n].clone().view(t.dtype).reshape(r.shape)
+            owner = owner[n:]
+
     def _cow_writes(self, writes) -> None:
         """Copy-on-write before this step's appends: every shared page about
         to be written gets a private copy, made on the device.  ``writes``
         rows are ``(slot, positions)``; under ring recycling the first
-        divergent write is the wrap into a shared page."""
+        divergent write is the wrap into a shared page.  Over a data axis
+        the host's tables change on every rank and a rank copies its own
+        slots' pages alone."""
         if not self._shared_mask.any():
             return
         ops = []
@@ -691,6 +722,8 @@ class ServeEngine:
                 self._shared_mask[slot, j] = False
                 self.page_pool.release([old])
                 self.page_pool.note_cow()
+        ops = [(slot - self._base, j, old, new) for slot, j, old, new in ops
+               if self._owns(slot)]
         if not ops:
             return
         slots_t, js_t, old_t, new_t = (
@@ -715,9 +748,8 @@ class ServeEngine:
         s_max = max(n for _, _, n in assignments)
         self.work += len(assignments) * s_max
         mine = [a for a in assignments if self._owns(a[0])]
-        if self.caches is None and self.data_ways > 1:
-            self.caches = model_lib.init_cache(self.cfg, self._per, self.max_len,
-                                               device=self.device, tp=self.tp)
+        if self.caches is None:
+            self._init_caches()
         own = {}
         if mine:
             own = self._prefill_own(mine, s_max)
@@ -735,6 +767,21 @@ class ServeEngine:
             else:
                 req.state = PREFILLING  # a chunk's logits are partial: discard
 
+    def _init_caches(self) -> None:
+        """The caches at first use, zeros: a paged pool leaf at the pool's
+        pages (fewer than slots × pages_per_slot when page_pool_pages caps
+        it; the whole pool on every data rank), every other leaf at the
+        rank's rows."""
+        def rows_of(name):
+            return (self.page_pool.num_pages if self._paged and name in paging.POOL_KEYS
+                    else self._per)
+
+        self.caches = [{name: torch.zeros((rows_of(name), *t.shape[1:]), dtype=t.dtype,
+                                          device=self.device)
+                        for name, t in layer.items()}
+                       for layer in model_lib.init_cache(self.cfg, self._per, self.max_len,
+                                                         device="meta", tp=self.tp)]
+
     def _prefill_own(self, mine: list, s_max: int) -> dict:
         """The prefill call of this rank's refills ``mine``, left-padded to
         ``s_max``, its rows spliced into the caches → {slot: last logits}."""
@@ -750,19 +797,6 @@ class ServeEngine:
             batch["positions"] = self._tensor(pos)
         logits, cache_b = model_lib.prefill(self.params, batch, self.cfg,
                                             max_len=self.max_len, impl=self.impl, tp=self._tp)
-        if self.caches is None:
-            # a paged pool leaf holds the pool's pages, fewer than slots ×
-            # pages_per_slot when page_pool_pages caps it
-            def rows_of(name):
-                return (self.page_pool.num_pages if self._paged and name in paging.POOL_KEYS
-                        else self.slots)
-
-            self.caches = [
-                {name: torch.zeros((rows_of(name), *t.shape[1:]), dtype=t.dtype,
-                                   device=t.device)
-                 for name, t in layer.items()}
-                for layer in cache_b
-            ]
         slot_ids = torch.tensor([slot - self._base for slot, _, _ in mine], dtype=torch.long,
                                 device=self.device)
         if self._paged:

@@ -438,14 +438,25 @@ def cache_axes_table(cfg=None) -> dict[str, Axes]:
     return table
 
 
+#: a paged format's per-slot ring leaves, whole over ``kv_seq``
+_PAGED_WHOLE = {"pos_ids": ("batch", None), "k_rope": ("batch", None, None)}
+
+
 def cache_pspecs(caches, rules: Mapping[str, MeshAxes], shard_kv: bool, cfg=None):
     """Partition entries of every leaf of the port's per-layer caches
     (``shard_kv`` gates the KV-head rule, as ``attn_dims`` decides it); a
     leaf the table does not name is replicated.  The port's caches are not
-    stacked, so no leading layer axis is added."""
+    stacked, so no leading layer axis is added.  Under a paged format
+    ``pos_ids`` and MLA's ``k_rope`` stay whole over ``kv_seq``, where the
+    reference cuts them by ring slot: a rank's block of the pool's pages
+    may hold any ring slot, so it reads every slot's position."""
+    from repro_torch.core import kvcache, paging
+
     local_rules = dict(rules)
     local_rules["kv_heads_cache"] = rules["kv_heads"] if shard_kv else None
     table = cache_axes_table(cfg)
+    if cfg is not None and isinstance(kvcache.format_for(cfg), paging.PagedCacheFormat):
+        table.update(_PAGED_WHOLE)
 
     def walk(tree, name=None):
         if isinstance(tree, dict):

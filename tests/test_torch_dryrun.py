@@ -749,7 +749,7 @@ def test_cli_writes_every_cell_at_both_meshes(tmp_path, capsys):
         assert (r["collectives"] is None) == (r["collective_wire_bytes"] is None) == \
             (r["unsupported"] is not None)
         assert r["unsupported"] is None or r["unsupported"].split(":")[0] in (
-            "check_tp", "check_seq", "plan")
+            "check_tp", "plan")
     assert sum(r["collectives"] is not None for r in recs) > 20
     assert "dry-run complete: 66 ok, 0 failed" in capsys.readouterr().out
     assert dryrun.main(["--arch", "jamba-1.5-large-398b", "--shape", "decode_32k",

@@ -18,6 +18,13 @@ the reference ``ServeEngine``'s under the example's settings, every row's
 resident bytes the dry run's twins, and the traced all-fused row's
 dispatch table must name its three kernels.  On the CPU every kernel
 wrapper takes its plain version.
+
+``repro_torch.examples.bsdp_gemv`` (twin of ``examples/bsdp_gemv.py``)
+encodes the reference example's int4 weights (K = 4096, N = 2048, its
+seed) once, bit for bit the reference's ``bitplane.encode_weights`` (its
+int32 words the reference's uint32 ones), and
+every form's output of every call (M = 4) must be the reference's int32
+oracle ``ref.bsdp_ref`` on the activations the same seed draws.
 """
 
 import dataclasses
@@ -35,7 +42,7 @@ from repro.serve import engine as ref_engine
 from repro.sharding import partitioning as P
 from repro.train import trainer as ref_trainer
 from repro_torch import convert
-from repro_torch.examples import quickstart, serve_quantized
+from repro_torch.examples import bsdp_gemv, quickstart, serve_quantized
 from repro_torch.launch import dryrun
 from repro_torch.serve import engine
 from repro_torch.train import trainer as trainer_lib
@@ -152,3 +159,23 @@ def test_serve_quantized_rows_and_traced_excerpt(monkeypatch, capsys):
     assert traced["records"] > 0 and "engine.step" in traced["spans"]
     assert {dict(k)["kernel"] for k in traced["dispatches"]} == {
         "bsdp_gemm_fused", "dequant_matmul", "plane_decode_attention"}
+
+
+def test_bsdp_gemv_forms_are_bit_exact_against_the_reference(capsys):
+    from repro.core import bitplane as ref_bitplane
+    from repro.kernels import ref as ref_ref
+
+    calls = 3
+    out = bsdp_gemv.main(["--device", "cpu", "--calls", str(calls)])
+    assert "bsdp_gemv OK" in capsys.readouterr().out
+    rng = np.random.default_rng(0)  # the reference example's draws, in its order
+    w4 = jnp.asarray(rng.integers(-8, 8, (bsdp_gemv.K, bsdp_gemv.N)).astype(np.int8))
+    # the port's words are int32, the reference's uint32: the same bits
+    assert np.array_equal(out["planes"].view(np.uint32),
+                          np.asarray(ref_bitplane.encode_weights(w4)))
+    assert list(out["forms"]) == list(bsdp_gemv.FORMS) and len(bsdp_gemv.FORMS) == 6
+    for name, form in out["forms"].items():
+        assert len(form["outs"]) == calls
+        for got in form["outs"]:
+            a = jnp.asarray(rng.integers(-8, 8, (bsdp_gemv.M, bsdp_gemv.K)).astype(np.int8))
+            assert np.array_equal(got, np.asarray(ref_ref.bsdp_ref(a, w4))), name

@@ -17,6 +17,18 @@ The kernel's plain row max and sum are held against float64; on the card
 (``gpu``-marked) the kernel's statistics against the plain version's.  A
 spawned rank of ``tests/test_torch_data_axis.py`` imports neither JAX nor
 the reference.
+
+The same harness holds the other rings: MLA's latent ring (minicpm3-4b's
+smoke mixer, every contiguous format) through ``mla_decode``, against the
+absorbed decode with a float64 softmax over the whole ring (the format's
+own latent scores, its latent dequantized in float64); a paged block
+(``paged_*``: a pool of 6 pages under permuted block tables, cut into 1, 2
+and 3 page ranges, the short row's pages all on rank 0, so that at three
+ranges two ranks' blocks are wholly masked for it), each rank's writes its
+pages of the whole pool's and its output the float64 softmax's; and an
+``attn_cross`` layer (seamless-m4t-medium's decoder layer) whose self ring
+is cut and whose context stays whole, against the one-device layer whose
+self-attention is the float64 softmax.
 """
 
 import math
@@ -31,9 +43,10 @@ import pytest
 import torch
 
 from repro_torch.configs import get_smoke_config
-from repro_torch.core import bitplane, kvcache
+from repro_torch.core import bitplane, kvcache, paging
 from repro_torch.kernels import plane_attn
-from repro_torch.models import attention
+from repro_torch.models import attention, stack
+from repro_torch.models import model as model_lib
 
 from _torch_inputs import attention_inputs, t
 
@@ -125,13 +138,16 @@ def _block(cache: dict, r: int, n: int) -> dict:
     return {name: x[:, r * ln:(r + 1) * ln].clone() for name, x in cache.items()}
 
 
-def _dequant_v(fmt, store) -> torch.Tensor:
-    """The stored V ``[B, L, Hkv, F]`` in float64."""
+def _dequant_v(fmt, store, feat: int = D_HEAD) -> torch.Tensor:
+    """The stored channel ``[B, L, *lead, F]`` in float64 (a paged store
+    gathered back to the ring first)."""
+    if isinstance(fmt, paging.PagedCacheFormat):
+        fmt, store = fmt.inner, fmt._gather(store)
     if fmt.name == "bf16":
         return store[""].double()
     if fmt.name == "int8":
         return store[""].double() * store["_scale"].double()[..., None]
-    vals = bitplane.decode(store[""], signed=True)[..., :D_HEAD].double()
+    vals = bitplane.decode(store[""], signed=True)[..., :feat].double()
     return vals * store["_scale"].double()[..., None]
 
 
@@ -139,17 +155,17 @@ def _float64_attention(cfg, cache, q, cur) -> torch.Tensor:
     """The whole ring's decode attention with the format's own scores and a
     float64 softmax and value read → ``[B, 1, H, dh]``."""
     fmt = kvcache.format_for(cfg)
-    b = q.shape[0]
-    qg = q.reshape(b, 1, HKV, GROUP, D_HEAD).permute(0, 2, 1, 3, 4).reshape(b, HKV, GROUP,
-                                                                          D_HEAD)
-    scores = fmt.qk(qg, fmt.channel(cache, "k")).double() / math.sqrt(D_HEAD)
+    b, _, h, dh = q.shape
+    hkv = cache["k"].shape[2]
+    qg = q.reshape(b, 1, hkv, h // hkv, dh).permute(0, 2, 1, 3, 4).reshape(b, hkv, -1, dh)
+    scores = fmt.qk(qg, fmt.channel(cache, "k")).double() / math.sqrt(dh)
     pos_ids = cache["pos_ids"]
     valid = (pos_ids >= 0) & (pos_ids <= cur)  # [B, L]
     scores = torch.where(valid[:, None, None, :], scores, attention.NEG_INF)
     w = torch.softmax(scores, dim=-1)
-    vv = _dequant_v(fmt, fmt.channel(cache, "v")).permute(0, 2, 1, 3)  # [B, Hkv, L, F]
+    vv = _dequant_v(fmt, fmt.channel(cache, "v"), dh).permute(0, 2, 1, 3)  # [B, Hkv, L, F]
     out = torch.einsum("bhgl,bhlf->bhgf", w, vv)
-    return out.reshape(b, 1, HKV * GROUP, D_HEAD)
+    return out.reshape(b, 1, h, dh)
 
 
 def _sharded(cfg, n: int, q, cur, blocks) -> list:
@@ -207,6 +223,209 @@ def test_a_combine_that_averages_a_masked_block_fails(fmt, monkeypatch):
     monkeypatch.setattr(attention, "combine_blocks", _averaging_combine)
     got = _sharded(cfg, 3, q, cur, blocks)[0]
     assert _err(got[1], want[1]) > 100 * TOL  # the row whose last block is masked
+
+
+def _copy(cache: dict) -> dict:
+    return {name: x.clone() for name, x in cache.items()}
+
+
+def _mla_setup(fmt: str):
+    """minicpm3-4b's smoke MLA mixer (float32, every norm drawn off its
+    init), the latent of :data:`ROW_LENS`' positions written to a whole
+    ring of :data:`RING` slots, an empty ring, and a decode token a row."""
+    cfg = get_smoke_config("minicpm3-4b").scaled(dtype=torch.float32, cache_format=fmt)
+    params = model_lib.materialize(cfg, seed=3, device="cpu")["layers"][0]["mixer"]
+    gen = torch.Generator().manual_seed(4)
+    params = {k: w + 0.3 * torch.randn(w.shape, generator=gen) if k.endswith("norm") else w
+              for k, w in params.items()}
+    rng = np.random.default_rng(5)
+    s = max(ROW_LENS)
+    x = torch.from_numpy(rng.normal(size=(2, s, cfg.d_model)).astype(np.float32))
+    pos = torch.tensor([list(range(n)) + [-1] * (s - n) for n in ROW_LENS], dtype=torch.int32)
+    c_kv, k_rope = attention._mla_latent(params, x, cfg, pos)
+    empty = attention.init_mla_cache(cfg, 2, RING, dtype=torch.float32, device="cpu")
+    whole = _copy(empty)
+    attention._mla_write(whole, c_kv, k_rope, pos, kvcache.format_for(cfg))
+    x_new = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    cur = torch.tensor([[n] for n in ROW_LENS], dtype=torch.int32)
+    return cfg, params, (c_kv, k_rope, pos), empty, whole, x_new, cur
+
+
+def _float64_mla(cfg, params, cache, x, cur) -> torch.Tensor:
+    """The absorbed MLA decode of ``x`` over the whole latent ring (the new
+    token written) with the format's own latent scores, and a float64 rope
+    term, softmax, latent read, ``w_uv`` and ``wo``."""
+    fmt = kvcache.format_for(cfg)
+    b, s, _ = x.shape
+    dn, dr, dv, r = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    q_nope, q_rope = attention._mla_q(params, x, cfg, cur)
+    h = q_nope.shape[2]
+    w_uk = params["w_uk"].reshape(r, h, dn).to(torch.float32)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.to(torch.float32), w_uk)
+    ln = cache["pos_ids"].shape[1]
+    s_nope = fmt.qk(q_abs.reshape(b, s * h, r), fmt.channel(cache, "c_kv")).reshape(b, s, h, ln)
+    rope = torch.einsum("bqhd,bld->bqhl", q_rope.double(), cache["k_rope"].double())
+    scores = (s_nope.double() + rope) / math.sqrt(dn + dr)
+    pos_ids = cache["pos_ids"]
+    valid = (pos_ids[:, None, :] >= 0) & (pos_ids[:, None, :] <= cur[..., None])
+    w = torch.softmax(torch.where(valid[:, :, None, :], scores, attention.NEG_INF), dim=-1)
+    ctx = torch.einsum("bqhl,blr->bqhr", w, _dequant_v(fmt, fmt.channel(cache, "c_kv"), r))
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, params["w_uv"].reshape(r, h, dv).double())
+    return out.reshape(b, s, h * dv) @ params["wo"].double()
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_mla_latent_blocks_match_a_float64_softmax(fmt, n):
+    """MLA's latent ring cut into ``n`` blocks: each rank's latent, rope key
+    and positions written are its block of the whole ring's, and
+    ``mla_decode`` over the blocks (its latent context joined by the
+    combine before ``w_uv``) gives every rank the same output, within 1e-5
+    of the float64 absorbed decode over the whole ring."""
+    cfg, params, (c_kv, k_rope, pos), empty, whole, x_new, cur = _mla_setup(fmt)
+    ranks = _Ranks(n)
+
+    def rank(r):
+        block = _block(empty, r, n)
+        attention._mla_write(block, c_kv, k_rope, pos, kvcache.format_for(cfg),
+                             seq=_Seq(ranks, r))
+        for name, want in _block(whole, r, n).items():
+            assert torch.equal(block[name], want), (r, name)
+        return attention.mla_decode(params, x_new, block, cfg, pos=cur, impl="plain",
+                                    seq=_Seq(ranks, r))[0]
+
+    outs = _on_ranks(n, rank)
+    for other in outs[1:]:
+        assert torch.equal(outs[0], other)
+    one, after = attention.mla_decode(params, x_new, _copy(whole), cfg, pos=cur, impl="plain")
+    want = _float64_mla(cfg, params, after, x_new, cur)
+    assert _err(outs[0], want) < TOL
+    assert _err(one, want) < TOL
+
+
+PAGED_FORMATS = tuple(f"paged_{f}" for f in FORMATS)
+#: the paged ring: 3 pages of 8 a row, a pool of 6 pages, permuted tables;
+#: row 1's five positions lie on page 0 (rank 0's at every cut)
+PAGED_RING, PAGED_TABLES = 24, ((4, 1, 3), (0, 5, 2))
+PAGED_LENS = (30, 5)
+
+
+def _paged_inputs(fmt: str):
+    cfg = _cfg(fmt)
+    rng = np.random.default_rng(6)
+    s = max(PAGED_LENS)
+    k, v = (torch.from_numpy(rng.normal(size=(2, s, HKV, D_HEAD)).astype(np.float32))
+            for _ in range(2))
+    pos = torch.tensor([list(range(n)) + [-1] * (s - n) for n in PAGED_LENS], dtype=torch.int32)
+    q = torch.from_numpy(rng.normal(size=(2, 1, HKV * GROUP, D_HEAD)).astype(np.float32))
+    cur = torch.tensor([[n] for n in PAGED_LENS], dtype=torch.int32)
+    empty = attention.init_kv_cache(cfg, 2, PAGED_RING, dtype=torch.float32, device="cpu")
+    for name in ("k_pages", "v_pages"):
+        empty[name] = torch.tensor(PAGED_TABLES, dtype=torch.int32)
+    whole = _copy(empty)
+    attention._ring_write(whole, k, v, pos, kvcache.format_for(cfg))
+    return cfg, (k, v, pos), empty, whole, q, cur
+
+
+def _page_block(cache: dict, r: int, n: int) -> dict:
+    """Rank ``r`` of ``n``'s cut of a paged cache: its block of the pool's
+    pages, the tables and positions whole (``partitioning.shard_caches``'
+    cut under kv_seq rules)."""
+    out = {}
+    for name, x in cache.items():
+        if name in paging.POOL_KEYS:
+            per = x.shape[0] // n
+            x = x[r * per:(r + 1) * per]
+        out[name] = x.clone()
+    return out
+
+
+@pytest.mark.parametrize("n", [1, 2, 3])
+@pytest.mark.parametrize("fmt", PAGED_FORMATS)
+def test_paged_blocks_match_a_float64_softmax(fmt, n):
+    """A paged GQA cache over ``n`` ranges of the pool's pages: each rank
+    writes the tokens whose page it holds (its pool block equal to the whole
+    pool's, the positions whole), attends over the ring slots whose pages it
+    holds, and the combine gives every rank the whole ring's output within
+    1e-5 of a float64 softmax; at three ranges row 1 is wholly masked on
+    ranks 1 and 2."""
+    cfg, (k, v, pos), empty, whole, q, cur = _paged_inputs(fmt)
+    fmt_ = kvcache.format_for(cfg)
+    ranks = _Ranks(n)
+
+    def rank(r):
+        seq = _Seq(ranks, r)
+        block = _page_block(empty, r, n)
+        attention._ring_write(block, k, v, pos, fmt_, seq=seq)
+        for name, want in _page_block(whole, r, n).items():
+            assert torch.equal(block[name], want), (r, name)
+        owned = attention._rank_pages(block, seq)[1]
+        live = owned & (block["pos_ids"] >= 0)
+        return (attention._decode_attention(q, block, cur=cur, fmt=fmt_, impl="plain", seq=seq),
+                bool(live[1].any()))
+
+    outs = _on_ranks(n, rank)
+    for other, _ in outs[1:]:
+        assert torch.equal(outs[0][0], other)
+    want = _float64_attention(cfg, whole, q, cur)
+    assert _err(outs[0][0], want) < TOL
+    assert [live for _, live in outs] == [True] + [False] * (n - 1)
+
+
+def _cross_setup():
+    """seamless-m4t-medium's smoke decoder layer (float32, norms, biases and
+    gates drawn off their init): a prefill of two prompts (18 and 5
+    tokens, the second left-padded) over a context of its encoder's
+    length, leaving a self ring of :data:`RING` slots (wrapped) and the
+    context's K/V."""
+    cfg = get_smoke_config("seamless-m4t-medium").scaled(dtype=torch.float32)
+    p = model_lib.materialize(cfg, seed=7, device="cpu")["layers"][0]
+    gen = torch.Generator().manual_seed(8)
+
+    def off(tree):
+        if isinstance(tree, dict):
+            return {k: off(v) for k, v in tree.items()}
+        return tree + 0.3 * torch.randn(tree.shape, generator=gen) if tree.ndim < 2 else tree
+
+    p = off(p)
+    rng = np.random.default_rng(9)
+    s = max(ROW_LENS)
+    x = torch.from_numpy(rng.normal(size=(2, s, cfg.d_model)).astype(np.float32))
+    pos = torch.tensor([[-1] * (s - n) + list(range(n)) for n in ROW_LENS], dtype=torch.int32)
+    ctx = torch.from_numpy(rng.normal(size=(2, cfg.encoder_tokens, cfg.d_model))
+                           .astype(np.float32))
+    _, cache, _ = stack.layer_apply(p, x, cfg, mode="prefill", mixer="attn_cross", pos=pos,
+                                    cache_len=RING, ctx=ctx)
+    x_new = torch.from_numpy(rng.normal(size=(2, 1, cfg.d_model)).astype(np.float32))
+    cur = torch.tensor([[n] for n in ROW_LENS], dtype=torch.int32)
+    return cfg, p, cache, x_new, cur
+
+
+def test_attn_cross_layer_cuts_its_ring_and_keeps_its_context(monkeypatch):
+    """An ``attn_cross`` layer's decode over 2 and 3 ranks: its self ring cut
+    into blocks and combined, its context K/V whole on every rank (the
+    cross branch computed as on one device); every rank's output equal,
+    within 1e-5 of the one-device layer whose self-attention is a float64
+    softmax over the whole ring."""
+    cfg, p, cache, x_new, cur = _cross_setup()
+
+    def layer(c, seq=None):
+        return stack.layer_apply(p, x_new, cfg, mode="decode", mixer="attn_cross", cache=c,
+                                 pos=cur, impl="plain", seq=seq)[0]
+
+    with monkeypatch.context() as m:  # the self-attention in float64 over the whole ring
+        m.setattr(attention, "_decode_attention",
+                  lambda q, c, *, cur, fmt, **kw: _float64_attention(cfg, c, q, cur).to(q.dtype))
+        want = layer({"self": _copy(cache["self"]), "cross": cache["cross"]}).double()
+    one = layer({"self": _copy(cache["self"]), "cross": cache["cross"]})
+    assert _err(one, want) < TOL
+    for n in (2, 3):
+        ranks = _Ranks(n)
+        outs = _on_ranks(n, lambda r: layer(
+            {"self": _block(cache["self"], r, n), "cross": cache["cross"]}, _Seq(ranks, r)))
+        for other in outs[1:]:
+            assert torch.equal(outs[0], other)
+        assert _err(outs[0], want) < TOL
 
 
 def _float64_stats(a) -> np.ndarray:

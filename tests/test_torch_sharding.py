@@ -316,14 +316,16 @@ def test_placements_name_the_sharded_dims():
 
 def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
     """tp > 1 without a mesh or on a mesh whose model axis is another size
-    raises; a data axis serves (``tests/test_torch_data_axis.py``) but for
-    what the engine refuses there: slots the data ways do not divide, a
-    paged cache format or the ``prefix_cache`` scheduler over a data axis,
-    rules whose ``kv_seq`` is set, and a mesh axis the rules do not name (a
-    mesh is never ignored, at tp = 1 too); a sequence-parallel decode of
-    MLA or cross layers raises, and so does training MLA, MoE, Mamba or
-    cross layers (serving them is covered, a Mamba layer where the model
-    axis divides its d_inner); at tp = 1 nothing is checked."""
+    raises; a data axis serves (``tests/test_torch_data_axis.py``), a paged
+    cache format and the ``prefix_cache`` scheduler included
+    (``tests/test_torch_paged_data.py``), but for what the engine refuses
+    there: slots the data ways do not divide, rules whose ``kv_seq`` is
+    set, and a mesh axis the rules do not name (a mesh is never ignored, at
+    tp = 1 too); the dry run counts a sequence-parallel decode of every
+    mixer, MLA, cross and paged layers included (one MAX and one SUM a
+    ring, none a cross-only or Mamba layer), and training MLA, MoE, Mamba or cross
+    layers (a Mamba layer where the model axis divides its d_inner); at tp
+    = 1 nothing is checked."""
     from repro_torch.configs import SHAPES
     from repro_torch.distributed.mesh import TensorParallel
     from repro_torch.launch import mesh as mesh_lib
@@ -335,14 +337,14 @@ def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
         engine.ServeEngine(params, cfg, tp=2, device="cpu")
     for tp, shape in ((2, (2, 2)), (1, (2, 1))):
         mesh = StandIn(shape, ("data", "model"))
-        with pytest.raises(ValueError, match="do not divide .* 8\\(c\\)"):
+        with pytest.raises(ValueError, match="do not divide .* Known differences"):
             engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, slots=3, device="cpu")
-        for kw in ({"cache_format": "paged_int4_bp_fused"}, {"scheduler": "prefix_cache"}):
-            with pytest.raises(NotImplementedError, match="page pool over data .* 8\\(c\\)"):
-                engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, device="cpu", **kw)
+        for fmt in ("paged_int4_bp_fused", "paged_bf16", None):  # the pool whole on each rank
+            paged = cfg.scaled(cache_format=fmt)
+            assert engine._mesh_plan(paged, tp, None, mesh, slots=4)[1:] == (("data",), 2)
         rules = mesh_lib.plan(cfg, SHAPES["long_500k"], mesh).rules
         assert rules["kv_seq"] == ("data",) and rules["batch"] == ()
-        with pytest.raises(NotImplementedError, match="kv_seq .* 8\\(c\\)"):
+        with pytest.raises(NotImplementedError, match="kv_seq .* Known differences"):
             engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, rules=rules, device="cpu")
         with pytest.raises(ValueError, match="shard nothing"):
             engine.ServeEngine(params, cfg, tp=tp, mesh=mesh, device="cpu",
@@ -352,12 +354,16 @@ def test_engine_and_models_refuse_what_tensor_parallelism_does_not_cover():
                            device="cpu")
     with pytest.raises(ValueError, match="model axis"):
         engine.ServeEngine(params, cfg, mesh=StandIn((2, 2), ("data", "model")), device="cpu")
+    seq_rules = mesh_lib.plan(cfg, SHAPES["long_500k"], StandIn((2, 1), ("data", "model"))).rules
     for arch in ("minicpm3-4b", "deepseek-v2-lite-16b", "llama-3.2-vision-11b",
-                 "seamless-m4t-medium"):
-        with pytest.raises(NotImplementedError, match="sequence-parallel KV .* 8\\(c\\)"):
-            model_lib.check_seq(configs.get_smoke_config(arch), ("data",))
-    for arch in ("qwen3-1.7b", "mixtral-8x7b", "falcon-mamba-7b", "jamba-1.5-large-398b"):
-        model_lib.check_seq(configs.get_smoke_config(arch), ("data",))
+                 "seamless-m4t-medium", "qwen3-1.7b", "mixtral-8x7b", "falcon-mamba-7b",
+                 "jamba-1.5-large-398b"):  # MLA's latent ring, cross layers, paged rings
+        for fmt in (None, "paged_int8"):
+            one = configs.get_smoke_config(arch).scaled(cache_format=fmt)
+            rings = sum(one.mixer_kind(i) in ("attn", "attn_cross") for i in range(one.n_layers))
+            ev = dryrun.call_collectives(one, "bf16", "decode", batch=1, seq=1, tp=1,
+                                         rules=seq_rules, mesh_axes={"data": 2, "model": 1})
+            assert [e.kind for e in ev] == ["all-reduce"] * 2 * rings, arch
     for arch in ("minicpm3-4b", "deepseek-v2-lite-16b", "falcon-mamba-7b",
                  "llama-3.2-vision-11b", "seamless-m4t-medium", "mixtral-8x7b",
                  "jamba-1.5-large-398b"):
